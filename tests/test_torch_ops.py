@@ -1,0 +1,134 @@
+"""Parity of the PyTorch port's correlation ops with the JAX package.
+
+Inputs come from a numpy seed and go to both packages; the JAX side runs on
+the CPU (its Pallas lookup kernel in interpret mode, as
+tests/test_ops_correlation.py runs it).  The port's ``alt_corr_features``
+on a CPU tensor runs the plain version of the CUDA kernel
+``csrc/alt_corr_fwd.cu``; the kernel itself is checked on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from understanding_flow_robustness_tpu import ops as jops
+from understanding_flow_robustness_tpu.ops.pallas.alt_corr import (
+    pool_fmap_levels as j_pool_fmap_levels,
+)
+from understanding_flow_robustness_tpu_torch import ops as tops
+
+F32_ATOL = 1e-4  # the JAX package's bar for this lookup (test_ops_correlation.py:327)
+SHAPES = [(2, 16, 24, 16), (2, 13, 21, 16)]  # the second pools to ragged levels
+
+
+def _inputs(B, H, W, C, seed=0, spread=3.0):
+    """f1, f2 (B, H, W, C) and coords with edge and out-of-volume centres
+    (tests/test_ops_correlation.py:315-318)."""
+    rng = np.random.RandomState(seed)
+    f1 = rng.randn(B, H, W, C).astype(np.float32)
+    f2 = rng.randn(B, H, W, C).astype(np.float32)
+    coords = np.asarray(jops.coords_grid(H, W))[None] + rng.randn(
+        B, H, W, 2).astype(np.float32) * spread
+    coords[0, 0, 0] = [-50, -50]
+    coords[0, 0, 1] = [500, 500]
+    coords[0, 0, 2] = [-3.5, -3.5]
+    coords[0, 0, 3] = [W - 0.25, H - 0.25]
+    coords[0, 1, 0] = [W - 1.0, H - 1.0]
+    return f1, f2, coords.astype(np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def test_coords_grid_matches_jax():
+    got = tops.coords_grid(5, 7).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jops.coords_grid(5, 7)))
+    assert got[2, 3].tolist() == [3.0, 2.0]  # (x, y) channel order
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_volume_pyramid_and_pooling_match_jax(shape):
+    f1, f2, _ = _inputs(*shape)
+    jcorr = jops.all_pairs_correlation(jnp.asarray(f1), jnp.asarray(f2))
+    tcorr = tops.all_pairs_correlation(_t(f1), _t(f2))
+    np.testing.assert_allclose(tcorr.numpy(), np.asarray(jcorr), atol=1e-5)
+
+    # pyramid on the SAME volume: same floor semantics and association
+    jpyr = jops.corr_pyramid(jcorr, 4)
+    tpyr = tops.corr_pyramid(_t(jcorr), 4)
+    for a, b in zip(tpyr, jpyr):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+    jlv = j_pool_fmap_levels(jnp.asarray(f2), 4)
+    tlv = tops.pool_fmap_levels(_t(f2), 4)
+    for a, b in zip(tlv, jlv):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_corr_lookup_matches_jax_gather(shape):
+    f1, f2, coords = _inputs(*shape, seed=1)
+    pyr = jops.corr_pyramid(
+        jops.all_pairs_correlation(jnp.asarray(f1), jnp.asarray(f2)), 4)
+    ref = np.asarray(jops.corr_lookup(pyr, jnp.asarray(coords), 4,
+                                      impl="gather"))
+    got = tops.corr_lookup([_t(p) for p in pyr], _t(coords), 4).numpy()
+    np.testing.assert_allclose(got, ref, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_alt_corr_features_matches_jax_f32(shape):
+    """Port (CPU path: the kernel's plain version) against the JAX Pallas
+    kernel in interpret mode and against the explicit volume + pyramid +
+    gather lookup, element by element: channel l*81 + s*9 + t must be the
+    sample at (x/2^l - 4 + s, y/2^l - 4 + t)."""
+    B, H, W, C = shape
+    f1, f2, coords = _inputs(*shape, seed=2)
+    j1, j2, jc = jnp.asarray(f1), jnp.asarray(f2), jnp.asarray(coords)
+    ref_gather = np.asarray(jops.corr_lookup(
+        jops.corr_pyramid(jops.all_pairs_correlation(j1, j2), 4), jc, 4,
+        impl="gather"))
+    ref_kernel = np.asarray(jops.alt_corr_features(j1, j2, jc, 4, 4,
+                                                   interpret=True))
+    got = tops.alt_corr_features(_t(f1), _t(f2), _t(coords), 4, 4)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, H, W, 324)
+    got = got.numpy()
+    np.testing.assert_allclose(got, ref_kernel, atol=F32_ATOL)
+    np.testing.assert_allclose(got, ref_gather, atol=F32_ATOL)
+    # the comparison above is sensitive to the window's channel order: a
+    # t-major output fails it
+    t_major = got.reshape(B, H, W, 4, 9, 9).swapaxes(-1, -2).reshape(got.shape)
+    assert np.abs(t_major - ref_gather).max() > 100 * F32_ATOL
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_alt_corr_features_matches_jax_bf16(shape):
+    """compute_dtype=bf16 against the JAX kernel's bf16 interpret run.
+    Bound: 2e-2 x max|corr|.  Both round f1 and the pooled levels to bf16;
+    the JAX kernel also rounds the correlation rows, the column blend and
+    its output to bf16 (three more roundings of 2^-8 relative each), while
+    the port keeps f32 from the bf16 inputs on."""
+    f1, f2, coords = _inputs(*shape, seed=3)
+    ref = np.asarray(jops.alt_corr_features(
+        jnp.asarray(f1), jnp.asarray(f2), jnp.asarray(coords), 4, 4,
+        compute_dtype=jnp.bfloat16, interpret=True)).astype(np.float32)
+    got = tops.alt_corr_features(_t(f1), _t(f2), _t(coords), 4, 4,
+                                 compute_dtype=torch.bfloat16).numpy()
+    assert np.abs(got - ref).max() <= 2e-2 * np.abs(ref).max()
+
+
+def test_alt_corr_lookup_plain_path_is_forward_only_and_uncounted():
+    f1, f2, coords = _inputs(1, 8, 8, 16)
+    a, levels = tops.prepare_alt_corr(_t(f1), _t(f2), 4)
+    c = _t(coords).reshape(1, 64, 2)
+    before = dict(tops.LAUNCH_COUNTS)
+    out = tops.alt_corr_lookup(a, levels, c, 4)
+    assert tuple(out.shape) == (1, 64, 324)
+    assert dict(tops.LAUNCH_COUNTS) == before  # no kernel on the CPU
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tops.alt_corr_lookup(a.requires_grad_(), levels, c, 4)

@@ -1,0 +1,126 @@
+"""The PyTorch port's registry, checkpoint loading, initialisation and import
+hygiene, on the CPU."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from understanding_flow_robustness_tpu.models.raft_model import RAFT as JRAFT
+from understanding_flow_robustness_tpu_torch.models import (
+    fetch_model,
+    load_reference_state_dict,
+    predict_flow,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _images(b=1, h=64, w=96, seed=0):
+    rng = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(rng.rand(b, h, w, 3).astype(np.float32))
+                 for _ in range(2))
+
+
+def test_fetch_model_ids_and_precision():
+    assert fetch_model("RAFT", iters=1).module.mixed_precision
+    assert not fetch_model("RAFT_adv_kitti2012_ifgsm_l2_002", iters=1).module.mixed_precision
+    with pytest.raises(KeyError, match="ROADMAP"):
+        fetch_model("FlowNetC")
+
+
+def test_fetch_model_is_seeded():
+    a = fetch_model("RAFT", seed=3, iters=1).module.state_dict()
+    b = fetch_model("RAFT", seed=3, iters=1).module.state_dict()
+    c = fetch_model("RAFT", seed=4, iters=1).module.state_dict()
+    k = "update_block.gru.convz1.weight"
+    torch.testing.assert_close(a[k], b[k])
+    assert not torch.equal(a[k], c[k])
+
+
+def test_init_scale_matches_jax():
+    """Random-init operating points (wild ~100 px iterates, calibrated
+    scale_flow_head) rest on the JAX package's init distribution: per conv,
+    the kernels' standard deviation agrees within 10% (the JAX kernels are
+    HWIO, the port's OIHW)."""
+    v = jax.jit(JRAFT().init)(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
+                              jnp.zeros((1, 64, 64, 3)))["params"]
+    sd = fetch_model("RAFT", seed=0).module.state_dict()
+    pairs = {
+        "fnet.conv1.weight": v["fnet"]["conv1"]["kernel"],
+        "cnet.layer2.0.conv2.weight": v["cnet"]["layer2_0"]["conv2"]["kernel"],
+        "update_block.encoder.convc1.weight": v["update_block"]["encoder"]["convc1"]["kernel"],
+        "update_block.gru.convq2.weight": v["update_block"]["gru"]["convq2"]["kernel"],
+        "update_block.mask.2.weight": v["update_block"]["mask_2"]["kernel"],
+    }
+    for k, jw in pairs.items():
+        ratio = float(sd[k].std()) / float(np.std(np.asarray(jw)))
+        assert 0.9 < ratio < 1.1, (k, ratio)
+        assert float(sd[k].abs().max()) <= 2.0 * float(np.std(np.asarray(jw))) / 0.87962566103423978 * 1.01
+
+
+@pytest.mark.parametrize("name", ["RAFT", "RAFT_adv_kitti2012_ifgsm_l2_002"])
+def test_predict_flow_shapes(name):
+    model = fetch_model(name, iters=2)
+    a, b = _images(2)
+    flow = predict_flow(model, a, b)
+    assert tuple(flow.shape) == (2, 64, 96, 2) and flow.dtype == torch.float32
+    assert bool(torch.isfinite(flow).all())
+    torch.testing.assert_close(model.predict(a, b), flow)
+
+
+@pytest.mark.parametrize("wrapper", ["state_dict", "model", None])
+def test_pth_roundtrip_reference_layout(tmp_path, wrapper):
+    """A synthesized reference checkpoint (DataParallel ``module.`` prefix,
+    ``num_batches_tracked`` entries, an optional wrapper dict) loads
+    strictly and reproduces the source model's flow."""
+    src = fetch_model("RAFT_adv_kitti2012_ifgsm_l2_002", seed=5, iters=2)
+    sd = {f"module.{k}": v.clone() for k, v in src.module.state_dict().items()}
+    assert any(k.endswith("num_batches_tracked") for k in sd)
+    path = tmp_path / "raft-things.pth"
+    torch.save({wrapper: sd, "epoch": 7} if wrapper else sd, path)
+
+    loaded = load_reference_state_dict(str(path))
+    assert not any(k.startswith("module.") or k.endswith("num_batches_tracked")
+                   for k in loaded)
+    dst = fetch_model("RAFT_adv_kitti2012_ifgsm_l2_002", pretrained_path=str(path),
+                      seed=6, iters=2)
+    a, b = _images()
+    torch.testing.assert_close(predict_flow(dst, a, b), predict_flow(src, a, b),
+                               rtol=0, atol=0)
+
+
+def test_pth_unmapped_key_is_refused(tmp_path):
+    sd = fetch_model("RAFT", iters=1).module.state_dict()
+    sd["update_block.extra.weight"] = torch.zeros(1)
+    path = tmp_path / "bad.pth"
+    torch.save(sd, path)
+    with pytest.raises(RuntimeError, match="Unexpected key"):
+        fetch_model("RAFT", pretrained_path=str(path), iters=1)
+
+
+def test_port_imports_no_jax():
+    """Every port module imports without JAX: the machine with the card has
+    none.  A fresh interpreter imports them all and finds no ``jax`` (nor
+    the JAX package) in ``sys.modules``."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import understanding_flow_robustness_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "assert len(names) >= 8, names\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax'))\n"
+        "       or m.startswith('understanding_flow_robustness_tpu.')\n"
+        "       or m == 'understanding_flow_robustness_tpu']\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

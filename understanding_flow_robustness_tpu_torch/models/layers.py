@@ -1,0 +1,52 @@
+"""Layer helpers RAFT uses (counterpart of
+``understanding_flow_robustness_tpu/models/layers.py``).
+
+The JAX package reimplements PyTorch's layers; here they are PyTorch's own:
+``TorchConv`` is ``nn.Conv2d`` with (k-1)//2 padding per axis,
+``InstanceNorm2d`` is ``nn.InstanceNorm2d(affine=False, eps=1e-5)`` and
+``TorchBatchNorm`` is ``nn.BatchNorm2d`` (used in eval mode, on running
+statistics).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def conv(in_ch: int, out_ch: int, kernel_size, stride: int = 1) -> nn.Conv2d:
+    """nn.Conv2d with the JAX package's TorchConv default padding:
+    (k-1)//2 per axis, so (1, 5) pads (0, 2)."""
+    kh, kw = kernel_size if isinstance(kernel_size, tuple) else (kernel_size,) * 2
+    return nn.Conv2d(in_ch, out_ch, (kh, kw), stride=stride,
+                     padding=((kh - 1) // 2, (kw - 1) // 2))
+
+
+def norm(norm_fn: str, channels: int) -> nn.Module:
+    if norm_fn == "instance":
+        return nn.InstanceNorm2d(channels, affine=False, eps=1e-5)
+    if norm_fn == "batch":
+        return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+    raise NotImplementedError(
+        f"norm_fn={norm_fn!r}: only RAFT's instance/batch norms are ported "
+        "(ROADMAP queue A)")
+
+
+@torch.no_grad()
+def init_like_flax(module: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's initialisation, drawn from ``generator``: every
+    conv kernel from flax's kaiming_normal (truncated normal at +-2 sigma,
+    variance 2/fan_in), biases zero, batch norms at scale 1, bias 0, mean
+    0, var 1.  RAFT's random-init operating points (the ~150 px "wild"
+    iterates, the calibrated ``scale_flow_head``) depend on this scale."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
