@@ -4,17 +4,28 @@
     python3 chip_smoke.py
 
 1. Requires a CUDA device and prints its name and power limit.
-2. Builds the CUDA kernel from ``understanding_flow_robustness_tpu_torch/
-   csrc/`` (into ``build/torch_kernels/``) and prints the build time.
-3. Holds the kernel against its plain PyTorch version on the card, at the
-   RAFT main path's shape and at a ragged shape, in f32 and bf16, for
-   calibrated, wild and out-of-volume centres; times both at the main
-   path's shape.
-4. Drives the main path: RAFT-12 (seeded random weights) serving 3 requests
-   of 8 frame pairs at 384x1280 through ``predict_flow``, at the calibrated
+2. Builds the CUDA kernels from ``understanding_flow_robustness_tpu_torch/
+   csrc/`` (into ``build/torch_kernels/``, one nvcc per source, all at
+   once) and prints the build times and the ptxas reports.
+3. Holds the lookup kernel ``alt_corr_fwd`` against its plain PyTorch
+   version on the card, at the serving path's shape and at a ragged shape,
+   in f32 and bf16, for calibrated, wild and out-of-volume centres; times
+   both at the serving shape.
+4. Holds the backward kernel ``alt_corr_bwd`` against the plain backward
+   the same way, at the train path's shape and the ragged one; times both
+   at the train shape.
+5. Serving path: RAFT-12 (seeded random weights) serving 3 requests of 8
+   frame pairs at 384x1280 through ``predict_flow``, at the calibrated
    (``scale_flow_head(0.05)``) and the wild (raw init) operating point;
-   checks shapes, finiteness and that every forward launched the kernel 12
-   times; compares the flow with the plain lookup; times pairs/s.
+   checks shapes, finiteness and that every forward launched the lookup
+   kernel 12 times; compares the flow with the plain lookup; times pairs/s.
+6. Train path: RAFT-12 in mixed precision taking 2 + 5 AdamW/OneCycle
+   steps at batch 4, 288x960 through ``make_train_step``; checks finite
+   losses, moved parameters and 12 launches of each kernel per step; times
+   frames/s and reads the peak memory.
+7. The parameter gradients of one train-mode backward with the kernels
+   against those with the plain lookup, in f32 and in bf16.
+8. The train CLI with ``--synthetic 3``, then its resume.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last two lines are a JSON object per kernel and the result object.
@@ -22,9 +33,14 @@ The last two lines are a JSON object per kernel and the result object.
 
 from __future__ import annotations
 
+import copy
 import json
+import math
+import re
+import shutil
 import subprocess
 import time
+from pathlib import Path
 
 import torch
 
@@ -32,8 +48,31 @@ B, H, W = 8, 384, 1280
 REQUESTS = 3
 ITERS = 12
 RADIUS, LEVELS = 4, 4
+TB, TH, TW = 4, 288, 960  # the train step's geometry (bench.py:281-321)
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+KERNELS = ("alt_corr_fwd", "alt_corr_bwd")
 F32_TOL = 1e-4           # abs, the JAX package's bar (test_ops_correlation.py:327)
 BF16_REL_TOL = 1e-5      # x max|corr|: same bf16 inputs, both accumulate in f32
+# x max|grad|, f32 and bf16 alike: both sides sum the same products of the
+# same inputs in f32, in other orders (the kernel's df2 atomics land in an
+# order that changes from run to run)
+BWD_REL_TOL = 1e-5
+# relative L2 of the parameter gradients, kernels vs plain lookup, one
+# train-mode backward: (worst tensor, all parameters together).  Both paths
+# read the same values and keep the lookup's gradient f32, but they sum in
+# other orders, so their forward trajectories part a little over the 12
+# iterations (the serving phase's flows: ~1e-4 px in f32, 0.2 % of the
+# flow in bf16, where the autocast convolutions round each difference),
+# and the gradients of the early encoder layers grow that most.  Measured
+# on an H100: f32 5.3e-4 worst, 4.1e-6 together; bf16 5.0e-2 worst, 3.2e-2
+# median, 6.3e-4 together.  A wrong or missing gradient is off by O(1).
+# The biases of the encoders' convolutions that feed a norm are left out:
+# the norm removes a bias, so their gradient is zero and what they get is
+# rounding noise
+GRAD_F32_REL_L2 = (2e-3, 5e-5)
+GRAD_BF16_REL_L2 = (0.15, 5e-3)
+NORMED_BIAS = re.compile(r"net\.(conv1|layer\d\.\d\.(conv\d|downsample\.0))"
+                         r"\.bias$")
 F32_FLOW_TOL_PX = 1e-2   # max abs flow difference, kernel vs plain lookup, f32
 BF16_REL_EPE_TOL = 0.01  # mean EPE / mean |flow|, the 1% bar (BASELINE.md)
 CAL_BAND = (5.0, 40.0)   # trained-checkpoint mean |flow| band (bench.py:115)
@@ -73,13 +112,13 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def lookup_cases(gen):
-    """(name, b, h, w, c, coords) for the kernel-vs-plain phase: the main
+def lookup_cases(gen, main_shape):
+    """(name, b, h, w, c, coords) for the kernel-vs-plain phases: the main
     path's feature shape and a ragged one whose pooled levels drop rows and
     columns, each with calibrated, wild and hand-placed edge centres."""
     from understanding_flow_robustness_tpu_torch.ops import coords_grid
 
-    for shape_name, (b, h, w, c) in (("main", (B, H // 8, W // 8, 256)),
+    for shape_name, (b, h, w, c) in (("main", main_shape),
                                      ("ragged", (2, 13, 21, 64))):
         grid = coords_grid(h, w, device="cuda")[None].expand(b, h, w, 2)
         noise = torch.randn((b, h, w, 2), generator=gen, device="cuda")
@@ -98,9 +137,9 @@ def lookup_cases(gen):
 def kernel_phase(gen) -> dict:
     from understanding_flow_robustness_tpu_torch.ops import correlation as corr
 
-    print("== kernel vs plain (TF32 off) ==", flush=True)
+    print("== alt_corr_fwd vs plain (TF32 off) ==", flush=True)
     res = {}
-    for name, b, h, w, c, coords in lookup_cases(gen):
+    for name, b, h, w, c, coords in lookup_cases(gen, (B, H // 8, W // 8, 256)):
         fm1 = torch.randn((b, h, w, c), generator=gen, device="cuda")
         fm2 = torch.randn((b, h, w, c), generator=gen, device="cuda")
         cflat = coords.reshape(b, h * w, 2).contiguous()
@@ -132,6 +171,52 @@ def kernel_phase(gen) -> dict:
                 else:
                     print(f"{tag:32s} kernel {k_ms:.3f} ms per lookup",
                           flush=True)
+            del got, ref
+    return res
+
+
+def backward_phase(gen) -> dict:
+    from understanding_flow_robustness_tpu_torch.ops import correlation as corr
+
+    print("== alt_corr_bwd vs plain backward (TF32 off) ==", flush=True)
+    res = {}
+    n2 = (2 * RADIUS + 1) ** 2
+    for name, b, h, w, c, coords in lookup_cases(gen, (TB, TH // 8, TW // 8, 256)):
+        fm1 = torch.randn((b, h, w, c), generator=gen, device="cuda")
+        fm2 = torch.randn((b, h, w, c), generator=gen, device="cuda")
+        cflat = coords.reshape(b, h * w, 2).contiguous()
+        g = torch.randn((b, h * w, LEVELS * n2), generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            f1, levels = corr.prepare_alt_corr(fm1, fm2, LEVELS, dtype)
+            got = corr._alt_corr_bwd_cuda(f1, levels, cflat, g, RADIUS)
+            ref = corr.alt_corr_lookup_backward_reference(f1, levels, cflat, g,
+                                                          RADIUS)
+            torch.cuda.synchronize()
+            tag = f"{name}/{str(dtype).split('.')[-1]}"
+            worst = 0.0
+            for part, k, r in [("df1", got[0], ref[0])] + [
+                    (f"dlevels[{lvl}]", k, r)
+                    for lvl, (k, r) in enumerate(zip(got[1], ref[1]))]:
+                check(k.shape == r.shape and k.dtype == torch.float32
+                      and bool(torch.isfinite(k).all()),
+                      f"{tag} {part}: kernel output malformed")
+                err = (k - r).abs().max().item()
+                scale = r.abs().max().item()
+                tol = BWD_REL_TOL * scale
+                print(f"{tag:28s} {part:11s} max_abs_err={err:.3e} "
+                      f"tol={tol:.3e} max|grad|={scale:.3f}", flush=True)
+                check(err <= tol, f"{tag} {part}: kernel disagrees with the "
+                                  "plain backward")
+                worst = max(worst, err)
+            res[tag] = worst
+            if tag == "main/calibrated/bfloat16":
+                k_ms = cuda_ms(lambda: corr._alt_corr_bwd_cuda(
+                    f1, levels, cflat, g, RADIUS), reps=10)
+                p_ms = cuda_ms(lambda: corr.alt_corr_lookup_backward_reference(
+                    f1, levels, cflat, g, RADIUS), reps=2, warmup=0)
+                res[f"{tag}/ms"], res[f"{tag}/plain_ms"] = k_ms, p_ms
+                print(f"{tag:28s} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
+                      "per backward (4 levels)", flush=True)
             del got, ref
     return res
 
@@ -236,6 +321,141 @@ def model_phase(gen) -> dict:
     return res
 
 
+def train_batch(gen, b: int) -> dict:
+    return {"image1": torch.rand((b, TH, TW, 3), generator=gen, device="cuda"),
+            "image2": torch.rand((b, TH, TW, 3), generator=gen, device="cuda"),
+            "flow": torch.randn((b, TH, TW, 2), generator=gen, device="cuda"),
+            "valid": torch.ones((b, TH, TW), device="cuda")}
+
+
+def train_phase(gen) -> dict:
+    """The JAX package's bench train step (bench.py:281-321) on the card."""
+    from understanding_flow_robustness_tpu_torch.models import fetch_model
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+    from understanding_flow_robustness_tpu_torch.training import (
+        fetch_optimizer,
+        make_train_step,
+    )
+
+    print(f"== RAFT-12 train step, batch {TB} at {TH}x{TW}, bf16 ==",
+          flush=True)
+    model = fetch_model("RAFT", device="cuda", seed=0)
+    params = list(model.module.parameters())
+    optimizer, scheduler = fetch_optimizer(params, lr=1e-4, num_steps=1000)
+    step = make_train_step(model.module, optimizer, scheduler, is_raft=True)
+    batches = [train_batch(gen, TB) for _ in range(2)]
+    start = [p.detach().clone() for p in params]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: count the kernels' launches while training
+    LAUNCH_COUNTS.clear()
+    losses = []
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        if i == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        before = dict(LAUNCH_COUNTS)
+        losses.append(step(batches[i % 2])["loss"])
+        for k in KERNELS:
+            n = LAUNCH_COUNTS[k] - before.get(k, 0)
+            check(n == ITERS, f"train step {i}: {k} launched {n} times, "
+                              f"not {ITERS}")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    res = {f"launches/{k}": LAUNCH_COUNTS[k] for k in KERNELS}
+    print(f"kernel launches while training {TRAIN_WARMUP + TRAIN_STEPS} "
+          f"steps: " + ", ".join(f"{k} {LAUNCH_COUNTS[k]}" for k in KERNELS)
+          + f" ({ITERS} each per step)", flush=True)
+    print("losses: " + " ".join(f"{x:.4f}" for x in losses), flush=True)
+    check(all(torch.isfinite(torch.tensor(losses)).tolist()),
+          "non-finite train loss")
+    moved = sum(not torch.equal(p, q) for p, q in zip(params, start))
+    check(moved == len(params), f"only {moved} of {len(params)} parameter "
+                                "tensors moved")
+    res["frames_per_s"] = TB * TRAIN_STEPS / dt
+    res["ms_per_step"] = 1e3 * dt / TRAIN_STEPS
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train: {res['frames_per_s']:.2f} frames/s, "
+          f"{res['ms_per_step']:.1f} ms per step of {TB} frames "
+          f"({TRAIN_STEPS} timed steps), peak memory "
+          f"{res['peak_mem_gib']:.2f} GiB", flush=True)
+    return res
+
+
+def grad_phase(gen) -> dict:
+    """One train-mode backward through the kernels against one through the
+    plain lookup on a deep copy, same model and batch, calibrated point."""
+    from understanding_flow_robustness_tpu_torch.models import (
+        fetch_model,
+        scale_flow_head,
+    )
+    from understanding_flow_robustness_tpu_torch.training import sequence_loss
+
+    print("== parameter gradients, kernels vs plain lookup ==", flush=True)
+    res = {}
+    batch = train_batch(gen, TB)
+    for name, dtype, bound in (
+            ("RAFT_adv_kitti2012_ifgsm_l2_002", "f32", GRAD_F32_REL_L2),
+            ("RAFT", "bf16", GRAD_BF16_REL_L2)):
+        kernel = scale_flow_head(
+            fetch_model(name, device="cuda", seed=0).module, 0.05).train()
+        plain = copy.deepcopy(kernel)
+        plain.plain_lookup = True
+        for module in (kernel, plain):
+            preds = module(batch["image1"].permute(0, 3, 1, 2) * 255.0,
+                           batch["image2"].permute(0, 3, 1, 2) * 255.0,
+                           test_mode=False)
+            loss, _ = sequence_loss([p.permute(0, 2, 3, 1) for p in preds],
+                                    batch["flow"], batch["valid"])
+            loss.backward()
+        grads = [{n: p.grad for n, p in m.named_parameters()
+                  if not NORMED_BIAS.search(n)} for m in (kernel, plain)]
+        rels = sorted(((grads[0][n] - q).norm().item() / q.norm().item(), n)
+                      for n, q in grads[1].items())
+        total = math.sqrt(sum(((grads[0][n] - q) ** 2).sum().item()
+                              for n, q in grads[1].items())
+                          / sum((q ** 2).sum().item()
+                                for q in grads[1].values()))
+        res[f"{dtype}/worst_rel_l2"], res[f"{dtype}/total_rel_l2"] = \
+            rels[-1][0], total
+        print(f"{dtype} ({name}): per-tensor rel L2, worst three "
+              + ", ".join(f"{r:.3e} ({n})" for r, n in rels[:-4:-1])
+              + f"; median {rels[len(rels) // 2][0]:.3e} (bound "
+              f"{bound[0]:g}); all parameters {total:.3e} (bound "
+              f"{bound[1]:g}); {len(rels)} tensors", flush=True)
+        check(rels[-1][0] <= bound[0] and total <= bound[1],
+              f"{dtype}: gradients with the kernels beyond bound of the "
+              "plain lookup's")
+        del kernel, plain
+    return res
+
+
+def cli_phase() -> dict:
+    from understanding_flow_robustness_tpu_torch.cli import train as cli_train
+
+    print("== train CLI ==", flush=True)
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--synthetic", "3", "--num_steps", "2", "--batch_size", "2",
+            "--image_size", str(TH), str(TW), "--mixed_precision",
+            "--name", "smoke", "--checkpoint_dir", str(ckpt)]
+    out = cli_train.main(argv)
+    check(out["total_steps"] == 3 and len(out["history"]) == 3,
+          f"CLI took {out['total_steps']} batches, not 3")
+    check(all(torch.isfinite(torch.tensor(m["loss"])).item()
+              for m in out["history"]), "CLI: non-finite loss")
+    for f in ("checkpoint.pth", "smoke.pth", "args.json"):
+        check((ckpt / "smoke" / f).exists(), f"CLI wrote no {f}")
+    again = cli_train.main(argv)
+    check(again["total_steps"] == 3 and again["history"] == [],
+          "CLI resume did not return as fully trained")
+    print("CLI: 3 batches, checkpoint and weights written; the rerun resumed "
+          "as fully trained without a step", flush=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"final_loss": out["history"][-1]["loss"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device: torch.cuda.is_available() is False")
@@ -249,17 +469,26 @@ def main() -> None:
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    _build.load_library("alt_corr_fwd")
-    build_s = time.perf_counter() - t0
-    log = _build.library_path("alt_corr_fwd").with_suffix(".log")
-    print(f"build: alt_corr_fwd in {build_s:.2f} s "
-          f"(nvcc {_build.BUILD_SECONDS.get('alt_corr_fwd', 0.0):.2f} s)",
-          flush=True)
-    print(log.read_text().strip(), flush=True)
+    _build.build_libraries(KERNELS)
+    for k in KERNELS:
+        _build.load_library(k)
+    print(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s, "
+          "in parallel (nvcc "
+          + ", ".join(f"{k} {_build.BUILD_SECONDS.get(k, 0.0):.2f} s"
+                      for k in KERNELS) + ")", flush=True)
+    for k in KERNELS:
+        print(_build.library_path(k).with_suffix(".log").read_text().strip(),
+              flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     kres = kernel_phase(gen)
+    bres = backward_phase(gen)
     mres = model_phase(gen)
+    torch.cuda.empty_cache()
+    tres = train_phase(gen)
+    torch.cuda.empty_cache()
+    grad_phase(gen)
+    cli_phase()
 
     print(card)  # name, power limit: nvidia-smi's own line
     print(json.dumps({"kernels": [{
@@ -267,10 +496,19 @@ def main() -> None:
         "route": "cuda",
         "source": "understanding_flow_robustness_tpu_torch/csrc/alt_corr_fwd.cu",
         "replaces": "understanding_flow_robustness_tpu/ops/pallas/alt_corr.py:91",
-        "launches": mres["launches"],
+        "launches": mres["launches"] + tres["launches/alt_corr_fwd"],
         "max_abs_err": kres["main/calibrated/bfloat16"],
         "ms": kres["main/calibrated/bfloat16/ms"],
         "plain_ms": kres["main/calibrated/bfloat16/plain_ms"],
+    }, {
+        "name": "alt_corr_bwd",
+        "route": "cuda",
+        "source": "understanding_flow_robustness_tpu_torch/csrc/alt_corr_bwd.cu",
+        "replaces": "understanding_flow_robustness_tpu/ops/pallas/alt_corr.py:571",
+        "launches": tres["launches/alt_corr_bwd"],
+        "max_abs_err": bres["main/calibrated/bfloat16"],
+        "ms": bres["main/calibrated/bfloat16/ms"],
+        "plain_ms": bres["main/calibrated/bfloat16/plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

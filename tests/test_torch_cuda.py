@@ -1,6 +1,7 @@
-"""The port's CUDA kernel on the card: ``csrc/alt_corr_fwd.cu`` against its
-plain PyTorch version, its wrapper's checks and launch count, and RAFT
-driving it.
+"""The port's CUDA kernels on the card: ``csrc/alt_corr_fwd.cu`` and
+``csrc/alt_corr_bwd.cu`` against their plain PyTorch versions, their
+wrappers' checks and launch counts, RAFT driving them in inference and a
+short train step.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports only torch and the port, so it also runs where JAX is absent:
@@ -8,16 +9,29 @@ imports only torch and the port, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import re
+
 import pytest
 import torch
 
 from understanding_flow_robustness_tpu_torch import ops
 from understanding_flow_robustness_tpu_torch.models import RAFT
+from understanding_flow_robustness_tpu_torch.ops import correlation
+from understanding_flow_robustness_tpu_torch.training import (
+    fetch_optimizer,
+    make_train_step,
+)
 
 pytestmark = pytest.mark.gpu
 
 F32_TOL = 1e-4       # abs (tests/test_ops_correlation.py:327)
 BF16_REL_TOL = 1e-5  # x max|corr|: same bf16 inputs on both sides, f32 sums
+# x max|grad|: both sides sum the same products in f32; the kernel's df2
+# atomics land in an order that changes from run to run
+BWD_REL_TOL = 1e-5
+# the biases of the encoders' convolutions that feed a norm
+NORMED_BIAS = re.compile(r"net\.(conv1|layer\d\.\d\.(conv\d|downsample\.0))"
+                         r"\.bias$")
 
 
 @pytest.fixture
@@ -69,8 +83,8 @@ def test_wrapper_counts_launches_and_rejects_bad_input(cuda):
         ops.alt_corr_lookup(f1, levels, coords.double(), 4)
     with pytest.raises(ValueError):
         ops.alt_corr_lookup(f1, [lv.bfloat16() for lv in levels], coords, 4)
-    with pytest.raises(NotImplementedError):
-        ops.alt_corr_lookup(f1.clone().requires_grad_(), levels, coords, 4)
+    with pytest.raises(NotImplementedError, match="B3"):
+        ops.alt_corr_lookup(f1, levels, coords.clone().requires_grad_(), 4)
     assert ops.LAUNCH_COUNTS["alt_corr_fwd"] == before + 1
 
 
@@ -92,3 +106,78 @@ def test_raft_launches_kernel_per_iteration_and_matches_plain(cuda, mixed):
     epe = torch.linalg.vector_norm(up - up_p, dim=1).mean()
     rel = (epe / torch.linalg.vector_norm(up_p, dim=1).mean()).item()
     assert rel < (1e-2 if mixed else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,spread", [
+    ((2, 13, 21, 64), 3.0),     # ragged: pooled levels drop rows/columns
+    ((1, 24, 40, 256), 40.0),   # RAFT width, wild centres
+    ((1, 16, 16, 96), 2.0),     # lanes with and without a chunk of the row
+])
+def test_backward_kernel_matches_plain(cuda, dtype, shape, spread):
+    f1, levels, coords = _case(*shape, dtype, spread)
+    g = torch.randn((shape[0], shape[1] * shape[2], 324), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    df1, dlv = correlation._alt_corr_bwd_cuda(f1, levels, coords, g, 4)
+    rf1, rlv = ops.alt_corr_lookup_backward_reference(f1, levels, coords, g)
+    torch.cuda.synchronize()
+    for got, ref in zip((df1, *dlv), (rf1, *rlv)):
+        assert got.shape == ref.shape and got.dtype == torch.float32
+        assert (got - ref).abs().max().item() <= (
+            BWD_REL_TOL * ref.abs().max().item())
+
+
+def test_backward_wrapper_counts_launches_and_rejects_bad_input(cuda):
+    f1, levels, coords = _case(1, 8, 8, 32, torch.float32, 1.0)
+    g = torch.ones((1, 64, 324), device="cuda")
+    fm1 = torch.randn((1, 8, 8, 32), device="cuda", requires_grad=True)
+    fm2 = torch.randn((1, 8, 8, 32), device="cuda", requires_grad=True)
+    before = dict(ops.LAUNCH_COUNTS)
+    ops.alt_corr_features(fm1, fm2, ops.coords_grid(8, 8, device="cuda")[None]
+                          ).sum().backward()
+    assert ops.LAUNCH_COUNTS["alt_corr_bwd"] == before.get("alt_corr_bwd", 0) + 1
+    assert fm1.grad.dtype == fm2.grad.dtype == torch.float32
+    with pytest.raises(ValueError):
+        correlation._alt_corr_bwd_cuda(f1, levels, coords, g.double(), 4)
+    with pytest.raises(ValueError):
+        correlation._alt_corr_bwd_cuda(f1, levels, coords, g[:, :32], 4)
+    with pytest.raises(ValueError):
+        correlation._alt_corr_bwd_cuda(f1, levels, coords, g, 3)
+    assert ops.LAUNCH_COUNTS["alt_corr_bwd"] == before.get("alt_corr_bwd", 0) + 1
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_train_step_launches_kernels_and_matches_plain(cuda, mixed):
+    """One train step launches each kernel once per iteration; the
+    parameter gradients with the kernels match those with the plain lookup
+    (chip_smoke.py's bounds, with their reasons: both paths read the same
+    values and keep the lookup's gradient f32, but sum in other orders, so
+    their forward trajectories part a little, most in bf16).  The biases of
+    the convolutions that feed a norm are left out: the norm removes a
+    bias, so their gradient is zero and what they get is rounding noise."""
+    torch.manual_seed(0)
+    model = RAFT(iters=3, mixed_precision=mixed).to(cuda)
+    plain = RAFT(iters=3, mixed_precision=mixed, plain_lookup=True).to(cuda)
+    plain.load_state_dict(model.state_dict())
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"image1": torch.rand((2, 64, 96, 3), generator=g, device="cuda"),
+             "image2": torch.rand((2, 64, 96, 3), generator=g, device="cuda"),
+             "flow": torch.randn((2, 64, 96, 2), generator=g, device="cuda"),
+             "valid": torch.ones((2, 64, 96), device="cuda")}
+    grads = []
+    for m in (model, plain):
+        opt, sched = fetch_optimizer(m.parameters(), num_steps=10)
+        step = make_train_step(m, opt, sched, is_raft=True)
+        before = dict(ops.LAUNCH_COUNTS)
+        assert torch.isfinite(torch.tensor(step(batch)["loss"]))
+        n = {k: ops.LAUNCH_COUNTS[k] - before.get(k, 0)
+             for k in ("alt_corr_fwd", "alt_corr_bwd")}
+        assert n == ({"alt_corr_fwd": 3, "alt_corr_bwd": 3} if m is model
+                     else {"alt_corr_fwd": 0, "alt_corr_bwd": 0})
+        # the step leaves the gradients it applied in .grad
+        grads.append({k: p.grad for k, p in m.named_parameters()
+                      if not NORMED_BIAS.search(k)})
+    bound = 0.15 if mixed else 2e-3
+    for k, q in grads[1].items():
+        rel = ((grads[0][k] - q).norm() / q.norm()).item()
+        assert rel <= bound, (k, rel)

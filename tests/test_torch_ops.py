@@ -123,12 +123,17 @@ def test_alt_corr_features_matches_jax_bf16(shape):
 
 
 def test_alt_corr_lookup_plain_path_is_forward_only_and_uncounted():
+    """The CPU path launches no kernel, with or without a feature gradient
+    (tests/test_torch_ops_grad.py holds that gradient against JAX); the
+    coordinates stay forward only: their gradient kernel is ROADMAP B3."""
     f1, f2, coords = _inputs(1, 8, 8, 16)
     a, levels = tops.prepare_alt_corr(_t(f1), _t(f2), 4)
     c = _t(coords).reshape(1, 64, 2)
     before = dict(tops.LAUNCH_COUNTS)
     out = tops.alt_corr_lookup(a, levels, c, 4)
     assert tuple(out.shape) == (1, 64, 324)
+    tops.alt_corr_lookup(a.requires_grad_(), levels, c, 4).sum().backward()
+    assert a.grad is not None
     assert dict(tops.LAUNCH_COUNTS) == before  # no kernel on the CPU
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.alt_corr_lookup(a.requires_grad_(), levels, c, 4)
+        tops.alt_corr_lookup(a, levels, c.requires_grad_(), 4)

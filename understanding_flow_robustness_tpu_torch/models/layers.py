@@ -4,8 +4,12 @@
 The JAX package reimplements PyTorch's layers; here they are PyTorch's own:
 ``TorchConv`` is ``nn.Conv2d`` with (k-1)//2 padding per axis,
 ``InstanceNorm2d`` is ``nn.InstanceNorm2d(affine=False, eps=1e-5)`` and
-``TorchBatchNorm`` is ``nn.BatchNorm2d`` (used in eval mode, on running
-statistics).
+``TorchBatchNorm`` is ``nn.BatchNorm2d(eps=1e-5, momentum=0.1)``.  In eval
+mode it normalises with the running statistics; in train mode with the
+batch statistics, and it updates the running mean and the unbiased running
+variance (n = B*H*W) with momentum 0.1, as ``TorchBatchNorm(
+use_running_average=False)`` does (layers.py:419-429).  Instance norm has
+no running statistics in either package.
 """
 
 from __future__ import annotations
@@ -32,6 +36,17 @@ def norm(norm_fn: str, channels: int) -> nn.Module:
     raise NotImplementedError(
         f"norm_fn={norm_fn!r}: only RAFT's instance/batch norms are ported "
         "(ROADMAP queue A)")
+
+
+def freeze_bn(module: nn.Module) -> nn.Module:
+    """Every ``BatchNorm2d`` of ``module`` to eval mode: normalise with the
+    running statistics and write none (the reference's ``m.eval()`` on
+    each BatchNorm2d, models/raft/raft.py:97-100; the JAX train step's
+    ``freeze_bn``, train_step.py:113-118).  Call it after ``.train()``."""
+    for m in module.modules():
+        if isinstance(m, nn.BatchNorm2d):
+            m.eval()
+    return module
 
 
 @torch.no_grad()

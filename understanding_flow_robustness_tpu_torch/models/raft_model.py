@@ -1,4 +1,4 @@
-"""RAFT, standard configuration, inference (counterpart of
+"""RAFT, standard configuration, inference and training (counterpart of
 ``understanding_flow_robustness_tpu/models/raft_model.py``).
 
 Modules are NCHW and carry the original PyTorch repository's parameter
@@ -10,7 +10,8 @@ Mixed precision (the JAX package's ``compute_dtype=bf16``) is
 ``torch.autocast(bf16)`` around the encoders and the update block: convs
 run in bf16, norm statistics and flow/coordinate math stay f32, the fmaps
 are cast to f32 before the correlation, and the lookup takes bf16 features
-with f32 accumulation.
+with f32 accumulation.  In training the lookup's gradient reaches the f32
+fmaps in f32; the backward runs outside autocast.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.correlation import (
+    alt_corr_kernel_inputs,
     alt_corr_lookup,
     alt_corr_lookup_reference,
     prepare_alt_corr,
@@ -187,14 +189,17 @@ def scale_flow_head(model: "RAFT", scale: float) -> "RAFT":
 
 class RAFT(nn.Module):
     """models/raft/raft.py:25-233, standard configuration (fnorm=instance,
-    cnorm=batch), test mode.
+    cnorm=batch).
 
     ``forward`` takes (B, 3, H, W) images in [0, 255], H and W multiples of
-    8, and returns (flow_low (B, 2, H/8, W/8), flow_up (B, 2, H, W)).
-    Inference only: the correlation lookup has no backward yet.
+    8.  ``self.training`` selects the batch-norm mode, as ``train=`` does in
+    the JAX package.  With ``test_mode=True`` it returns (flow_low (B, 2,
+    H/8, W/8), flow_up (B, 2, H, W)); with ``test_mode=False`` the list of
+    ``iters`` upsampled flows, one per iteration, for the sequence loss.
 
     ``plain_lookup`` runs the lookup's plain PyTorch version on every
-    device instead of the CUDA kernel (the kernel's end-to-end oracle)."""
+    device instead of the CUDA kernels, and autograd differentiates it
+    (the kernels' end-to-end oracle)."""
 
     hidden_dim = 128
     context_dim = 128
@@ -216,10 +221,8 @@ class RAFT(nn.Module):
         return torch.autocast(device.type, dtype=torch.bfloat16,
                               enabled=self.mixed_precision)
 
-    def forward(self, image1: torch.Tensor, image2: torch.Tensor):
-        if self.training:
-            raise NotImplementedError(
-                "RAFT training is ROADMAP queue A item 6; call .eval()")
+    def forward(self, image1: torch.Tensor, image2: torch.Tensor,
+                flow_init: torch.Tensor = None, test_mode: bool = True):
         x1 = 2.0 * (image1 / 255.0) - 1.0
         x2 = 2.0 * (image2 / 255.0) - 1.0
         B, _, H, W = x1.shape
@@ -227,12 +230,23 @@ class RAFT(nn.Module):
         with self._autocast(x1.device):
             fmaps = self.fnet(torch.cat([x1, x2], dim=0))
         fmap1, fmap2 = fmaps.float().split(B, dim=0)
-        # channels-last once per forward; the lookup reads C-contiguous rows
+        # channels-last once per forward; the lookup reads C-contiguous rows.
+        # f1 and the levels stay f32 (the gradient's precision); the
+        # kernels read bf16 copies made here, once, under mixed precision
         f1, levels = prepare_alt_corr(
             fmap1.permute(0, 2, 3, 1), fmap2.permute(0, 2, 3, 1),
-            self.corr_levels,
-            torch.bfloat16 if self.mixed_precision else None)
-        lookup = alt_corr_lookup_reference if self.plain_lookup else alt_corr_lookup
+            self.corr_levels)
+        kernel_inputs = None
+        if self.mixed_precision:
+            kernel_inputs = alt_corr_kernel_inputs(f1, levels, torch.bfloat16)
+            if self.plain_lookup:
+                # the kernels' bf16 values, held in f32 with an identity
+                # gradient: the plain lookup's gradient then stays f32, as
+                # the kernels' does, instead of being rounded to bf16 and
+                # summed over the iterations in bf16 at a cast
+                f1 = f1 + (kernel_inputs[0].float() - f1).detach()
+                levels = tuple(lvl + (k.float() - lvl).detach()
+                               for lvl, k in zip(levels, kernel_inputs[1]))
 
         with self._autocast(x1.device):
             cnet = self.cnet(x1)
@@ -244,16 +258,27 @@ class RAFT(nn.Module):
         coords0 = coords_grid(H8, W8, device=x1.device).permute(2, 0, 1)
         coords0 = coords0[None].expand(B, 2, H8, W8)
         coords1 = coords0.clone()
-        up_mask = None
+        if flow_init is not None:
+            coords1 = coords1 + flow_init
+        flow_predictions = []
         for _ in range(self.iters):
             coords1 = coords1.detach()
             c = coords1.permute(0, 2, 3, 1).reshape(B, H8 * W8, 2)
-            corr = lookup(f1, levels, c, self.corr_radius)
+            if self.plain_lookup:
+                corr = alt_corr_lookup_reference(f1, levels, c, self.corr_radius)
+            else:
+                corr = alt_corr_lookup(f1, levels, c, self.corr_radius,
+                                       kernel_inputs)
             corr = corr.reshape(B, H8, W8, -1).permute(0, 3, 1, 2)
             flow = coords1 - coords0
             with self._autocast(x1.device):
                 net, up_mask, delta_flow = self.update_block(net, inp, corr, flow)
             coords1 = coords1 + delta_flow.float()
+            if not test_mode:
+                flow_predictions.append(
+                    upsample_flow_convex(coords1 - coords0, up_mask))
+        if not test_mode:
+            return flow_predictions
         flow_low = coords1 - coords0
         # test mode returns only the last upsampled flow, so only it is built
         return flow_low, upsample_flow_convex(flow_low, up_mask)

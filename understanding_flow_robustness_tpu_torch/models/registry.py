@@ -28,11 +28,13 @@ _SPECS: dict = {
 
 @dataclasses.dataclass
 class FlowModel:
-    """A built model on its device, in eval mode."""
+    """A built model on its device; ``fetch_model`` returns it in eval
+    mode, and the trainer switches the module's modes."""
 
     name: str
     module: nn.Module
     device: torch.device
+    is_raft: bool = True  # every ported ID is a RAFT (registry.py:136)
 
     def predict(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
         return predict_flow(self, img1, img2)

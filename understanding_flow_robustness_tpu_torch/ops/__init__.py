@@ -4,7 +4,9 @@ from .correlation import (
     LAUNCH_COUNTS,
     all_pairs_correlation,
     alt_corr_features,
+    alt_corr_kernel_inputs,
     alt_corr_lookup,
+    alt_corr_lookup_backward_reference,
     alt_corr_lookup_reference,
     corr_lookup,
     corr_pyramid,
@@ -17,7 +19,9 @@ __all__ = [
     "LAUNCH_COUNTS",
     "all_pairs_correlation",
     "alt_corr_features",
+    "alt_corr_kernel_inputs",
     "alt_corr_lookup",
+    "alt_corr_lookup_backward_reference",
     "alt_corr_lookup_reference",
     "coords_grid",
     "corr_lookup",

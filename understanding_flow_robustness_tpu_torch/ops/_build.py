@@ -51,28 +51,42 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def load_library(name: str):
-    """The ``ctypes.CDLL`` of ``csrc/<name>.cu``, compiling it if needed.
+def build_libraries(names) -> None:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that is not built yet,
+    one ``nvcc`` per source, all started together.  The compiler's
+    resource report (``-Xptxas -v``) is kept beside each library as
+    ``<lib>.log``; ``BUILD_SECONDS[name]`` is each build's wall time."""
+    running = []
+    for name in dict.fromkeys(names):
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running.append((name, cmd, proc, tmp, out, time.perf_counter()))
+    failed = []
+    for name, cmd, proc, tmp, out, t0 in running:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed building {name} ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+            continue
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(stdout + stderr)
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
-    The compiler's resource report (``-Xptxas -v``) is kept beside the
-    library as ``<lib>.log``."""
+
+def load_library(name: str):
+    """The ``ctypes.CDLL`` of ``csrc/<name>.cu``, compiling it if needed."""
     if name in _LIBS:
         return _LIBS[name]
     import ctypes
 
-    out = library_path(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed building {name} ({proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-        BUILD_SECONDS[name] = time.perf_counter() - t0
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    _LIBS[name] = ctypes.CDLL(str(out))
+    build_libraries([name])
+    _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return _LIBS[name]
