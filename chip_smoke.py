@@ -14,21 +14,34 @@
 4. Holds the backward kernel ``alt_corr_bwd`` against the plain backward
    the same way, at the train path's shape and the ragged one; times both
    at the train shape.
-5. Serving path: RAFT-12 (seeded random weights) serving 3 requests of 8
+5. Holds the warp kernel ``warp_fwd`` against its plain version in its
+   three modes, f32 and bf16, at SPyNet's and PWC-Net's largest warp
+   shapes and a ragged one, for smooth, wild and +-1e30 flows; times it,
+   the plain version and ``F.grid_sample`` at the two main shapes.
+6. Serving path: RAFT-12 (seeded random weights) serving 3 requests of 8
    frame pairs at 384x1280 through ``predict_flow``, at the calibrated
    (``scale_flow_head(0.05)``) and the wild (raw init) operating point;
    checks shapes, finiteness and that every forward launched the lookup
    kernel 12 times; compares the flow with the plain lookup; times pairs/s.
-6. Train path: RAFT-12 in mixed precision taking 2 + 5 AdamW/OneCycle
+7. Serving path: SPyNet (f32) and PWC-Net (mixed precision) serving 3
+   requests of 8 pairs at 384x1280 each; checks 6 and 4 warp launches per
+   request, the flow against the model with the plain warp (and PWC-Net in
+   f32 too); times pairs/s.
+8. Train path: RAFT-12 in mixed precision taking 2 + 5 AdamW/OneCycle
    steps at batch 4, 288x960 through ``make_train_step``; checks finite
    losses, moved parameters and 12 launches of each kernel per step; times
    frames/s and reads the peak memory.
-7. The parameter gradients of one train-mode backward with the kernels
+9. The parameter gradients of one train-mode backward with the kernels
    against those with the plain lookup, in f32 and in bf16.
-8. The train CLI with ``--synthetic 3``, then its resume.
+10. The train CLI with ``--synthetic 3``, then its resume.
 
 Any failed check raises, so the script exits non-zero and prints no result.
-The last two lines are a JSON object per kernel and the result object.
+The last three lines are the card's name and power limit, a JSON object per
+kernel (its launches on the main paths, its error against its plain
+version, its time, the plain version's, the least time the card could take
+and what bounds it, and the time of a PyTorch call that computes the same
+function where there is one) and the result object.  TF32 is off
+throughout, so f32 convolutions run in full f32.
 """
 
 from __future__ import annotations
@@ -50,7 +63,8 @@ ITERS = 12
 RADIUS, LEVELS = 4, 4
 TB, TH, TW = 4, 288, 960  # the train step's geometry (bench.py:281-321)
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
-KERNELS = ("alt_corr_fwd", "alt_corr_bwd")
+KERNELS = ("alt_corr_fwd", "alt_corr_bwd", "warp_fwd")
+TRAIN_KERNELS = ("alt_corr_fwd", "alt_corr_bwd")  # RAFT's train step
 F32_TOL = 1e-4           # abs, the JAX package's bar (test_ops_correlation.py:327)
 BF16_REL_TOL = 1e-5      # x max|corr|: same bf16 inputs, both accumulate in f32
 # x max|grad|, f32 and bf16 alike: both sides sum the same products of the
@@ -79,6 +93,16 @@ CAL_BAND = (5.0, 40.0)   # trained-checkpoint mean |flow| band (bench.py:115)
 # sanity bounds of the calibrated magnitude (tests/test_bf16_drift.py:120):
 # the random draw decides where in or near CAL_BAND it lands
 CAL_SANITY = (1.0, 60.0)
+WARP_F32_REL_TOL = 1e-5  # x max|img|: the same coordinates, f32 weights
+# the warp shapes of the serving paths (B, C, H, W): SPyNet's finest level
+# (f32, mode "spynet") and PWC-Net's level 2 (bf16, mode "zeros_mask")
+WARP_MAIN = {"spynet": ((B, 3, H, W), torch.float32),
+             "zeros_mask": ((B, 32, H // 4, W // 4), torch.bfloat16)}
+FLOW_F32_TOL_PX = 1e-3   # max |dflow|, warp kernel vs plain warp, f32 models
+# the card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s of HBM3 and
+# FLOP/s by input type (bf16 on the tensor cores, f32 outside them)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 class SmokeFailure(RuntimeError):
@@ -110,6 +134,20 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved: int, flops: float, dtype) -> dict:
+    """The least time the card could take: the larger of the bytes that
+    must move (each input read once, each output written once) over the
+    HBM rate and the operations over the peak rate of the inputs' type."""
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def lookup_cases(gen, main_shape):
@@ -166,6 +204,11 @@ def kernel_phase(gen) -> dict:
                     p_ms = cuda_ms(lambda: corr.alt_corr_lookup_reference(
                         f1, levels, cflat, RADIUS), reps=5, warmup=1)
                     res[f"{tag}/plain_ms"] = p_ms
+                    # per query and level: the (2r+2)^2 integer-grid dots
+                    # of length C, a multiply-add each
+                    flops = 2 * (2 * RADIUS + 2) ** 2 * c * b * h * w * LEVELS
+                    res[f"{tag}/bound"] = bound(
+                        nbytes(f1, *levels, cflat, got), flops, dtype)
                     print(f"{tag:32s} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
                           "per lookup (4 levels)", flush=True)
                 else:
@@ -215,6 +258,12 @@ def backward_phase(gen) -> dict:
                 p_ms = cuda_ms(lambda: corr.alt_corr_lookup_backward_reference(
                     f1, levels, cflat, g, RADIUS), reps=2, warmup=0)
                 res[f"{tag}/ms"], res[f"{tag}/plain_ms"] = k_ms, p_ms
+                # per query and level: the (2r+2)^2 grid points' df1 and
+                # df2 products of length C, a multiply-add each
+                flops = 4 * (2 * RADIUS + 2) ** 2 * c * b * h * w * LEVELS
+                res[f"{tag}/bound"] = bound(
+                    nbytes(f1, *levels, cflat, g, got[0], *got[1]), flops,
+                    dtype)
                 print(f"{tag:28s} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
                       "per backward (4 levels)", flush=True)
             del got, ref
@@ -321,6 +370,185 @@ def model_phase(gen) -> dict:
     return res
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each f32 value (8 significant bits)."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def warp_flow(gen, b, h, w, kind):
+    flow = torch.randn((b, 2, h, w), generator=gen, device="cuda")
+    if kind == "smooth":  # a smooth field: x4 bilinear upsample of noise
+        coarse = 3.0 * torch.randn((b, 2, h // 4 + 1, w // 4 + 1),
+                                   generator=gen, device="cuda")
+        return torch.nn.functional.interpolate(
+            coarse, size=(h, w), mode="bilinear", align_corners=False)
+    if kind == "wild":
+        return 150.0 * flow
+    far = torch.rand((b, 2, h, w), generator=gen, device="cuda") < 0.3
+    return torch.where(far, torch.sign(flow) * 1e30, 3.0 * flow)
+
+
+def grid_sample_call(img, flow, mode):
+    """F.grid_sample on the warp's sample grid, for its time: the mode's
+    normalised grid (align_corners=False), built once outside the timing.
+    It computes the warp for "border" and "spynet"; for "zeros_mask" it
+    leaves out the mask, and a bf16 image needs a bf16 grid, which rounds
+    the coordinates."""
+    from understanding_flow_robustness_tpu_torch.ops.interp import (
+        warp_sample_coords,
+    )
+
+    x, y, _ = warp_sample_coords(flow, mode)
+    h, w = img.shape[2:]
+    grid = torch.stack([(2 * x + 1) / w - 1, (2 * y + 1) / h - 1], dim=-1)
+    grid = grid.to(img.dtype)
+    pad = "border" if mode == "border" else "zeros"
+    return lambda: torch.nn.functional.grid_sample(
+        img, grid, mode="bilinear", padding_mode=pad, align_corners=False)
+
+
+def warp_phase(gen) -> dict:
+    from understanding_flow_robustness_tpu_torch import ops
+
+    print("== warp_fwd vs plain ==", flush=True)
+    res = {}
+    shapes = {"spynet": WARP_MAIN["spynet"][0],
+              "pwc": WARP_MAIN["zeros_mask"][0], "ragged": (2, 5, 13, 21)}
+    for shape_name, (b, c, h, w) in shapes.items():
+        img32 = torch.rand((b, c, h, w), generator=gen, device="cuda")
+        for kind in ("smooth", "wild", "far"):
+            flow = warp_flow(gen, b, h, w, kind)
+            for mode in ("border", "zeros_mask", "spynet"):
+                for dtype in (torch.float32, torch.bfloat16):
+                    img = img32.to(dtype)
+                    got = ops.warp_backward(img, flow, mode)
+                    # bf16: the plain version's f32 sample of the same
+                    # bf16 values, before its rounding
+                    ref = ops.warp_backward_reference(img.float(), flow, mode)
+                    torch.cuda.synchronize()
+                    tag = (f"{shape_name}/{kind}/{mode}/"
+                           f"{str(dtype).split('.')[-1]}")
+                    check(got.shape == img.shape and got.dtype == dtype
+                          and not bool(torch.isnan(got).any()),
+                          f"{tag}: kernel output malformed")
+                    err = (got.float() - ref).abs()
+                    if dtype == torch.float32:
+                        tol = WARP_F32_REL_TOL * img32.abs().max().item()
+                        ok = err.max().item() <= tol
+                        bar = f"tol={tol:.1e}"
+                    else:
+                        ok = bool((err <= bf16_ulp(ref)).all())
+                        bar = "tol=1 bf16 ulp"
+                    print(f"{tag:38s} max_abs_err={err.max().item():.3e} "
+                          f"{bar}", flush=True)
+                    check(ok, f"{tag}: kernel disagrees with plain version")
+                    res[tag] = err.max().item()
+                    if WARP_MAIN.get(mode) == ((b, c, h, w), dtype) \
+                            and kind == "smooth":
+                        k_ms = cuda_ms(lambda: ops.warp_backward(
+                            img, flow, mode), reps=50)
+                        p_ms = cuda_ms(lambda: ops.warp_backward_reference(
+                            img, flow, mode), reps=10)
+                        l_ms = cuda_ms(grid_sample_call(img, flow, mode),
+                                       reps=50)
+                        res[f"{mode}/main"] = {
+                            "tag": tag, "max_abs_err": err.max().item(),
+                            "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                            # 4 taps per channel, a multiply-add each
+                            **bound(nbytes(img, flow, got),
+                                    8 * b * c * h * w, dtype)}
+                        print(f"{tag:38s} kernel {k_ms:.4f} ms, plain "
+                              f"{p_ms:.4f} ms, grid_sample {l_ms:.4f} ms, "
+                              f"bound {res[f'{mode}/main']['bound_ms']:.4f} ms"
+                              f" ({res[f'{mode}/main']['bound_by']})",
+                              flush=True)
+                    del got, ref
+            del flow
+    return res
+
+
+def warp_model_phase(gen, name: str, warps: int) -> dict:
+    """``name`` serving REQUESTS requests of B pairs at HxW through
+    ``predict_flow``, each warp through the kernel; then the same model
+    with the plain warp, and pairs/s."""
+    from understanding_flow_robustness_tpu_torch.models import (
+        fetch_model,
+        predict_flow,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    model = fetch_model(name, device="cuda", seed=0)
+    mixed = getattr(model.module, "mixed_precision", False)
+    print(f"== {name} serving, batch {B} at {H}x{W}, "
+          f"{'bf16 mixed' if mixed else 'f32'} ==", flush=True)
+    res = {}
+    requests = [(torch.rand((B, H, W, 3), generator=gen, device="cuda"),
+                 torch.rand((B, H, W, 3), generator=gen, device="cuda"))
+                for _ in range(REQUESTS)]
+
+    # the main path: count the kernel's launches while serving
+    flows = []
+    LAUNCH_COUNTS.clear()
+    for i, (a, b) in enumerate(requests):
+        before = LAUNCH_COUNTS["warp_fwd"]
+        flow = predict_flow(model, a, b)
+        torch.cuda.synchronize()
+        n = LAUNCH_COUNTS["warp_fwd"] - before
+        check(tuple(flow.shape) == (B, H, W, 2),
+              f"{name} request {i}: flow shape {tuple(flow.shape)}")
+        check(bool(torch.isfinite(flow).all()),
+              f"{name} request {i}: non-finite flow")
+        check(n == warps, f"{name} request {i}: warp_fwd launched {n} times, "
+                          f"not {warps}")
+        flows.append(flow)
+    res["launches"] = LAUNCH_COUNTS["warp_fwd"]
+    res["mean_flow_px"] = torch.stack(
+        [torch.linalg.vector_norm(f, dim=-1).mean() for f in flows]
+    ).mean().item()
+    print(f"warp_fwd launches while serving {REQUESTS} requests: "
+          f"{res['launches']} ({warps} per request); mean |flow| "
+          f"{res['mean_flow_px']:.3f} px", flush=True)
+
+    # the kernel against the plain warp, end to end
+    a, b = requests[0]
+    points = [(model, flows[0], mixed)]
+    if mixed:  # PWC-Net's f32 configuration as well
+        m32 = fetch_model(name, device="cuda", seed=0, mixed_precision=False)
+        points.append((m32, predict_flow(m32, a, b), False))
+    for m, got, bf16 in points:
+        m.module.plain_warp = True
+        plain = predict_flow(m, a, b)
+        m.module.plain_warp = False
+        mx, rel = flow_stats(got, plain)
+        key = "bf16" if bf16 else "f32"
+        res[f"{key}/max_abs_px"], res[f"{key}/rel_epe"] = mx, rel
+        bar = (f"rel EPE bound {100 * BF16_REL_EPE_TOL:g}%" if bf16
+               else f"max bound {FLOW_F32_TOL_PX} px")
+        print(f"{key}: warp kernel vs plain warp max|dflow|={mx:.3e} px, "
+              f"rel EPE={100 * rel:.5f}% ({bar})", flush=True)
+        check(rel <= BF16_REL_EPE_TOL if bf16 else mx <= FLOW_F32_TOL_PX,
+              f"{name} {key}: warp kernel vs plain warp beyond bound")
+    del points
+
+    # steady-state throughput
+    for a, b in requests[:2]:
+        predict_flow(model, a, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for _ in range(2):
+        for a, b in requests:
+            predict_flow(model, a, b)
+            n += 1
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    res["pairs_per_s"] = B * n / dt
+    print(f"{name}: {B * n / dt:.2f} pairs/s ({1e3 * dt / n:.1f} ms per "
+          f"request of {B} pairs, {n} requests)", flush=True)
+    return res
+
+
 def train_batch(gen, b: int) -> dict:
     return {"image1": torch.rand((b, TH, TW, 3), generator=gen, device="cuda"),
             "image2": torch.rand((b, TH, TW, 3), generator=gen, device="cuda"),
@@ -357,15 +585,15 @@ def train_phase(gen) -> dict:
             t0 = time.perf_counter()
         before = dict(LAUNCH_COUNTS)
         losses.append(step(batches[i % 2])["loss"])
-        for k in KERNELS:
+        for k in TRAIN_KERNELS:
             n = LAUNCH_COUNTS[k] - before.get(k, 0)
             check(n == ITERS, f"train step {i}: {k} launched {n} times, "
                               f"not {ITERS}")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    res = {f"launches/{k}": LAUNCH_COUNTS[k] for k in KERNELS}
+    res = {f"launches/{k}": LAUNCH_COUNTS[k] for k in TRAIN_KERNELS}
     print(f"kernel launches while training {TRAIN_WARMUP + TRAIN_STEPS} "
-          f"steps: " + ", ".join(f"{k} {LAUNCH_COUNTS[k]}" for k in KERNELS)
+          f"steps: " + ", ".join(f"{k} {LAUNCH_COUNTS[k]}" for k in TRAIN_KERNELS)
           + f" ({ITERS} each per step)", flush=True)
     print("losses: " + " ".join(f"{x:.4f}" for x in losses), flush=True)
     check(all(torch.isfinite(torch.tensor(losses)).tolist()),
@@ -481,34 +709,65 @@ def main() -> None:
               flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kres = kernel_phase(gen)
-    bres = backward_phase(gen)
-    mres = model_phase(gen)
-    torch.cuda.empty_cache()
-    tres = train_phase(gen)
-    torch.cuda.empty_cache()
-    grad_phase(gen)
-    cli_phase()
+    def phase(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"-- phase {fn.__name__}{args[1:]} took "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
+    kres = phase(kernel_phase, gen)
+    bres = phase(backward_phase, gen)
+    wres = phase(warp_phase, gen)
+    mres = phase(model_phase, gen)
+    sres = phase(warp_model_phase, gen, "SpyNet", 6)
+    pres = phase(warp_model_phase, gen, "PWCNet", 4)
+    tres = phase(train_phase, gen)
+    phase(grad_phase, gen)
+    phase(cli_phase)
+    print(f"all phases, build included: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     print(card)  # name, power limit: nvidia-smi's own line
+    fwd = "main/calibrated/bfloat16"
+    warp = wres["spynet/main"]
     print(json.dumps({"kernels": [{
         "name": "alt_corr_fwd",
         "route": "cuda",
         "source": "understanding_flow_robustness_tpu_torch/csrc/alt_corr_fwd.cu",
         "replaces": "understanding_flow_robustness_tpu/ops/pallas/alt_corr.py:91",
         "launches": mres["launches"] + tres["launches/alt_corr_fwd"],
-        "max_abs_err": kres["main/calibrated/bfloat16"],
-        "ms": kres["main/calibrated/bfloat16/ms"],
-        "plain_ms": kres["main/calibrated/bfloat16/plain_ms"],
+        "max_abs_err": kres[fwd],
+        "ms": kres[f"{fwd}/ms"],
+        "plain_ms": kres[f"{fwd}/plain_ms"],
+        **kres[f"{fwd}/bound"],
+        "library_ms": None,
     }, {
         "name": "alt_corr_bwd",
         "route": "cuda",
         "source": "understanding_flow_robustness_tpu_torch/csrc/alt_corr_bwd.cu",
         "replaces": "understanding_flow_robustness_tpu/ops/pallas/alt_corr.py:571",
         "launches": tres["launches/alt_corr_bwd"],
-        "max_abs_err": bres["main/calibrated/bfloat16"],
-        "ms": bres["main/calibrated/bfloat16/ms"],
-        "plain_ms": bres["main/calibrated/bfloat16/plain_ms"],
+        "max_abs_err": bres[fwd],
+        "ms": bres[f"{fwd}/ms"],
+        "plain_ms": bres[f"{fwd}/plain_ms"],
+        **bres[f"{fwd}/bound"],
+        "library_ms": None,
+    }, {
+        "name": "warp_fwd",
+        "route": "cuda",
+        "source": "understanding_flow_robustness_tpu_torch/csrc/warp_fwd.cu",
+        "replaces": "understanding_flow_robustness_tpu/ops/pallas/warp_tile.py:53",
+        "launches": sres["launches"] + pres["launches"],
+        "max_abs_err": warp["max_abs_err"],
+        "ms": warp["ms"],
+        "plain_ms": warp["plain_ms"],
+        "bound_ms": warp["bound_ms"],
+        "bound_by": warp["bound_by"],
+        "library_ms": warp["library_ms"],
+        "grid_sample_ms": warp["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

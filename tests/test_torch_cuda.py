@@ -1,7 +1,8 @@
-"""The port's CUDA kernels on the card: ``csrc/alt_corr_fwd.cu`` and
-``csrc/alt_corr_bwd.cu`` against their plain PyTorch versions, their
-wrappers' checks and launch counts, RAFT driving them in inference and a
-short train step.
+"""The port's CUDA kernels on the card: ``csrc/alt_corr_fwd.cu``,
+``csrc/alt_corr_bwd.cu`` and ``csrc/warp_fwd.cu`` against their plain
+PyTorch versions, their wrappers' checks and launch counts, RAFT driving the
+lookup kernels in inference and a short train step, SpyNet and PWC-Net
+driving the warp kernel.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports only torch and the port, so it also runs where JAX is absent:
@@ -15,7 +16,11 @@ import pytest
 import torch
 
 from understanding_flow_robustness_tpu_torch import ops
-from understanding_flow_robustness_tpu_torch.models import RAFT
+from understanding_flow_robustness_tpu_torch.models import (
+    RAFT,
+    fetch_model,
+    predict_flow,
+)
 from understanding_flow_robustness_tpu_torch.ops import correlation
 from understanding_flow_robustness_tpu_torch.training import (
     fetch_optimizer,
@@ -181,3 +186,92 @@ def test_train_step_launches_kernels_and_matches_plain(cuda, mixed):
     for k, q in grads[1].items():
         rel = ((grads[0][k] - q).norm() / q.norm()).item()
         assert rel <= bound, (k, rel)
+
+
+WARP_F32_REL_TOL = 1e-5  # x max|img|: the same coordinates, f32 weights
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each f32 value (8 significant bits)."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _warp_case(b, c, h, w, dtype, kind, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    img = torch.rand((b, c, h, w), generator=g)
+    flow = torch.randn((b, 2, h, w), generator=g)
+    if kind == "wild":
+        flow = flow * 150.0
+    elif kind == "far":
+        far = torch.rand((b, 2, h, w), generator=g) < 0.3
+        flow = torch.where(far, torch.sign(flow) * 1e30, flow * 3.0)
+    return img.to(dtype).cuda(), flow.cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["border", "zeros_mask", "spynet"])
+@pytest.mark.parametrize("shape,kind", [
+    ((2, 5, 13, 21), "far"),       # ragged, +-1e30 flows
+    ((1, 32, 96, 320), "wild"),    # PWC level 2, one pair
+    ((2, 3, 48, 160), "smooth"),   # SPyNet, a coarse level
+])
+def test_warp_kernel_matches_plain(cuda, dtype, mode, shape, kind):
+    img, flow = _warp_case(*shape, dtype, kind)
+    got = ops.warp_backward(img, flow, mode)
+    ref = ops.warp_backward_reference(img.float(), flow, mode)
+    torch.cuda.synchronize()
+    assert got.shape == img.shape and got.dtype == dtype
+    err = (got.float() - ref).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= WARP_F32_REL_TOL * img.abs().max().item()
+    else:  # the f32 sample rounded once, within one bf16 ulp
+        assert bool((err <= bf16_ulp(ref)).all())
+
+
+def test_warp_wrapper_counts_launches_and_rejects_bad_input(cuda):
+    img, flow = _warp_case(1, 4, 8, 8, torch.float32, "smooth")
+    before = ops.LAUNCH_COUNTS["warp_fwd"]
+    ops.warp_backward(img, flow, "border")
+    assert ops.LAUNCH_COUNTS["warp_fwd"] == before + 1
+    with pytest.raises(TypeError):
+        ops.warp_backward(img.double(), flow, "border")
+    with pytest.raises(ValueError):
+        ops.warp_backward(img, flow[:, :, :4], "border")
+    with pytest.raises(ValueError):
+        ops.warp_backward(img, flow.cpu(), "border")
+    with pytest.raises(ValueError):
+        ops.warp_backward(img, flow, "reflect")
+    assert ops.LAUNCH_COUNTS["warp_fwd"] == before + 1
+    # with autograd the forward still launches the kernel
+    img.requires_grad_()
+    ops.warp_backward(img, flow, "zeros_mask").sum().backward()
+    assert ops.LAUNCH_COUNTS["warp_fwd"] == before + 2
+    assert img.grad is not None and bool(torch.isfinite(img.grad).all())
+
+
+@pytest.mark.parametrize("name,warps,kw", [
+    ("SpyNet", 6, {}),
+    ("PWCNet", 4, {"mixed_precision": False}),
+    ("PWCNet", 4, {}),
+])
+def test_models_launch_warp_per_level_and_match_plain(cuda, name, warps, kw):
+    """One forward warps once per level through the kernel; the flow
+    matches the model's with the plain warp (f32: summation order only;
+    PWC-Net mixed: the 1 % bar)."""
+    model = fetch_model(name, device="cuda", seed=0, **kw)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.rand((2, 128, 256, 3), generator=g, device="cuda")
+    b = torch.rand((2, 128, 256, 3), generator=g, device="cuda")
+    before = ops.LAUNCH_COUNTS["warp_fwd"]
+    flow = predict_flow(model, a, b)
+    assert ops.LAUNCH_COUNTS["warp_fwd"] == before + warps
+    model.module.plain_warp = True
+    plain = predict_flow(model, a, b)
+    assert ops.LAUNCH_COUNTS["warp_fwd"] == before + warps
+    assert flow.shape == (2, 128, 256, 2) and bool(torch.isfinite(flow).all())
+    if getattr(model.module, "mixed_precision", False):
+        epe = torch.linalg.vector_norm(flow - plain, dim=-1).mean()
+        assert (epe / torch.linalg.vector_norm(plain, dim=-1).mean()) < 1e-2
+    else:
+        assert (flow - plain).abs().max().item() <= 1e-3

@@ -28,16 +28,40 @@ def _images(b=1, h=64, w=96, seed=0):
 
 
 def test_fetch_model_ids_and_precision():
-    assert fetch_model("RAFT", iters=1).module.mixed_precision
-    assert not fetch_model("RAFT_adv_kitti2012_ifgsm_l2_002", iters=1).module.mixed_precision
+    assert fetch_model("RAFT", iters=1, device="cpu").module.mixed_precision
+    assert not fetch_model("RAFT_adv_kitti2012_ifgsm_l2_002", iters=1,
+                           device="cpu").module.mixed_precision
     with pytest.raises(KeyError, match="ROADMAP"):
-        fetch_model("FlowNetC")
+        fetch_model("FlowNetC", device="cpu")
+
+
+@pytest.mark.parametrize("name,item", [
+    ("FlowNetC", "A7"), ("FlowNetS", "A7"), ("FlowNetCFlexLarger_k5_reps0", "A7"),
+    ("FlowNet2", "A9"), ("RAFT_FlowNetCEncoder_WoContext", "A10")])
+def test_unported_ids_name_their_roadmap_item(name, item):
+    with pytest.raises(KeyError, match=f"ROADMAP {item}"):
+        fetch_model(name, device="cpu")
+
+
+def test_fetch_model_defaults_to_the_card():
+    """Entry points run on the card unless the caller asks for the CPU:
+    without CUDA, ``fetch_model`` with no device fails instead of falling
+    back, and so does the train CLI."""
+    import inspect
+
+    from understanding_flow_robustness_tpu_torch.cli import train as cli_train
+
+    assert inspect.signature(fetch_model).parameters["device"].default == "cuda"
+    assert cli_train.build_parser().parse_args([]).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            fetch_model("SpyNet")
 
 
 def test_fetch_model_is_seeded():
-    a = fetch_model("RAFT", seed=3, iters=1).module.state_dict()
-    b = fetch_model("RAFT", seed=3, iters=1).module.state_dict()
-    c = fetch_model("RAFT", seed=4, iters=1).module.state_dict()
+    a = fetch_model("RAFT", seed=3, iters=1, device="cpu").module.state_dict()
+    b = fetch_model("RAFT", seed=3, iters=1, device="cpu").module.state_dict()
+    c = fetch_model("RAFT", seed=4, iters=1, device="cpu").module.state_dict()
     k = "update_block.gru.convz1.weight"
     torch.testing.assert_close(a[k], b[k])
     assert not torch.equal(a[k], c[k])
@@ -50,7 +74,7 @@ def test_init_scale_matches_jax():
     HWIO, the port's OIHW)."""
     v = jax.jit(JRAFT().init)(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
                               jnp.zeros((1, 64, 64, 3)))["params"]
-    sd = fetch_model("RAFT", seed=0).module.state_dict()
+    sd = fetch_model("RAFT", seed=0, device="cpu").module.state_dict()
     pairs = {
         "fnet.conv1.weight": v["fnet"]["conv1"]["kernel"],
         "cnet.layer2.0.conv2.weight": v["cnet"]["layer2_0"]["conv2"]["kernel"],
@@ -66,7 +90,7 @@ def test_init_scale_matches_jax():
 
 @pytest.mark.parametrize("name", ["RAFT", "RAFT_adv_kitti2012_ifgsm_l2_002"])
 def test_predict_flow_shapes(name):
-    model = fetch_model(name, iters=2)
+    model = fetch_model(name, iters=2, device="cpu")
     a, b = _images(2)
     flow = predict_flow(model, a, b)
     assert tuple(flow.shape) == (2, 64, 96, 2) and flow.dtype == torch.float32
@@ -79,7 +103,8 @@ def test_pth_roundtrip_reference_layout(tmp_path, wrapper):
     """A synthesized reference checkpoint (DataParallel ``module.`` prefix,
     ``num_batches_tracked`` entries, an optional wrapper dict) loads
     strictly and reproduces the source model's flow."""
-    src = fetch_model("RAFT_adv_kitti2012_ifgsm_l2_002", seed=5, iters=2)
+    src = fetch_model("RAFT_adv_kitti2012_ifgsm_l2_002", seed=5, iters=2,
+                      device="cpu")
     sd = {f"module.{k}": v.clone() for k, v in src.module.state_dict().items()}
     assert any(k.endswith("num_batches_tracked") for k in sd)
     path = tmp_path / "raft-things.pth"
@@ -89,19 +114,19 @@ def test_pth_roundtrip_reference_layout(tmp_path, wrapper):
     assert not any(k.startswith("module.") or k.endswith("num_batches_tracked")
                    for k in loaded)
     dst = fetch_model("RAFT_adv_kitti2012_ifgsm_l2_002", pretrained_path=str(path),
-                      seed=6, iters=2)
+                      seed=6, iters=2, device="cpu")
     a, b = _images()
     torch.testing.assert_close(predict_flow(dst, a, b), predict_flow(src, a, b),
                                rtol=0, atol=0)
 
 
 def test_pth_unmapped_key_is_refused(tmp_path):
-    sd = fetch_model("RAFT", iters=1).module.state_dict()
+    sd = fetch_model("RAFT", iters=1, device="cpu").module.state_dict()
     sd["update_block.extra.weight"] = torch.zeros(1)
     path = tmp_path / "bad.pth"
     torch.save(sd, path)
     with pytest.raises(RuntimeError, match="Unexpected key"):
-        fetch_model("RAFT", pretrained_path=str(path), iters=1)
+        fetch_model("RAFT", pretrained_path=str(path), iters=1, device="cpu")
 
 
 def test_port_imports_no_jax():

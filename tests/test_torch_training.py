@@ -337,7 +337,8 @@ def test_train_loop_and_resume(tmp_path):
     """The JAX package's test_train_loop_and_resume: num_steps=3 takes 4
     batches (total_steps > num_steps stops it), and the resume from the
     final checkpoint returns at once."""
-    model = fetch_model("RAFT_adv_kitti2012_ifgsm_l2_002", iters=ITERS, seed=0)
+    model = fetch_model("RAFT_adv_kitti2012_ifgsm_l2_002", iters=ITERS, seed=0,
+                        device="cpu")
     cfg = TrainConfig(name="tiny", num_steps=3, val_freq=100, lr=LR,
                       checkpoint_dir=str(tmp_path / "ckpt"), seed=0,
                       add_noise=True)
@@ -349,7 +350,8 @@ def test_train_loop_and_resume(tmp_path):
         assert os.path.exists(tmp_path / "ckpt" / f), f
     assert checkpoint.restore_checkpoint(cfg.checkpoint_dir)["total_steps"] == 3
 
-    fresh = fetch_model("RAFT_adv_kitti2012_ifgsm_l2_002", iters=ITERS, seed=1)
+    fresh = fetch_model("RAFT_adv_kitti2012_ifgsm_l2_002", iters=ITERS, seed=1,
+                        device="cpu")
     again = []
     assert train(cfg, fresh, _synthetic(), logger=lambda s, m: again.append(m)) == 4
     assert again == []
@@ -375,7 +377,7 @@ def test_train_cli_synthetic(tmp_path):
         "--synthetic", "2", "--num_steps", "1", "--batch_size", "1",
         "--image_size", "64", "64", "--iters", "2", "--name", "cli",
         "--model", "RAFT_adv_kitti2012_ifgsm_l2_002",
-        "--checkpoint_dir", str(tmp_path), "--lr", "1e-4"])
+        "--checkpoint_dir", str(tmp_path), "--lr", "1e-4", "--device", "cpu"])
     assert out["total_steps"] == 2 and len(out["history"]) == 2
     assert all(np.isfinite(m["loss"]) for m in out["history"])
     assert os.path.exists(tmp_path / "cli" / "cli.pth")
@@ -383,9 +385,10 @@ def test_train_cli_synthetic(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["--adversarial"], "A8"), (["--model", "FlowNetC"], "A7"),
-    (["--pwc"], "A9"), ([], "A11")])
+    (["--pwc"], "A9"), (["--model", "SpyNet"], "A9"), ([], "A11")])
 def test_train_cli_refuses_unported_paths(tmp_path, argv, item):
     if item != "A11":
         argv = argv + ["--synthetic", "1"]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli_train.main(argv + ["--checkpoint_dir", str(tmp_path)])
+        cli_train.main(argv + ["--checkpoint_dir", str(tmp_path),
+                               "--device", "cpu"])

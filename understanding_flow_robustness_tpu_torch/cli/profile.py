@@ -1,0 +1,109 @@
+"""Where one forward of a ported model spends device time.
+
+    python -m understanding_flow_robustness_tpu_torch.cli.profile \\
+        --model SpyNet --batch 8 --size 384 1280
+
+Serves random [0, 1] frame pairs through ``predict_flow`` of
+``fetch_model(--model, seed=--seed)`` on one CUDA device, traces --reps
+forwards after two warm-up forwards with ``torch.profiler``, and prints the
+card's name and power limit, the wall time per forward, the device-busy
+time and idle share, device time per forward by kernel class (the port's
+CUDA kernels, convolutions, norms, reductions, the rest) and the top
+kernels.  Only device events count: the host-side ops that launched them
+carry the same time again.  TF32 stays off, as in chip_smoke.py.  Needs a
+CUDA device; fails without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+import subprocess
+import time
+
+import torch
+
+CLASSES = (
+    ("warp_fwd (B4 kernel)", re.compile(r"warp_fwd")),
+    ("alt_corr_fwd/bwd (B1/B2 kernels)", re.compile(r"alt_corr")),
+    ("convolution", re.compile(
+        r"conv|xmma|cudnn|implicit|gemm|sm90|cutlass|winograd|fft", re.I)),
+    ("norm", re.compile(r"norm|welford|bn_", re.I)),
+    ("reduction (sums, incl. the spatial correlation's)",
+     re.compile(r"reduce", re.I)),
+)
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total", 0.0)
+                 or getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--model", default="SpyNet", help="ported model ID")
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--size", type=int, nargs=2, default=[384, 1280])
+    p.add_argument("--reps", type=int, default=2)
+    p.add_argument("--seed", type=int, default=0)
+    return p
+
+
+def main(argv=None) -> dict:
+    """Returns {"wall_ms", "busy_ms", "idle_share", "classes": {name:
+    ms}} per forward."""
+    args = build_parser().parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..models import fetch_model, predict_flow
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("gpu:", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    model = fetch_model(args.model, device="cuda", seed=args.seed)
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    h, w = args.size
+    a = torch.rand((args.batch, h, w, 3), generator=g, device="cuda")
+    b = torch.rand((args.batch, h, w, 3), generator=g, device="cuda")
+    print(f"== {args.model}, batch {args.batch}, {h}x{w} ==")
+    for _ in range(2):
+        predict_flow(model, a, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.reps):
+            predict_flow(model, a, b)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / args.reps
+    # device activity only: kernels and copies, not the host ops that
+    # launched them nor the profiler's "Command Buffer Full" marker
+    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+               and not e.key.startswith(("cuda", "aten", "Command Buffer"))]
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / args.reps
+    idle = max(0.0, 1 - busy_ms / wall_ms)
+    print(f"  wall {wall_ms:.2f} ms/forward (under the profiler), device "
+          f"busy {busy_ms:.2f} ms, idle share {100 * idle:.1f}%")
+    by_class: dict = {}
+    for e in kernels:
+        name = next((c for c, rx in CLASSES if rx.search(e.key)),
+                    "elementwise/copies/other")
+        by_class[name] = (by_class.get(name, 0.0)
+                          + _device_us(e) / 1e3 / args.reps)
+    for name, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"  {name:50s} {ms:8.3f} ms  {100 * ms / busy_ms:5.1f}%")
+    print("  top kernels (ms/forward, calls/forward):")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:15]:
+        print(f"    {_device_us(e) / 1e3 / args.reps:8.3f}  "
+              f"{e.count // args.reps:5d}  {e.key[:110]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": idle,
+            "classes": by_class}
+
+
+if __name__ == "__main__":
+    main()

@@ -18,20 +18,15 @@ import argparse
 import os
 
 import numpy as np
-import torch
 
-from ..models import fetch_model
+from ..models import NOT_PORTED, fetch_model
 from ..training import TrainConfig, train
 from ..training.checkpoint import load_weights
 
-# model IDs of the JAX registry that the port does not build yet, by the
-# ROADMAP item that ports them
-_NOT_PORTED = {
-    "FlowNetS": "A7", "FlowNetC": "A7", "FlowNetC_larger_field": "A7",
-    "FlowNetCFlexLarger_k3_reps3": "A7", "FlowNetCFlexLarger_k5_reps0": "A7",
-    "FlowNet2": "A9", "SpyNet": "A9", "PWCNet": "A9",
-    "PWCNet_adv_ifgsm_l2_002": "A9", "RAFT_FlowNetCEncoder_WoContext": "A10",
-}
+# model IDs the port cannot train yet, by the ROADMAP item that ports them:
+# the unbuilt ones, and SpyNet and PWC-Net, which serve but do not train
+_NOT_TRAINED = {**NOT_PORTED, "SpyNet": "A9", "PWCNet": "A9",
+                "PWCNet_adv_ifgsm_l2_002": "A9"}
 # flags of the JAX CLI that belong to paths not ported yet
 _OTHER_FAMILIES = {
     "adversarial": "A8", "arbitrary_gt": "A8", "flowNetC": "A7", "pwc": "A9",
@@ -73,6 +68,9 @@ def build_parser():
     p.add_argument("--no_excluding", action="store_true",
                    help="accepted for parity; a dead no-op upstream too")
     p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on; the card unless asked "
+                        "for 'cpu' (no fallback)")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N random batches (no dataset)")
     for flag in ("--adversarial", "--arbitrary_gt", "--flowNetC", "--pwc",
@@ -109,20 +107,20 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             f"--{other[0]} is not ported yet (ROADMAP "
             f"{_OTHER_FAMILIES[other[0]]})")
-    if args.model in _NOT_PORTED:
+    if args.model in _NOT_TRAINED:
         raise NotImplementedError(
-            f"--model {args.model} is not ported yet (ROADMAP "
-            f"{_NOT_PORTED[args.model]})")
+            f"training --model {args.model} is not ported yet (ROADMAP "
+            f"{_NOT_TRAINED[args.model]})")
     if not args.synthetic:
         raise NotImplementedError(
             f"--stage {args.stage} needs its dataset loaders (ROADMAP A11); "
             "use --synthetic N")
 
-    device = "cuda" if torch.cuda.is_available() else "cpu"
     kwargs = {"iters": args.iters}
     if args.mixed_precision:
         kwargs["mixed_precision"] = True
-    model = fetch_model(args.model, device=device, seed=args.seed, **kwargs)
+    model = fetch_model(args.model, device=args.device, seed=args.seed,
+                        **kwargs)
     n_params = sum(p.numel() for p in model.module.parameters())
     print(f"Parameter Count: {n_params}")  # training/train.py:102
     if args.restore_ckpt:

@@ -4,9 +4,11 @@ variables and the port (counterpart of
 
 Port modules carry the reference's parameter names, so a reference
 checkpoint is a port ``state_dict`` once its wrappers are removed
-(``load_reference_state_dict``), and the JAX package's ``convert_raft``
-maps a port ``state_dict`` to flax variables.  ``raft_state_dict_from_jax``
-is the inverse of ``convert_raft``.
+(``load_reference_state_dict``; SPyNet's per-level files:
+``load_spynet_dir``), and the JAX package's ``convert_raft`` /
+``convert_pwcnet`` map a port ``state_dict`` to flax variables.
+``raft_state_dict_from_jax``, ``pwcnet_state_dict_from_jax`` and
+``spynet_state_dict_from_jax`` go the other way.
 """
 
 from __future__ import annotations
@@ -82,4 +84,80 @@ def raft_state_dict_from_jax(variables) -> dict:
         sd[f"{mod}.{attr}"] = torch.from_numpy(arr)
         if mod.endswith(".norm3"):
             sd[f"{mod[:-len('norm3')]}downsample.1.{attr}"] = torch.from_numpy(arr)
+    return sd
+
+
+def _oihw(kernel) -> torch.Tensor:
+    """A flax HWIO conv kernel as a torch Conv2d weight (O, I, kh, kw): the
+    inverse of the JAX package's ``_conv_w``."""
+    return torch.from_numpy(np.ascontiguousarray(
+        np.array(kernel, np.float32).transpose(3, 2, 0, 1)))
+
+
+def _iohw(kernel) -> torch.Tensor:
+    """A flax (kh, kw, I, O) transposed-conv kernel as a torch
+    ConvTranspose2d weight (I, O, kh, kw): the inverse of the JAX
+    package's ``_convT_w`` (convert.py:30-31), not of ``_conv_w``."""
+    return torch.from_numpy(np.ascontiguousarray(
+        np.array(kernel, np.float32).transpose(2, 3, 0, 1)))
+
+
+def _bias(b) -> torch.Tensor:
+    return torch.from_numpy(np.array(b, np.float32))
+
+
+_PWC_SEQ = re.compile(r"conv\d(aa|a|b)?|conv\d_\d|dc_conv[1-6]")
+_PWC_DECONV = re.compile(r"deconv\d|upfeat\d")
+
+
+def pwcnet_state_dict_from_jax(variables, deconv2: dict) -> dict:
+    """Flax PWCNet variables -> reference/port state dict of f32 tensors;
+    the inverse of ``convert_pwcnet``.  The Sequential conv blocks get
+    their ``.0`` (``conv1a`` -> ``conv1a.0.weight``), ``deconv*`` and
+    ``upfeat*`` are transposed convs.  The JAX module has no counterpart
+    of the reference's dead ``deconv2``: its ``weight`` and ``bias`` come
+    from ``deconv2`` (e.g. the port module's own initialisation)."""
+    sd = {}
+    for name, leaves in variables["params"].items():
+        mod = f"{name}.0" if _PWC_SEQ.fullmatch(name) else name
+        w = _iohw if _PWC_DECONV.fullmatch(name) else _oihw
+        sd[f"{mod}.weight"] = w(leaves["kernel"])
+        sd[f"{mod}.bias"] = _bias(leaves["bias"])
+    sd["deconv2.weight"] = deconv2["weight"].detach().float().clone()
+    sd["deconv2.bias"] = deconv2["bias"].detach().float().clone()
+    return sd
+
+
+def spynet_state_dict_from_jax(variables) -> dict:
+    """Flax SpyNet variables -> port state dict: ``basic{L}/conv{k}`` to
+    ``moduleBasic.{L}.moduleBasic.{2k}`` (the convs of the Sequential,
+    between its ReLUs)."""
+    sd = {}
+    for level, convs in variables["params"].items():
+        lvl = int(level[len("basic"):])
+        for name, leaves in convs.items():
+            k = int(name[len("conv"):])
+            mod = f"moduleBasic.{lvl}.moduleBasic.{2 * k}"
+            sd[f"{mod}.weight"] = _oihw(leaves["kernel"])
+            sd[f"{mod}.bias"] = _bias(leaves["bias"])
+    return sd
+
+
+def load_spynet_dir(weights_dir: str, nlevels: int = 6,
+                    strmodel: str = "F") -> dict:
+    """The reference's per-level SPyNet weight files
+    (``{weights_dir}/modelL{L}_{strmodel}-{k}-{weight,bias}.pth.tar``,
+    models/spynet.py:81-127) as a port state dict.  Module level L reads
+    file level L+1; the chairs models ('3', '4') reuse level 5's files for
+    level 6 (the JAX package's ``convert_spynet_dir``)."""
+    sd = {}
+    for level in range(nlevels):
+        file_level = 4 if level == 5 and strmodel in ("3", "4") else level
+        for k in range(5):
+            stem = f"{weights_dir}/modelL{file_level + 1}_{strmodel}-{k + 1}"
+            mod = f"moduleBasic.{level}.moduleBasic.{2 * k}"
+            for attr in ("weight", "bias"):
+                sd[f"{mod}.{attr}"] = torch.load(
+                    f"{stem}-{attr}.pth.tar", map_location="cpu",
+                    weights_only=True).float()
     return sd

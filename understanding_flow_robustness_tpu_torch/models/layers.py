@@ -1,8 +1,10 @@
-"""Layer helpers RAFT uses (counterpart of
+"""Layer helpers of the ported models (counterpart of
 ``understanding_flow_robustness_tpu/models/layers.py``).
 
 The JAX package reimplements PyTorch's layers; here they are PyTorch's own:
-``TorchConv`` is ``nn.Conv2d`` with (k-1)//2 padding per axis,
+``TorchConv`` is ``nn.Conv2d`` with dilation * (k-1)//2 padding per axis,
+``TorchConvTranspose`` is ``nn.ConvTranspose2d`` (``deconv``),
+``leaky_relu`` is ``nn.LeakyReLU(0.1)``,
 ``InstanceNorm2d`` is ``nn.InstanceNorm2d(affine=False, eps=1e-5)`` and
 ``TorchBatchNorm`` is ``nn.BatchNorm2d(eps=1e-5, momentum=0.1)``.  In eval
 mode it normalises with the running statistics; in train mode with the
@@ -20,12 +22,27 @@ import torch
 from torch import nn
 
 
-def conv(in_ch: int, out_ch: int, kernel_size, stride: int = 1) -> nn.Conv2d:
+def conv(in_ch: int, out_ch: int, kernel_size, stride: int = 1,
+         dilation: int = 1) -> nn.Conv2d:
     """nn.Conv2d with the JAX package's TorchConv default padding:
-    (k-1)//2 per axis, so (1, 5) pads (0, 2)."""
+    dilation * (k-1)//2 per axis, so (1, 5) pads (0, 2)
+    (layers.py:109, 149)."""
     kh, kw = kernel_size if isinstance(kernel_size, tuple) else (kernel_size,) * 2
     return nn.Conv2d(in_ch, out_ch, (kh, kw), stride=stride,
-                     padding=((kh - 1) // 2, (kw - 1) // 2))
+                     padding=(dilation * ((kh - 1) // 2),
+                              dilation * ((kw - 1) // 2)),
+                     dilation=dilation)
+
+
+def deconv(in_ch: int, out_ch: int) -> nn.ConvTranspose2d:
+    """The reference's learned 2x upsampling, ConvTranspose2d(k=4, s=2,
+    p=1) with a bias (TorchConvTranspose, layers.py:251-310)."""
+    return nn.ConvTranspose2d(in_ch, out_ch, 4, stride=2, padding=1)
+
+
+def leaky_relu() -> nn.LeakyReLU:
+    """LeakyReLU(0.1) (layers.py:32)."""
+    return nn.LeakyReLU(0.1)
 
 
 def norm(norm_fn: str, channels: int) -> nn.Module:
@@ -55,10 +72,16 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> None:
     conv kernel from flax's kaiming_normal (truncated normal at +-2 sigma,
     variance 2/fan_in), biases zero, batch norms at scale 1, bias 0, mean
     0, var 1.  RAFT's random-init operating points (the ~150 px "wild"
-    iterates, the calibrated ``scale_flow_head``) depend on this scale."""
+    iterates, the calibrated ``scale_flow_head``) depend on this scale.
+    flax counts a transposed conv's fan-in as in/groups * kh * kw (its
+    kernel is (kh, kw, in, out)); torch stores that weight as (in,
+    out/groups, kh, kw)."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(m, nn.ConvTranspose2d):
+                fan_in = m.in_channels // m.groups * m.weight[0, 0].numel()
+            else:
+                fan_in = m.weight[0].numel()
             std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
             nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)

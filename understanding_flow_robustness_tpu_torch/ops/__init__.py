@@ -1,7 +1,7 @@
 """Operators: plain PyTorch, plus the wrappers of the CUDA kernels."""
 
+from ._build import LAUNCH_COUNTS
 from .correlation import (
-    LAUNCH_COUNTS,
     all_pairs_correlation,
     alt_corr_features,
     alt_corr_kernel_inputs,
@@ -12,8 +12,17 @@ from .correlation import (
     corr_pyramid,
     pool_fmap_levels,
     prepare_alt_corr,
+    spatial_correlation,
 )
-from .interp import coords_grid
+from .interp import (
+    avg_pool2,
+    bilinear_sample,
+    coords_grid,
+    resize_bilinear,
+    unnormalize_coords,
+    warp_backward_reference,
+)
+from .warp import warp_backward
 
 __all__ = [
     "LAUNCH_COUNTS",
@@ -23,9 +32,16 @@ __all__ = [
     "alt_corr_lookup",
     "alt_corr_lookup_backward_reference",
     "alt_corr_lookup_reference",
+    "avg_pool2",
+    "bilinear_sample",
     "coords_grid",
     "corr_lookup",
     "corr_pyramid",
     "pool_fmap_levels",
     "prepare_alt_corr",
+    "resize_bilinear",
+    "spatial_correlation",
+    "unnormalize_coords",
+    "warp_backward",
+    "warp_backward_reference",
 ]

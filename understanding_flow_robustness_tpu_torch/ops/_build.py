@@ -11,6 +11,7 @@ tests import every module on a machine without ``nvcc``.
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import os
 import shutil
@@ -27,6 +28,10 @@ NVCC_FLAGS = (
 
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}
+# Launches of each hand-written kernel, counted by its wrapper where it
+# launches the kernel (chip_smoke.py reads them to show the main path ran
+# through the kernels).
+LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -90,3 +95,18 @@ def load_library(name: str):
     build_libraries([name])
     _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return _LIBS[name]
+
+
+def kernel_fn(lib_name: str, symbol: str, argtypes):
+    """(ctypes function ``symbol`` of csrc/<lib_name>.cu returning its
+    cudaError_t as int, the library); every library also exports
+    ``ufr_cuda_error_string``."""
+    import ctypes
+
+    lib = load_library(lib_name)
+    fn = getattr(lib, symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    lib.ufr_cuda_error_string.restype = ctypes.c_char_p
+    lib.ufr_cuda_error_string.argtypes = [ctypes.c_int]
+    return fn, lib

@@ -1,9 +1,11 @@
-"""RAFT correlation: all-pairs volume, pyramid and window lookup
-(counterpart of ``understanding_flow_robustness_tpu/ops/correlation.py``
-and ``ops/pallas/alt_corr.py``).
+"""Correlation: RAFT's all-pairs volume, pyramid and window lookup, and the
+spatial correlation of PWC-Net (counterpart of
+``understanding_flow_robustness_tpu/ops/correlation.py`` and
+``ops/pallas/alt_corr.py``).
 
-Public functions keep the JAX package's channels-last layouts.  The
-on-demand lookup ``alt_corr_features`` never builds the all-pairs volume on
+RAFT's functions keep the JAX package's channels-last layouts;
+``spatial_correlation`` takes NCHW, the layout of PWC-Net's convolutions.
+The on-demand lookup ``alt_corr_features`` never builds the all-pairs volume on
 the GPU: ``alt_corr_lookup`` launches the CUDA kernel
 ``csrc/alt_corr_fwd.cu`` for a CUDA tensor and runs its plain PyTorch
 version, ``alt_corr_lookup_reference``, for a CPU tensor.  Its gradient
@@ -14,17 +16,13 @@ with respect to the features (``_AltCorrLookup``) launches
 
 from __future__ import annotations
 
-import collections
 import math
 from typing import Optional, Sequence
 
 import torch
 from torch.autograd.function import once_differentiable
 
-# Launches of each hand-written kernel, counted by its wrapper where it
-# launches the kernel (chip_smoke.py reads them to show the main path ran
-# through the kernels).
-LAUNCH_COUNTS: collections.Counter = collections.Counter()
+from ._build import LAUNCH_COUNTS, kernel_fn
 
 # Argument limits of csrc/alt_corr_fwd.cu and csrc/alt_corr_bwd.cu: their
 # kMaxLevels, their kRadius and their bound of two 16-byte chunks of a
@@ -48,6 +46,28 @@ def all_pairs_correlation(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
     b = f2.reshape(B, H * W, C).float()
     corr = torch.bmm(a, b.transpose(1, 2)) / math.sqrt(C)
     return corr.reshape(B, H * W, H, W).to(f1.dtype)
+
+
+def spatial_correlation(f1: torch.Tensor, f2: torch.Tensor,
+                        patch_size: int = 1) -> torch.Tensor:
+    """Spatial correlation with kernel 1, stride 1, padding 0 and patch
+    dilation 1, PWC-Net's configuration (correlation.py:56-102; the
+    spatial-correlation-sampler op).  NCHW: f1, f2 (B, C, H, W) ->
+    (B, P*P, H, W), P = patch_size, du-major: channel pu*P + pv is
+    <f1[:, :, y, x], f2[:, :, y + pu - r, x + pv - r]>, r = (P-1)//2, zero
+    outside; not divided by C.  Products and sums in f32, cast back to
+    f1's dtype (``_corr_k1_band``, correlation.py:182).  Plain PyTorch: the
+    JAX package runs this on XLA, not in a Pallas kernel."""
+    B, C, H, W = f1.shape
+    r = (patch_size - 1) // 2
+    a = _widen(f1)
+    b = torch.nn.functional.pad(_widen(f2), (r, r, r, r))
+    out = a.new_empty((B, patch_size * patch_size, H, W))
+    for pu in range(patch_size):
+        for pv in range(patch_size):
+            out[:, pu * patch_size + pv] = (
+                a * b[:, :, pu:pu + H, pv:pv + W]).sum(1)
+    return out.to(f1.dtype)
 
 
 def corr_pyramid(corr: torch.Tensor, num_levels: int = 4) -> list:
@@ -315,21 +335,6 @@ def _check_kernel_args(name, f1, levels, coords, radius):
                              f"got {lvl.dtype} {tuple(lvl.shape)}")
 
 
-def _kernel_fn(lib_name, symbol, argtypes):
-    """(ctypes function ``symbol`` of csrc/<lib_name>.cu, its library)."""
-    import ctypes
-
-    from ._build import load_library
-
-    lib = load_library(lib_name)
-    fn = getattr(lib, symbol)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
-    lib.ufr_cuda_error_string.restype = ctypes.c_char_p
-    lib.ufr_cuda_error_string.argtypes = [ctypes.c_int]
-    return fn, lib
-
-
 def _level_args(levels):
     import ctypes
 
@@ -345,7 +350,7 @@ def _alt_corr_lookup_cuda(f1, levels, coords, radius):
 
     _check_kernel_args("alt_corr_fwd", f1, levels, coords, radius)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn, lib = _kernel_fn("alt_corr_fwd", "ufr_alt_corr_fwd", [
+    fn, lib = kernel_fn("alt_corr_fwd", "ufr_alt_corr_fwd", [
         vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp, vp, i32, i32,
         i32, i32, i32, vp])
 
@@ -386,7 +391,7 @@ def _alt_corr_bwd_cuda(f1, levels, coords, g, radius):
                          f"{N}, {L * n * n}) on {f1.device}, got {g.dtype} "
                          f"{tuple(g.shape)} on {g.device}")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn, lib = _kernel_fn("alt_corr_bwd", "ufr_alt_corr_bwd", [
+    fn, lib = kernel_fn("alt_corr_bwd", "ufr_alt_corr_bwd", [
         vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp, vp, vp,
         ctypes.POINTER(vp), i32, i32, i32, i32, i32, vp])
 
