@@ -18,11 +18,28 @@
    three modes, f32 and bf16, at SPyNet's and PWC-Net's largest warp
    shapes and a ragged one, for smooth, wild and +-1e30 flows; times it,
    the plain version and ``F.grid_sample`` at the two main shapes.
+5b. Holds the volume lookup kernel ``corr_lookup_fwd`` against its plain
+   version on RAFT's pyramid (f32 and bf16) at the serving shape and a
+   ragged one, for calibrated, wild and hand-placed edge centres; times it,
+   the plain version and the reference CorrBlock's four ``F.grid_sample``
+   calls at the serving shape.
 6. Serving path: RAFT-12 (seeded random weights) serving 3 requests of 8
    frame pairs at 384x1280 through ``predict_flow``, at the calibrated
    (``scale_flow_head(0.05)``) and the wild (raw init) operating point;
    checks shapes, finiteness and that every forward launched the lookup
    kernel 12 times; compares the flow with the plain lookup; times pairs/s.
+6b. Serving path: RAFT-12 on its volume path (``corr_impl="volume"``),
+   the same 3 requests at both operating points; checks 12 launches of
+   ``corr_lookup_fwd`` and none of ``alt_corr_fwd`` per request, the flow
+   against the alt path on the same weights (also in f32) and against the
+   plain lookup; times pairs/s and reads the peak memory.
+6c. Feature taps: RAFT-12 with ``return_features=True`` serving one
+   request; checks the keys against ``get_feature_map_keys("RAFT")``, every
+   shape, finiteness, and that each ``idx_corr_vol_{i}`` is the kernel's
+   lookup output; times the request and reads the peak memory.
+6d. Serving path: ``RAFT_FlowNetCEncoder_WoContext`` (calibrated) serving 3
+   requests; checks 12 ``alt_corr_fwd`` launches per request and the flow
+   against the plain lookup; times pairs/s.
 7. Serving path: SPyNet (f32) and PWC-Net (mixed precision) serving 3
    requests of 8 pairs at 384x1280 each; checks 6 and 4 warp launches per
    request, the flow against the model with the plain warp (and PWC-Net in
@@ -63,9 +80,14 @@ ITERS = 12
 RADIUS, LEVELS = 4, 4
 TB, TH, TW = 4, 288, 960  # the train step's geometry (bench.py:281-321)
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
-KERNELS = ("alt_corr_fwd", "alt_corr_bwd", "warp_fwd")
+KERNELS = ("alt_corr_fwd", "alt_corr_bwd", "warp_fwd", "corr_lookup_fwd")
 TRAIN_KERNELS = ("alt_corr_fwd", "alt_corr_bwd")  # RAFT's train step
 F32_TOL = 1e-4           # abs, the JAX package's bar (test_ops_correlation.py:327)
+# corr_lookup_fwd vs its plain version, abs, f32 and bf16 pyramids alike:
+# both widen the same taps to f32 and blend them in the same order, one
+# rounding per product and sum, so they should agree bit for bit; the bar
+# is the JAX package's (test_ops_correlation.py:267-268)
+VOL_TOL = 1e-4
 BF16_REL_TOL = 1e-5      # x max|corr|: same bf16 inputs, both accumulate in f32
 # x max|grad|, f32 and bf16 alike: both sides sum the same products of the
 # same inputs in f32, in other orders (the kernel's df2 atomics land in an
@@ -468,6 +490,341 @@ def warp_phase(gen) -> dict:
     return res
 
 
+def corr_block_grid_sample(pyramid, coords):
+    """The reference CorrBlock's sampling (models/raft/corr.py:72-96) as one
+    ``F.grid_sample(align_corners=True, padding_mode="zeros")`` per level
+    over the (B*N, 1, Hl, Wl) level with a (B*N, 9, 9, 2) grid, for its
+    time: the grids (row s, column t sampling (x/2^l - r + s,
+    y/2^l - r + t), so the output is s-major) are built outside the
+    timing.  A bf16 level needs a bf16 grid, which rounds the
+    coordinates."""
+    F = torch.nn.functional
+    b, h, w, _ = coords.shape
+    bn, n = b * h * w, 2 * RADIUS + 1
+    d = torch.arange(-RADIUS, RADIUS + 1, device=coords.device,
+                     dtype=torch.float32)
+    calls = []
+    for lvl, p in enumerate(pyramid):
+        hl, wl = p.shape[2:]
+        c = coords.reshape(bn, 1, 1, 2) / 2 ** lvl
+        x = (c[..., 0] + d[:, None]).expand(bn, n, n)  # [q, s, t]
+        y = (c[..., 1] + d[None, :]).expand(bn, n, n)
+        grid = torch.stack([2 * x / max(wl - 1, 1) - 1,
+                            2 * y / max(hl - 1, 1) - 1], dim=-1).to(p.dtype)
+        vol = p.reshape(bn, 1, hl, wl)
+        calls.append((vol, grid))
+
+    def run():  # the four sample calls, each (B*N, 1, 9, 9)
+        return [F.grid_sample(v, g, mode="bilinear", padding_mode="zeros",
+                              align_corners=True) for v, g in calls]
+    return run
+
+
+def needed_taps(pyramid, coords) -> int:
+    """The volume taps this run's windows need: per query and level, the
+    (2r+2)^2 integer taps around the centre that lie inside the level
+    (windows that straddle or leave the level need fewer)."""
+    b, h, w, _ = coords.shape
+    c = coords.reshape(-1, 2).double()
+    total = 0
+    offs = torch.arange(-RADIUS, RADIUS + 2, device=coords.device)
+    for lvl, p in enumerate(pyramid):
+        hl, wl = p.shape[2:]
+        cx = (c[:, 0] / 2 ** lvl).clamp(-(RADIUS + 2.0), wl + RADIUS + 1.0)
+        cy = (c[:, 1] / 2 ** lvl).clamp(-(RADIUS + 2.0), hl + RADIUS + 1.0)
+        xs = cx.floor().long()[:, None] + offs
+        ys = cy.floor().long()[:, None] + offs
+        nx = ((xs >= 0) & (xs < wl)).sum(1)
+        ny = ((ys >= 0) & (ys < hl)).sum(1)
+        total += int((nx * ny).sum().item())
+    return total
+
+
+def volume_kernel_phase(gen) -> dict:
+    from understanding_flow_robustness_tpu_torch import ops
+
+    print("== corr_lookup_fwd vs plain, RAFT's volume pyramid ==", flush=True)
+    res = {}
+    n2 = (2 * RADIUS + 1) ** 2
+    for name, b, h, w, c, coords in lookup_cases(gen, (B, H // 8, W // 8, 256)):
+        fm1 = torch.randn((b, h, w, c), generator=gen, device="cuda")
+        fm2 = torch.randn((b, h, w, c), generator=gen, device="cuda")
+        coords = coords.contiguous()
+        for dtype in (torch.float32, torch.bfloat16):
+            pyr = ops.volume_pyramid(fm1, fm2, LEVELS,
+                                     None if dtype == torch.float32 else dtype)
+            got = ops.corr_lookup(pyr, coords)
+            ref = ops.corr_lookup_reference(pyr, coords)
+            torch.cuda.synchronize()
+            tag = f"{name}/{str(dtype).split('.')[-1]}"
+            check(tuple(got.shape) == (b, h, w, LEVELS * n2)
+                  and got.dtype == torch.float32
+                  and bool(torch.isfinite(got).all()),
+                  f"{tag}: kernel output malformed")
+            err = (got - ref).abs().max().item()
+            print(f"{tag:32s} max_abs_err={err:.3e} tol={VOL_TOL:.0e} "
+                  f"max|corr|={ref.abs().max().item():.3f}", flush=True)
+            check(err <= VOL_TOL, f"{tag}: kernel disagrees with plain version")
+            res[tag] = err
+            if name == "main/calibrated":
+                lib = corr_block_grid_sample(pyr, coords)
+                k_ms = cuda_ms(lambda: ops.corr_lookup(pyr, coords), reps=50)
+                p_ms = cuda_ms(lambda: ops.corr_lookup_reference(pyr, coords),
+                               reps=5, warmup=1)
+                l_ms = cuda_ms(lib, reps=20)
+                lib_out = torch.cat([o.reshape(b, h, w, -1) for o in lib()], -1)
+                lib_err = (lib_out.float() - got).abs().max().item()
+                del lib_out
+                taps = needed_taps(pyr, coords)
+                # per output: 4 products and 3 sums, in f32
+                res[f"{tag}/main"] = {
+                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                    "library_ms": l_ms, "taps": taps,
+                    **bound(taps * pyr[0].element_size()
+                            + nbytes(coords, got),
+                            7 * got.numel(), torch.float32)}
+                m = res[f"{tag}/main"]
+                print(f"{tag:32s} kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+                      f"grid_sample x{LEVELS} {l_ms:.4f} ms (vs kernel "
+                      f"{lib_err:.2e}), bound {m['bound_ms']:.4f} ms "
+                      f"({m['bound_by']}, {taps} taps of "
+                      f"{b * h * w * LEVELS * (2 * RADIUS + 2) ** 2})",
+                      flush=True)
+            del pyr, got, ref
+    return res
+
+
+def volume_model_phase(gen) -> dict:
+    """RAFT-12 on its volume path, serving the model phase's workload."""
+    from understanding_flow_robustness_tpu_torch.models import (
+        FlowModel,
+        fetch_model,
+        predict_flow,
+        scale_flow_head,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    print("== RAFT-12 volume path (corr_impl=\"volume\") ==", flush=True)
+    res = {}
+    wild = fetch_model("RAFT", device="cuda", seed=0, corr_impl="volume")
+    cal = FlowModel("RAFT", scale_flow_head(wild.module, 0.05), wild.device)
+    points = {"calibrated": cal, "wild": wild}
+    requests = [(torch.rand((B, H, W, 3), generator=gen, device="cuda"),
+                 torch.rand((B, H, W, 3), generator=gen, device="cuda"))
+                for _ in range(REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: count the kernels' launches while serving
+    flows = {}
+    LAUNCH_COUNTS.clear()
+    for point, model in points.items():
+        for i, (a, b) in enumerate(requests):
+            before = dict(LAUNCH_COUNTS)
+            flow = predict_flow(model, a, b)
+            torch.cuda.synchronize()
+            n = {k: LAUNCH_COUNTS[k] - before.get(k, 0)
+                 for k in ("corr_lookup_fwd", "alt_corr_fwd")}
+            check(tuple(flow.shape) == (B, H, W, 2)
+                  and bool(torch.isfinite(flow).all()),
+                  f"{point} request {i}: flow malformed")
+            check(n == {"corr_lookup_fwd": ITERS, "alt_corr_fwd": 0},
+                  f"{point} request {i}: launches {n}, not {ITERS} of "
+                  "corr_lookup_fwd and none of alt_corr_fwd")
+            flows[point, i] = flow
+    res["launches"] = LAUNCH_COUNTS["corr_lookup_fwd"]
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"corr_lookup_fwd launches while serving {len(points)}x{REQUESTS} "
+          f"requests: {res['launches']} ({ITERS} per request), alt_corr_fwd "
+          f"{LAUNCH_COUNTS['alt_corr_fwd']}; peak memory "
+          f"{res['peak_mem_gib']:.2f} GiB", flush=True)
+
+    # against the plain lookup and the alt path, same weights
+    a, b = requests[0]
+    for point, model in points.items():
+        model.module.plain_lookup = True
+        plain = predict_flow(model, a, b)
+        model.module.plain_lookup = False
+        model.module.corr_impl = "alt"
+        alt = predict_flow(model, a, b)
+        model.module.corr_impl = "volume"
+        for other, ref in (("plain", plain), ("alt", alt)):
+            mx, rel = flow_stats(flows[point, 0], ref)
+            res[f"bf16/{point}/vs_{other}_rel_epe"] = rel
+            print(f"bf16 {point}: volume path vs {other} max|dflow|={mx:.3e} "
+                  f"px, rel EPE={100 * rel:.4f}%", flush=True)
+    check(res["bf16/calibrated/vs_plain_rel_epe"] <= BF16_REL_EPE_TOL
+          and res["bf16/wild/vs_plain_rel_epe"] <= BF16_REL_EPE_TOL,
+          "bf16: volume kernel vs plain lookup beyond the 1% bar")
+    check(res["bf16/calibrated/vs_alt_rel_epe"] <= BF16_REL_EPE_TOL,
+          "bf16 calibrated: volume path vs alt path beyond the 1% bar")
+    m32 = fetch_model("RAFT_adv_kitti2012_ifgsm_l2_002", device="cuda", seed=0,
+                      corr_impl="volume")
+    m32 = FlowModel(m32.name, scale_flow_head(m32.module, 0.05), m32.device)
+    vol = predict_flow(m32, a, b)
+    m32.module.corr_impl = "alt"
+    alt = predict_flow(m32, a, b)
+    mx, rel = flow_stats(vol, alt)
+    res["f32/calibrated/vs_alt_max_abs_px"] = mx
+    print(f"f32 calibrated (TF32 off): volume path vs alt path "
+          f"max|dflow|={mx:.3e} px (tol {F32_FLOW_TOL_PX}), rel EPE="
+          f"{100 * rel:.6f}%", flush=True)
+    check(mx <= F32_FLOW_TOL_PX, "f32: volume path vs alt path beyond bound")
+    del m32, vol, alt
+
+    # steady-state throughput
+    for point, model in points.items():
+        for a, b in requests[:2]:
+            predict_flow(model, a, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        for _ in range(2):
+            for a, b in requests:
+                predict_flow(model, a, b)
+                n += 1
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        res[f"{point}/pairs_per_s"] = B * n / dt
+        print(f"volume {point}: {B * n / dt:.2f} pairs/s ({1e3 * dt / n:.1f} "
+              f"ms per request of {B} pairs, {n} requests)", flush=True)
+    return res
+
+
+def taps_phase(gen) -> dict:
+    """RAFT-12 with its feature taps, one request at full width."""
+    from understanding_flow_robustness_tpu_torch import ops
+    from understanding_flow_robustness_tpu_torch.models import (
+        fetch_model,
+        get_feature_map_keys,
+        raft_model,
+    )
+
+    print("== RAFT-12 feature taps (return_features=True) ==", flush=True)
+    model = fetch_model("RAFT", device="cuda", seed=0, return_features=True)
+    a = torch.rand((B, H, W, 3), generator=gen, device="cuda") * 255.0
+    b = torch.rand((B, H, W, 3), generator=gen, device="cuda") * 255.0
+    a, b = a.permute(0, 3, 1, 2), b.permute(0, 3, 1, 2)
+    lookups = []
+
+    def recording_lookup(*args):
+        lookups.append(ops.corr_lookup(*args))
+        return lookups[-1]
+
+    h8, w8, n = H // 8, W // 8, (H // 8) * (W // 8)
+    shapes = {"fmap1": (B, 256, h8, w8), "fmap2": (B, 256, h8, w8),
+              "net": (B, 128, h8, w8), "inp": (B, 128, h8, w8)}
+    shapes.update({f"corr_pyramid_{i}": (B, n, h8 >> i, w8 >> i)
+                   for i in range(LEVELS)})
+    for it in range(ITERS):
+        shapes.update({
+            f"idx_corr_vol_{it}": (B, LEVELS * (2 * RADIUS + 1) ** 2, h8, w8),
+            f"net_{it}": (B, 128, h8, w8), f"motion_features_{it}": (B, 128, h8, w8),
+            f"cor1_{it}": (B, 256, h8, w8), f"cor_{it}": (B, 192, h8, w8),
+            f"cor_flo_{it}": (B, 256, h8, w8), f"flow_pred_{it}": (B, 2, H, W)})
+    with torch.inference_mode():
+        model.module(a, b)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        raft_model.corr_lookup = recording_lookup
+        ops.LAUNCH_COUNTS.clear()
+        try:
+            t0 = time.perf_counter()
+            _, flow_up, feats = model.module(a, b)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            raft_model.corr_lookup = ops.corr_lookup
+    launches = ops.LAUNCH_COUNTS["corr_lookup_fwd"]
+    keys = get_feature_map_keys("RAFT")
+    check(list(feats) == keys, "taps: keys differ from get_feature_map_keys")
+    for k in keys:
+        check(tuple(feats[k].shape) == shapes[k],
+              f"taps: {k} is {tuple(feats[k].shape)}, not {shapes[k]}")
+        check(bool(torch.isfinite(feats[k]).all()), f"taps: {k} not finite")
+    check(launches == ITERS and len(lookups) == ITERS,
+          f"taps: corr_lookup_fwd launched {launches} times, not {ITERS}")
+    for it, out in enumerate(lookups):
+        check(torch.equal(feats[f"idx_corr_vol_{it}"], out.permute(0, 3, 1, 2)),
+              f"taps: idx_corr_vol_{it} is not the kernel's lookup output")
+    check(torch.equal(feats[f"flow_pred_{ITERS - 1}"], flow_up),
+          "taps: flow_pred of the last iteration is not flow_up")
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in feats.values()}
+    held = sum(storages.values()) / 2 ** 30
+    res = {"launches": launches, "ms": ms,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "taps_gib": held, "base_gib": base / 2 ** 30}
+    print(f"taps: {len(keys)} keys, shapes and finiteness as expected, "
+          f"idx_corr_vol_0..{ITERS - 1} equal to the kernel's output; "
+          f"{launches} corr_lookup_fwd launches; request {ms:.1f} ms; taps "
+          f"hold {held:.2f} GiB; peak memory {res['peak_mem_gib']:.2f} GiB "
+          f"(model and inputs {res['base_gib']:.2f} GiB)", flush=True)
+    return res
+
+
+def wocontext_phase(gen) -> dict:
+    """RAFT_FlowNetCEncoder_WoContext, calibrated, on its (alt) path."""
+    from understanding_flow_robustness_tpu_torch.models import (
+        FlowModel,
+        fetch_model,
+        predict_flow,
+        scale_flow_head,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    name = "RAFT_FlowNetCEncoder_WoContext"
+    print(f"== {name} serving, calibrated ==", flush=True)
+    m = fetch_model(name, device="cuda", seed=0)
+    model = FlowModel(name, scale_flow_head(m.module, 0.05), m.device)
+    requests = [(torch.rand((B, H, W, 3), generator=gen, device="cuda"),
+                 torch.rand((B, H, W, 3), generator=gen, device="cuda"))
+                for _ in range(REQUESTS)]
+    res = {}
+    flows = []
+    LAUNCH_COUNTS.clear()
+    for i, (a, b) in enumerate(requests):
+        before = dict(LAUNCH_COUNTS)
+        flow = predict_flow(model, a, b)
+        torch.cuda.synchronize()
+        n = {k: LAUNCH_COUNTS[k] - before.get(k, 0)
+             for k in ("alt_corr_fwd", "corr_lookup_fwd")}
+        check(tuple(flow.shape) == (B, H, W, 2)
+              and bool(torch.isfinite(flow).all()),
+              f"{name} request {i}: flow malformed")
+        check(n == {"alt_corr_fwd": ITERS, "corr_lookup_fwd": 0},
+              f"{name} request {i}: launches {n}, not {ITERS} of alt_corr_fwd")
+        flows.append(flow)
+    res["launches"] = LAUNCH_COUNTS["alt_corr_fwd"]
+    res["mean_flow_px"] = torch.stack(
+        [torch.linalg.vector_norm(f, dim=-1).mean() for f in flows]).mean().item()
+    a, b = requests[0]
+    model.module.plain_lookup = True
+    plain = predict_flow(model, a, b)
+    model.module.plain_lookup = False
+    mx, rel = flow_stats(flows[0], plain)
+    res["rel_epe_vs_plain"] = rel
+    print(f"alt_corr_fwd launches while serving {REQUESTS} requests: "
+          f"{res['launches']} ({ITERS} per request); mean |flow| "
+          f"{res['mean_flow_px']:.3f} px; kernel vs plain lookup "
+          f"max|dflow|={mx:.3e} px, rel EPE={100 * rel:.4f}%", flush=True)
+    check(rel <= BF16_REL_EPE_TOL, f"{name}: kernel vs plain lookup beyond "
+                                   "the 1% bar")
+    for a, b in requests[:2]:
+        predict_flow(model, a, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a, b in requests * 2:
+        predict_flow(model, a, b)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    res["pairs_per_s"] = B * 2 * REQUESTS / dt
+    print(f"{name}: {res['pairs_per_s']:.2f} pairs/s ({1e3 * dt / (2 * REQUESTS):.1f}"
+          f" ms per request of {B} pairs)", flush=True)
+    return res
+
+
 def warp_model_phase(gen, name: str, warps: int) -> dict:
     """``name`` serving REQUESTS requests of B pairs at HxW through
     ``predict_flow``, each warp through the kernel; then the same model
@@ -721,7 +1078,11 @@ def main() -> None:
     kres = phase(kernel_phase, gen)
     bres = phase(backward_phase, gen)
     wres = phase(warp_phase, gen)
+    vkres = phase(volume_kernel_phase, gen)
     mres = phase(model_phase, gen)
+    vres = phase(volume_model_phase, gen)
+    fres = phase(taps_phase, gen)
+    cres = phase(wocontext_phase, gen)
     sres = phase(warp_model_phase, gen, "SpyNet", 6)
     pres = phase(warp_model_phase, gen, "PWCNet", 4)
     tres = phase(train_phase, gen)
@@ -733,12 +1094,14 @@ def main() -> None:
     print(card)  # name, power limit: nvidia-smi's own line
     fwd = "main/calibrated/bfloat16"
     warp = wres["spynet/main"]
+    vol = vkres["main/calibrated/bfloat16/main"]
     print(json.dumps({"kernels": [{
         "name": "alt_corr_fwd",
         "route": "cuda",
         "source": "understanding_flow_robustness_tpu_torch/csrc/alt_corr_fwd.cu",
         "replaces": "understanding_flow_robustness_tpu/ops/pallas/alt_corr.py:91",
-        "launches": mres["launches"] + tres["launches/alt_corr_fwd"],
+        "launches": (mres["launches"] + cres["launches"]
+                     + tres["launches/alt_corr_fwd"]),
         "max_abs_err": kres[fwd],
         "ms": kres[f"{fwd}/ms"],
         "plain_ms": kres[f"{fwd}/plain_ms"],
@@ -768,6 +1131,19 @@ def main() -> None:
         "bound_by": warp["bound_by"],
         "library_ms": warp["library_ms"],
         "grid_sample_ms": warp["library_ms"],
+    }, {
+        "name": "corr_lookup_fwd",
+        "route": "cuda",
+        "source": "understanding_flow_robustness_tpu_torch/csrc/corr_lookup_fwd.cu",
+        "replaces": "understanding_flow_robustness_tpu/ops/pallas/corr_lookup_fused.py:59",
+        "launches": vres["launches"] + fres["launches"],
+        "max_abs_err": vol["max_abs_err"],
+        "ms": vol["ms"],
+        "plain_ms": vol["plain_ms"],
+        "bound_ms": vol["bound_ms"],
+        "bound_by": vol["bound_by"],
+        "library_ms": vol["library_ms"],
+        "grid_sample_ms": vol["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

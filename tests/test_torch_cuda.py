@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: ``csrc/alt_corr_fwd.cu``,
-``csrc/alt_corr_bwd.cu`` and ``csrc/warp_fwd.cu`` against their plain
-PyTorch versions, their wrappers' checks and launch counts, RAFT driving the
-lookup kernels in inference and a short train step, SpyNet and PWC-Net
+``csrc/alt_corr_bwd.cu``, ``csrc/warp_fwd.cu`` and ``csrc/corr_lookup_fwd.cu``
+against their plain PyTorch versions, their wrappers' checks and launch
+counts, RAFT driving the lookup kernels in inference (both paths, with and
+without the feature taps) and a short train step, SpyNet and PWC-Net
 driving the warp kernel.
 
 Every test here needs a CUDA device and skips without one.  This file
@@ -275,3 +276,110 @@ def test_models_launch_warp_per_level_and_match_plain(cuda, name, warps, kw):
         assert (epe / torch.linalg.vector_norm(plain, dim=-1).mean()) < 1e-2
     else:
         assert (flow - plain).abs().max().item() <= 1e-3
+
+
+def _volume_case(b, h, w, c, dtype, spread, seed=0):
+    """A contiguous (B, N, Hl, Wl) pyramid in ``dtype`` and (B, h, w, 2)
+    coords with out-of-volume, +-1e30 and edge centres."""
+    g = torch.Generator().manual_seed(seed)
+    fm1 = torch.randn((b, h, w, c), generator=g)
+    fm2 = torch.randn((b, h, w, c), generator=g)
+    coords = ops.coords_grid(h, w)[None] + spread * torch.randn((b, h, w, 2), generator=g)
+    coords[0, 0, :7] = torch.tensor([[-50.0, -50.0], [500.0, 500.0], [1e30, 3.0],
+                                     [3.0, -1e30], [-1e30, 1e30], [-3.5, -3.5],
+                                     [w - 0.25, h - 0.25]])
+    pyr = ops.volume_pyramid(fm1.cuda(), fm2.cuda(), 4, dtype)
+    return pyr, coords.cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,spread", [
+    ((2, 13, 21, 64), 3.0),     # ragged: pooled levels drop rows/columns
+    ((1, 24, 40, 256), 40.0),   # RAFT width, wild centres
+    ((2, 16, 16, 32), 2.0),     # calibrated centres
+])
+def test_volume_lookup_kernel_matches_plain(cuda, dtype, shape, spread):
+    """The kernel blends the plain version's products in its order, one
+    rounding each, so the two agree bit for bit; the stated bar is the JAX
+    package's 1e-4."""
+    pyr, coords = _volume_case(*shape, dtype, spread)
+    before = ops.LAUNCH_COUNTS["corr_lookup_fwd"]
+    got = ops.corr_lookup(pyr, coords)
+    ref = ops.corr_lookup_reference(pyr, coords)
+    torch.cuda.synchronize()
+    assert ops.LAUNCH_COUNTS["corr_lookup_fwd"] == before + 1
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert (got - ref).abs().max().item() <= F32_TOL
+    assert got[0, 0, :5].abs().max().item() == 0  # windows wholly outside
+
+
+def test_volume_lookup_wrapper_rejects_bad_input_and_takes_gradients(cuda):
+    pyr, coords = _volume_case(1, 8, 8, 32, torch.float32, 1.0)
+    levels = [p.reshape(64, *p.shape[2:]) for p in pyr]
+    c = coords.reshape(64, 2)
+    before = ops.LAUNCH_COUNTS["corr_lookup_fwd"]
+    with pytest.raises(ValueError):
+        ops.corr_lookup_fwd(levels, c, 3)  # only RAFT's radius 4 is built
+    with pytest.raises(ValueError):
+        ops.corr_lookup_fwd([lv.transpose(1, 2) for lv in levels], c)
+    with pytest.raises(ValueError):
+        ops.corr_lookup_fwd(levels, c.double())
+    with pytest.raises(ValueError):
+        ops.corr_lookup_fwd(levels[:1] + [lv.bfloat16() for lv in levels[1:]], c)
+    with pytest.raises(ValueError):
+        ops.corr_lookup_fwd(levels, c.cpu())
+    assert ops.LAUNCH_COUNTS["corr_lookup_fwd"] == before
+    # with autograd: the kernel forward, the plain version's backward
+    p = [lv.clone().requires_grad_() for lv in pyr]
+    cg = coords.clone().requires_grad_()
+    ops.corr_lookup(p, cg).square().sum().backward()
+    assert ops.LAUNCH_COUNTS["corr_lookup_fwd"] == before + 1
+    q = [lv.clone().requires_grad_() for lv in pyr]
+    cq = coords.clone().requires_grad_()
+    ops.corr_lookup_reference(q, cq).square().sum().backward()
+    for a, b in zip([cg, *p], [cq, *q]):
+        torch.testing.assert_close(a.grad, b.grad)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_raft_volume_path_launches_lookup_per_iteration(cuda, mixed, monkeypatch):
+    """``corr_impl="volume"``: one ``corr_lookup_fwd`` launch per iteration
+    and none of ``alt_corr_fwd``; the flow matches the alt path's and the
+    plain lookup's (f32: summation order only; mixed: the 1 % bar, the
+    two paths round to bf16 at other places); with the taps on, every
+    ``idx_corr_vol_{i}`` is the kernel's lookup output."""
+    from understanding_flow_robustness_tpu_torch.models import raft_model
+
+    torch.manual_seed(0)
+    model = RAFT(iters=3, mixed_precision=mixed, corr_impl="volume").eval().to(cuda)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = 255 * torch.rand((2, 3, 64, 96), generator=g, device="cuda")
+    b = 255 * torch.rand((2, 3, 64, 96), generator=g, device="cuda")
+    before = dict(ops.LAUNCH_COUNTS)
+    with torch.inference_mode():
+        _, up = model(a, b)
+        n = {k: ops.LAUNCH_COUNTS[k] - before.get(k, 0)
+             for k in ("corr_lookup_fwd", "alt_corr_fwd")}
+        model.plain_lookup = True
+        _, up_plain = model(a, b)
+        model.plain_lookup = False
+        model.corr_impl = "alt"
+        _, up_alt = model(a, b)
+        model.corr_impl = "volume"
+        model.return_features = True
+        outs = []
+        monkeypatch.setattr(raft_model, "corr_lookup", lambda *args: outs.append(
+            ops.corr_lookup(*args)) or outs[-1])
+        _, up_taps, feats = model(a, b)
+    assert n == {"corr_lookup_fwd": 3, "alt_corr_fwd": 0}
+    assert up.shape == (2, 2, 64, 96) and bool(torch.isfinite(up).all())
+    torch.testing.assert_close(up_taps, up, rtol=0, atol=0)
+    for other in (up_plain, up_alt):
+        epe = torch.linalg.vector_norm(up - other, dim=1).mean()
+        rel = (epe / torch.linalg.vector_norm(other, dim=1).mean()).item()
+        assert rel < (1e-2 if mixed else 1e-4)
+    assert len(outs) == 3
+    for it, out in enumerate(outs):
+        assert feats[f"idx_corr_vol_{it}"].data_ptr() == out.data_ptr()
+        torch.testing.assert_close(feats[f"idx_corr_vol_{it}"],
+                                   out.permute(0, 3, 1, 2), rtol=0, atol=0)

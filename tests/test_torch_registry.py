@@ -14,6 +14,7 @@ import torch
 from understanding_flow_robustness_tpu.models.raft_model import RAFT as JRAFT
 from understanding_flow_robustness_tpu_torch.models import (
     fetch_model,
+    get_feature_map_keys,
     load_reference_state_dict,
     predict_flow,
 )
@@ -37,10 +38,45 @@ def test_fetch_model_ids_and_precision():
 
 @pytest.mark.parametrize("name,item", [
     ("FlowNetC", "A7"), ("FlowNetS", "A7"), ("FlowNetCFlexLarger_k5_reps0", "A7"),
-    ("FlowNet2", "A9"), ("RAFT_FlowNetCEncoder_WoContext", "A10")])
+    ("FlowNet2", "A9")])
 def test_unported_ids_name_their_roadmap_item(name, item):
     with pytest.raises(KeyError, match=f"ROADMAP {item}"):
         fetch_model(name, device="cpu")
+
+
+def test_fetch_model_builds_wocontext():
+    """``RAFT_FlowNetCEncoder_WoContext`` (registry.py:111-118): mixed
+    precision, a FlowNetCEncoder fnet, no cnet but ``conv_redir``; it
+    serves on the CPU when asked, and takes the RAFT options."""
+    model = fetch_model("RAFT_FlowNetCEncoder_WoContext", iters=2, device="cpu")
+    m = model.module
+    assert m.mixed_precision and model.is_raft and model.size_multiple == 8
+    assert not hasattr(m, "cnet") and m.conv_redir.kernel_size == (1, 1)
+    assert "fnet.conv3.0.weight" in m.state_dict()
+    a, b = _images(1)
+    flow = predict_flow(model, a, b)
+    assert tuple(flow.shape) == (1, 64, 96, 2) and bool(torch.isfinite(flow).all())
+    vol = fetch_model("RAFT_FlowNetCEncoder_WoContext", iters=1, device="cpu",
+                      corr_impl="volume", return_features=True)
+    assert vol.module.corr_impl == "volume" and vol.module.return_features
+    with pytest.raises(ValueError, match="corr_impl"):
+        fetch_model("RAFT", device="cpu", corr_impl="sparse")
+
+
+@pytest.mark.parametrize("name,item", [
+    ("FlowNetC", "A7"), ("FlowNetCFlexLarger_k3_reps3", "A7"),
+    ("PWCNet", "A9")])
+def test_feature_map_keys_of_unported_taps_name_their_roadmap_item(name, item):
+    """RAFT's taps are ported; the FlowNetC family's and PWC-Net's raise
+    with their ROADMAP item; SpyNet exposes none, as in the JAX package;
+    an unknown ID raises."""
+    assert get_feature_map_keys("RAFT_FlowNetCEncoder_WoContext") == \
+        get_feature_map_keys("RAFT")
+    assert get_feature_map_keys("SpyNet") == []
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        get_feature_map_keys(name)
+    with pytest.raises(KeyError):
+        get_feature_map_keys("RAFT_small")
 
 
 def test_fetch_model_defaults_to_the_card():

@@ -385,7 +385,8 @@ def test_train_cli_synthetic(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["--adversarial"], "A8"), (["--model", "FlowNetC"], "A7"),
-    (["--pwc"], "A9"), (["--model", "SpyNet"], "A9"), ([], "A11")])
+    (["--pwc"], "A9"), (["--model", "SpyNet"], "A9"),
+    (["--model", "RAFT_FlowNetCEncoder_WoContext"], "A10"), ([], "A11")])
 def test_train_cli_refuses_unported_paths(tmp_path, argv, item):
     if item != "A11":
         argv = argv + ["--synthetic", "1"]

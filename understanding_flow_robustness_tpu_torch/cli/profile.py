@@ -2,6 +2,8 @@
 
     python -m understanding_flow_robustness_tpu_torch.cli.profile \\
         --model SpyNet --batch 8 --size 384 1280
+    python -m understanding_flow_robustness_tpu_torch.cli.profile \\
+        --model RAFT --corr_impl volume
 
 Serves random [0, 1] frame pairs through ``predict_flow`` of
 ``fetch_model(--model, seed=--seed)`` on one CUDA device, traces --reps
@@ -9,9 +11,10 @@ forwards after two warm-up forwards with ``torch.profiler``, and prints the
 card's name and power limit, the wall time per forward, the device-busy
 time and idle share, device time per forward by kernel class (the port's
 CUDA kernels, convolutions, norms, reductions, the rest) and the top
-kernels.  Only device events count: the host-side ops that launched them
-carry the same time again.  TF32 stays off, as in chip_smoke.py.  Needs a
-CUDA device; fails without one.
+kernels.  ``--corr_impl`` picks a RAFT model's lookup path.  Only device
+events count: the host-side ops that launched them carry the same time
+again.  TF32 stays off, as in chip_smoke.py.  Needs a CUDA device; fails
+without one.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 CLASSES = (
     ("warp_fwd (B4 kernel)", re.compile(r"warp_fwd")),
     ("alt_corr_fwd/bwd (B1/B2 kernels)", re.compile(r"alt_corr")),
+    ("corr_lookup_fwd (B5 kernel)", re.compile(r"corr_lookup")),
     ("convolution", re.compile(
         r"conv|xmma|cudnn|implicit|gemm|sm90|cutlass|winograd|fft", re.I)),
     ("norm", re.compile(r"norm|welford|bn_", re.I)),
@@ -46,6 +50,8 @@ def build_parser():
     p.add_argument("--size", type=int, nargs=2, default=[384, 1280])
     p.add_argument("--reps", type=int, default=2)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--corr_impl", choices=("auto", "alt", "volume"),
+                   help="a RAFT model's lookup path (default: the model's)")
     return p
 
 
@@ -65,12 +71,14 @@ def main(argv=None) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
-    model = fetch_model(args.model, device="cuda", seed=args.seed)
+    kw = {} if args.corr_impl is None else {"corr_impl": args.corr_impl}
+    model = fetch_model(args.model, device="cuda", seed=args.seed, **kw)
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     h, w = args.size
     a = torch.rand((args.batch, h, w, 3), generator=g, device="cuda")
     b = torch.rand((args.batch, h, w, 3), generator=g, device="cuda")
-    print(f"== {args.model}, batch {args.batch}, {h}x{w} ==")
+    print(f"== {args.model}{'' if not kw else ', corr_impl=' + args.corr_impl}"
+          f", batch {args.batch}, {h}x{w} ==")
     for _ in range(2):
         predict_flow(model, a, b)
     torch.cuda.synchronize()

@@ -24,9 +24,11 @@ from ..training import TrainConfig, train
 from ..training.checkpoint import load_weights
 
 # model IDs the port cannot train yet, by the ROADMAP item that ports them:
-# the unbuilt ones, and SpyNet and PWC-Net, which serve but do not train
+# the unbuilt ones, and SpyNet, PWC-Net and RAFT's FlowNetC-encoder variant,
+# which serve but do not train
 _NOT_TRAINED = {**NOT_PORTED, "SpyNet": "A9", "PWCNet": "A9",
-                "PWCNet_adv_ifgsm_l2_002": "A9"}
+                "PWCNet_adv_ifgsm_l2_002": "A9",
+                "RAFT_FlowNetCEncoder_WoContext": "A10"}
 # flags of the JAX CLI that belong to paths not ported yet
 _OTHER_FAMILIES = {
     "adversarial": "A8", "arbitrary_gt": "A8", "flowNetC": "A7", "pwc": "A9",

@@ -1,4 +1,5 @@
-"""Ported model families (RAFT, SPyNet, PWC-Net), NCHW ``nn.Module``s."""
+"""Ported model families (RAFT and its FlowNetC-encoder variant, SPyNet,
+PWC-Net), NCHW ``nn.Module``s."""
 
 from .convert import (
     load_reference_state_dict,
@@ -9,7 +10,13 @@ from .convert import (
 )
 from .pwcnet import PWCNet
 from .raft_model import RAFT, scale_flow_head, upsample_flow_convex
-from .registry import NOT_PORTED, FlowModel, fetch_model, predict_flow
+from .registry import (
+    NOT_PORTED,
+    FlowModel,
+    fetch_model,
+    get_feature_map_keys,
+    predict_flow,
+)
 from .spynet import SpyNet
 
 __all__ = [
@@ -19,6 +26,7 @@ __all__ = [
     "RAFT",
     "SpyNet",
     "fetch_model",
+    "get_feature_map_keys",
     "load_reference_state_dict",
     "load_spynet_dir",
     "predict_flow",

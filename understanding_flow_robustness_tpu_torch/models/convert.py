@@ -67,7 +67,13 @@ def raft_state_dict_from_jax(variables) -> dict:
     weight/bias/running_mean/running_var; ``layerX_Y`` to ``layerX.Y``,
     ``mask_0``/``mask_2`` to ``mask.0``/``mask.2``, the residual
     ``downsample`` conv to ``downsample.0`` and its ``norm3`` to both
-    ``norm3`` and ``downsample.1`` (convert.py:309-313, 328)."""
+    ``norm3`` and ``downsample.1`` (convert.py:309-313, 328).  A
+    FlowNetCEncoder (an encoder with a ``conv3``) maps ``conv{i}`` to its
+    Sequential's ``conv{i}.0`` (convert.py:314-317); the WoContext variant's
+    top-level ``conv_redir`` keeps its name."""
+    params = variables["params"]
+    flownetc = {net for net in ("fnet", "cnet")
+                if "conv3" in params.get(net, {})}
     sd = {}
     for path, val in _flatten(variables).items():
         coll, *names, leaf = path
@@ -80,6 +86,8 @@ def raft_state_dict_from_jax(variables) -> dict:
         mod = re.sub(r"layer(\d)_(\d)", r"layer\1.\2", mod)
         mod = re.sub(r"mask_(\d)", r"mask.\1", mod)
         mod = re.sub(r"downsample$", "downsample.0", mod)
+        if names[0] in flownetc:
+            mod += ".0"
         attr = _LEAF[(coll, leaf)]
         sd[f"{mod}.{attr}"] = torch.from_numpy(arr)
         if mod.endswith(".norm3"):

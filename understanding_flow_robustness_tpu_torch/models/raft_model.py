@@ -1,4 +1,5 @@
-"""RAFT, standard configuration, inference and training (counterpart of
+"""RAFT: the standard configuration, inference and training, and the
+FlowNetC-encoder variants, inference (counterpart of
 ``understanding_flow_robustness_tpu/models/raft_model.py``).
 
 Modules are NCHW and carry the original PyTorch repository's parameter
@@ -26,10 +27,13 @@ from ..ops.correlation import (
     alt_corr_kernel_inputs,
     alt_corr_lookup,
     alt_corr_lookup_reference,
+    corr_lookup,
+    corr_lookup_reference,
     prepare_alt_corr,
+    volume_pyramid,
 )
 from ..ops.interp import coords_grid
-from .layers import conv, norm
+from .layers import conv, leaky_relu, norm
 
 
 class ResidualBlock(nn.Module):
@@ -84,6 +88,22 @@ class BasicEncoder(nn.Module):
         return self.conv2(x)
 
 
+class FlowNetCEncoder(nn.Module):
+    """models/raft/extractor.py:292-391 with norm_fn='none', its setting in
+    every factory use: conv7/2, conv5/2, conv5/2 with biases, each followed
+    by LeakyReLU(0.1).  ``conv{i}`` is the reference's Sequential(conv,
+    LeakyReLU), so its weights are ``conv{i}.0.*``.  Output stride 8."""
+
+    def __init__(self, output_dim: int = 256):
+        super().__init__()
+        self.conv1 = nn.Sequential(conv(3, 64, 7, 2), leaky_relu())
+        self.conv2 = nn.Sequential(conv(64, 128, 5, 2), leaky_relu())
+        self.conv3 = nn.Sequential(conv(128, output_dim, 5, 2), leaky_relu())
+
+    def forward(self, x):
+        return self.conv3(self.conv2(self.conv1(x)))
+
+
 class FlowHead(nn.Module):
     """models/raft/update.py:6-14."""
 
@@ -124,7 +144,10 @@ class SepConvGRU(nn.Module):
 
 
 class BasicMotionEncoder(nn.Module):
-    """models/raft/update.py:96-121 (the compact-corr path)."""
+    """models/raft/update.py:96-121 (the compact-corr path).  Returns the
+    motion features and the feature taps ``cor1``, ``cor`` and ``cor_flo``
+    (raft_model.py:389-398): intermediates the forward computes anyway, so
+    the taps build no tensor."""
 
     def __init__(self, cor_planes: int):
         super().__init__()
@@ -135,17 +158,19 @@ class BasicMotionEncoder(nn.Module):
         self.conv = conv(64 + 192, 128 - 2, 3)
 
     def forward(self, flow, corr):
-        cor = F.relu(self.convc1(corr))
-        cor = F.relu(self.convc2(cor))
+        cor1 = F.relu(self.convc1(corr))
+        cor = F.relu(self.convc2(cor1))
         flo = F.relu(self.convf1(flow))
         flo = F.relu(self.convf2(flo))
-        out = F.relu(self.conv(torch.cat([cor, flo], dim=1)))
-        return torch.cat([out, flow], dim=1)
+        cor_flo = torch.cat([cor, flo], dim=1)
+        out = F.relu(self.conv(cor_flo))
+        return torch.cat([out, flow], dim=1), cor1, cor, cor_flo
 
 
 class BasicUpdateBlock(nn.Module):
     """models/raft/update.py:139-162: motion encoder, SepConvGRU, FlowHead
-    and the 64*9-channel convex-upsample mask head (x0.25)."""
+    and the 64*9-channel convex-upsample mask head (x0.25).  Also returns
+    the taps (motion_features, cor1, cor, cor_flo) (raft_model.py:449-450)."""
 
     def __init__(self, cor_planes: int, hidden_dim: int = 128):
         super().__init__()
@@ -156,11 +181,11 @@ class BasicUpdateBlock(nn.Module):
             conv(128, 256, 3), nn.ReLU(inplace=True), conv(256, 64 * 9, 1))
 
     def forward(self, net, inp, corr, flow):
-        motion_features = self.encoder(flow, corr)
+        motion_features, cor1, cor, cor_flo = self.encoder(flow, corr)
         net = self.gru(net, torch.cat([inp, motion_features], dim=1))
         delta_flow = self.flow_head(net)
         mask = 0.25 * self.mask(net)
-        return net, mask, delta_flow
+        return net, mask, delta_flow, (motion_features, cor1, cor, cor_flo)
 
 
 def upsample_flow_convex(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -188,14 +213,32 @@ def scale_flow_head(model: "RAFT", scale: float) -> "RAFT":
 
 
 class RAFT(nn.Module):
-    """models/raft/raft.py:25-233, standard configuration (fnorm=instance,
-    cnorm=batch).
+    """models/raft/raft.py:25-233: the standard configuration (fnorm=instance,
+    cnorm=batch) and the FlowNetC-encoder variants.
 
     ``forward`` takes (B, 3, H, W) images in [0, 255], H and W multiples of
     8.  ``self.training`` selects the batch-norm mode, as ``train=`` does in
     the JAX package.  With ``test_mode=True`` it returns (flow_low (B, 2,
     H/8, W/8), flow_up (B, 2, H, W)); with ``test_mode=False`` the list of
     ``iters`` upsampled flows, one per iteration, for the sequence loss.
+
+    Options with the JAX package's names (raft_model.py:712-758):
+
+    - ``corr_impl``: "alt" looks windows up straight from the feature maps
+      (kernel ``alt_corr_fwd``); "volume" builds the all-pairs volume and
+      its pyramid once per forward and looks windows up in it (kernel
+      ``corr_lookup_fwd``, the reference's CorrBlock).  "auto" is "alt" on
+      every device, its meaning on the TPU; the two are value-equal.
+    - ``return_features``: ``forward`` returns (flow_low, flow_up, feats)
+      in test mode, ``feats`` holding the keys of
+      ``registry.get_feature_map_keys("RAFT")`` in the model's NCHW
+      (``corr_pyramid_{i}`` as (B, N, Hl, Wl), ``idx_corr_vol_{i}`` as
+      (B, L*(2r+1)^2, H/8, W/8)).  Taps need the pyramid, so they take the
+      volume path whatever ``corr_impl`` says (raft_model.py:843-850).
+    - ``flownetc_encoder``: ``FlowNetCEncoder`` as fnet (and as cnet unless
+      ``no_separate_context``).
+    - ``no_separate_context``: no cnet; the context is ``conv_redir``, a
+      1x1 conv on fmap1 (raft_model.py:880-882).
 
     ``plain_lookup`` runs the lookup's plain PyTorch version on every
     device instead of the CUDA kernels, and autograd differentiates it
@@ -207,19 +250,81 @@ class RAFT(nn.Module):
     corr_radius = 4
 
     def __init__(self, iters: int = 12, mixed_precision: bool = False,
-                 plain_lookup: bool = False):
+                 plain_lookup: bool = False, corr_impl: str = "auto",
+                 return_features: bool = False,
+                 flownetc_encoder: bool = False,
+                 no_separate_context: bool = False):
         super().__init__()
+        if corr_impl not in ("auto", "alt", "volume"):
+            raise ValueError(f"corr_impl must be 'auto', 'alt' or 'volume', "
+                             f"got {corr_impl!r}")
         self.iters = iters
         self.mixed_precision = mixed_precision
         self.plain_lookup = plain_lookup
-        self.fnet = BasicEncoder(256, "instance")
-        self.cnet = BasicEncoder(self.hidden_dim + self.context_dim, "batch")
+        self.corr_impl = corr_impl
+        self.return_features = return_features
+        self.no_separate_context = no_separate_context
+        cdim = self.hidden_dim + self.context_dim
+        if flownetc_encoder:
+            self.fnet = FlowNetCEncoder(256)
+        else:
+            self.fnet = BasicEncoder(256, "instance")
+        if no_separate_context:
+            self.conv_redir = conv(256, cdim, 1)
+        elif flownetc_encoder:
+            self.cnet = FlowNetCEncoder(cdim)
+        else:
+            self.cnet = BasicEncoder(cdim, "batch")
         self.update_block = BasicUpdateBlock(
             self.corr_levels * (2 * self.corr_radius + 1) ** 2, self.hidden_dim)
 
     def _autocast(self, device: torch.device):
         return torch.autocast(device.type, dtype=torch.bfloat16,
                               enabled=self.mixed_precision)
+
+    def _make_lookup(self, fmap1, fmap2, feats):
+        """Once per forward: the lookup of every iteration, (B, H8, W8, 2)
+        level-0 coords -> (B, H8, W8, L*(2r+1)^2) f32, on the alt or the
+        volume path; the pyramid goes into ``feats`` when taps are on."""
+        B, _, H8, W8 = fmap1.shape
+        r = self.corr_radius
+        # channels-last once per forward; the lookups read C-contiguous rows
+        f1n, f2n = fmap1.permute(0, 2, 3, 1), fmap2.permute(0, 2, 3, 1)
+        if feats is None and self.corr_impl != "volume":
+            # f1 and the levels stay f32 (the gradient's precision); the
+            # kernels read bf16 copies made here, once, under mixed precision
+            f1, levels = prepare_alt_corr(f1n, f2n, self.corr_levels)
+            kernel_inputs = None
+            if self.mixed_precision:
+                kernel_inputs = alt_corr_kernel_inputs(f1, levels,
+                                                       torch.bfloat16)
+                if self.plain_lookup:
+                    # the kernels' bf16 values, held in f32 with an identity
+                    # gradient: the plain lookup's gradient then stays f32,
+                    # as the kernels' does, instead of being rounded to bf16
+                    # and summed over the iterations in bf16 at a cast
+                    f1 = f1 + (kernel_inputs[0].float() - f1).detach()
+                    levels = tuple(lvl + (k.float() - lvl).detach()
+                                   for lvl, k in zip(levels, kernel_inputs[1]))
+
+            def lookup(coords):
+                c = coords.reshape(B, H8 * W8, 2)
+                if self.plain_lookup:
+                    out = alt_corr_lookup_reference(f1, levels, c, r)
+                else:
+                    out = alt_corr_lookup(f1, levels, c, r, kernel_inputs)
+                return out.reshape(B, H8, W8, -1)
+            return lookup
+
+        # the volume is cast once, before the pyramid, under mixed precision
+        pyramid = volume_pyramid(
+            f1n, f2n, self.corr_levels,
+            torch.bfloat16 if self.mixed_precision else None)
+        if feats is not None:
+            feats.update({f"corr_pyramid_{i}": lvl
+                          for i, lvl in enumerate(pyramid)})
+        fn = corr_lookup_reference if self.plain_lookup else corr_lookup
+        return lambda coords: fn(pyramid, coords, r)
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
                 flow_init: torch.Tensor = None, test_mode: bool = True):
@@ -230,29 +335,20 @@ class RAFT(nn.Module):
         with self._autocast(x1.device):
             fmaps = self.fnet(torch.cat([x1, x2], dim=0))
         fmap1, fmap2 = fmaps.float().split(B, dim=0)
-        # channels-last once per forward; the lookup reads C-contiguous rows.
-        # f1 and the levels stay f32 (the gradient's precision); the
-        # kernels read bf16 copies made here, once, under mixed precision
-        f1, levels = prepare_alt_corr(
-            fmap1.permute(0, 2, 3, 1), fmap2.permute(0, 2, 3, 1),
-            self.corr_levels)
-        kernel_inputs = None
-        if self.mixed_precision:
-            kernel_inputs = alt_corr_kernel_inputs(f1, levels, torch.bfloat16)
-            if self.plain_lookup:
-                # the kernels' bf16 values, held in f32 with an identity
-                # gradient: the plain lookup's gradient then stays f32, as
-                # the kernels' does, instead of being rounded to bf16 and
-                # summed over the iterations in bf16 at a cast
-                f1 = f1 + (kernel_inputs[0].float() - f1).detach()
-                levels = tuple(lvl + (k.float() - lvl).detach()
-                               for lvl, k in zip(levels, kernel_inputs[1]))
+        feats = ({"fmap1": fmap1, "fmap2": fmap2} if self.return_features
+                 else None)
+        lookup = self._make_lookup(fmap1, fmap2, feats)
 
         with self._autocast(x1.device):
-            cnet = self.cnet(x1)
+            if self.no_separate_context:
+                cnet = self.conv_redir(fmap1)
+            else:
+                cnet = self.cnet(x1)
         net, inp = cnet.float().split([self.hidden_dim, self.context_dim], dim=1)
         net = torch.tanh(net)
         inp = torch.relu(inp)
+        if feats is not None:
+            feats.update(net=net, inp=inp)
 
         H8, W8 = fmap1.shape[2], fmap1.shape[3]
         coords0 = coords_grid(H8, W8, device=x1.device).permute(2, 0, 1)
@@ -261,24 +357,29 @@ class RAFT(nn.Module):
         if flow_init is not None:
             coords1 = coords1 + flow_init
         flow_predictions = []
-        for _ in range(self.iters):
+        for it in range(self.iters):
             coords1 = coords1.detach()
-            c = coords1.permute(0, 2, 3, 1).reshape(B, H8 * W8, 2)
-            if self.plain_lookup:
-                corr = alt_corr_lookup_reference(f1, levels, c, self.corr_radius)
-            else:
-                corr = alt_corr_lookup(f1, levels, c, self.corr_radius,
-                                       kernel_inputs)
-            corr = corr.reshape(B, H8, W8, -1).permute(0, 3, 1, 2)
+            corr = lookup(coords1.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
             flow = coords1 - coords0
             with self._autocast(x1.device):
-                net, up_mask, delta_flow = self.update_block(net, inp, corr, flow)
+                net, up_mask, delta_flow, taps = self.update_block(
+                    net, inp, corr, flow)
             coords1 = coords1 + delta_flow.float()
+            if not test_mode or feats is not None:
+                flow_up = upsample_flow_convex(coords1 - coords0, up_mask)
             if not test_mode:
-                flow_predictions.append(
-                    upsample_flow_convex(coords1 - coords0, up_mask))
+                flow_predictions.append(flow_up)
+            if feats is not None:
+                motion_features, cor1, cor, cor_flo = taps
+                feats.update({
+                    f"idx_corr_vol_{it}": corr, f"net_{it}": net,
+                    f"motion_features_{it}": motion_features,
+                    f"cor1_{it}": cor1, f"cor_{it}": cor,
+                    f"cor_flo_{it}": cor_flo, f"flow_pred_{it}": flow_up})
         if not test_mode:
             return flow_predictions
         flow_low = coords1 - coords0
+        if feats is not None:
+            return flow_low, flow_up, feats
         # test mode returns only the last upsampled flow, so only it is built
         return flow_low, upsample_flow_convex(flow_low, up_mask)

@@ -1,8 +1,9 @@
 """Model factory and inference API (counterpart of
 ``understanding_flow_robustness_tpu/models/registry.py``).
 
-Ported so far: the RAFT IDs, SpyNet and the two PWC-Net IDs.  The other
-model IDs of the JAX registry raise with the ROADMAP item that ports them.
+Ported so far: the three RAFT IDs, SpyNet and the two PWC-Net IDs.  The
+other model IDs of the JAX registry raise with the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
@@ -41,6 +42,12 @@ _SPECS: dict = {
     # registry.py:107-110: the bench's headline configuration
     "RAFT": ModelSpec(lambda **kw: RAFT(**{"mixed_precision": True, **kw}),
                       is_raft=True, size_multiple=8),
+    # registry.py:111-118
+    "RAFT_FlowNetCEncoder_WoContext": ModelSpec(
+        lambda **kw: RAFT(**{"flownetc_encoder": True,
+                             "no_separate_context": True,
+                             "mixed_precision": True, **kw}),
+        is_raft=True, size_multiple=8),
     # registry.py:119-125
     "RAFT_adv_kitti2012_ifgsm_l2_002": ModelSpec(
         lambda **kw: RAFT(**{"mixed_precision": False, **kw}),
@@ -55,8 +62,35 @@ NOT_PORTED = {
     "FlowNetCFlexLarger_k3_reps3_adv_ifgsm_l2_002": "A7",
     "FlowNetCFlexLarger_k5_reps0": "A7",
     "FlowNet2": "A9",
-    "RAFT_FlowNetCEncoder_WoContext": "A10",
 }
+
+# families whose feature taps the JAX package exposes and the port does not
+# yet, by the ROADMAP item that ports them
+_TAPS_NOT_PORTED = {"FlowNetC": "A7", "PWC": "A9"}
+
+
+def get_feature_map_keys(name: str) -> list:
+    """The keys of the ``return_features`` dict of model ``name``
+    (registry.py:315-348).  RAFT: the fmaps, the four pyramid levels, the
+    context and, for each of the 12 iterations, the lookup, the hidden
+    state, the motion encoder's taps and the upsampled flow.  SpyNet,
+    FlowNetS and FlowNet2 expose none.  The FlowNetC family and PWC-Net raise
+    with the ROADMAP item that ports their taps."""
+    if name not in _SPECS and name not in NOT_PORTED:
+        raise KeyError(f"unknown model '{name}'")
+    if name.startswith("RAFT"):
+        keys = ["fmap1", "fmap2"] + [f"corr_pyramid_{i}" for i in range(4)]
+        keys += ["net", "inp"]
+        for i in range(12):
+            keys += [f"idx_corr_vol_{i}", f"net_{i}", f"motion_features_{i}",
+                     f"cor1_{i}", f"cor_{i}", f"cor_flo_{i}", f"flow_pred_{i}"]
+        return keys
+    for family, item in _TAPS_NOT_PORTED.items():
+        if family in name:
+            raise NotImplementedError(
+                f"the feature taps of '{name}' are not ported yet (ROADMAP "
+                f"{item})")
+    return []
 
 
 @dataclasses.dataclass
@@ -82,8 +116,8 @@ def predict_flow(model: FlowModel, img1: torch.Tensor,
     with torch.inference_mode():
         a = img1.permute(0, 3, 1, 2)
         b = img2.permute(0, 3, 1, 2)
-        if model.is_raft:
-            _, flow = model.module(a * 255.0, b * 255.0)
+        if model.is_raft:  # (flow_low, flow_up), or with taps (..., feats)
+            flow = model.module(a * 255.0, b * 255.0)[1]
         else:
             flow = model.module(a, b)
         return flow.permute(0, 2, 3, 1)
@@ -101,7 +135,9 @@ def fetch_model(name: str, pretrained_path: Optional[str] = None,
     the CPU) with seeded random weights (``torch.Generator`` seeded with
     ``seed``, the JAX package's init distribution), or load reference
     weights strictly when ``pretrained_path`` is given: a checkpoint file,
-    or for SpyNet the directory of its per-level weight files."""
+    or for SpyNet the directory of its per-level weight files.
+    ``model_kwargs`` go to the model, e.g. ``iters``, ``mixed_precision``,
+    and for RAFT ``corr_impl`` and ``return_features``."""
     if name not in _SPECS:
         item = NOT_PORTED.get(name)
         raise KeyError(

@@ -9,10 +9,13 @@ from .correlation import (
     alt_corr_lookup_backward_reference,
     alt_corr_lookup_reference,
     corr_lookup,
+    corr_lookup_fwd,
+    corr_lookup_reference,
     corr_pyramid,
     pool_fmap_levels,
     prepare_alt_corr,
     spatial_correlation,
+    volume_pyramid,
 )
 from .interp import (
     avg_pool2,
@@ -36,12 +39,15 @@ __all__ = [
     "bilinear_sample",
     "coords_grid",
     "corr_lookup",
+    "corr_lookup_fwd",
+    "corr_lookup_reference",
     "corr_pyramid",
     "pool_fmap_levels",
     "prepare_alt_corr",
     "resize_bilinear",
     "spatial_correlation",
     "unnormalize_coords",
+    "volume_pyramid",
     "warp_backward",
     "warp_backward_reference",
 ]

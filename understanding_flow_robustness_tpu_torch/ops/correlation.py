@@ -12,6 +12,12 @@ version, ``alt_corr_lookup_reference``, for a CPU tensor.  Its gradient
 with respect to the features (``_AltCorrLookup``) launches
 ``csrc/alt_corr_bwd.cu`` for a CUDA tensor and runs
 ``alt_corr_lookup_backward_reference`` for a CPU tensor.
+
+The volume path builds the pyramid (``volume_pyramid``) and looks windows up
+in it with ``corr_lookup``: the CUDA kernel ``csrc/corr_lookup_fwd.cu`` for a
+CUDA tensor, its plain version ``corr_lookup_reference`` for a CPU tensor.
+Its gradient (``_CorrLookup``) recomputes the plain version under autograd,
+as the JAX package's custom_vjp recomputes its XLA formulation.
 """
 
 from __future__ import annotations
@@ -24,9 +30,9 @@ from torch.autograd.function import once_differentiable
 
 from ._build import LAUNCH_COUNTS, kernel_fn
 
-# Argument limits of csrc/alt_corr_fwd.cu and csrc/alt_corr_bwd.cu: their
-# kMaxLevels, their kRadius and their bound of two 16-byte chunks of a
-# feature row per lane.
+# Argument limits of csrc/alt_corr_fwd.cu, csrc/alt_corr_bwd.cu and (the
+# first two) csrc/corr_lookup_fwd.cu: their kMaxLevels, their kRadius and
+# their bound of two 16-byte chunks of a feature row per lane.
 _MAX_LEVELS = 8
 _RADIUS = 4
 _MAX_CHUNKS = 2 * 32
@@ -127,19 +133,40 @@ def _window_sample(vol: torch.Tensor, centers: torch.Tensor,
     inside = (((ys >= 0) & (ys < Hl))[:, :, None]
               & ((xs >= 0) & (xs < Wl))[:, None, :])
     idx = ys.clamp(0, Hl - 1)[:, :, None] * Wl + xs.clamp(0, Wl - 1)[:, None, :]
-    g = _widen(vol.reshape(M, Hl * Wl)).gather(1, idx.reshape(M, -1))
+    # gather, then widen: only the taps are converted, not the volume
+    g = _widen(vol.reshape(M, Hl * Wl).gather(1, idx.reshape(M, -1)))
     g = g.reshape(M, n + 1, n + 1) * inside  # g[m, i, j]: (y0 - r + i, x0 - r + j)
     samp = ((1 - ax) * (1 - ay) * g[:, :-1, :-1] + ax * (1 - ay) * g[:, :-1, 1:]
             + (1 - ax) * ay * g[:, 1:, :-1] + ax * ay * g[:, 1:, 1:])  # [m, t, s]
     return samp.transpose(1, 2).reshape(M, n * n)
 
 
-def corr_lookup(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
-                radius: int = 4) -> torch.Tensor:
-    """Radius-r window lookup into a correlation pyramid (CorrBlock,
-    models/raft/corr.py:72-96).  pyramid[l]: (B, H1*W1, Hl, Wl); coords:
-    (B, H1, W1, 2) level-0 (x, y).  Returns (B, H1, W1, L*(2r+1)^2) f32,
-    level l centred at coords / 2^l."""
+def volume_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int,
+                   dtype: Optional[torch.dtype] = None) -> list:
+    """RAFT's volume path from (B, H, W, C) fmaps (raft_model.py:867-874):
+    the all-pairs volume as one f32 ``bmm`` outside autocast (under autocast
+    it would run on bf16 inputs, which the JAX package does not do), divided
+    by sqrt(C), cast once to ``dtype`` (bf16 under mixed precision; the f32
+    volume is freed there unless autograd keeps it) and pooled in that dtype
+    with ``corr_pyramid``'s association.  Returns the levels (B, H*W, Hl,
+    Wl), each a new contiguous tensor, as ``corr_lookup``'s kernel reads
+    them."""
+    with torch.autocast(fmap1.device.type, enabled=False):
+        corr = all_pairs_correlation(fmap1.float(), fmap2.float())
+    if dtype is not None:
+        corr = corr.to(dtype)
+    return corr_pyramid(corr, num_levels)
+
+
+def corr_lookup_reference(pyramid: Sequence[torch.Tensor],
+                          coords: torch.Tensor, radius: int = 4
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of the kernel ``csrc/corr_lookup_fwd.cu``: the
+    radius-r window lookup into a correlation pyramid (CorrBlock,
+    models/raft/corr.py:72-96).  pyramid[l]: (B, H1*W1, Hl, Wl) f32 or bf16
+    (bf16 taps are widened to f32); coords: (B, H1, W1, 2) level-0 (x, y).
+    Returns (B, H1, W1, L*(2r+1)^2) f32, level l centred at coords / 2^l,
+    s-major per level.  Differentiable in the pyramid and the coords."""
     B, H1, W1, _ = coords.shape
     c = coords.reshape(B * H1 * W1, 2)
     out = []
@@ -147,6 +174,67 @@ def corr_lookup(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
         vol = corr.reshape(B * H1 * W1, corr.shape[2], corr.shape[3])
         out.append(_window_sample(vol, c / 2 ** lvl, radius))
     return torch.cat(out, dim=-1).reshape(B, H1, W1, -1)
+
+
+def _corr_lookup_fwd(pyramid, coords, radius):
+    device = pyramid[0].device
+    if device.type == "cpu":
+        return corr_lookup_reference(pyramid, coords, radius)
+    if device.type != "cuda":
+        raise ValueError(f"corr_lookup: unsupported device {device}")
+    # the kernel's (B*N, ...) views of the layouts (no copy when contiguous)
+    B, H1, W1, _ = coords.shape
+    BN = B * H1 * W1
+    levels = [p.reshape(BN, p.shape[2], p.shape[3]) for p in pyramid]
+    out = corr_lookup_fwd(levels, coords.reshape(BN, 2), radius)
+    return out.reshape(B, H1, W1, -1)
+
+
+class _CorrLookup(torch.autograd.Function):
+    """The volume lookup with its gradient (the JAX package's
+    ``_corr_lookup_pallas_vjp``, ops/correlation.py:343-365): the forward
+    is the kernel (or, on the CPU, the plain version), the backward
+    recomputes the plain version under autograd and differentiates it with
+    respect to the pyramid and the coords.  No backward kernel, in either
+    package."""
+
+    @staticmethod
+    def forward(ctx, radius, coords, *pyramid):
+        ctx.radius = radius
+        ctx.save_for_backward(coords, *pyramid)
+        return _corr_lookup_fwd(pyramid, coords, radius)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip(saved, needs)]
+            out = corr_lookup_reference(ins[1:], ins[0], ctx.radius)
+            wanted = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return (None, *[next(grads) if t.requires_grad else None
+                        for t in ins])
+
+
+def corr_lookup(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
+                radius: int = 4) -> torch.Tensor:
+    """Radius-r window lookup into a correlation pyramid (the JAX package's
+    ``corr_lookup``, ops/correlation.py:296-365): the CUDA kernel
+    ``csrc/corr_lookup_fwd.cu`` for CUDA tensors, its plain version
+    ``corr_lookup_reference`` for CPU tensors; any other device raises.
+
+    pyramid[l]: (B, H1*W1, Hl, Wl) f32 or bf16; coords: (B, H1, W1, 2)
+    level-0 (x, y) f32.  Returns (B, H1, W1, L*(2r+1)^2) f32 in the
+    reference's compact s-major layout.  Without autograd this is one
+    launch; with it the lookup runs through ``_CorrLookup``, whose backward
+    is the plain version's."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (coords, *pyramid)):
+        return _CorrLookup.apply(radius, coords, *pyramid)
+    return _corr_lookup_fwd(pyramid, coords, radius)
 
 
 def alt_corr_lookup_reference(f1: torch.Tensor, levels: Sequence[torch.Tensor],
@@ -412,3 +500,63 @@ def _alt_corr_bwd_cuda(f1, levels, coords, g, radius):
                            + lib.ufr_cuda_error_string(err).decode())
     LAUNCH_COUNTS["alt_corr_bwd"] += 1
     return df1, dlevels
+
+
+def _check_lookup_args(levels, coords, radius):
+    """Raise on what csrc/corr_lookup_fwd.cu does not take.  levels[l]:
+    (BN, Hl, Wl); coords: (BN, 2)."""
+    L = len(levels)
+    if not 1 <= L <= _MAX_LEVELS or radius != _RADIUS:
+        raise ValueError(f"corr_lookup_fwd takes 1..{_MAX_LEVELS} levels and "
+                         f"radius {_RADIUS}, got {L} and {radius}")
+    dtype, device = levels[0].dtype, levels[0].device
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"corr_lookup_fwd takes an f32 or bf16 pyramid, got "
+                        f"{dtype}")
+    BN = levels[0].shape[0]
+    for lvl in levels:
+        if lvl.dtype != dtype or lvl.dim() != 3 or lvl.shape[0] != BN:
+            raise ValueError(f"each level must be {dtype} (BN, Hl, Wl) with "
+                             f"BN={BN}, got {lvl.dtype} {tuple(lvl.shape)}")
+    if coords.dtype != torch.float32 or tuple(coords.shape) != (BN, 2):
+        raise ValueError(f"coords must be f32 (BN, 2) = ({BN}, 2), got "
+                         f"{coords.dtype} {tuple(coords.shape)}")
+    for t in (coords, *levels):
+        if t.device != device or device.type != "cuda":
+            raise ValueError("corr_lookup_fwd inputs must be on one CUDA "
+                             "device")
+        if not t.is_contiguous():
+            raise ValueError("corr_lookup_fwd inputs must be contiguous")
+
+
+def corr_lookup_fwd(levels: Sequence[torch.Tensor], coords: torch.Tensor,
+                    radius: int = 4) -> torch.Tensor:
+    """Launch csrc/corr_lookup_fwd.cu: levels[l] (BN, Hl, Wl) f32 or bf16,
+    contiguous; coords (BN, 2) level-0 (x, y) f32.  Returns (BN,
+    L*(2r+1)^2) f32, channel l*n*n + s*n + t sampling (x/2^l - r + s,
+    y/2^l - r + t).  One launch covers every level."""
+    import ctypes
+
+    _check_lookup_args(levels, coords, radius)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn, lib = kernel_fn("corr_lookup_fwd", "ufr_corr_lookup_fwd", [
+        ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp, vp,
+        ctypes.c_longlong, i32, i32, vp])
+
+    BN, L, n = coords.shape[0], len(levels), 2 * radius + 1
+    out = torch.empty((BN, L * n * n), device=coords.device,
+                      dtype=torch.float32)
+    if BN == 0:
+        return out
+    ptrs = (vp * L)(*[lvl.data_ptr() for lvl in levels])
+    hw = (i32 * (2 * L))(*[d for lvl in levels for d in lvl.shape[1:]])
+    with torch.cuda.device(coords.device):
+        stream = torch.cuda.current_stream(coords.device).cuda_stream
+        err = fn(ptrs, hw, L, coords.data_ptr(), out.data_ptr(), BN, radius,
+                 int(levels[0].dtype == torch.bfloat16), stream)
+    if err:
+        raise RuntimeError("corr_lookup_fwd launch failed: "
+                           + lib.ufr_cuda_error_string(err).decode())
+    LAUNCH_COUNTS["corr_lookup_fwd"] += 1
+    return out
+
