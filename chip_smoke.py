@@ -14,6 +14,12 @@
 4. Holds the backward kernel ``alt_corr_bwd`` against the plain backward
    the same way, at the train path's shape and the ragged one; times both
    at the train shape.
+4b. Drives the lookup's coordinate gradient (coords that require grad)
+   through ``alt_corr_features`` at the serving shape, which launches the
+   coordinate-gradient kernel ``alt_corr_dcoords`` (no model path does);
+   holds the kernel against its plain version in f32 and bf16 for
+   calibrated, wild, far-out (+-1e30) and exactly integer centres; times
+   both.
 5. Holds the warp kernel ``warp_fwd`` against its plain version in its
    three modes, f32 and bf16, at SPyNet's and PWC-Net's largest warp
    shapes and a ragged one, for smooth, wild and +-1e30 flows; times it,
@@ -50,7 +56,17 @@
    frames/s and reads the peak memory.
 9. The parameter gradients of one train-mode backward with the kernels
    against those with the plain lookup, in f32 and in bf16.
-10. The train CLI with ``--synthetic 3``, then its resume.
+10. Attack path: I-FGSM with the attack CLI's defaults (40 steps, eps
+   0.02, l2 loss) on ``fetch_model("RAFT")``, batch 1 at 256x640, against
+   a target offset from the clean flow; checks 12 launches of each lookup
+   kernel per step and none of the coordinate-gradient kernel, the eps-ball,
+   the image range and that the loss grew; times ms per step and reads the
+   peak memory.  Then one image gradient with the kernels against one with
+   the plain lookup (f32 and bf16), and one FGSM on PWC-Net through the
+   warp kernel.
+11. The attack CLI on RAFT with ``--perturb_method ifgsm --synthetic 2
+   --n_step 3``.
+12. The train CLI with ``--synthetic 3``, then its resume.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 The last three lines are the card's name and power limit, a JSON object per
@@ -64,6 +80,7 @@ throughout, so f32 convolutions run in full f32.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import re
@@ -80,7 +97,6 @@ ITERS = 12
 RADIUS, LEVELS = 4, 4
 TB, TH, TW = 4, 288, 960  # the train step's geometry (bench.py:281-321)
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
-KERNELS = ("alt_corr_fwd", "alt_corr_bwd", "warp_fwd", "corr_lookup_fwd")
 TRAIN_KERNELS = ("alt_corr_fwd", "alt_corr_bwd")  # RAFT's train step
 F32_TOL = 1e-4           # abs, the JAX package's bar (test_ops_correlation.py:327)
 # corr_lookup_fwd vs its plain version, abs, f32 and bf16 pyramids alike:
@@ -93,6 +109,13 @@ BF16_REL_TOL = 1e-5      # x max|corr|: same bf16 inputs, both accumulate in f32
 # same inputs in f32, in other orders (the kernel's df2 atomics land in an
 # order that changes from run to run)
 BWD_REL_TOL = 1e-5
+# alt_corr_dcoords vs its plain version, x max|dcoords|, f32 and bf16
+# alike: both form the same dots of the same inputs in f32 (the kernel by
+# lane FMAs and shuffles, the plain version by cuBLAS with TF32 off) and
+# contract them with g in other orders
+DCOORDS_REL_TOL = 1e-5
+AB, AH, AW = 1, 256, 640  # the attack geometry (cli/run_perturb_model.py:44-45)
+ATTACK_STEPS, ATTACK_EPS = 40, 0.02  # the attack CLI's defaults
 # relative L2 of the parameter gradients, kernels vs plain lookup, one
 # train-mode backward: (worst tensor, all parameters together).  Both paths
 # read the same values and keep the lookup's gradient f32, but they sum in
@@ -288,6 +311,96 @@ def backward_phase(gen) -> dict:
                     dtype)
                 print(f"{tag:28s} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
                       "per backward (4 levels)", flush=True)
+            del got, ref
+    return res
+
+
+def dcoords_phase(gen) -> dict:
+    """B3: the lookup's coordinate gradient, driven through the op a user
+    calls (``alt_corr_features`` with coords that require grad), then the
+    kernel against its plain version on the same inputs."""
+    from understanding_flow_robustness_tpu_torch import ops
+    from understanding_flow_robustness_tpu_torch.ops import correlation as corr
+
+    print("== alt_corr_dcoords (B3) vs plain coordinate gradient (TF32 off) "
+          "==", flush=True)
+    res = {}
+    b, h, w, c = B, H // 8, W // 8, 256
+    n2 = (2 * RADIUS + 1) ** 2
+    fm1 = torch.randn((b, h, w, c), generator=gen, device="cuda")
+    fm2 = torch.randn((b, h, w, c), generator=gen, device="cuda")
+    g = torch.randn((b, h * w, LEVELS * n2), generator=gen, device="cuda")
+    grid = ops.coords_grid(h, w, device="cuda")[None].expand(b, h, w, 2)
+    noise = torch.randn((b, h, w, 2), generator=gen, device="cuda")
+    far = grid + 2.0 * noise
+    far[0, 0, :6] = torch.tensor(
+        [[-1e30, 3.0], [3.0, 1e30], [1e30, -1e30], [-50.0, -50.0],
+         [500.0, 500.0], [-3.5, -3.5]], device="cuda")
+    cases = {"calibrated": grid + 2.0 * noise, "wild": grid + 150.0 * noise,
+             "far": far, "integer": grid.clone()}
+
+    # the op's coordinate-gradient path, the only one that launches B3
+    coords = cases["calibrated"].clone().requires_grad_()
+    ops.LAUNCH_COUNTS.clear()
+    out = ops.alt_corr_features(fm1, fm2, coords, LEVELS, RADIUS,
+                                compute_dtype=torch.bfloat16)
+    out.backward(g.reshape(out.shape))
+    torch.cuda.synchronize()
+    n = {k: ops.LAUNCH_COUNTS[k] for k in
+         ("alt_corr_fwd", "alt_corr_bwd", "alt_corr_dcoords")}
+    res["launches"] = n["alt_corr_dcoords"]
+    check(n == {"alt_corr_fwd": 1, "alt_corr_bwd": 0, "alt_corr_dcoords": 1},
+          f"coordinate gradient of alt_corr_features: launches {n}")
+    f1b, lvb = corr.prepare_alt_corr(fm1, fm2, LEVELS, torch.bfloat16)
+    ref = corr.alt_corr_coords_grad_reference(
+        f1b, lvb, cases["calibrated"].reshape(b, h * w, 2), g, RADIUS)
+    err = (coords.grad.reshape(ref.shape) - ref).abs().max().item()
+    tol = DCOORDS_REL_TOL * ref.abs().max().item()
+    print(f"alt_corr_features(coords.requires_grad) + backward: launches {n} "
+          f"(no model path launches B3: RAFT detaches its coords every "
+          f"iteration); coords.grad vs plain max_abs_err={err:.3e} "
+          f"tol={tol:.3e}", flush=True)
+    check(err <= tol, "op's coordinate gradient disagrees with plain version")
+    del out, coords, ref
+
+    for dtype in (torch.float32, torch.bfloat16):
+        f1, levels = corr.prepare_alt_corr(fm1, fm2, LEVELS, dtype)
+        for name, cc in cases.items():
+            cflat = cc.reshape(b, h * w, 2).contiguous()
+            got = corr._alt_corr_dcoords_cuda(f1, levels, cflat, g, RADIUS)
+            ref = corr.alt_corr_coords_grad_reference(f1, levels, cflat, g,
+                                                      RADIUS)
+            torch.cuda.synchronize()
+            tag = f"main/{name}/{str(dtype).split('.')[-1]}"
+            check(got.shape == ref.shape and got.dtype == torch.float32
+                  and bool(torch.isfinite(got).all()),
+                  f"{tag}: kernel output malformed")
+            err = (got - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            tol = DCOORDS_REL_TOL * scale
+            print(f"{tag:32s} max_abs_err={err:.3e} tol={tol:.3e} "
+                  f"max|dcoords|={scale:.3f}", flush=True)
+            check(err <= tol, f"{tag}: kernel disagrees with plain version")
+            if name == "far":
+                check(got[0, :5].abs().max().item() == 0,
+                      f"{tag}: windows wholly outside got a gradient")
+            res[tag] = err
+            if name == "calibrated":
+                k_ms = cuda_ms(lambda: corr._alt_corr_dcoords_cuda(
+                    f1, levels, cflat, g, RADIUS), reps=20)
+                p_ms = cuda_ms(lambda: corr.alt_corr_coords_grad_reference(
+                    f1, levels, cflat, g, RADIUS), reps=3, warmup=1)
+                res[f"{tag}/ms"], res[f"{tag}/plain_ms"] = k_ms, p_ms
+                # per query and level: the (2r+2)^2 integer-grid dots of
+                # length C, a multiply-add each (B1's work; the window
+                # derivatives and the contraction with g are ~1 %)
+                flops = 2 * (2 * RADIUS + 2) ** 2 * c * b * h * w * LEVELS
+                res[f"{tag}/bound"] = bound(
+                    nbytes(f1, *levels, cflat, g, got), flops, dtype)
+                print(f"{tag:32s} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+                      f"bound {res[f'{tag}/bound']['bound_ms']:.4f} ms "
+                      f"({res[f'{tag}/bound']['bound_by']}) per coordinate "
+                      "gradient (4 levels)", flush=True)
             del got, ref
     return res
 
@@ -1016,6 +1129,160 @@ def grad_phase(gen) -> dict:
     return res
 
 
+def attack_phase(gen) -> dict:
+    """The global-attack path: I-FGSM with the CLI's defaults on RAFT at
+    the attack geometry, then the image gradient against the plain lookup's
+    and one FGSM on PWC-Net."""
+    from understanding_flow_robustness_tpu_torch.attacks import (
+        PerturbConfig,
+        flow_attack_loss,
+        make_attack,
+    )
+    from understanding_flow_robustness_tpu_torch.models import (
+        FlowModel,
+        fetch_model,
+        predict_flow,
+        predict_flow_differentiable,
+        scale_flow_head,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    print(f"== I-FGSM on RAFT-12, batch {AB} at {AH}x{AW}, {ATTACK_STEPS} "
+          f"steps, eps {ATTACK_EPS}, l2 ==", flush=True)
+    res = {}
+    model = fetch_model("RAFT", device="cuda", seed=0)
+    a = torch.rand((AB, AH, AW, 3), generator=gen, device="cuda")
+    b = torch.rand((AB, AH, AW, 3), generator=gen, device="cuda")
+
+    def target(m, x, y):  # a synthetic GT offset from the clean flow
+        flow = predict_flow(m, x, y)
+        return torch.cat([flow + 1.0, torch.ones_like(flow[..., :1])], -1)
+
+    def predict(x, y):
+        return predict_flow_differentiable(model, x, y)
+
+    gt = target(model, a, b)
+    cfg = PerturbConfig(perturb_method="ifgsm", flow_loss="l2",
+                        output_norm=ATTACK_EPS, n_step=ATTACK_STEPS)
+    attack = make_attack(predict, cfg)
+    make_attack(predict, dataclasses.replace(cfg, n_step=2))(a, b, gt)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: count the kernels' launches while attacking
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    n0, n1, adv0, adv1 = attack(a, b, gt)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = {k: LAUNCH_COUNTS[k] for k in
+         ("alt_corr_fwd", "alt_corr_bwd", "alt_corr_dcoords")}
+    res.update({f"launches/{k}": v for k, v in n.items()})
+    check(n == {"alt_corr_fwd": ITERS * ATTACK_STEPS,
+                "alt_corr_bwd": ITERS * ATTACK_STEPS, "alt_corr_dcoords": 0},
+          f"attack: launches {n}, not {ITERS} of each lookup kernel per "
+          "step and none of alt_corr_dcoords")
+    res["ms_per_step"] = 1e3 * dt / ATTACK_STEPS
+    res["steps_per_s"] = ATTACK_STEPS / dt
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    nmax = max(n0.abs().max().item(), n1.abs().max().item())
+    check(nmax <= ATTACK_EPS + 1e-6, f"attack: noise {nmax} outside the "
+                                     "eps-ball")
+    check(0.0 <= min(adv0.min().item(), adv1.min().item())
+          and max(adv0.max().item(), adv1.max().item()) <= 1.0,
+          "attack: adversarial images outside [0, 1]")
+    with torch.no_grad():
+        before = flow_attack_loss(predict(a, b), gt, "l2").item()
+        after = flow_attack_loss(predict(adv0, adv1), gt, "l2").item()
+    res["loss_clean"], res["loss_attacked"] = before, after
+    print(f"attack: launches {n} ({ITERS} of each lookup kernel per step); "
+          f"max|noise|={nmax:.4f}; l2 loss {before:.3f} -> {after:.3f}; "
+          f"{res['ms_per_step']:.2f} ms per step, {res['steps_per_s']:.2f} "
+          f"steps/s ({ATTACK_STEPS} steps, {1e3 * dt:.0f} ms); peak memory "
+          f"{res['peak_mem_gib']:.2f} GiB", flush=True)
+    check(after > before, "attack: the l2 loss did not grow")
+    del n0, n1, adv0, adv1
+
+    # one image gradient through the kernels against the plain lookup's
+    for name, dtype, bnd in (
+            ("RAFT_adv_kitti2012_ifgsm_l2_002", "f32", GRAD_F32_REL_L2),
+            ("RAFT", "bf16", GRAD_BF16_REL_L2)):
+        m = fetch_model(name, device="cuda", seed=0)
+        kernel = FlowModel(name, scale_flow_head(m.module, 0.05), m.device)
+        plain = FlowModel(name, copy.deepcopy(kernel.module), m.device)
+        plain.module.plain_lookup = True
+        gt = target(kernel, a, b)
+        grads = []
+        for mm in (kernel, plain):
+            x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+            loss = flow_attack_loss(predict_flow_differentiable(mm, x, y),
+                                    gt, "l2")
+            grads.append(torch.autograd.grad(loss, (x, y)))
+        rels = [((k - p).norm() / p.norm()).item() for k, p in zip(*grads)]
+        res[f"{dtype}/image_grad_rel_l2"] = max(rels)
+        # the image gradients sit upstream of every layer, like the early
+        # encoder layers that set the worst-tensor bound of grad_phase
+        print(f"{dtype} ({name}, calibrated): image gradient with the kernels "
+              f"vs plain lookup, rel L2 {rels[0]:.3e} / {rels[1]:.3e} "
+              f"(bound {bnd[0]:g})", flush=True)
+        check(max(rels) <= bnd[0], f"{dtype}: image gradient with the "
+                                   "kernels beyond bound of the plain lookup's")
+        del m, kernel, plain, grads
+
+    # one FGSM on PWC-Net: the attack crosses the warp kernel
+    pwc = fetch_model("PWCNet", device="cuda", seed=0)
+    gt = target(pwc, a, b)
+    LAUNCH_COUNTS.clear()
+    n0, n1, adv0, adv1 = make_attack(
+        lambda x, y: predict_flow_differentiable(pwc, x, y),
+        dataclasses.replace(cfg, perturb_method="fgsm"))(a, b, gt)
+    torch.cuda.synchronize()
+    res["pwc_launches/warp_fwd"] = LAUNCH_COUNTS["warp_fwd"]
+    check(LAUNCH_COUNTS["warp_fwd"] == 4,
+          f"PWC-Net FGSM: warp_fwd launched {LAUNCH_COUNTS['warp_fwd']} "
+          "times, not 4")
+    check(bool(torch.isfinite(n0).all()) and n0.abs().max().item() <= ATTACK_EPS
+          + 1e-6 and 0.0 <= adv1.min().item() and adv1.max().item() <= 1.0,
+          "PWC-Net FGSM: noise or images out of range")
+    with torch.no_grad():
+        before = flow_attack_loss(predict_flow(pwc, a, b), gt, "l2").item()
+        after = flow_attack_loss(predict_flow(pwc, adv0, adv1), gt, "l2").item()
+    print(f"PWC-Net FGSM: warp_fwd launches {res['pwc_launches/warp_fwd']} "
+          f"(the gradient through the plain sampler); l2 loss {before:.3f} -> "
+          f"{after:.3f}", flush=True)
+    return res
+
+
+def attack_cli_phase() -> dict:
+    from understanding_flow_robustness_tpu_torch.cli import run_perturb_model
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    print("== attack CLI: RAFT, I-FGSM, --synthetic 2 --n_step 3 ==",
+          flush=True)
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke_attack"
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--flownet", "RAFT", "--perturb_method", "ifgsm", "--synthetic",
+            "2", "--n_step", "3", "--output_path", str(out)]
+    LAUNCH_COUNTS.clear()
+    res = run_perturb_model.main(argv)
+    n = {k: LAUNCH_COUNTS[k] for k in ("alt_corr_fwd", "alt_corr_bwd")}
+    # per pair: the clean, adversarial and noise-only flows and 3 steps
+    expect = {"alt_corr_fwd": 2 * ITERS * (3 + 3), "alt_corr_bwd": 2 * ITERS * 3}
+    check(n == expect, f"attack CLI: launches {n}, not {expect}")
+    path = out / "kitti2015" / "RAFT" / "both" / "ifgsm_l2" / "0.02"
+    keys = [line.split(":")[0] for line in
+            (path / "results0.txt").read_text().splitlines()]
+    check(keys == [k for k in res if k != "time_per_frame"] and len(keys) == 10,
+          f"attack CLI: results0.txt keys {keys}")
+    check(all(math.isfinite(v[0]) for v in res.values()),
+          "attack CLI: non-finite metric")
+    print(f"attack CLI: launches {n}; results0.txt with {len(keys)} keys; "
+          f"epe {res['flow_epe_origin'][0]:.3f} -> {res['flow_epe'][0]:.3f}; "
+          f"time_per_frame {res['time_per_frame'][0]:.3f} s", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    return {"launches/" + k: v for k, v in n.items()}
+
+
 def cli_phase() -> dict:
     from understanding_flow_robustness_tpu_torch.cli import train as cli_train
 
@@ -1054,6 +1321,7 @@ def main() -> None:
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
+    KERNELS = _build.KERNELS
     _build.build_libraries(KERNELS)
     for k in KERNELS:
         _build.load_library(k)
@@ -1077,6 +1345,7 @@ def main() -> None:
 
     kres = phase(kernel_phase, gen)
     bres = phase(backward_phase, gen)
+    dres = phase(dcoords_phase, gen)
     wres = phase(warp_phase, gen)
     vkres = phase(volume_kernel_phase, gen)
     mres = phase(model_phase, gen)
@@ -1087,6 +1356,8 @@ def main() -> None:
     pres = phase(warp_model_phase, gen, "PWCNet", 4)
     tres = phase(train_phase, gen)
     phase(grad_phase, gen)
+    ares = phase(attack_phase, gen)
+    acres = phase(attack_cli_phase)
     phase(cli_phase)
     print(f"all phases, build included: {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -1101,7 +1372,9 @@ def main() -> None:
         "source": "understanding_flow_robustness_tpu_torch/csrc/alt_corr_fwd.cu",
         "replaces": "understanding_flow_robustness_tpu/ops/pallas/alt_corr.py:91",
         "launches": (mres["launches"] + cres["launches"]
-                     + tres["launches/alt_corr_fwd"]),
+                     + tres["launches/alt_corr_fwd"]
+                     + ares["launches/alt_corr_fwd"]
+                     + acres["launches/alt_corr_fwd"]),
         "max_abs_err": kres[fwd],
         "ms": kres[f"{fwd}/ms"],
         "plain_ms": kres[f"{fwd}/plain_ms"],
@@ -1112,18 +1385,32 @@ def main() -> None:
         "route": "cuda",
         "source": "understanding_flow_robustness_tpu_torch/csrc/alt_corr_bwd.cu",
         "replaces": "understanding_flow_robustness_tpu/ops/pallas/alt_corr.py:571",
-        "launches": tres["launches/alt_corr_bwd"],
+        "launches": (tres["launches/alt_corr_bwd"]
+                     + ares["launches/alt_corr_bwd"]
+                     + acres["launches/alt_corr_bwd"]),
         "max_abs_err": bres[fwd],
         "ms": bres[f"{fwd}/ms"],
         "plain_ms": bres[f"{fwd}/plain_ms"],
         **bres[f"{fwd}/bound"],
         "library_ms": None,
     }, {
+        "name": "alt_corr_dcoords",
+        "route": "cuda",
+        "source": "understanding_flow_robustness_tpu_torch/csrc/alt_corr_dcoords.cu",
+        "replaces": "understanding_flow_robustness_tpu/ops/pallas/alt_corr.py:91",
+        "launches": dres["launches"],
+        "max_abs_err": dres[fwd],
+        "ms": dres[f"{fwd}/ms"],
+        "plain_ms": dres[f"{fwd}/plain_ms"],
+        **dres[f"{fwd}/bound"],
+        "library_ms": None,
+    }, {
         "name": "warp_fwd",
         "route": "cuda",
         "source": "understanding_flow_robustness_tpu_torch/csrc/warp_fwd.cu",
         "replaces": "understanding_flow_robustness_tpu/ops/pallas/warp_tile.py:53",
-        "launches": sres["launches"] + pres["launches"],
+        "launches": (sres["launches"] + pres["launches"]
+                     + ares["pwc_launches/warp_fwd"]),
         "max_abs_err": warp["max_abs_err"],
         "ms": warp["ms"],
         "plain_ms": warp["plain_ms"],

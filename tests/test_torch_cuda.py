@@ -1,9 +1,9 @@
 """The port's CUDA kernels on the card: ``csrc/alt_corr_fwd.cu``,
-``csrc/alt_corr_bwd.cu``, ``csrc/warp_fwd.cu`` and ``csrc/corr_lookup_fwd.cu``
-against their plain PyTorch versions, their wrappers' checks and launch
-counts, RAFT driving the lookup kernels in inference (both paths, with and
-without the feature taps) and a short train step, SpyNet and PWC-Net
-driving the warp kernel.
+``csrc/alt_corr_bwd.cu``, ``csrc/alt_corr_dcoords.cu``, ``csrc/warp_fwd.cu``
+and ``csrc/corr_lookup_fwd.cu`` against their plain PyTorch versions, their
+wrappers' checks and launch counts, RAFT driving the lookup kernels in
+inference (both paths, with and without the feature taps), a short train
+step and a short attack, SpyNet and PWC-Net driving the warp kernel.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports only torch and the port, so it also runs where JAX is absent:
@@ -89,9 +89,15 @@ def test_wrapper_counts_launches_and_rejects_bad_input(cuda):
         ops.alt_corr_lookup(f1, levels, coords.double(), 4)
     with pytest.raises(ValueError):
         ops.alt_corr_lookup(f1, [lv.bfloat16() for lv in levels], coords, 4)
-    with pytest.raises(NotImplementedError, match="B3"):
-        ops.alt_corr_lookup(f1, levels, coords.clone().requires_grad_(), 4)
     assert ops.LAUNCH_COUNTS["alt_corr_fwd"] == before + 1
+    # coords that require grad: the forward kernel, then only B3 backward
+    n = dict(ops.LAUNCH_COUNTS)
+    cg = coords.clone().requires_grad_()
+    ops.alt_corr_lookup(f1, levels, cg, 4).sum().backward()
+    assert {k: ops.LAUNCH_COUNTS[k] - n.get(k, 0) for k in (
+        "alt_corr_fwd", "alt_corr_bwd", "alt_corr_dcoords")} == {
+        "alt_corr_fwd": 1, "alt_corr_bwd": 0, "alt_corr_dcoords": 1}
+    assert cg.grad.shape == coords.shape and cg.grad.dtype == torch.float32
 
 
 @pytest.mark.parametrize("mixed", [False, True])
@@ -150,6 +156,87 @@ def test_backward_wrapper_counts_launches_and_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         correlation._alt_corr_bwd_cuda(f1, levels, coords, g, 3)
     assert ops.LAUNCH_COUNTS["alt_corr_bwd"] == before.get("alt_corr_bwd", 0) + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,spread", [
+    ((2, 13, 21, 64), 3.0),     # ragged: pooled levels drop rows/columns
+    ((1, 24, 40, 256), 40.0),   # RAFT width, wild centres
+    ((1, 16, 16, 96), 2.0),     # lanes with and without a chunk of the row
+    ((1, 16, 16, 32), 0.0),     # exactly integer centres: sign(0) = 0
+])
+def test_dcoords_kernel_matches_plain(cuda, dtype, shape, spread):
+    """B3 against ``alt_corr_coords_grad_reference``: both sum the same
+    products of the same values in f32, in other orders."""
+    f1, levels, coords = _case(*shape, dtype, spread)
+    g = torch.randn((shape[0], shape[1] * shape[2], 324), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    before = ops.LAUNCH_COUNTS["alt_corr_dcoords"]
+    got = correlation._alt_corr_dcoords_cuda(f1, levels, coords, g, 4)
+    ref = ops.alt_corr_coords_grad_reference(f1, levels, coords, g)
+    torch.cuda.synchronize()
+    assert ops.LAUNCH_COUNTS["alt_corr_dcoords"] == before + 1
+    assert got.shape == ref.shape == coords.shape and got.dtype == torch.float32
+    assert ref.abs().max().item() > 0
+    assert (got - ref).abs().max().item() <= BWD_REL_TOL * ref.abs().max().item()
+    assert got[0, :2].abs().max().item() == 0  # windows wholly outside
+
+
+def test_dcoords_wrapper_rejects_bad_input(cuda):
+    f1, levels, coords = _case(1, 8, 8, 32, torch.float32, 1.0)
+    g = torch.ones((1, 64, 324), device="cuda")
+    before = ops.LAUNCH_COUNTS["alt_corr_dcoords"]
+    for args in ((f1, levels, coords, g.double(), 4),
+                 (f1, levels, coords, g[:, :32], 4),
+                 (f1, levels, coords, g, 3),
+                 (f1, levels, coords.double(), g, 4)):
+        with pytest.raises(ValueError):
+            correlation._alt_corr_dcoords_cuda(*args)
+    assert ops.LAUNCH_COUNTS["alt_corr_dcoords"] == before
+
+
+def test_attack_step_launches_kernels_and_matches_plain(cuda):
+    """Two I-FGSM steps on RAFT (f32, 3 iterations): each step is one
+    forward and one backward through B1 and B2 and never B3; the image
+    gradient with the kernels matches the plain lookup's (the f32 bound of
+    chip_smoke.py's gradient phase)."""
+    from understanding_flow_robustness_tpu_torch.attacks import (
+        PerturbConfig,
+        flow_attack_loss,
+        perturb,
+    )
+    from understanding_flow_robustness_tpu_torch.models import (
+        predict_flow_differentiable,
+    )
+
+    model = fetch_model("RAFT_adv_kitti2012_ifgsm_l2_002", device="cuda",
+                        seed=0, iters=3)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.rand((1, 64, 96, 3), generator=g, device="cuda")
+    b = torch.rand((1, 64, 96, 3), generator=g, device="cuda")
+    flow = predict_flow(model, a, b)
+    gt = torch.cat([flow + 1.0, torch.ones_like(flow[..., :1])], -1)
+
+    def predict(x, y):
+        return predict_flow_differentiable(model, x, y)
+
+    cfg = PerturbConfig(perturb_method="ifgsm", flow_loss="l2", n_step=2)
+    before = dict(ops.LAUNCH_COUNTS)
+    n0, n1, adv0, adv1 = perturb(predict, a, b, gt, cfg)
+    torch.cuda.synchronize()
+    n = {k: ops.LAUNCH_COUNTS[k] - before.get(k, 0)
+         for k in ("alt_corr_fwd", "alt_corr_bwd", "alt_corr_dcoords")}
+    assert n == {"alt_corr_fwd": 6, "alt_corr_bwd": 6, "alt_corr_dcoords": 0}
+    assert n0.abs().max().item() <= 0.02 + 1e-6
+    assert 0 <= adv0.min().item() and adv1.max().item() <= 1
+    grads = []
+    for plain in (False, True):
+        model.module.plain_lookup = plain
+        x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+        loss = flow_attack_loss(predict(x, y), gt, "l2")
+        grads.append(torch.autograd.grad(loss, (x, y)))
+    for k, p in zip(*grads):
+        assert ((k - p).norm() / p.norm()).item() <= 2e-3
 
 
 @pytest.mark.parametrize("mixed", [False, True])

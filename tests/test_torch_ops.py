@@ -123,17 +123,22 @@ def test_alt_corr_features_matches_jax_bf16(shape):
 
 
 def test_alt_corr_lookup_plain_path_is_forward_only_and_uncounted():
-    """The CPU path launches no kernel, with or without a feature gradient
-    (tests/test_torch_ops_grad.py holds that gradient against JAX); the
-    coordinates stay forward only: their gradient kernel is ROADMAP B3."""
+    """The CPU path launches no kernel, with or without a feature or a
+    coordinate gradient (tests/test_torch_ops_grad.py and
+    tests/test_torch_coords_grad.py hold those gradients against JAX); a
+    coordinate gradient alone routes through the autograd Function and
+    leaves the features without one."""
     f1, f2, coords = _inputs(1, 8, 8, 16)
     a, levels = tops.prepare_alt_corr(_t(f1), _t(f2), 4)
     c = _t(coords).reshape(1, 64, 2)
     before = dict(tops.LAUNCH_COUNTS)
     out = tops.alt_corr_lookup(a, levels, c, 4)
-    assert tuple(out.shape) == (1, 64, 324)
+    assert tuple(out.shape) == (1, 64, 324) and out.grad_fn is None
     tops.alt_corr_lookup(a.requires_grad_(), levels, c, 4).sum().backward()
     assert a.grad is not None
+    cg = c.clone().requires_grad_()
+    out = tops.alt_corr_lookup(a.detach(), levels, cg, 4)
+    assert type(out.grad_fn).__name__ == "_AltCorrLookupBackward"
+    out.sum().backward()
+    assert cg.grad.shape == cg.shape and bool(torch.isfinite(cg.grad).all())
     assert dict(tops.LAUNCH_COUNTS) == before  # no kernel on the CPU
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.alt_corr_lookup(a, levels, c.requires_grad_(), 4)

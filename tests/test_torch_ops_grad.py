@@ -143,12 +143,19 @@ def test_plain_lookup_gradcheck_f64():
 
 
 def test_coordinate_gradient_raises_and_no_grad_path_skips_the_function():
+    """Coords that require grad get their gradient (B3's plain version on
+    the CPU; tests/test_torch_coords_grad.py holds it against JAX) and
+    nothing else is computed for them; without autograd the Function is
+    skipped."""
     f1, f2, coords, _ = _inputs(1, 8, 8, 16, seed=3)
     a = torch.from_numpy(f1).requires_grad_()
     b = torch.from_numpy(f2)
     c = torch.from_numpy(coords)
-    with pytest.raises(NotImplementedError, match="B3"):
-        tops.alt_corr_features(a, b, c.clone().requires_grad_())
+    cg = c.clone().requires_grad_()
+    tops.alt_corr_features(a.detach(), b, cg).square().sum().backward()
+    assert cg.grad.dtype == torch.float32 and cg.grad.shape == c.shape
+    assert bool(torch.isfinite(cg.grad).all()) and cg.grad.abs().max() > 0
+    assert cg.grad[0, 0, 0].abs().max() == 0  # the window wholly outside
     before = dict(tops.LAUNCH_COUNTS)
     out = tops.alt_corr_features(a, b, c)
     assert type(out.grad_fn).__name__ == "ViewBackward0"

@@ -175,6 +175,10 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) >= 8, names\n"
+        "for k in ('attacks.global_attacks', 'attacks.perturb_runner',\n"
+        "          'attacks.log_utils', 'flowviz.flowlib',\n"
+        "          'cli.run_perturb_model'):\n"
+        "    assert p.__name__ + '.' + k in names, k\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax'))\n"
         "       or m.startswith('understanding_flow_robustness_tpu.')\n"
         "       or m == 'understanding_flow_robustness_tpu']\n"

@@ -7,16 +7,21 @@ package is held against (tests/test_torch_*.py).  This package imports
 Layout mirrors the reference package where that helps a reader find a
 module's counterpart: ``ops/`` (plain PyTorch operators and the wrappers of
 the hand-written kernels), ``models/`` (``nn.Module``s in NCHW, keeping the
-original PyTorch repository's parameter names) and ``csrc/`` (CUDA sources,
-compiled with ``nvcc`` for ``sm_90a`` at first use, ``ops/_build.py``).
+original PyTorch repository's parameter names), ``attacks/`` (the global
+attacks on torch autograd), ``flowviz/``, ``training/``, ``cli/`` and
+``csrc/`` (CUDA sources, compiled with ``nvcc`` for ``sm_90a`` at first
+use, ``ops/_build.py``).
 
 Ported so far: RAFT-12 inference and training (``models.fetch_model(
 "RAFT")``, ``predict_flow``, ``training``) with the correlation lookup and
-its gradient as CUDA kernels (``csrc/alt_corr_fwd.cu``,
-``csrc/alt_corr_bwd.cu``); SPyNet and PWC-Net inference (``"SpyNet"``,
+its gradients as CUDA kernels (``csrc/alt_corr_fwd.cu``,
+``csrc/alt_corr_bwd.cu``, and ``csrc/alt_corr_dcoords.cu`` for the
+coordinates); RAFT's volume path (``csrc/corr_lookup_fwd.cu``), its taps
+and the WoContext variant; SPyNet and PWC-Net inference (``"SpyNet"``,
 ``"PWCNet"``, ``"PWCNet_adv_ifgsm_l2_002"``) with the backward warp as a
-CUDA kernel (``csrc/warp_fwd.cu``).  Entry points run on the card unless
-the caller asks for the CPU.
+CUDA kernel (``csrc/warp_fwd.cu``); the FGSM-family and noise attacks on
+every ported model (``attacks``, ``cli.run_perturb_model``).  Entry points
+run on the card unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

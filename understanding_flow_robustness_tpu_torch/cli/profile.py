@@ -1,9 +1,12 @@
-"""Where one forward of a ported model spends device time.
+"""Where one forward (or one attack step) of a ported model spends device
+time.
 
     python -m understanding_flow_robustness_tpu_torch.cli.profile \\
         --model SpyNet --batch 8 --size 384 1280
     python -m understanding_flow_robustness_tpu_torch.cli.profile \\
         --model RAFT --corr_impl volume
+    python -m understanding_flow_robustness_tpu_torch.cli.profile \\
+        --model RAFT --attack --batch 1 --size 256 640
 
 Serves random [0, 1] frame pairs through ``predict_flow`` of
 ``fetch_model(--model, seed=--seed)`` on one CUDA device, traces --reps
@@ -11,7 +14,10 @@ forwards after two warm-up forwards with ``torch.profiler``, and prints the
 card's name and power limit, the wall time per forward, the device-busy
 time and idle share, device time per forward by kernel class (the port's
 CUDA kernels, convolutions, norms, reductions, the rest) and the top
-kernels.  ``--corr_impl`` picks a RAFT model's lookup path.  Only device
+kernels.  ``--corr_impl`` picks a RAFT model's lookup path.  ``--attack``
+traces one I-FGSM step instead of a forward: a forward and a backward of
+the l2 attack loss to the images (``predict_flow_differentiable``) against
+a target offset from the clean flow, and the update.  Only device
 events count: the host-side ops that launched them carry the same time
 again.  TF32 stays off, as in chip_smoke.py.  Needs a CUDA device; fails
 without one.
@@ -28,6 +34,7 @@ import torch
 
 CLASSES = (
     ("warp_fwd (B4 kernel)", re.compile(r"warp_fwd")),
+    ("alt_corr_dcoords (B3 kernel)", re.compile(r"alt_corr_dcoords")),
     ("alt_corr_fwd/bwd (B1/B2 kernels)", re.compile(r"alt_corr")),
     ("corr_lookup_fwd (B5 kernel)", re.compile(r"corr_lookup")),
     ("convolution", re.compile(
@@ -52,15 +59,19 @@ def build_parser():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--corr_impl", choices=("auto", "alt", "volume"),
                    help="a RAFT model's lookup path (default: the model's)")
+    p.add_argument("--attack", action="store_true",
+                   help="trace one I-FGSM step (forward + backward to the "
+                        "images) instead of a forward")
     return p
 
 
 def main(argv=None) -> dict:
-    """Returns {"wall_ms", "busy_ms", "idle_share", "classes": {name:
-    ms}} per forward."""
+    """Returns {"wall_ms", "busy_ms", "idle_share", "launches", "classes":
+    {name: ms}} per forward (per attack step with ``--attack``)."""
     args = build_parser().parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ..models import fetch_model, predict_flow
@@ -77,26 +88,47 @@ def main(argv=None) -> dict:
     h, w = args.size
     a = torch.rand((args.batch, h, w, 3), generator=g, device="cuda")
     b = torch.rand((args.batch, h, w, 3), generator=g, device="cuda")
+    unit = "attack step" if args.attack else "forward"
     print(f"== {args.model}{'' if not kw else ', corr_impl=' + args.corr_impl}"
-          f", batch {args.batch}, {h}x{w} ==")
+          f", batch {args.batch}, {h}x{w}, per {unit} ==")
+    if args.attack:
+        from ..attacks import PerturbConfig, make_attack
+        from ..models import predict_flow_differentiable
+
+        flow = predict_flow(model, a, b)
+        gt = torch.cat([flow + 1.0, torch.ones_like(flow[..., :1])], -1)
+        attack = make_attack(
+            lambda x, y: predict_flow_differentiable(model, x, y),
+            PerturbConfig(perturb_method="ifgsm", flow_loss="l2", n_step=1))
+
+        def step():
+            attack(a, b, gt)
+    else:
+        def step():
+            predict_flow(model, a, b)
     for _ in range(2):
-        predict_flow(model, a, b)
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.reps):
-            predict_flow(model, a, b)
+            step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / args.reps
     # device activity only: kernels and copies, not the host ops that
-    # launched them nor the profiler's "Command Buffer Full" marker
+    # launched them (an autograd Function's node, e.g.
+    # _AltCorrLookupBackward, carries its kernel's device time too) nor
+    # the profiler's "Command Buffer Full" marker
     kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+               and e.device_type == DeviceType.CUDA
                and not e.key.startswith(("cuda", "aten", "Command Buffer"))]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / args.reps
+    launches = sum(e.count for e in kernels) // args.reps
     idle = max(0.0, 1 - busy_ms / wall_ms)
-    print(f"  wall {wall_ms:.2f} ms/forward (under the profiler), device "
-          f"busy {busy_ms:.2f} ms, idle share {100 * idle:.1f}%")
+    print(f"  wall {wall_ms:.2f} ms/{unit} (under the profiler), device "
+          f"busy {busy_ms:.2f} ms in {launches} kernels and copies, idle "
+          f"share {100 * idle:.1f}%")
     by_class: dict = {}
     for e in kernels:
         name = next((c for c, rx in CLASSES if rx.search(e.key)),
@@ -105,12 +137,12 @@ def main(argv=None) -> dict:
                           + _device_us(e) / 1e3 / args.reps)
     for name, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {name:50s} {ms:8.3f} ms  {100 * ms / busy_ms:5.1f}%")
-    print("  top kernels (ms/forward, calls/forward):")
+    print(f"  top kernels (ms/{unit}, calls/{unit}):")
     for e in sorted(kernels, key=_device_us, reverse=True)[:15]:
         print(f"    {_device_us(e) / 1e3 / args.reps:8.3f}  "
               f"{e.count // args.reps:5d}  {e.key[:110]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": idle,
-            "classes": by_class}
+            "launches": launches, "classes": by_class}
 
 
 if __name__ == "__main__":

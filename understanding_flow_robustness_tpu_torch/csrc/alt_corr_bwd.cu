@@ -6,8 +6,8 @@
 // _alt_corr_bwd_pallas.  It computes the same values from the compact
 // cotangent layout; the TPU's hat-selector matmuls, query tiles, row slabs,
 // fallback tile and sort fallback exist for its VMEM and MXU and are not
-// carried over.  The coordinate gradient (deriv="x"/"y") is not computed
-// here: RAFT detaches its coordinates every iteration.
+// carried over.  The coordinate gradient (deriv="x"/"y") is
+// csrc/alt_corr_dcoords.cu's; RAFT never asks for it.
 //
 // The forward (csrc/alt_corr_fwd.cu) gives, per query q = (b, y, x) and
 // level l, out[q, l*n*n + s*n + t] = blend of the integer-grid dots

@@ -16,6 +16,7 @@ from .registry import (
     fetch_model,
     get_feature_map_keys,
     predict_flow,
+    predict_flow_differentiable,
 )
 from .spynet import SpyNet
 
@@ -30,6 +31,7 @@ __all__ = [
     "load_reference_state_dict",
     "load_spynet_dir",
     "predict_flow",
+    "predict_flow_differentiable",
     "pwcnet_state_dict_from_jax",
     "raft_state_dict_from_jax",
     "scale_flow_head",

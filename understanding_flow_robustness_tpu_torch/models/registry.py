@@ -108,19 +108,50 @@ class FlowModel:
         return predict_flow(self, img1, img2)
 
 
+def _forward(model: FlowModel, img1: torch.Tensor,
+             img2: torch.Tensor) -> torch.Tensor:
+    a = img1.permute(0, 3, 1, 2)
+    b = img2.permute(0, 3, 1, 2)
+    if model.is_raft:  # (flow_low, flow_up), or with taps (..., feats)
+        flow = model.module(a * 255.0, b * 255.0)[1]
+    else:
+        flow = model.module(a, b)
+    return flow.permute(0, 2, 3, 1)
+
+
 def predict_flow(model: FlowModel, img1: torch.Tensor,
                  img2: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) images in [0, 1] -> (B, H, W, 2) full-resolution flow
-    (models/utils_model.py:627-681).  RAFT takes [0, 255] in test mode;
-    SpyNet and PWC-Net take the [0, 1] images (JAX registry.py:182-191)."""
+    (models/utils_model.py:627-681), the serving call, under
+    ``torch.inference_mode()``.  RAFT takes [0, 255] in test mode; SpyNet
+    and PWC-Net take the [0, 1] images (JAX registry.py:182-191)."""
     with torch.inference_mode():
-        a = img1.permute(0, 3, 1, 2)
-        b = img2.permute(0, 3, 1, 2)
-        if model.is_raft:  # (flow_low, flow_up), or with taps (..., feats)
-            flow = model.module(a * 255.0, b * 255.0)[1]
-        else:
-            flow = model.module(a, b)
-        return flow.permute(0, 2, 3, 1)
+        return _forward(model, img1, img2)
+
+
+def predict_flow_differentiable(model: FlowModel, img1: torch.Tensor,
+                                img2: torch.Tensor) -> torch.Tensor:
+    """``predict_flow`` with autograd on, differentiable in the images: the
+    attacks' forward (the JAX package's ``FlowModel.predict_fn``,
+    registry.py:155-171).  The module runs in eval mode (RAFT in test mode,
+    images x255) with its parameters frozen while it runs: like
+    ``jax.grad(argnums=(0, 1))``, a backward then computes only the images'
+    gradients and no convolution's weight gradient.  The module's mode and
+    its parameters' ``requires_grad`` are restored afterwards."""
+    module = model.module
+    params = list(module.parameters())
+    flags = [p.requires_grad for p in params]
+    training = module.training
+    module.eval()
+    try:
+        for p in params:
+            p.requires_grad_(False)
+        with torch.enable_grad():
+            return _forward(model, img1, img2)
+    finally:
+        for p, flag in zip(params, flags):
+            p.requires_grad_(flag)
+        module.train(training)
 
 
 def _pretrained_state_dict(name: str, path: str) -> dict:

@@ -3,6 +3,7 @@
 from ._build import LAUNCH_COUNTS
 from .correlation import (
     all_pairs_correlation,
+    alt_corr_coords_grad_reference,
     alt_corr_features,
     alt_corr_kernel_inputs,
     alt_corr_lookup,
@@ -30,6 +31,7 @@ from .warp import warp_backward
 __all__ = [
     "LAUNCH_COUNTS",
     "all_pairs_correlation",
+    "alt_corr_coords_grad_reference",
     "alt_corr_features",
     "alt_corr_kernel_inputs",
     "alt_corr_lookup",

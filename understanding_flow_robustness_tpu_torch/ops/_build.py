@@ -26,6 +26,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# Every kernel source under csrc/, by the name its library and its launch
+# count go by
+KERNELS = ("alt_corr_fwd", "alt_corr_bwd", "alt_corr_dcoords", "warp_fwd",
+           "corr_lookup_fwd")
+
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}
 # Launches of each hand-written kernel, counted by its wrapper where it

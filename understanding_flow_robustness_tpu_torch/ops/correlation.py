@@ -11,7 +11,9 @@ the GPU: ``alt_corr_lookup`` launches the CUDA kernel
 version, ``alt_corr_lookup_reference``, for a CPU tensor.  Its gradient
 with respect to the features (``_AltCorrLookup``) launches
 ``csrc/alt_corr_bwd.cu`` for a CUDA tensor and runs
-``alt_corr_lookup_backward_reference`` for a CPU tensor.
+``alt_corr_lookup_backward_reference`` for a CPU tensor; its gradient with
+respect to the coordinates launches ``csrc/alt_corr_dcoords.cu`` for a CUDA
+tensor and runs ``alt_corr_coords_grad_reference`` for a CPU tensor.
 
 The volume path builds the pyramid (``volume_pyramid``) and looks windows up
 in it with ``corr_lookup``: the CUDA kernel ``csrc/corr_lookup_fwd.cu`` for a
@@ -30,9 +32,10 @@ from torch.autograd.function import once_differentiable
 
 from ._build import LAUNCH_COUNTS, kernel_fn
 
-# Argument limits of csrc/alt_corr_fwd.cu, csrc/alt_corr_bwd.cu and (the
-# first two) csrc/corr_lookup_fwd.cu: their kMaxLevels, their kRadius and
-# their bound of two 16-byte chunks of a feature row per lane.
+# Argument limits of csrc/alt_corr_fwd.cu, csrc/alt_corr_bwd.cu,
+# csrc/alt_corr_dcoords.cu and (the first two) csrc/corr_lookup_fwd.cu:
+# their kMaxLevels, their kRadius and their bound of two 16-byte chunks of
+# a feature row per lane.
 _MAX_LEVELS = 8
 _RADIUS = 4
 _MAX_CHUNKS = 2 * 32
@@ -108,6 +111,33 @@ def pool_fmap_levels(f2: torch.Tensor, num_levels: int) -> list:
     return levels
 
 
+def _grid_taps(vol: torch.Tensor, centers: torch.Tensor, radius: int):
+    """The (2r+2)^2 integer-grid values around each window and the window's
+    fractional offset.
+
+    vol: (M, Hl, Wl); centers: (M, 2) as (x, y) in level pixels.  Returns
+    (g (M, 2r+2, 2r+2) with g[m, i, j] the value at (floor(y) - r + i,
+    floor(x) - r + j), zero outside the level, widened to f32 (f64 stays);
+    ax (M,), ay (M,) the fractions x - floor(x), y - floor(y))."""
+    M, Hl, Wl = vol.shape
+    r = radius
+    n = 2 * r + 1
+    # far-out centres are clamped to where the whole window is still out
+    # of the volume, so the float->int conversion cannot overflow
+    cx = _widen(centers[:, 0]).clamp(-(r + 2.0), Wl + r + 1.0)
+    cy = _widen(centers[:, 1]).clamp(-(r + 2.0), Hl + r + 1.0)
+    fx, fy = torch.floor(cx), torch.floor(cy)
+    offs = torch.arange(-r, r + 2, device=vol.device)
+    xs = fx.long()[:, None] + offs  # (M, n+1)
+    ys = fy.long()[:, None] + offs
+    inside = (((ys >= 0) & (ys < Hl))[:, :, None]
+              & ((xs >= 0) & (xs < Wl))[:, None, :])
+    idx = ys.clamp(0, Hl - 1)[:, :, None] * Wl + xs.clamp(0, Wl - 1)[:, None, :]
+    # gather, then widen: only the taps are converted, not the volume
+    g = _widen(vol.reshape(M, Hl * Wl).gather(1, idx.reshape(M, -1)))
+    return g.reshape(M, n + 1, n + 1) * inside, cx - fx, cy - fy
+
+
 def _window_sample(vol: torch.Tensor, centers: torch.Tensor,
                    radius: int) -> torch.Tensor:
     """Bilinear (2r+1)^2 window around each centre, zeros outside.
@@ -118,24 +148,10 @@ def _window_sample(vol: torch.Tensor, centers: torch.Tensor,
     (x - r + s, y - r + t) (models/raft/corr.py:79-85).  All taps of a
     window share one fractional offset, so the window is a blend of the
     (2r+2)^2 integer-grid values around it."""
-    M, Hl, Wl = vol.shape
-    r = radius
-    n = 2 * r + 1
-    # far-out centres are clamped to where the whole window is still out
-    # of the volume, so the float->int conversion cannot overflow
-    cx = _widen(centers[:, 0]).clamp(-(r + 2.0), Wl + r + 1.0)
-    cy = _widen(centers[:, 1]).clamp(-(r + 2.0), Hl + r + 1.0)
-    fx, fy = torch.floor(cx), torch.floor(cy)
-    ax, ay = (cx - fx)[:, None, None], (cy - fy)[:, None, None]
-    offs = torch.arange(-r, r + 2, device=vol.device)
-    xs = fx.long()[:, None] + offs  # (M, n+1)
-    ys = fy.long()[:, None] + offs
-    inside = (((ys >= 0) & (ys < Hl))[:, :, None]
-              & ((xs >= 0) & (xs < Wl))[:, None, :])
-    idx = ys.clamp(0, Hl - 1)[:, :, None] * Wl + xs.clamp(0, Wl - 1)[:, None, :]
-    # gather, then widen: only the taps are converted, not the volume
-    g = _widen(vol.reshape(M, Hl * Wl).gather(1, idx.reshape(M, -1)))
-    g = g.reshape(M, n + 1, n + 1) * inside  # g[m, i, j]: (y0 - r + i, x0 - r + j)
+    M = vol.shape[0]
+    n = 2 * radius + 1
+    g, ax, ay = _grid_taps(vol, centers, radius)  # g[m, i, j]: (y0+i, x0+j)
+    ax, ay = ax[:, None, None], ay[:, None, None]
     samp = ((1 - ax) * (1 - ay) * g[:, :-1, :-1] + ax * (1 - ay) * g[:, :-1, 1:]
             + (1 - ax) * ay * g[:, 1:, :-1] + ax * ay * g[:, 1:, 1:])  # [m, t, s]
     return samp.transpose(1, 2).reshape(M, n * n)
@@ -275,6 +291,64 @@ def alt_corr_lookup_backward_reference(f1: torch.Tensor,
     return grads[0], tuple(grads[1:])
 
 
+def _sign_hat_selectors(frac: torch.Tensor, radius: int, dtype):
+    """Per window: the ordinary hats and their coordinate derivatives over
+    the 2r+2 grid points of one axis, (hat, dhat) each (M, 2r+1, 2r+2).
+
+    Sample k of the window lies at floor(c) - r + k + frac and grid point j
+    at floor(c) - r + j, so their difference is d = (j - k) - frac; the hat
+    is relu(1 - |d|) and its derivative with respect to c is sign(d) on
+    the open support |d| < 1 (ops/pallas/alt_corr.py:75-86).  d is formed
+    in f64, where it is exact for every f32 fraction that is not tiny."""
+    n = 2 * radius + 1
+    k = torch.arange(n, device=frac.device, dtype=torch.float64)
+    j = torch.arange(n + 1, device=frac.device, dtype=torch.float64)
+    d = (j[None, :] - k[:, None])[None] - frac.double()[:, None, None]
+    hat = torch.clamp(1.0 - d.abs(), min=0.0)
+    dhat = torch.sign(d) * (d.abs() < 1.0)
+    return hat.to(dtype), dhat.to(dtype)
+
+
+def alt_corr_coords_grad_reference(f1: torch.Tensor,
+                                   levels: Sequence[torch.Tensor],
+                                   coords: torch.Tensor, g: torch.Tensor,
+                                   radius: int = 4) -> torch.Tensor:
+    """Plain PyTorch version of the kernel ``csrc/alt_corr_dcoords.cu``: the
+    gradient of ``alt_corr_lookup_reference`` with respect to the coords,
+    for the output cotangent g (B, N, L*(2r+1)^2), as the TPU kernel B3
+    (``_alt_corr_kernel`` with deriv="x"/"y") defines it.
+
+    Builds each level's f32 volume as ``alt_corr_lookup_reference`` does
+    and, for the x derivative, replaces the column hat of every window
+    sample by sign(grid - sample) on the open support |grid - sample| < 1
+    (the row hat stays); the y derivative is symmetric.  Each level's
+    window derivatives are contracted with its 81 cotangents (s-major) and
+    summed over the levels with the chain factor 2^-l.  Where a window's
+    fraction on an axis is 0 (an exactly integer centre, as at RAFT's
+    first iteration) that axis's derivative is 0, as in B3; autograd
+    through the floor-based sampler would give the forward difference
+    there instead, so this is not autograd.  Returns (B, N, 2) f32 (f64
+    for f64 inputs)."""
+    B, N, C = f1.shape
+    n = 2 * radius + 1
+    a = _widen(f1)
+    c = coords.reshape(B * N, 2).to(a.dtype)
+    gl = g.reshape(B * N, len(levels), n, n).to(a.dtype)  # [m, l, s, t]
+    dc = a.new_zeros((B * N, 2))
+    for lvl, f2 in enumerate(levels):
+        Hl, Wl = f2.shape[1], f2.shape[2]
+        vol = torch.bmm(a, _widen(f2.reshape(B, Hl * Wl, C)).transpose(1, 2))
+        taps, ax, ay = _grid_taps(vol.reshape(B * N, Hl, Wl), c / 2 ** lvl,
+                                  radius)  # taps[m, i, j]: (y0 + i, x0 + j)
+        hx, dhx = _sign_hat_selectors(ax, radius, a.dtype)  # [m, s, j]
+        hy, dhy = _sign_hat_selectors(ay, radius, a.dtype)  # [m, t, i]
+        dx = torch.einsum("mti,mij,msj->mst", hy, taps, dhx)
+        dy = torch.einsum("mti,mij,msj->mst", dhy, taps, hx)
+        w = gl[:, lvl] * 2.0 ** -lvl
+        dc = dc + torch.stack([(w * dx).sum((1, 2)), (w * dy).sum((1, 2))], -1)
+    return dc.reshape(B, N, 2)
+
+
 def prepare_alt_corr(fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int,
                      compute_dtype: Optional[torch.dtype] = None):
     """Once per forward: (B, H, W, C) fmaps -> (f1 (B, N, C) scaled by
@@ -302,15 +376,18 @@ def alt_corr_kernel_inputs(f1: torch.Tensor, levels: Sequence[torch.Tensor],
 
 
 class _AltCorrLookup(torch.autograd.Function):
-    """The lookup with its feature gradient (the JAX package's
-    ``_alt_corr_vjp``, ops/correlation.py:659-692).
+    """The lookup with its gradients (the JAX package's ``_alt_corr_vjp``,
+    ops/correlation.py:659-692, 695-780).
 
-    Differentiable inputs: f1 and the levels as prepared (f32 on the
-    model's path).  The kernels read ``kernel_inputs``, their detached
-    copies in the compute dtype, and the gradients go back to f1 and the
-    levels in f32, never rounded to bf16 -- where JAX also puts its
-    custom_vjp.  Saved for the backward: those copies and the coords, the
-    same tensors for every iteration of a forward, never the output."""
+    Differentiable inputs: the coords, and f1 and the levels as prepared
+    (f32 on the model's path).  The kernels read ``kernel_inputs``, their
+    detached copies in the compute dtype, and the gradients go back to f1
+    and the levels in f32, never rounded to bf16 -- where JAX also puts its
+    custom_vjp.  The backward computes only what ``needs_input_grad``
+    asks for: the feature gradient (B2) when f1 or a level requires grad,
+    the coordinate gradient (B3) when the coords do.  Saved for the
+    backward: those copies and the coords, the same tensors for every
+    iteration of a forward, never the output."""
 
     @staticmethod
     def forward(ctx, radius, num_levels, coords, kf1, *rest):
@@ -324,14 +401,27 @@ class _AltCorrLookup(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         coords, kf1, *klevels = ctx.saved_tensors
-        if kf1.device.type == "cpu":
-            df1, dlevels = alt_corr_lookup_backward_reference(
-                kf1, klevels, coords, g, ctx.radius)
-        else:
-            df1, dlevels = _alt_corr_bwd_cuda(
-                kf1, klevels, coords, g.float().contiguous(), ctx.radius)
-        return (None, None, None, None) + (None,) * ctx.num_levels + (
-            df1, *dlevels)
+        L = ctx.num_levels
+        cpu = kf1.device.type == "cpu"
+        dcoords = None
+        if ctx.needs_input_grad[2]:
+            if cpu:
+                dcoords = alt_corr_coords_grad_reference(
+                    kf1, klevels, coords, g, ctx.radius)
+            else:
+                dcoords = _alt_corr_dcoords_cuda(
+                    kf1, klevels, coords, g.float().contiguous(), ctx.radius)
+            dcoords = dcoords.to(coords.dtype)
+        dfeats = (None,) * (1 + L)
+        if any(ctx.needs_input_grad[4 + L:]):
+            if cpu:
+                df1, dlevels = alt_corr_lookup_backward_reference(
+                    kf1, klevels, coords, g, ctx.radius)
+            else:
+                df1, dlevels = _alt_corr_bwd_cuda(
+                    kf1, klevels, coords, g.float().contiguous(), ctx.radius)
+            dfeats = (df1, *dlevels)
+        return (None, None, dcoords, None) + (None,) * L + dfeats
 
 
 def _lookup(f1, levels, coords, radius):
@@ -353,18 +443,14 @@ def alt_corr_lookup(f1: torch.Tensor, levels: Sequence[torch.Tensor],
     (``alt_corr_kernel_inputs``); by default f1 and levels themselves.
     Without autograd (``no_grad``/``inference_mode``, or no input that
     requires grad) this is one forward launch.  Otherwise the lookup runs
-    through ``_AltCorrLookup`` and its backward returns f32 gradients to f1
-    and the levels.  The coordinates take no gradient: RAFT detaches them
-    every iteration, and their gradient kernel is ROADMAP queue B item 3."""
-    if coords.requires_grad:
-        raise NotImplementedError(
-            "alt_corr_lookup has no coordinate gradient: its kernel is "
-            "ROADMAP queue B item 3 (B3, alt_corr.py::_alt_corr_kernel "
-            "deriv='x'/'y'); detach the coordinates")
+    through ``_AltCorrLookup``: its backward returns f32 gradients to f1
+    and the levels, and to the coords when they require grad (JAX's
+    ``coords_grad=True``; RAFT detaches its coords every iteration, which
+    is JAX's ``coords_grad=False``)."""
     kf1, klevels = kernel_inputs if kernel_inputs is not None else (
         f1, tuple(levels))
     if not (torch.is_grad_enabled()
-            and any(t.requires_grad for t in (f1, *levels))):
+            and any(t.requires_grad for t in (coords, f1, *levels))):
         return _lookup(kf1, klevels, coords, radius)
     return _AltCorrLookup.apply(
         radius, len(levels), coords, kf1.detach(),
@@ -383,8 +469,8 @@ def alt_corr_features(fmap1: torch.Tensor, fmap2: torch.Tensor,
     Returns (B, H, W, L*(2r+1)^2) f32 in the reference's compact s-major
     layout, value-equal to ``corr_lookup(corr_pyramid(
     all_pairs_correlation(fmap1, fmap2)), coords)``.  Differentiable in the
-    fmaps: the kernels read ``compute_dtype`` copies and the gradients
-    stay f32."""
+    fmaps and the coords: the kernels read ``compute_dtype`` copies and
+    the gradients stay f32."""
     B, H, W, _ = fmap1.shape
     f1, levels = prepare_alt_corr(fmap1, fmap2, num_levels)
     kin = (alt_corr_kernel_inputs(f1, levels, compute_dtype)
@@ -395,7 +481,7 @@ def alt_corr_features(fmap1: torch.Tensor, fmap2: torch.Tensor,
 
 
 def _check_kernel_args(name, f1, levels, coords, radius):
-    """Raise on what csrc/alt_corr_{fwd,bwd}.cu do not take."""
+    """Raise on what csrc/alt_corr_{fwd,bwd,dcoords}.cu do not take."""
     B, N, C = f1.shape
     L = len(levels)
     vec = 16 // f1.element_size()
@@ -461,6 +547,18 @@ def _alt_corr_lookup_cuda(f1, levels, coords, radius):
     return out
 
 
+def _check_cotangent(f1, levels, g, radius):
+    """Raise on a cotangent csrc/alt_corr_{bwd,dcoords}.cu do not take."""
+    B, N, _ = f1.shape
+    k = len(levels) * (2 * radius + 1) ** 2
+    if g.dtype != torch.float32 or tuple(g.shape) != (B, N, k) \
+            or g.device != f1.device or not g.is_contiguous() \
+            or g.data_ptr() % 16:
+        raise ValueError(f"g must be contiguous f32 (B, N, L*n*n) = ({B}, "
+                         f"{N}, {k}) on {f1.device}, got {g.dtype} "
+                         f"{tuple(g.shape)} on {g.device}")
+
+
 def _alt_corr_bwd_cuda(f1, levels, coords, g, radius):
     """Launch csrc/alt_corr_bwd.cu: (df1 (B, N, C), dlevels) in f32 for
     the output cotangent g (B, N, L*(2r+1)^2) f32.  df2 is a scatter with
@@ -469,15 +567,9 @@ def _alt_corr_bwd_cuda(f1, levels, coords, g, radius):
     import ctypes
 
     _check_kernel_args("alt_corr_bwd", f1, levels, coords, radius)
+    _check_cotangent(f1, levels, g, radius)
     B, N, C = f1.shape
     L = len(levels)
-    n = 2 * radius + 1
-    if g.dtype != torch.float32 or tuple(g.shape) != (B, N, L * n * n) \
-            or g.device != f1.device or not g.is_contiguous() \
-            or g.data_ptr() % 16:
-        raise ValueError(f"g must be contiguous f32 (B, N, L*n*n) = ({B}, "
-                         f"{N}, {L * n * n}) on {f1.device}, got {g.dtype} "
-                         f"{tuple(g.shape)} on {g.device}")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     fn, lib = kernel_fn("alt_corr_bwd", "ufr_alt_corr_bwd", [
         vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp, vp, vp,
@@ -500,6 +592,38 @@ def _alt_corr_bwd_cuda(f1, levels, coords, g, radius):
                            + lib.ufr_cuda_error_string(err).decode())
     LAUNCH_COUNTS["alt_corr_bwd"] += 1
     return df1, dlevels
+
+
+def _alt_corr_dcoords_cuda(f1, levels, coords, g, radius):
+    """Launch csrc/alt_corr_dcoords.cu: dcoords (B, N, 2) f32, the
+    coordinate gradient of the lookup for the output cotangent g (B, N,
+    L*(2r+1)^2) f32, as ``alt_corr_coords_grad_reference`` computes it.
+    One launch covers every level; dcoords is written whole."""
+    import ctypes
+
+    _check_kernel_args("alt_corr_dcoords", f1, levels, coords, radius)
+    _check_cotangent(f1, levels, g, radius)
+    B, N, C = f1.shape
+    L = len(levels)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn, lib = kernel_fn("alt_corr_dcoords", "ufr_alt_corr_dcoords", [
+        vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp, vp, vp, i32,
+        i32, i32, i32, i32, vp])
+
+    dcoords = torch.empty((B, N, 2), device=f1.device, dtype=torch.float32)
+    if B * N == 0:
+        return dcoords
+    ptrs, hw = _level_args(levels)
+    with torch.cuda.device(f1.device):
+        stream = torch.cuda.current_stream(f1.device).cuda_stream
+        err = fn(f1.data_ptr(), ptrs, hw, L, coords.data_ptr(), g.data_ptr(),
+                 dcoords.data_ptr(), B, N, C, radius,
+                 int(f1.dtype == torch.bfloat16), stream)
+    if err:
+        raise RuntimeError("alt_corr_dcoords launch failed: "
+                           + lib.ufr_cuda_error_string(err).decode())
+    LAUNCH_COUNTS["alt_corr_dcoords"] += 1
+    return dcoords
 
 
 def _check_lookup_args(levels, coords, radius):
