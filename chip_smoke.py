@@ -12,8 +12,12 @@
    in f32 and bf16, for calibrated, wild and out-of-volume centres; times
    both at the serving shape.
 4. Holds the backward kernel ``alt_corr_bwd`` against the plain backward
-   the same way, at the train path's shape and the ragged one; times both
-   at the train shape.
+   the same way, at the train path's shape, the attack path's and the
+   ragged one, adding a smooth field of centres; prints for each case the
+   share of (8x8 query tile, level) pairs that took the kernel's tile path
+   and checks that both paths ran; times the kernel (calibrated and
+   smooth) at the train and attack shapes with the bound of each, and the
+   plain backward at the train shape.
 4b. Drives the lookup's coordinate gradient (coords that require grad)
    through ``alt_corr_features`` at the serving shape, which launches the
    coordinate-gradient kernel ``alt_corr_dcoords`` (no model path does);
@@ -23,7 +27,8 @@
 5. Holds the warp kernel ``warp_fwd`` against its plain version in its
    three modes, f32 and bf16, at SPyNet's and PWC-Net's largest warp
    shapes and a ragged one, for smooth, wild and +-1e30 flows; times it,
-   the plain version and ``F.grid_sample`` at the two main shapes.
+   the plain version and ``F.grid_sample`` at the two main shapes and
+   prints the kernel's share of its bound.
 5b. Holds the volume lookup kernel ``corr_lookup_fwd`` against its plain
    version on RAFT's pyramid (f32 and bf16) at the serving shape and a
    ragged one, for calibrated, wild and hand-placed edge centres; times it,
@@ -53,17 +58,19 @@
 8. Train path: RAFT-12 in mixed precision taking 2 + 5 AdamW/OneCycle
    steps at batch 4, 288x960 through ``make_train_step``; checks finite
    losses, moved parameters and 12 launches of each kernel per step; times
-   frames/s and reads the peak memory.
+   frames/s and reads the peak memory; one more step prints the tile-path
+   share of ``alt_corr_bwd`` for the coords of its 12 iterations.
 9. The parameter gradients of one train-mode backward with the kernels
    against those with the plain lookup, in f32 and in bf16.
 10. Attack path: I-FGSM with the attack CLI's defaults (40 steps, eps
    0.02, l2 loss) on ``fetch_model("RAFT")``, batch 1 at 256x640, against
-   a target offset from the clean flow; checks 12 launches of each lookup
-   kernel per step and none of the coordinate-gradient kernel, the eps-ball,
-   the image range and that the loss grew; times ms per step and reads the
-   peak memory.  Then one image gradient with the kernels against one with
-   the plain lookup (f32 and bf16), and one FGSM on PWC-Net through the
-   warp kernel.
+   a target offset from the clean flow (the warm-up prints the tile-path
+   share of ``alt_corr_bwd`` for the attack's coords); checks 12 launches
+   of each lookup kernel per step and none of the coordinate-gradient
+   kernel, the eps-ball, the image range and that the loss grew; times ms
+   per step and reads the peak memory.  Then one image gradient with the
+   kernels against one with the plain lookup (f32 and bf16), and one FGSM
+   on PWC-Net through the warp kernel.
 11. The attack CLI on RAFT with ``--perturb_method ifgsm --synthetic 2
    --n_step 3``.
 12. The train CLI with ``--synthetic 3``, then its resume.
@@ -79,6 +86,7 @@ throughout, so f32 convolutions run in full f32.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -116,6 +124,7 @@ BWD_REL_TOL = 1e-5
 DCOORDS_REL_TOL = 1e-5
 AB, AH, AW = 1, 256, 640  # the attack geometry (cli/run_perturb_model.py:44-45)
 ATTACK_STEPS, ATTACK_EPS = 40, 0.02  # the attack CLI's defaults
+ATTACK_SEED = 100  # the attack phase's images (torch_kernel_ab.py's first)
 # relative L2 of the parameter gradients, kernels vs plain lookup, one
 # train-mode backward: (worst tensor, all parameters together).  Both paths
 # read the same values and keep the lookup's gradient f32, but they sum in
@@ -181,6 +190,25 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time of ``fn()``: ``reps`` calls captured in one CUDA graph
+    and replayed between CUDA events, so that the host's cost of each call
+    (a Python wrapper's checks, the ctypes call: tens of us, as long as a
+    small warp) stays out of the measurement."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    return cuda_ms(graph.replay, reps=1, warmup=0) / reps
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -195,13 +223,15 @@ def bound(moved: int, flops: float, dtype) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def lookup_cases(gen, main_shape):
+def lookup_cases(gen, main_shape, more_shapes=(), smooth=False):
     """(name, b, h, w, c, coords) for the kernel-vs-plain phases: the main
-    path's feature shape and a ragged one whose pooled levels drop rows and
-    columns, each with calibrated, wild and hand-placed edge centres."""
+    path's feature shape, ``more_shapes`` ((name, (b, h, w, c)), ...) and a
+    ragged one whose pooled levels drop rows and columns, each with
+    calibrated (2 px of noise on every centre), wild and hand-placed edge
+    centres, and with ``smooth`` a smooth field (``warp_flow``'s)."""
     from understanding_flow_robustness_tpu_torch.ops import coords_grid
 
-    for shape_name, (b, h, w, c) in (("main", main_shape),
+    for shape_name, (b, h, w, c) in (("main", main_shape), *more_shapes,
                                      ("ragged", (2, 13, 21, 64))):
         grid = coords_grid(h, w, device="cuda")[None].expand(b, h, w, 2)
         noise = torch.randn((b, h, w, 2), generator=gen, device="cuda")
@@ -211,10 +241,38 @@ def lookup_cases(gen, main_shape):
              [w - 0.25, h - 0.25]], device="cuda")
         edge[0, 1, :3] = torch.tensor(
             [[-1e30, 3.0], [3.0, 1e30], [w - 1.0, h - 1.0]], device="cuda")
-        for coords_name, coords in (("calibrated", grid + 2.0 * noise),
-                                    ("wild", grid + 150.0 * noise),
-                                    ("edge", edge)):
+        cases = [("calibrated", grid + 2.0 * noise),
+                 ("wild", grid + 150.0 * noise), ("edge", edge)]
+        if smooth:
+            field = warp_flow(gen, b, h, w, "smooth").permute(0, 2, 3, 1)
+            cases.append(("smooth", grid + field))
+        for coords_name, coords in cases:
             yield f"{shape_name}/{coords_name}", b, h, w, c, coords
+
+
+@contextlib.contextmanager
+def bwd_path_counts():
+    """Every ``alt_corr_bwd`` launch inside adds its (8x8 query tile, level)
+    path counter into the yielded int32 tensor: [l] the tile path, [LEVELS
+    + l] the per-query path."""
+    from understanding_flow_robustness_tpu_torch.ops import correlation as corr
+
+    counts = torch.zeros(2 * LEVELS, dtype=torch.int32, device="cuda")
+    launch = corr._alt_corr_bwd_cuda
+    corr._alt_corr_bwd_cuda = lambda *a: launch(*a, path_counts=counts)
+    try:
+        yield counts
+    finally:
+        corr._alt_corr_bwd_cuda = launch
+
+
+def path_share(counts: torch.Tensor) -> tuple:
+    """(share of the (tile, level) pairs with a live window that took the
+    tile path, a per-level summary)."""
+    tile, per_query = counts[:LEVELS].tolist(), counts[LEVELS:].tolist()
+    share = sum(tile) / max(1, sum(tile) + sum(per_query))
+    return share, " ".join(f"L{lvl}:{t}/{t + p}" for lvl, (t, p) in
+                           enumerate(zip(tile, per_query)))
 
 
 def kernel_phase(gen) -> dict:
@@ -269,14 +327,17 @@ def backward_phase(gen) -> dict:
     print("== alt_corr_bwd vs plain backward (TF32 off) ==", flush=True)
     res = {}
     n2 = (2 * RADIUS + 1) ** 2
-    for name, b, h, w, c, coords in lookup_cases(gen, (TB, TH // 8, TW // 8, 256)):
+    for name, b, h, w, c, coords in lookup_cases(
+            gen, (TB, TH // 8, TW // 8, 256),
+            (("attack", (AB, AH // 8, AW // 8, 256)),), smooth=True):
         fm1 = torch.randn((b, h, w, c), generator=gen, device="cuda")
         fm2 = torch.randn((b, h, w, c), generator=gen, device="cuda")
         cflat = coords.reshape(b, h * w, 2).contiguous()
         g = torch.randn((b, h * w, LEVELS * n2), generator=gen, device="cuda")
         for dtype in (torch.float32, torch.bfloat16):
             f1, levels = corr.prepare_alt_corr(fm1, fm2, LEVELS, dtype)
-            got = corr._alt_corr_bwd_cuda(f1, levels, cflat, g, RADIUS)
+            with bwd_path_counts() as counts:
+                got = corr._alt_corr_bwd_cuda(f1, levels, cflat, g, RADIUS)
             ref = corr.alt_corr_lookup_backward_reference(f1, levels, cflat, g,
                                                           RADIUS)
             torch.cuda.synchronize()
@@ -297,21 +358,38 @@ def backward_phase(gen) -> dict:
                                   "plain backward")
                 worst = max(worst, err)
             res[tag] = worst
-            if tag == "main/calibrated/bfloat16":
+            share, per_level = path_share(counts)
+            res[f"{tag}/tile_share"] = share
+            res.setdefault("paths", counts.new_zeros(2 * LEVELS))
+            res["paths"] += counts
+            print(f"{tag:28s} (tile, level) pairs on the tile path: "
+                  f"{100 * share:.1f}% ({per_level})", flush=True)
+            if dtype == torch.bfloat16 and not name.startswith("ragged") \
+                    and name.split("/")[1] in ("calibrated", "smooth"):
                 k_ms = cuda_ms(lambda: corr._alt_corr_bwd_cuda(
-                    f1, levels, cflat, g, RADIUS), reps=10)
-                p_ms = cuda_ms(lambda: corr.alt_corr_lookup_backward_reference(
-                    f1, levels, cflat, g, RADIUS), reps=2, warmup=0)
-                res[f"{tag}/ms"], res[f"{tag}/plain_ms"] = k_ms, p_ms
+                    f1, levels, cflat, g, RADIUS), reps=20)
+                res[f"{tag}/ms"] = k_ms
                 # per query and level: the (2r+2)^2 grid points' df1 and
                 # df2 products of length C, a multiply-add each
                 flops = 4 * (2 * RADIUS + 2) ** 2 * c * b * h * w * LEVELS
                 res[f"{tag}/bound"] = bound(
                     nbytes(f1, *levels, cflat, g, got[0], *got[1]), flops,
                     dtype)
-                print(f"{tag:28s} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-                      "per backward (4 levels)", flush=True)
+                line = (f"{tag:28s} kernel {k_ms:.3f} ms, bound "
+                        f"{res[f'{tag}/bound']['bound_ms']:.4f} ms "
+                        f"({res[f'{tag}/bound']['bound_by']})")
+                if tag == "main/calibrated/bfloat16":
+                    p_ms = cuda_ms(
+                        lambda: corr.alt_corr_lookup_backward_reference(
+                            f1, levels, cflat, g, RADIUS), reps=2, warmup=0)
+                    res[f"{tag}/plain_ms"] = p_ms
+                    line += f", plain {p_ms:.3f} ms"
+                print(line + " per backward (4 levels)", flush=True)
             del got, ref
+    paths = res["paths"]
+    check(paths[:LEVELS].sum().item() > 0 and paths[LEVELS:].sum().item() > 0,
+          "alt_corr_bwd: the cases did not take both paths "
+          f"({paths.tolist()})")
     return res
 
 
@@ -581,22 +659,32 @@ def warp_phase(gen) -> dict:
                     res[tag] = err.max().item()
                     if WARP_MAIN.get(mode) == ((b, c, h, w), dtype) \
                             and kind == "smooth":
-                        k_ms = cuda_ms(lambda: ops.warp_backward(
+                        # the kernel and grid_sample replayed from a CUDA
+                        # graph (device time), and the kernel launched
+                        # from Python back to back
+                        k_ms = graph_ms(lambda: ops.warp_backward(
+                            img, flow, mode), reps=50)
+                        launched_ms = cuda_ms(lambda: ops.warp_backward(
                             img, flow, mode), reps=50)
                         p_ms = cuda_ms(lambda: ops.warp_backward_reference(
                             img, flow, mode), reps=10)
-                        l_ms = cuda_ms(grid_sample_call(img, flow, mode),
-                                       reps=50)
+                        l_ms = graph_ms(grid_sample_call(img, flow, mode),
+                                        reps=50)
                         res[f"{mode}/main"] = {
                             "tag": tag, "max_abs_err": err.max().item(),
-                            "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                            "ms": k_ms, "launched_ms": launched_ms,
+                            "plain_ms": p_ms, "library_ms": l_ms,
                             # 4 taps per channel, a multiply-add each
                             **bound(nbytes(img, flow, got),
                                     8 * b * c * h * w, dtype)}
-                        print(f"{tag:38s} kernel {k_ms:.4f} ms, plain "
-                              f"{p_ms:.4f} ms, grid_sample {l_ms:.4f} ms, "
-                              f"bound {res[f'{mode}/main']['bound_ms']:.4f} ms"
-                              f" ({res[f'{mode}/main']['bound_by']})",
+                        m = res[f"{mode}/main"]
+                        print(f"{tag:38s} kernel {k_ms:.4f} ms ("
+                              f"{launched_ms:.4f} launched from Python), "
+                              f"plain {p_ms:.4f} ms, grid_sample {l_ms:.4f} "
+                              "ms, "
+                              f"bound {m['bound_ms']:.4f} ms ({m['bound_by']}"
+                              "; the kernel at "
+                              f"{100 * m['bound_ms'] / k_ms:.0f}% of it)",
                               flush=True)
                     del got, ref
             del flow
@@ -1061,8 +1149,16 @@ def train_phase(gen) -> dict:
                               f"not {ITERS}")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    # one more step: which path B2 took for the coords of its 12 iterations
+    with bwd_path_counts() as counts:
+        losses.append(step(batches[0])["loss"])
+    share, per_level = path_share(counts)
+    print(f"train step's own coords: (tile, level) pairs of alt_corr_bwd on "
+          f"the tile path {100 * share:.1f}% ({per_level}, summed over "
+          f"{ITERS} iterations)", flush=True)
     res = {f"launches/{k}": LAUNCH_COUNTS[k] for k in TRAIN_KERNELS}
-    print(f"kernel launches while training {TRAIN_WARMUP + TRAIN_STEPS} "
+    res["tile_share"] = share
+    print(f"kernel launches while training {TRAIN_WARMUP + TRAIN_STEPS + 1} "
           f"steps: " + ", ".join(f"{k} {LAUNCH_COUNTS[k]}" for k in TRAIN_KERNELS)
           + f" ({ITERS} each per step)", flush=True)
     print("losses: " + " ".join(f"{x:.4f}" for x in losses), flush=True)
@@ -1129,10 +1225,14 @@ def grad_phase(gen) -> dict:
     return res
 
 
-def attack_phase(gen) -> dict:
+def attack_phase() -> dict:
     """The global-attack path: I-FGSM with the CLI's defaults on RAFT at
     the attack geometry, then the image gradient against the plain lookup's
-    and one FGSM on PWC-Net."""
+    and one FGSM on PWC-Net.  The images come from a generator of this
+    phase's own (ATTACK_SEED), so that cases added to earlier phases leave
+    them as they are: the image gradients' distance from the plain lookup's
+    depends on the images (1e-4 to 3e-3 in f32, the same to five digits
+    with either design of alt_corr_bwd; scripts/torch_kernel_ab.py --e2e)."""
     from understanding_flow_robustness_tpu_torch.attacks import (
         PerturbConfig,
         flow_attack_loss,
@@ -1151,6 +1251,7 @@ def attack_phase(gen) -> dict:
           f"steps, eps {ATTACK_EPS}, l2 ==", flush=True)
     res = {}
     model = fetch_model("RAFT", device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(ATTACK_SEED)
     a = torch.rand((AB, AH, AW, 3), generator=gen, device="cuda")
     b = torch.rand((AB, AH, AW, 3), generator=gen, device="cuda")
 
@@ -1165,7 +1266,12 @@ def attack_phase(gen) -> dict:
     cfg = PerturbConfig(perturb_method="ifgsm", flow_loss="l2",
                         output_norm=ATTACK_EPS, n_step=ATTACK_STEPS)
     attack = make_attack(predict, cfg)
-    make_attack(predict, dataclasses.replace(cfg, n_step=2))(a, b, gt)  # warm-up
+    with bwd_path_counts() as counts:  # warm-up
+        make_attack(predict, dataclasses.replace(cfg, n_step=2))(a, b, gt)
+    share, per_level = path_share(counts)
+    res["tile_share"] = share
+    print(f"attack's own coords: (tile, level) pairs of alt_corr_bwd on the "
+          f"tile path {100 * share:.1f}% ({per_level}, 2 steps)", flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1356,7 +1462,7 @@ def main() -> None:
     pres = phase(warp_model_phase, gen, "PWCNet", 4)
     tres = phase(train_phase, gen)
     phase(grad_phase, gen)
-    ares = phase(attack_phase, gen)
+    ares = phase(attack_phase)
     acres = phase(attack_cli_phase)
     phase(cli_phase)
     print(f"all phases, build included: {time.perf_counter() - t0:.1f} s",
@@ -1393,6 +1499,11 @@ def main() -> None:
         "plain_ms": bres[f"{fwd}/plain_ms"],
         **bres[f"{fwd}/bound"],
         "library_ms": None,
+        "smooth_ms": bres["main/smooth/bfloat16/ms"],
+        "attack_ms": bres["attack/calibrated/bfloat16/ms"],
+        "attack_bound_ms":
+            bres["attack/calibrated/bfloat16/bound"]["bound_ms"],
+        "train_step_tile_share": tres["tile_share"],
     }, {
         "name": "alt_corr_dcoords",
         "route": "cuda",
@@ -1418,6 +1529,7 @@ def main() -> None:
         "bound_by": warp["bound_by"],
         "library_ms": warp["library_ms"],
         "grid_sample_ms": warp["library_ms"],
+        "launched_ms": warp["launched_ms"],
     }, {
         "name": "corr_lookup_fwd",
         "route": "cuda",

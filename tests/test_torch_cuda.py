@@ -139,6 +139,97 @@ def test_backward_kernel_matches_plain(cuda, dtype, shape, spread):
             BWD_REL_TOL * ref.abs().max().item())
 
 
+def _smooth_coords(b, h, w, amp, seed=3):
+    """The query grid plus a smooth field: x4 bilinear upsample of noise."""
+    g = torch.Generator().manual_seed(seed)
+    coarse = amp * torch.randn((b, 2, h // 4 + 1, w // 4 + 1), generator=g)
+    flow = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear",
+                                           align_corners=False)
+    return ops.coords_grid(h, w)[None] + flow.permute(0, 2, 3, 1)
+
+
+def _backward_vs_plain(fm_shape, dtype, coords, seed=0):
+    """B2 with its path counter against the plain backward on seeded
+    features and cotangent; returns the counter ([l] tile path, [4 + l]
+    per-query path, per (8x8 tile, level))."""
+    b, h, w, c = fm_shape
+    g = torch.Generator().manual_seed(seed)
+    fm1 = torch.randn((b, h, w, c), generator=g)
+    fm2 = torch.randn((b, h, w, c), generator=g)
+    cot = torch.randn((b, h * w, 324), generator=g).cuda()
+    f1, levels = ops.prepare_alt_corr(fm1.cuda(), fm2.cuda(), 4, dtype)
+    cflat = coords.reshape(b, h * w, 2).contiguous().cuda()
+    counts = torch.zeros(8, dtype=torch.int32, device="cuda")
+    df1, dlv = correlation._alt_corr_bwd_cuda(f1, levels, cflat, cot, 4, counts)
+    rf1, rlv = ops.alt_corr_lookup_backward_reference(f1, levels, cflat, cot)
+    torch.cuda.synchronize()
+    for got, ref in zip((df1, *dlv), (rf1, *rlv)):
+        assert got.shape == ref.shape and got.dtype == torch.float32
+        assert (got - ref).abs().max().item() <= (
+            BWD_REL_TOL * ref.abs().max().item())
+    tiles = b * -(-h // 8) * -(-w // 8)
+    assert ((counts[:4] + counts[4:]) <= tiles).all()
+    return counts.cpu()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 13, 21, 64),    # ragged tiles and pooled levels, batch 2
+    (2, 20, 28, 96),    # three channel chunks
+    (1, 36, 60, 256),   # RAFT's width, the train rows
+])
+def test_backward_kernel_tile_path_on_smooth_coords(cuda, dtype, shape):
+    """A smooth field keeps every tile's windows within one box, so every
+    (tile, level) takes the tile path; the gradients match the plain
+    backward."""
+    b, h, w, _ = shape
+    counts = _backward_vs_plain(shape, dtype, _smooth_coords(b, h, w, 0.5))
+    tiles = b * -(-h // 8) * -(-w // 8)
+    assert counts[:4].tolist() == [tiles] * 4
+    assert counts[4:].tolist() == [0] * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kind", [
+    ((2, 13, 21, 64), "calibrated"),
+    ((2, 20, 28, 96), "smooth"),
+    ((2, 20, 28, 96), "calibrated"),
+    ((1, 36, 60, 256), "smooth"),
+    ((1, 36, 60, 256), "wild"),
+])
+def test_backward_kernel_both_paths_match_plain(cuda, dtype, shape, kind):
+    """Per-query jittered (calibrated, wild) and smooth (amplitude 3)
+    centres: whichever path each (tile, level) takes, the gradients match
+    the plain backward."""
+    b, h, w, _ = shape
+    g = torch.Generator().manual_seed(4)
+    grid = ops.coords_grid(h, w)[None]
+    coords = {"smooth": lambda: _smooth_coords(b, h, w, 3.0),
+              "calibrated": lambda: grid + 2.0 * torch.randn((b, h, w, 2), generator=g),
+              "wild": lambda: grid + 40.0 * torch.randn((b, h, w, 2), generator=g),
+              }[kind]()
+    counts = _backward_vs_plain(shape, dtype, coords)
+    assert counts.sum().item() > 0
+    if kind == "wild":  # windows of a tile spread over the level
+        assert counts[4].item() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_mixed_tile(cuda, dtype):
+    """One wild query in a smooth tile sends that (tile, level 0) alone to
+    the per-query path; far (+-1e30) and out-of-level queries in another
+    tile have no window inside and leave it on the tile path."""
+    b, h, w = 1, 32, 64
+    coords = _smooth_coords(b, h, w, 0.5)
+    coords[0, 2, 2] = torch.tensor([60.0, 30.0])      # tile (0, 0): wild
+    coords[0, 1, 9:13] = torch.tensor([[1e30, 3.0], [3.0, -1e30],
+                                       [-50.0, -50.0], [500.0, 500.0]])
+    counts = _backward_vs_plain((b, h, w, 96), dtype, coords)
+    tiles = 4 * 8
+    assert counts[4].item() == 1 and counts[:4].tolist() == [tiles - 1] + [tiles] * 3
+    assert counts[5:].tolist() == [0] * 3
+
+
 def test_backward_wrapper_counts_launches_and_rejects_bad_input(cuda):
     f1, levels, coords = _case(1, 8, 8, 32, torch.float32, 1.0)
     g = torch.ones((1, 64, 324), device="cuda")
@@ -314,6 +405,26 @@ def test_warp_kernel_matches_plain(cuda, dtype, mode, shape, kind):
     if dtype == torch.float32:
         assert err.max().item() <= WARP_F32_REL_TOL * img.abs().max().item()
     else:  # the f32 sample rounded once, within one bf16 ulp
+        assert bool((err <= bf16_ulp(ref)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["border", "zeros_mask", "spynet"])
+@pytest.mark.parametrize("c", [1, 3, 32])
+@pytest.mark.parametrize("w", [13, 21])
+def test_warp_kernel_ragged_widths(cuda, dtype, mode, c, w):
+    """W not a multiple of the kernel's 4 pixels per thread (every row goes
+    scalar), C = 3's unrolled instantiation beside the generic loop: the
+    output is the plain version's, for flows with +-1e30 entries."""
+    img, flow = _warp_case(2, c, 11, w, dtype, "far", seed=5)
+    got = ops.warp_backward(img, flow, mode)
+    ref = ops.warp_backward_reference(img.float(), flow, mode)
+    torch.cuda.synchronize()
+    assert got.shape == img.shape and got.dtype == dtype
+    err = (got.float() - ref).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= WARP_F32_REL_TOL * img.abs().max().item()
+    else:
         assert bool((err <= bf16_ulp(ref)).all())
 
 

@@ -142,3 +142,13 @@ def test_alt_corr_lookup_plain_path_is_forward_only_and_uncounted():
     out.sum().backward()
     assert cg.grad.shape == cg.shape and bool(torch.isfinite(cg.grad).all())
     assert dict(tops.LAUNCH_COUNTS) == before  # no kernel on the CPU
+
+
+def test_backward_kernel_query_grid():
+    """csrc/alt_corr_bwd.cu cuts the queries into 8x8 tiles of level 0's
+    grid where f1 and fmap2 share it (every model path), else of one row."""
+    from understanding_flow_robustness_tpu_torch.ops import correlation
+
+    levels = [torch.zeros((2, 13, 21, 8)), torch.zeros((2, 6, 10, 8))]
+    assert correlation._query_grid(levels, 13 * 21) == (13, 21)
+    assert correlation._query_grid(levels, 100) == (1, 100)

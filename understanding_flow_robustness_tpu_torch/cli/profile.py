@@ -7,6 +7,8 @@ time.
         --model RAFT --corr_impl volume
     python -m understanding_flow_robustness_tpu_torch.cli.profile \\
         --model RAFT --attack --batch 1 --size 256 640
+    python -m understanding_flow_robustness_tpu_torch.cli.profile \\
+        --model RAFT --train --batch 4 --size 288 960
 
 Serves random [0, 1] frame pairs through ``predict_flow`` of
 ``fetch_model(--model, seed=--seed)`` on one CUDA device, traces --reps
@@ -17,10 +19,12 @@ CUDA kernels, convolutions, norms, reductions, the rest) and the top
 kernels.  ``--corr_impl`` picks a RAFT model's lookup path.  ``--attack``
 traces one I-FGSM step instead of a forward: a forward and a backward of
 the l2 attack loss to the images (``predict_flow_differentiable``) against
-a target offset from the clean flow, and the update.  Only device
-events count: the host-side ops that launched them carry the same time
-again.  TF32 stays off, as in chip_smoke.py.  Needs a CUDA device; fails
-without one.
+a target offset from the clean flow, and the update.  ``--train`` traces
+one train step of a RAFT model instead (``make_train_step``: sequence
+loss, backward, clip, AdamW/OneCycle) on random frames and a ``randn``
+flow with all-valid masks.  Only device events count: the host-side ops
+that launched them carry the same time again.  TF32 stays off, as in
+chip_smoke.py.  Needs a CUDA device; fails without one.
 """
 
 from __future__ import annotations
@@ -59,15 +63,19 @@ def build_parser():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--corr_impl", choices=("auto", "alt", "volume"),
                    help="a RAFT model's lookup path (default: the model's)")
-    p.add_argument("--attack", action="store_true",
-                   help="trace one I-FGSM step (forward + backward to the "
-                        "images) instead of a forward")
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--attack", action="store_true",
+                      help="trace one I-FGSM step (forward + backward to "
+                           "the images) instead of a forward")
+    mode.add_argument("--train", action="store_true",
+                      help="trace one RAFT train step instead of a forward")
     return p
 
 
 def main(argv=None) -> dict:
     """Returns {"wall_ms", "busy_ms", "idle_share", "launches", "classes":
-    {name: ms}} per forward (per attack step with ``--attack``)."""
+    {name: ms}} per forward (per attack or train step with ``--attack`` or
+    ``--train``)."""
     args = build_parser().parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -88,7 +96,8 @@ def main(argv=None) -> dict:
     h, w = args.size
     a = torch.rand((args.batch, h, w, 3), generator=g, device="cuda")
     b = torch.rand((args.batch, h, w, 3), generator=g, device="cuda")
-    unit = "attack step" if args.attack else "forward"
+    unit = ("attack step" if args.attack else "train step" if args.train
+            else "forward")
     print(f"== {args.model}{'' if not kw else ', corr_impl=' + args.corr_impl}"
           f", batch {args.batch}, {h}x{w}, per {unit} ==")
     if args.attack:
@@ -103,6 +112,22 @@ def main(argv=None) -> dict:
 
         def step():
             attack(a, b, gt)
+    elif args.train:
+        from ..training import fetch_optimizer, make_train_step
+
+        if not args.model.startswith("RAFT"):
+            raise SystemExit("--train traces RAFT models only")
+        optimizer, scheduler = fetch_optimizer(
+            list(model.module.parameters()), lr=1e-4, num_steps=1000)
+        train_step = make_train_step(model.module, optimizer, scheduler,
+                                     is_raft=True)
+        batch = {"image1": a, "image2": b,
+                 "flow": torch.randn((args.batch, h, w, 2), generator=g,
+                                     device="cuda"),
+                 "valid": torch.ones((args.batch, h, w), device="cuda")}
+
+        def step():
+            train_step(batch)
     else:
         def step():
             predict_flow(model, a, b)

@@ -34,8 +34,9 @@ from ._build import LAUNCH_COUNTS, kernel_fn
 
 # Argument limits of csrc/alt_corr_fwd.cu, csrc/alt_corr_bwd.cu,
 # csrc/alt_corr_dcoords.cu and (the first two) csrc/corr_lookup_fwd.cu:
-# their kMaxLevels, their kRadius and their bound of two 16-byte chunks of
-# a feature row per lane.
+# their kMaxLevels, their kRadius and the forward's bound of two 16-byte
+# chunks of a feature row per lane (the backward, which takes any C, is
+# held to what the forward takes).
 _MAX_LEVELS = 8
 _RADIUS = 4
 _MAX_CHUNKS = 2 * 32
@@ -559,34 +560,54 @@ def _check_cotangent(f1, levels, g, radius):
                          f"{tuple(g.shape)} on {g.device}")
 
 
-def _alt_corr_bwd_cuda(f1, levels, coords, g, radius):
+def _query_grid(levels, n: int):
+    """The (H1, W1) grid of the n queries per image that csrc/alt_corr_bwd.cu
+    cuts into 8x8 tiles: level 0's, where f1 and fmap2 share it (every
+    model path); else one row of n.  Any grid gives the same gradient; a
+    2-D one keeps a tile's windows together."""
+    h, w = levels[0].shape[1], levels[0].shape[2]
+    return (h, w) if h * w == n else (1, n)
+
+
+def _alt_corr_bwd_cuda(f1, levels, coords, g, radius, path_counts=None):
     """Launch csrc/alt_corr_bwd.cu: (df1 (B, N, C), dlevels) in f32 for
-    the output cotangent g (B, N, L*(2r+1)^2) f32.  df2 is a scatter with
-    atomics, so its levels start from ``torch.zeros``; df1 is written
-    whole."""
+    the output cotangent g (B, N, L*(2r+1)^2) f32.  df2 is accumulated
+    with atomics, so its levels start from ``torch.zeros``; df1 is written
+    whole.  ``path_counts``: None, or a zeroed int32 CUDA tensor of 2*L
+    that the kernel adds to: [l] the (8x8 tile, level) pairs that took the
+    tile path, [L + l] those that took the per-query path."""
     import ctypes
 
     _check_kernel_args("alt_corr_bwd", f1, levels, coords, radius)
     _check_cotangent(f1, levels, g, radius)
     B, N, C = f1.shape
     L = len(levels)
+    if path_counts is not None and (
+            path_counts.dtype != torch.int32 or path_counts.numel() != 2 * L
+            or path_counts.device != f1.device
+            or not path_counts.is_contiguous()):
+        raise ValueError(f"path_counts must be a contiguous int32 tensor of "
+                         f"{2 * L} on {f1.device}")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     fn, lib = kernel_fn("alt_corr_bwd", "ufr_alt_corr_bwd", [
         vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp, vp, vp,
-        ctypes.POINTER(vp), i32, i32, i32, i32, i32, vp])
+        ctypes.POINTER(vp), i32, i32, i32, i32, i32, i32, vp, vp])
 
     df1 = torch.empty((B, N, C), device=f1.device, dtype=torch.float32)
     dlevels = tuple(torch.zeros(lvl.shape, device=f1.device,
                                 dtype=torch.float32) for lvl in levels)
     if B * N == 0:
         return df1, dlevels
+    H1, W1 = _query_grid(levels, N)
     ptrs, hw = _level_args(levels)
     dptrs = (vp * L)(*[d.data_ptr() for d in dlevels])
     with torch.cuda.device(f1.device):
         stream = torch.cuda.current_stream(f1.device).cuda_stream
         err = fn(f1.data_ptr(), ptrs, hw, L, coords.data_ptr(), g.data_ptr(),
-                 df1.data_ptr(), dptrs, B, N, C, radius,
-                 int(f1.dtype == torch.bfloat16), stream)
+                 df1.data_ptr(), dptrs, B, H1, W1, C, radius,
+                 int(f1.dtype == torch.bfloat16),
+                 None if path_counts is None else path_counts.data_ptr(),
+                 stream)
     if err:
         raise RuntimeError("alt_corr_bwd launch failed: "
                            + lib.ufr_cuda_error_string(err).decode())
