@@ -9,8 +9,11 @@
    once) and prints the build times and the ptxas reports.
 3. Holds the lookup kernel ``alt_corr_fwd`` against its plain PyTorch
    version on the card, at the serving path's shape and at a ragged shape,
-   in f32 and bf16, for calibrated, wild and out-of-volume centres; times
-   both at the serving shape.
+   in f32 and bf16, for calibrated, wild, out-of-volume and smooth centres;
+   prints for each case the share of (8x8 query tile, level) pairs that
+   took the kernel's tensor-core tile path and checks that both paths ran;
+   times the kernel (calibrated, wild and smooth) and the plain version at
+   the serving shape.
 4. Holds the backward kernel ``alt_corr_bwd`` against the plain backward
    the same way, at the train path's shape, the attack path's and the
    ragged one, adding a smooth field of centres; prints for each case the
@@ -38,7 +41,9 @@
    frame pairs at 384x1280 through ``predict_flow``, at the calibrated
    (``scale_flow_head(0.05)``) and the wild (raw init) operating point;
    checks shapes, finiteness and that every forward launched the lookup
-   kernel 12 times; compares the flow with the plain lookup; times pairs/s.
+   kernel 12 times; prints the tile-path share of ``alt_corr_fwd`` for the
+   coords of a request's 12 iterations at each point; compares the flow
+   with the plain lookup; times pairs/s.
 6b. Serving path: RAFT-12 on its volume path (``corr_impl="volume"``),
    the same 3 requests at both operating points; checks 12 launches of
    ``corr_lookup_fwd`` and none of ``alt_corr_fwd`` per request, the flow
@@ -251,19 +256,20 @@ def lookup_cases(gen, main_shape, more_shapes=(), smooth=False):
 
 
 @contextlib.contextmanager
-def bwd_path_counts():
-    """Every ``alt_corr_bwd`` launch inside adds its (8x8 query tile, level)
-    path counter into the yielded int32 tensor: [l] the tile path, [LEVELS
-    + l] the per-query path."""
+def path_counts(wrapper: str):
+    """Every launch of ``correlation.<wrapper>`` inside (``_alt_corr_bwd_cuda``
+    or ``_alt_corr_lookup_cuda``) adds its (8x8 query tile, level) path
+    counter into the yielded int32 tensor: [l] the tile path, [LEVELS + l]
+    the per-query path."""
     from understanding_flow_robustness_tpu_torch.ops import correlation as corr
 
     counts = torch.zeros(2 * LEVELS, dtype=torch.int32, device="cuda")
-    launch = corr._alt_corr_bwd_cuda
-    corr._alt_corr_bwd_cuda = lambda *a: launch(*a, path_counts=counts)
+    launch = getattr(corr, wrapper)
+    setattr(corr, wrapper, lambda *a: launch(*a, path_counts=counts))
     try:
         yield counts
     finally:
-        corr._alt_corr_bwd_cuda = launch
+        setattr(corr, wrapper, launch)
 
 
 def path_share(counts: torch.Tensor) -> tuple:
@@ -280,26 +286,33 @@ def kernel_phase(gen) -> dict:
 
     print("== alt_corr_fwd vs plain (TF32 off) ==", flush=True)
     res = {}
-    for name, b, h, w, c, coords in lookup_cases(gen, (B, H // 8, W // 8, 256)):
+    for name, b, h, w, c, coords in lookup_cases(
+            gen, (B, H // 8, W // 8, 256), smooth=True):
         fm1 = torch.randn((b, h, w, c), generator=gen, device="cuda")
         fm2 = torch.randn((b, h, w, c), generator=gen, device="cuda")
         cflat = coords.reshape(b, h * w, 2).contiguous()
         for dtype in (torch.float32, torch.bfloat16):
             f1, levels = corr.prepare_alt_corr(fm1, fm2, LEVELS, dtype)
-            got = corr.alt_corr_lookup(f1, levels, cflat, RADIUS)
+            with path_counts("_alt_corr_lookup_cuda") as counts:
+                got = corr.alt_corr_lookup(f1, levels, cflat, RADIUS)
             ref = corr.alt_corr_lookup_reference(f1, levels, cflat, RADIUS)
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
             scale = ref.abs().max().item()
             tol = F32_TOL if dtype == torch.float32 else BF16_REL_TOL * scale
             tag = f"{name}/{str(dtype).split('.')[-1]}"
+            share, per_level = path_share(counts)
             print(f"{tag:32s} max_abs_err={err:.3e} tol={tol:.3e} "
-                  f"max|corr|={scale:.3f}", flush=True)
+                  f"max|corr|={scale:.3f}; tile path {100 * share:.1f}% "
+                  f"({per_level})", flush=True)
             check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
                   f"{tag}: kernel output malformed")
             check(err <= tol, f"{tag}: kernel disagrees with plain version")
             res[tag] = err
-            if name.startswith("main/calibrated") or name == "main/wild":
+            res[f"{tag}/tile_share"] = share
+            res.setdefault("paths", counts.new_zeros(2 * LEVELS))
+            res["paths"] += counts
+            if name.split("/")[0] == "main" and name != "main/edge":
                 k_ms = cuda_ms(lambda: corr.alt_corr_lookup(
                     f1, levels, cflat, RADIUS), reps=20)
                 res[f"{tag}/ms"] = k_ms
@@ -312,12 +325,18 @@ def kernel_phase(gen) -> dict:
                     flops = 2 * (2 * RADIUS + 2) ** 2 * c * b * h * w * LEVELS
                     res[f"{tag}/bound"] = bound(
                         nbytes(f1, *levels, cflat, got), flops, dtype)
-                    print(f"{tag:32s} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms "
-                          "per lookup (4 levels)", flush=True)
+                    m = res[f"{tag}/bound"]
+                    print(f"{tag:32s} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+                          f"bound {m['bound_ms']:.4f} ms ({m['bound_by']}; "
+                          f"the kernel at {100 * m['bound_ms'] / k_ms:.1f}% of "
+                          "it) per lookup (4 levels)", flush=True)
                 else:
                     print(f"{tag:32s} kernel {k_ms:.3f} ms per lookup",
                           flush=True)
             del got, ref
+    paths = res["paths"]
+    check(paths[:LEVELS].sum().item() > 0 and paths[LEVELS:].sum().item() > 0,
+          f"alt_corr_fwd: the cases did not take both paths ({paths.tolist()})")
     return res
 
 
@@ -336,7 +355,7 @@ def backward_phase(gen) -> dict:
         g = torch.randn((b, h * w, LEVELS * n2), generator=gen, device="cuda")
         for dtype in (torch.float32, torch.bfloat16):
             f1, levels = corr.prepare_alt_corr(fm1, fm2, LEVELS, dtype)
-            with bwd_path_counts() as counts:
+            with path_counts("_alt_corr_bwd_cuda") as counts:
                 got = corr._alt_corr_bwd_cuda(f1, levels, cflat, g, RADIUS)
             ref = corr.alt_corr_lookup_backward_reference(f1, levels, cflat, g,
                                                           RADIUS)
@@ -527,6 +546,15 @@ def model_phase(gen) -> dict:
     res["launches"] = LAUNCH_COUNTS["alt_corr_fwd"]
     print(f"kernel launches while serving {len(points)}x{REQUESTS} requests: "
           f"{res['launches']} ({ITERS} per request)", flush=True)
+    # which path B1 took for the coords of a request's 12 iterations
+    for point, model in points.items():
+        with path_counts("_alt_corr_lookup_cuda") as counts:
+            predict_flow(model, *requests[0])
+        share, per_level = path_share(counts)
+        res[f"{point}/tile_share"] = share
+        print(f"{point} request's own coords: (tile, level) pairs of "
+              f"alt_corr_fwd on the tile path {100 * share:.1f}% ({per_level}, "
+              f"summed over {ITERS} iterations)", flush=True)
     for point in points:
         mag = torch.stack([torch.linalg.vector_norm(flows[point, i], dim=-1).mean()
                            for i in range(REQUESTS)]).mean().item()
@@ -1150,7 +1178,7 @@ def train_phase(gen) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     # one more step: which path B2 took for the coords of its 12 iterations
-    with bwd_path_counts() as counts:
+    with path_counts("_alt_corr_bwd_cuda") as counts:
         losses.append(step(batches[0])["loss"])
     share, per_level = path_share(counts)
     print(f"train step's own coords: (tile, level) pairs of alt_corr_bwd on "
@@ -1266,7 +1294,7 @@ def attack_phase() -> dict:
     cfg = PerturbConfig(perturb_method="ifgsm", flow_loss="l2",
                         output_norm=ATTACK_EPS, n_step=ATTACK_STEPS)
     attack = make_attack(predict, cfg)
-    with bwd_path_counts() as counts:  # warm-up
+    with path_counts("_alt_corr_bwd_cuda") as counts:  # warm-up
         make_attack(predict, dataclasses.replace(cfg, n_step=2))(a, b, gt)
     share, per_level = path_share(counts)
     res["tile_share"] = share
@@ -1486,6 +1514,10 @@ def main() -> None:
         "plain_ms": kres[f"{fwd}/plain_ms"],
         **kres[f"{fwd}/bound"],
         "library_ms": None,
+        "smooth_ms": kres["main/smooth/bfloat16/ms"],
+        "wild_ms": kres["main/wild/bfloat16/ms"],
+        "serving_tile_share": mres["calibrated/tile_share"],
+        "serving_wild_tile_share": mres["wild/tile_share"],
     }, {
         "name": "alt_corr_bwd",
         "route": "cuda",

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's warp kernel (B4, ``csrc/warp_fwd.cu``) and lookup
-backward kernel (B2, ``csrc/alt_corr_bwd.cu``) of one checkout, for an A/B
-of two commits on one card.
+"""Time the port's lookup kernels (B1 ``csrc/alt_corr_fwd.cu``, its
+backward B2 ``csrc/alt_corr_bwd.cu``, the volume lookup B5
+``csrc/corr_lookup_fwd.cu``) and its warp kernel (B4, ``csrc/warp_fwd.cu``)
+of one checkout, for an A/B of two commits on one card.
 
     python3 scripts/torch_kernel_ab.py [--root DIR] [--reps 20] [--e2e]
 
@@ -15,26 +16,35 @@ and run, in one call on one card, parent, change, change, parent:
         python3 scripts/torch_kernel_ab.py --root $r; done
 
 Inputs are made on the card from fixed seeds, so every run times the same
-values.  B2 is timed through ``correlation._alt_corr_bwd_cuda`` (the
-wrapper, with its zeroed df2 levels) at RAFT's train shape (B=4, 36x120,
-C=256) and the attack shape (B=1, 32x80, C=256), bf16, for per-query
-jittered ("calibrated": grid + 2 px noise) and smooth (grid + a x4 bilinear
-upsample of 3 px noise) centres; B4 through ``ops.warp_backward`` at
-SPyNet's finest warp (B=8, 3x384x1280, f32, "spynet") and PWC-Net's level 2
-(B=8, 32x96x320, bf16, "zeros_mask") on a smooth flow, beside
-``F.grid_sample`` on the same grid.  Times are CUDA-event means of
-back-to-back calls; B4's and ``grid_sample``'s are replayed from a CUDA
-graph (device time; a warp of PWC-Net's is as short as the host's cost of
-one call), beside B4 launched from Python ("launched_ms").  The bound is
-the bytes each input and output moves once over 3.35 TB/s.  ``--e2e``
-adds what the two kernels move end to end on the paths that launch B2:
-RAFT-12 train frames/s (mixed precision,
-batch 4 at 288x960, 2 + 5 steps of ``make_train_step``), I-FGSM steps/s
-(RAFT-12, batch 1 at 256x640, 2 + 10 steps of ``make_attack``), and, for
-4 seeded image pairs at the attack geometry, the relative L2 distance of
-the f32 image gradient with the kernels from the one with the plain
-lookup (``chip_smoke.py``'s attack-gradient check).  Prints the card's
-name and power limit and one JSON line.  Needs a CUDA device.
+values.  B1 is timed through ``correlation.alt_corr_lookup`` and B5
+through ``ops.corr_lookup`` (on ``ops.volume_pyramid``) at RAFT's serving
+shape (B=8, 48x160 queries, C=256, 4 levels), bf16 and f32, for
+calibrated, smooth and wild (grid + 150 px of per-query noise) centres,
+with B1's tile-path share where its wrapper counts paths.  B2 is timed
+through ``correlation._alt_corr_bwd_cuda`` (the wrapper, with its zeroed
+df2 levels) at RAFT's train shape (B=4, 36x120, C=256) and the attack
+shape (B=1, 32x80, C=256), bf16, for per-query jittered ("calibrated":
+grid + 2 px noise) and smooth (grid + a x4 bilinear upsample of 3 px
+noise) centres; B4 through ``ops.warp_backward`` at SPyNet's finest warp
+(B=8, 3x384x1280, f32, "spynet") and PWC-Net's level 2 (B=8, 32x96x320,
+bf16, "zeros_mask") on a smooth flow, beside ``F.grid_sample`` on the same
+grid.  Times are CUDA-event means of back-to-back calls; B4's and
+``grid_sample``'s are replayed from a CUDA graph (device time; a warp of
+PWC-Net's is as short as the host's cost of one call), beside B4 launched
+from Python ("launched_ms").  The bound is the bytes each input and output
+moves once over 3.35 TB/s (for B1 the larger of that and its dots over the
+inputs' peak rate; for B5 only the window taps inside the levels count).
+``--e2e`` adds what the kernels move end to end: RAFT-12 serving pairs/s
+(batch 8 at 384x1280, 2 + 6 requests of ``predict_flow``) on the alt path
+at the calibrated and the wild operating point, on the volume path
+(calibrated) and for ``RAFT_FlowNetCEncoder_WoContext`` (calibrated);
+RAFT-12 train frames/s (mixed precision, batch 4 at 288x960, 2 + 5 steps
+of ``make_train_step``), I-FGSM steps/s (RAFT-12, batch 1 at 256x640, 2 +
+10 steps of ``make_attack``), and, for 4 seeded image pairs at the attack
+geometry, the relative L2 distance of the f32 image gradient with the
+kernels from the one with the plain lookup (``chip_smoke.py``'s
+attack-gradient check).  Prints the card's name and power limit and one
+JSON line.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -48,7 +58,9 @@ from pathlib import Path
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 RADIUS, LEVELS = 4, 4
+LOOKUP_SHAPE = (8, 48, 160, 256)  # RAFT serving: batch 8 at 384x1280
 B2_SHAPES = {"train": (4, 36, 120, 256), "attack": (1, 32, 80, 256)}
 B4_SHAPES = {"spynet": ((8, 3, 384, 1280), torch.float32),
              "zeros_mask": ((8, 32, 96, 320), torch.bfloat16)}
@@ -95,6 +107,118 @@ def smooth_field(gen, b, h, w, amp):
                                device="cuda")
     return torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear",
                                            align_corners=False)
+
+
+def needed_taps(pyr, coords) -> int:
+    """The volume taps this run's windows need: per query and level, the
+    (2r+2)^2 integer taps around the centre inside the level."""
+    c = coords.reshape(-1, 2).double()
+    offs = torch.arange(-RADIUS, RADIUS + 2, device=coords.device)
+    total = 0
+    for lvl, p in enumerate(pyr):
+        hl, wl = p.shape[2:]
+        cx = (c[:, 0] / 2 ** lvl).clamp(-(RADIUS + 2.0), wl + RADIUS + 1.0)
+        cy = (c[:, 1] / 2 ** lvl).clamp(-(RADIUS + 2.0), hl + RADIUS + 1.0)
+        xs = cx.floor().long()[:, None] + offs
+        ys = cy.floor().long()[:, None] + offs
+        nx = ((xs >= 0) & (xs < wl)).sum(1)
+        ny = ((ys >= 0) & (ys < hl)).sum(1)
+        total += int((nx * ny).sum().item())
+    return total
+
+
+def time_b1_b5(ops, corr, reps: int) -> dict:
+    import inspect
+
+    counted = "path_counts" in inspect.signature(
+        corr._alt_corr_lookup_cuda).parameters
+    b, h, w, c = LOOKUP_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    fm1 = torch.randn((b, h, w, c), generator=gen, device="cuda")
+    fm2 = torch.randn((b, h, w, c), generator=gen, device="cuda")
+    grid = ops.coords_grid(h, w, device="cuda")[None]
+    kinds = {
+        "calibrated": grid + 2.0 * torch.randn((b, h, w, 2), generator=gen,
+                                               device="cuda"),
+        "smooth": grid + smooth_field(gen, b, h, w, 3.0).permute(0, 2, 3, 1),
+        "wild": grid + 150.0 * torch.randn((b, h, w, 2), generator=gen,
+                                           device="cuda"),
+    }
+    res = {"b1": {}, "b5": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        f1, levels = corr.prepare_alt_corr(fm1, fm2, LEVELS, dtype)
+        pyr = ops.volume_pyramid(fm1, fm2, LEVELS,
+                                 None if dtype == torch.float32 else dtype)
+        for kind, coords in kinds.items():
+            coords = coords.contiguous()
+            cflat = coords.reshape(b, h * w, 2)
+            out = corr.alt_corr_lookup(f1, levels, cflat, RADIUS)
+            ms = cuda_ms(lambda: corr.alt_corr_lookup(f1, levels, cflat,
+                                                      RADIUS), reps)
+            flops = 2 * (2 * RADIUS + 2) ** 2 * c * b * h * w * LEVELS
+            entry = {"ms": ms, "bound_ms": 1e3 * max(
+                nbytes(f1, *levels, cflat, out) / HBM_BYTES_PER_S,
+                flops / PEAK_FLOPS[dtype])}
+            if counted:
+                counts = torch.zeros(2 * LEVELS, dtype=torch.int32,
+                                     device="cuda")
+                corr._alt_corr_lookup_cuda(f1, levels, cflat, RADIUS,
+                                           path_counts=counts)
+                tile, per_query = counts[:LEVELS].sum(), counts[LEVELS:].sum()
+                entry["tile_share"] = (tile / (tile + per_query)).item()
+                entry["path_counts"] = counts.tolist()
+            res["b1"][f"{name}/{kind}"] = entry
+            out = ops.corr_lookup(pyr, coords)
+            ms = cuda_ms(lambda: ops.corr_lookup(pyr, coords), 2 * reps)
+            moved = (needed_taps(pyr, coords) * pyr[0].element_size()
+                     + nbytes(coords, out))
+            res["b5"][f"{name}/{kind}"] = {
+                "ms": ms, "bound_ms": 1e3 * moved / HBM_BYTES_PER_S}
+            del out
+        del f1, levels, pyr
+    return res
+
+
+def time_serving() -> dict:
+    """Steady-state pairs/s of RAFT-12 serving 8 pairs at 384x1280: the alt
+    path calibrated and wild, the volume path and WoContext calibrated."""
+    import time
+
+    from understanding_flow_robustness_tpu_torch.models import (
+        FlowModel,
+        fetch_model,
+        predict_flow,
+        scale_flow_head,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    requests = [(torch.rand((8, 384, 1280, 3), generator=gen, device="cuda"),
+                 torch.rand((8, 384, 1280, 3), generator=gen, device="cuda"))
+                for _ in range(3)]
+    res = {}
+    for key, name, kw, calibrated in (
+            ("raft_alt_calibrated", "RAFT", {}, True),
+            ("raft_alt_wild", "RAFT", {}, False),
+            ("raft_volume_calibrated", "RAFT", {"corr_impl": "volume"}, True),
+            ("wocontext_calibrated", "RAFT_FlowNetCEncoder_WoContext", {},
+             True)):
+        model = fetch_model(name, device="cuda", seed=0, **kw)
+        if calibrated:
+            model = FlowModel(name, scale_flow_head(model.module, 0.05),
+                              model.device)
+        for a, b in requests[:2]:
+            predict_flow(model, a, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a, b in requests * 2:
+            predict_flow(model, a, b)
+        torch.cuda.synchronize()
+        res[f"{key}_pairs_per_s"] = 8 * 2 * len(requests) / (
+            time.perf_counter() - t0)
+        del model
+        torch.cuda.empty_cache()
+    return res
 
 
 def time_b2(ops, corr, reps: int) -> dict:
@@ -251,10 +375,10 @@ def main(argv=None) -> dict:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    res = {"root": args.root, "b2": time_b2(ops, corr, args.reps),
-           "b4": time_b4(ops, args.reps)}
+    res = {"root": args.root, **time_b1_b5(ops, corr, args.reps),
+           "b2": time_b2(ops, corr, args.reps), "b4": time_b4(ops, args.reps)}
     if args.e2e:
-        res["e2e"] = time_e2e()
+        res["e2e"] = {**time_serving(), **time_e2e()}
     print(json.dumps(res))
     return res
 

@@ -100,6 +100,117 @@ def test_wrapper_counts_launches_and_rejects_bad_input(cuda):
     assert cg.grad.shape == coords.shape and cg.grad.dtype == torch.float32
 
 
+def _lookup_coords(b, h, w, kind, seed=0):
+    """(b, h, w, 2) centres: the query grid plus a smooth field (amplitude
+    3), per-query noise of 2 px ("calibrated") or 150 px ("wild"), or 2 px
+    noise with out-of-level and +-1e30 centres in the first row ("edge")."""
+    g = torch.Generator().manual_seed(seed)
+    grid = ops.coords_grid(h, w)[None]
+    if kind == "smooth":
+        return _smooth_coords(b, h, w, 3.0, seed)
+    coords = grid + {"calibrated": 2.0, "wild": 150.0, "edge": 2.0}[kind] * (
+        torch.randn((b, h, w, 2), generator=g))
+    if kind == "edge":
+        coords[0, 0, :7] = torch.tensor(
+            [[-50.0, -50.0], [500.0, 500.0], [-3.5, -3.5], [w - 0.25, h - 0.25],
+             [1e30, 3.0], [3.0, -1e30], [-1e30, 1e30]])
+    return coords
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["smooth", "calibrated", "wild", "edge"])
+@pytest.mark.parametrize("shape", [
+    (8, 48, 160, 256),  # RAFT serving: batch 8 at 384x1280
+    (2, 13, 21, 64),    # ragged tiles and pooled levels
+    (2, 24, 40, 64),
+    (2, 24, 40, 128),
+    (1, 24, 40, 256),
+])
+def test_lookup_kernels_match_plain(cuda, dtype, kind, shape):
+    """B1 on both of its paths within the bars of chip_smoke.py (f32: 1e-4;
+    bf16: 1e-5 x max|corr|, the same bf16 inputs summed in f32 in another
+    order), with its path counter; B5 on the volume pyramid of the same
+    features, bit-equal to its plain version (the same products and sums,
+    rounded one by one)."""
+    b, h, w, c = shape
+    g = torch.Generator().manual_seed(1)
+    fm1 = torch.randn((b, h, w, c), generator=g).cuda()
+    fm2 = torch.randn((b, h, w, c), generator=g).cuda()
+    coords = _lookup_coords(b, h, w, kind).cuda()
+    cflat = coords.reshape(b, h * w, 2).contiguous()
+    f1, levels = ops.prepare_alt_corr(fm1, fm2, 4, dtype)
+    counts = torch.zeros(8, dtype=torch.int32, device="cuda")
+    got = correlation._alt_corr_lookup_cuda(f1, levels, cflat, 4, counts)
+    ref = ops.alt_corr_lookup_reference(f1, levels, cflat, 4)
+    torch.cuda.synchronize()
+    tol = F32_TOL if dtype == torch.float32 else BF16_REL_TOL * ref.abs().max().item()
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    assert (got - ref).abs().max().item() <= tol
+    tiles = b * -(-h // 8) * -(-w // 8)
+    assert ((counts[:4] + counts[4:]) <= tiles).all()
+    if dtype == torch.float32:  # f32 stays on the per-query path
+        assert counts[:4].sum().item() == 0
+    elif kind in ("smooth", "calibrated"):  # every box fits
+        assert counts[4:].sum().item() == 0
+    if kind == "edge":  # windows wholly outside every level
+        first = got.reshape(b, h, w, -1)[0, 0]
+        assert first[[0, 1, 4, 5, 6]].abs().max().item() == 0
+    del got, ref, f1, levels
+    pyr = ops.volume_pyramid(fm1, fm2, 4, None if dtype == torch.float32 else dtype)
+    got = ops.corr_lookup(pyr, coords.contiguous())
+    ref = ops.corr_lookup_reference(pyr, coords)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert (got - ref).abs().max().item() == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lookup_kernel_mixed_tile(cuda, dtype):
+    """One wild query in a smooth tile makes that tile's level-0 box larger
+    than the tile path takes (64 x 32 points), so in one launch that
+    (tile, level) alone runs the per-query path in bf16; far (+-1e30) and
+    out-of-level queries in another tile have no window inside and leave
+    it on the tile path.  f32 runs every (tile, level) per query."""
+    b, h, w = 1, 32, 64
+    coords = _smooth_coords(b, h, w, 0.5)
+    coords[0, 2, 2] = torch.tensor([60.0, 30.0])      # tile (0, 0): wild
+    coords[0, 1, 9:13] = torch.tensor([[1e30, 3.0], [3.0, -1e30],
+                                       [-50.0, -50.0], [500.0, 500.0]])
+    g = torch.Generator().manual_seed(2)
+    fm1 = torch.randn((b, h, w, 96), generator=g).cuda()
+    fm2 = torch.randn((b, h, w, 96), generator=g).cuda()
+    f1, levels = ops.prepare_alt_corr(fm1, fm2, 4, dtype)
+    cflat = coords.reshape(b, h * w, 2).contiguous().cuda()
+    counts = torch.zeros(8, dtype=torch.int32, device="cuda")
+    got = correlation._alt_corr_lookup_cuda(f1, levels, cflat, 4, counts)
+    ref = ops.alt_corr_lookup_reference(f1, levels, cflat, 4)
+    torch.cuda.synchronize()
+    tol = F32_TOL if dtype == torch.float32 else BF16_REL_TOL * ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= tol
+    assert got[0, 64 + 9:64 + 11].abs().max().item() == 0  # +-1e30 windows
+    tiles = 4 * 8
+    if dtype == torch.bfloat16:
+        assert counts.tolist() == [tiles - 1, tiles, tiles, tiles, 1, 0, 0, 0]
+    else:
+        assert counts.tolist() == [0] * 4 + [tiles] * 4
+
+
+def test_lookup_wrapper_rejects_bad_path_counts(cuda):
+    f1, levels, coords = _case(1, 8, 8, 32, torch.bfloat16, 1.0)
+    before = ops.LAUNCH_COUNTS["alt_corr_fwd"]
+    for bad in (torch.zeros(8, dtype=torch.int64, device="cuda"),
+                torch.zeros(6, dtype=torch.int32, device="cuda"),
+                torch.zeros(8, dtype=torch.int32),
+                torch.zeros(16, dtype=torch.int32, device="cuda")[::2]):
+        with pytest.raises(ValueError):
+            correlation._alt_corr_lookup_cuda(f1, levels, coords, 4, bad)
+    assert ops.LAUNCH_COUNTS["alt_corr_fwd"] == before
+    counts = torch.zeros(8, dtype=torch.int32, device="cuda")
+    correlation._alt_corr_lookup_cuda(f1, levels, coords, 4, counts)
+    assert ops.LAUNCH_COUNTS["alt_corr_fwd"] == before + 1
+    assert counts[:4].tolist() == [1] * 4 and counts[4:].tolist() == [0] * 4
+
+
 @pytest.mark.parametrize("mixed", [False, True])
 def test_raft_launches_kernel_per_iteration_and_matches_plain(cuda, mixed):
     torch.manual_seed(0)

@@ -8,6 +8,8 @@ on a CPU tensor runs the plain version of the CUDA kernel
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import contextlib
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -152,3 +154,82 @@ def test_backward_kernel_query_grid():
     levels = [torch.zeros((2, 13, 21, 8)), torch.zeros((2, 6, 10, 8))]
     assert correlation._query_grid(levels, 13 * 21) == (13, 21)
     assert correlation._query_grid(levels, 100) == (1, 100)
+
+
+def _fake_forward_launch(monkeypatch, rc=0):
+    """Stand-ins for the CUDA side of ``_alt_corr_lookup_cuda`` on a
+    machine without a card: the ctypes kernel function records its
+    arguments and returns ``rc``; the device and stream calls are no-ops."""
+    import types
+
+    from understanding_flow_robustness_tpu_torch.ops import correlation
+
+    calls = []
+
+    def fn(*args):
+        calls.append(args)
+        return rc
+
+    lib = types.SimpleNamespace(ufr_cuda_error_string=lambda err: b"refused")
+    monkeypatch.setattr(correlation, "kernel_fn", lambda *a: (fn, lib))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+@pytest.mark.parametrize("n,grid", [(13 * 21, (13, 21)), (100, (1, 100))])
+def test_forward_kernel_query_grid_and_counter(monkeypatch, n, grid):
+    """csrc/alt_corr_fwd.cu gets the (H1, W1) grid it cuts into 8x8 tiles
+    (level 0's where the queries are its pixels, else one row of n; as
+    _alt_corr_bwd_cuda passes it), the path counter's pointer or null, and
+    a launch is counted only when the kernel's call returns 0."""
+    from understanding_flow_robustness_tpu_torch.ops import correlation
+
+    calls = _fake_forward_launch(monkeypatch)
+    f1 = torch.zeros((2, n, 16))
+    levels = [torch.zeros((2, 13, 21, 16)), torch.zeros((2, 6, 10, 16))]
+    coords = torch.zeros((2, n, 2))
+    counts = torch.zeros(4, dtype=torch.int32)
+    before = tops.LAUNCH_COUNTS["alt_corr_fwd"]
+    out = correlation._alt_corr_lookup_cuda(f1, levels, coords, 4, counts)
+    correlation._alt_corr_lookup_cuda(f1, levels, coords, 4)
+    assert tuple(out.shape) == (2, n, 2 * 81) and out.dtype == torch.float32
+    assert tops.LAUNCH_COUNTS["alt_corr_fwd"] == before + 2
+    # (f1, levels, hw, L, coords, out, B, H1, W1, C, radius, is_bf16,
+    #  path_counts, stream)
+    for call, pc in zip(calls, (counts.data_ptr(), None)):
+        assert call[6:12] == (2, *grid, 16, 4, 0)
+        assert list(call[2]) == [13, 21, 6, 10] and call[3] == 2
+        assert call[12] == pc
+
+
+def test_forward_kernel_failure_raises_uncounted(monkeypatch):
+    from understanding_flow_robustness_tpu_torch.ops import correlation
+
+    _fake_forward_launch(monkeypatch, rc=1)
+    f1, levels = tops.prepare_alt_corr(torch.zeros(1, 8, 8, 16),
+                                       torch.zeros(1, 8, 8, 16), 2)
+    before = tops.LAUNCH_COUNTS["alt_corr_fwd"]
+    with pytest.raises(RuntimeError, match="alt_corr_fwd launch failed: refused"):
+        correlation._alt_corr_lookup_cuda(f1, levels, torch.zeros(1, 64, 2), 4)
+    assert tops.LAUNCH_COUNTS["alt_corr_fwd"] == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "size", "strided"])
+def test_forward_path_counts_checked_before_launch(monkeypatch, bad):
+    """A path counter the kernel cannot take raises before the kernel is
+    built or launched."""
+    from understanding_flow_robustness_tpu_torch.ops import correlation
+
+    calls = _fake_forward_launch(monkeypatch)
+    f1, levels = tops.prepare_alt_corr(torch.zeros(1, 8, 8, 16),
+                                       torch.zeros(1, 8, 8, 16), 4)
+    counts = {"dtype": torch.zeros(8, dtype=torch.int64),
+              "size": torch.zeros(4, dtype=torch.int32),
+              "strided": torch.zeros(16, dtype=torch.int32)[::2]}[bad]
+    before = tops.LAUNCH_COUNTS["alt_corr_fwd"]
+    with pytest.raises(ValueError, match="path_counts"):
+        correlation._alt_corr_lookup_cuda(f1, levels, torch.zeros(1, 64, 2), 4,
+                                          counts)
+    assert calls == [] and tops.LAUNCH_COUNTS["alt_corr_fwd"] == before

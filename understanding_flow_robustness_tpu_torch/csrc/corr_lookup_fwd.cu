@@ -18,19 +18,27 @@
 // All (2r+1)^2 samples of a window share one fractional offset, so a window
 // is a blend of the (2r+2)^2 integer taps around it.
 //
-// Design: one warp per (query, level), the level on the grid's y axis.  The
-// warp reads the 10x10 taps of its window (rows of 10 neighbouring values,
-// zeros outside the level) into shared memory and blends them into the 81
-// outputs, written s-major as 81 contiguous f32.  The blend takes the plain version's products and sums in
-// its order, rounded one by one (no FMA), so outputs equal
+// Design: one warp per query, across all levels.  The warp loads the
+// coords once, computes every level's window origin and issues all of the
+// query's tap loads (the 10x10 integer taps of each level, 4 per lane and
+// level, zeros outside the level) before it uses the first: a query's
+// L x 100 scattered 2-byte reads are latency-bound, so the design keeps
+// them in flight together.  The taps go to the warp's shared memory and are
+// blended into the L x 81 outputs, stored as float4s where the output row
+// is 16-byte aligned (L a multiple of 4, RAFT's 4 levels: 81 float4 per
+// query).  The blend takes the plain version's products and sums in its
+// order, rounded one by one (no FMA), so outputs equal
 // ops/correlation.py::corr_lookup_reference bit for bit on the same inputs;
-// bf16 taps are widened to f32 first.
+// bf16 taps are widened to f32 first.  Each level's pointer and size are
+// read with constant indices (the level loop is unrolled): indexing the
+// parameter struct with a runtime level copies it to local memory in every
+// thread.
 //
 // Bound: bytes.  Per query and level the work needs the 100 taps (200 bytes
 // in bf16) and writes 81 f32 (324 bytes), with ~400 FLOP of blending: far
 // below the card's ~20 FLOP/byte, so no tensor cores and no reuse between
 // queries (each query reads its own image).  Rows of 10 taps straddle 32-byte
-// sectors, so the DRAM traffic is about twice the bytes counted.
+// sectors, so the DRAM traffic is about 2.5 times the bytes counted.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,8 +47,13 @@
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kWarps = 4;   // queries per block, all at one level
+constexpr int kWarps = 8;   // queries per block
 constexpr int kRadius = 4;  // RAFT's lookup radius
+constexpr int kN = 2 * kRadius + 1;  // window side
+constexpr int kD = 2 * kRadius + 2;  // integer tap grid side
+constexpr int kDD = kD * kD;
+constexpr int kNn = kN * kN;
+constexpr int kRounds = (kDD + 31) / 32;  // tap loads per lane and level
 
 struct Levels {
   const void* ptr[kMaxLevels];
@@ -53,76 +66,100 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// output e of a query (level e / 81, s-major within it) from its taps and
+// its levels' weights, in the plain version's order
+__device__ __forceinline__ float blend(const float* taps, const float4* wts,
+                                       int e) {
+  const int l = e / kNn;
+  const int c = e - l * kNn;
+  const int s = c / kN;      // x offset (major)
+  const int t = c - s * kN;  // y offset
+  const float4 w = wts[l];
+  const float* g = taps + l * kDD + t * kD + s;
+  float v = __fmul_rn(w.x, g[0]);
+  v = __fadd_rn(v, __fmul_rn(w.y, g[1]));
+  v = __fadd_rn(v, __fmul_rn(w.z, g[kD]));
+  v = __fadd_rn(v, __fmul_rn(w.w, g[kD + 1]));
+  return v;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 corr_lookup_fwd_kernel(Levels lv, int num_levels,
                        const float* __restrict__ coords,
                        float* __restrict__ out, long long BN) {
   constexpr int kR = kRadius;
-  constexpr int kN = 2 * kR + 1;  // window side
-  constexpr int kD = 2 * kR + 2;  // integer tap grid side
-  constexpr int kNn = kN * kN;
-  __shared__ float taps_s[kWarps][kD * kD];
+  __shared__ float taps_s[kWarps][kMaxLevels * kDD];
+  __shared__ float4 wts_s[kWarps][kMaxLevels];  // w00, w01, w10, w11
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long q = (long long)blockIdx.x * kWarps + warp;
-  const int l = blockIdx.y;
   if (q >= BN) return;  // whole warp leaves; no block barrier
-  // the level's pointer and size, selected with constant indices: indexing
-  // the parameter struct with l would copy it to local memory in every
-  // thread
-  const void* base = nullptr;
-  int H = 0, W = 0;
+  const float x = coords[2 * q];
+  const float y = coords[2 * q + 1];
+
+  // every tap load first: tap k = lane + 32 r of level l, at row k / kD,
+  // column k % kD of the window's integer grid
+  float v[kMaxLevels][kRounds];
 #pragma unroll
-  for (int i = 0; i < kMaxLevels; ++i) {
-    if (i == l) {
-      base = lv.ptr[i];
-      H = lv.h[i];
-      W = lv.w[i];
+  for (int l = 0; l < kMaxLevels; ++l) {
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) v[l][r] = 0.f;
+    if (l < num_levels) {
+      const int H = lv.h[l];
+      const int W = lv.w[l];
+      const T* vol = static_cast<const T*>(lv.ptr[l]) + q * H * (long long)W;
+      const float inv = 1.f / (float)(1 << l);  // exact: a power of two
+      // clamp before any float->int conversion: a centre further out than
+      // this has its whole window outside the level, and stays so
+      const float cx = fminf(fmaxf(x * inv, -(kR + 2.f)), W + kR + 1.f);
+      const float cy = fminf(fmaxf(y * inv, -(kR + 2.f)), H + kR + 1.f);
+      const float fx = floorf(cx);
+      const float fy = floorf(cy);
+      const int x0 = (int)fx - kR;
+      const int y0 = (int)fy - kR;
+#pragma unroll
+      for (int r = 0; r < kRounds; ++r) {
+        const int k = lane + 32 * r;
+        const int yy = y0 + k / kD;
+        const int xx = x0 + k % kD;
+        if (k < kDD && yy >= 0 && yy < H && xx >= 0 && xx < W) {
+          v[l][r] = widen(vol[(long long)yy * W + xx]);
+        }
+      }
+      if (lane == 0) {
+        const float ax = cx - fx;
+        const float ay = cy - fy;
+        const float bx = 1.f - ax;
+        const float by = 1.f - ay;
+        wts_s[warp][l] = make_float4(__fmul_rn(bx, by), __fmul_rn(ax, by),
+                                     __fmul_rn(bx, ay), __fmul_rn(ax, ay));
+      }
     }
   }
-  const T* vol = static_cast<const T*>(base) + q * H * (long long)W;
-
-  const float inv = 1.f / (float)(1 << l);  // exact: a power of two
-  // clamp before any float->int conversion: a centre further out than this
-  // has its whole window outside the level, and stays so
-  const float cx = fminf(fmaxf(coords[2 * q] * inv, -(kR + 2.f)), W + kR + 1.f);
-  const float cy =
-      fminf(fmaxf(coords[2 * q + 1] * inv, -(kR + 2.f)), H + kR + 1.f);
-  const float fx = floorf(cx);
-  const float fy = floorf(cy);
-  const float ax = cx - fx;
-  const float ay = cy - fy;
-  const int x0 = (int)fx - kR;
-  const int y0 = (int)fy - kR;
-
   float* taps = taps_s[warp];
-  for (int k = lane; k < kD * kD; k += 32) {
-    const int yy = y0 + k / kD;
-    const int xx = x0 + k % kD;
-    taps[k] = (yy >= 0 && yy < H && xx >= 0 && xx < W)
-                  ? widen(vol[(long long)yy * W + xx])
-                  : 0.f;
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l) {
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const int k = lane + 32 * r;
+      if (l < num_levels && k < kDD) taps[l * kDD + k] = v[l][r];
+    }
   }
   __syncwarp();
 
-  const float bx = 1.f - ax;
-  const float by = 1.f - ay;
-  const float w00 = __fmul_rn(bx, by);
-  const float w01 = __fmul_rn(ax, by);
-  const float w10 = __fmul_rn(bx, ay);
-  const float w11 = __fmul_rn(ax, ay);
-  float* o = out + q * (long long)(num_levels * kNn) + l * kNn;
-  for (int c = lane; c < kNn; c += 32) {
-    const int s = c / kN;  // x offset (major)
-    const int t = c % kN;  // y offset
-    const float* g = taps + t * kD + s;
-    float v = __fmul_rn(w00, g[0]);
-    v = __fadd_rn(v, __fmul_rn(w01, g[1]));
-    v = __fadd_rn(v, __fmul_rn(w10, g[kD]));
-    v = __fadd_rn(v, __fmul_rn(w11, g[kD + 1]));
-    o[c] = v;
+  const int nout = num_levels * kNn;
+  float* o = out + q * (long long)nout;
+  if (nout % 4 == 0) {  // the row is 16-byte aligned
+    for (int e = lane; e < nout / 4; e += 32) {
+      reinterpret_cast<float4*>(o)[e] = make_float4(
+          blend(taps, wts_s[warp], 4 * e), blend(taps, wts_s[warp], 4 * e + 1),
+          blend(taps, wts_s[warp], 4 * e + 2),
+          blend(taps, wts_s[warp], 4 * e + 3));
+    }
+  } else {
+    for (int e = lane; e < nout; e += 32) o[e] = blend(taps, wts_s[warp], e);
   }
 }
 
@@ -148,7 +185,7 @@ extern "C" int ufr_corr_lookup_fwd(const void* const* levels, const int* hw,
     lv.h[l] = l < num_levels ? hw[2 * l] : 0;
     lv.w[l] = l < num_levels ? hw[2 * l + 1] : 0;
   }
-  const dim3 grid((unsigned)((BN + kWarps - 1) / kWarps), num_levels);
+  const dim3 grid((unsigned)((BN + kWarps - 1) / kWarps));
   const dim3 block(kWarps * 32);
   const float* c = static_cast<const float*>(coords);
   float* o = static_cast<float*>(out);

@@ -520,27 +520,46 @@ def _level_args(levels):
     return ptrs, hw
 
 
-def _alt_corr_lookup_cuda(f1, levels, coords, radius):
+def _check_path_counts(path_counts, L, device):
+    """Raise on a path counter csrc/alt_corr_{fwd,bwd}.cu do not take."""
+    if path_counts is not None and (
+            path_counts.dtype != torch.int32 or path_counts.numel() != 2 * L
+            or path_counts.device != device
+            or not path_counts.is_contiguous()):
+        raise ValueError(f"path_counts must be a contiguous int32 tensor of "
+                         f"{2 * L} on {device}")
+
+
+def _alt_corr_lookup_cuda(f1, levels, coords, radius, path_counts=None):
+    """Launch csrc/alt_corr_fwd.cu: (B, N, L*(2r+1)^2) f32, one launch for
+    every level.  ``path_counts``: None, or a zeroed int32 CUDA tensor of
+    2*L that the kernel adds to: [l] the (8x8 tile, level) pairs with a
+    live window that took the tensor-core tile path, [L + l] those that
+    took the per-query path."""
     import ctypes
 
     _check_kernel_args("alt_corr_fwd", f1, levels, coords, radius)
+    B, N, C = f1.shape
+    L = len(levels)
+    _check_path_counts(path_counts, L, f1.device)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     fn, lib = kernel_fn("alt_corr_fwd", "ufr_alt_corr_fwd", [
         vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp, vp, i32, i32,
-        i32, i32, i32, vp])
+        i32, i32, i32, i32, vp, vp])
 
-    B, N, C = f1.shape
-    L = len(levels)
     n = 2 * radius + 1
     out = torch.empty((B, N, L * n * n), device=f1.device, dtype=torch.float32)
     if B * N == 0:
         return out
+    H1, W1 = _query_grid(levels, N)
     ptrs, hw = _level_args(levels)
     with torch.cuda.device(f1.device):
         stream = torch.cuda.current_stream(f1.device).cuda_stream
         err = fn(f1.data_ptr(), ptrs, hw, L, coords.data_ptr(),
-                 out.data_ptr(), B, N, C, radius,
-                 int(f1.dtype == torch.bfloat16), stream)
+                 out.data_ptr(), B, H1, W1, C, radius,
+                 int(f1.dtype == torch.bfloat16),
+                 None if path_counts is None else path_counts.data_ptr(),
+                 stream)
     if err:
         raise RuntimeError("alt_corr_fwd launch failed: "
                            + lib.ufr_cuda_error_string(err).decode())
@@ -561,10 +580,10 @@ def _check_cotangent(f1, levels, g, radius):
 
 
 def _query_grid(levels, n: int):
-    """The (H1, W1) grid of the n queries per image that csrc/alt_corr_bwd.cu
-    cuts into 8x8 tiles: level 0's, where f1 and fmap2 share it (every
-    model path); else one row of n.  Any grid gives the same gradient; a
-    2-D one keeps a tile's windows together."""
+    """The (H1, W1) grid of the n queries per image that csrc/alt_corr_fwd.cu
+    and csrc/alt_corr_bwd.cu cut into 8x8 tiles: level 0's, where f1 and
+    fmap2 share it (every model path); else one row of n.  Any grid gives
+    the same result; a 2-D one keeps a tile's windows together."""
     h, w = levels[0].shape[1], levels[0].shape[2]
     return (h, w) if h * w == n else (1, n)
 
@@ -582,12 +601,7 @@ def _alt_corr_bwd_cuda(f1, levels, coords, g, radius, path_counts=None):
     _check_cotangent(f1, levels, g, radius)
     B, N, C = f1.shape
     L = len(levels)
-    if path_counts is not None and (
-            path_counts.dtype != torch.int32 or path_counts.numel() != 2 * L
-            or path_counts.device != f1.device
-            or not path_counts.is_contiguous()):
-        raise ValueError(f"path_counts must be a contiguous int32 tensor of "
-                         f"{2 * L} on {f1.device}")
+    _check_path_counts(path_counts, L, f1.device)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     fn, lib = kernel_fn("alt_corr_bwd", "ufr_alt_corr_bwd", [
         vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp, vp, vp,
