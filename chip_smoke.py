@@ -80,6 +80,34 @@
    --n_step 3``.
 12. The train CLI with ``--synthetic 3``, then its resume.
 
+The FlowNet slice adds, after the RAFT grad phase (so that the earlier
+phases' random inputs stay as they were):
+13. The spatial correlation's kernels ``spatial_corr_fwd`` and
+   ``spatial_corr_bwd`` against the plain version and its autograd at
+   FlowNetC's serving and attack shapes (f32, patch 21, dilation 2),
+   PWC-Net's five bf16 levels (patch 9), three ragged shapes (C = 3,
+   33, 196) and the generic kernel's patches 1 and 3 (C = 40, 35); times
+   of kernel, plain version and bound at FlowNetC's
+   serving shape and PWC-Net's level 2 (forward) and at FlowNetC's attack
+   shape and PWC-Net's level 2 (backward).
+14. FlowNetC, FlowNetCFlexLarger_k3_reps3 and FlowNetS (f32) serving 3
+   requests of 8 pairs at 384x1280 through ``predict_flow``: one
+   ``spatial_corr_fwd`` launch per FlowNetC-family request and none for
+   FlowNetS, the flow against the model with the plain correlation,
+   pairs/s; then one taps request on FlowNetC (keys, shapes, the corr tap
+   against the plain correlation).
+15. I-FGSM with the attack CLI's defaults on FlowNetC (one launch of each
+   correlation kernel per step, the eps-ball, the image range, the loss
+   growing, ms per step, peak memory; the image gradient against the
+   plain correlation's, with the leaky-ReLU inputs whose sign differs
+   between the two forwards and both gradients' distance to an f64 one),
+   and the attack CLI with its default ``--flownet``.
+PWC-Net's serving phase (7) also counts its 5 ``spatial_corr_fwd``
+launches per request, holds the flow against the plain warp and the plain
+correlation together, and times pairs/s with the plain correlation too, in
+turns with the kernel; its FGSM (10) counts 5 launches of each correlation
+kernel.
+
 Any failed check raises, so the script exits non-zero and prints no result.
 The last three lines are the card's name and power limit, a JSON object per
 kernel (its launches on the main paths, its error against its plain
@@ -158,6 +186,29 @@ WARP_F32_REL_TOL = 1e-5  # x max|img|: the same coordinates, f32 weights
 WARP_MAIN = {"spynet": ((B, 3, H, W), torch.float32),
              "zeros_mask": ((B, 32, H // 4, W // 4), torch.bfloat16)}
 FLOW_F32_TOL_PX = 1e-3   # max |dflow|, warp kernel vs plain warp, f32 models
+# spatial correlation kernels vs their plain versions, f32, x max|plain|:
+# the same products of the same inputs summed in f32 in other orders.
+# bf16: one bf16 ulp of the plain value (both round one f32 sum), or this
+# f32 bar where a sum cancels below it
+CORR_REL_TOL = 1e-5
+# the correlation shapes of the main paths, (B, C, H, W), patch, dilation,
+# dtype: FlowNetC serving and attacked (f32), PWC-Net mixed levels 6..2
+CORR_MAIN = {"flownetc": ((B, 256, H // 8, W // 8), 21, 2, torch.float32),
+             "attack": ((1, 256, 256 // 8, 640 // 8), 21, 2, torch.float32)}
+CORR_PWC = {f"pwc_l{lvl}": ((B, c, H >> lvl, W >> lvl), 9, 1, torch.bfloat16)
+            for lvl, c in ((6, 196), (5, 128), (4, 96), (3, 64), (2, 32))}
+CORR_RAGGED = {"ragged_c3": ((2, 3, 13, 21), 21, 2, torch.float32),
+               "ragged_c33": ((2, 33, 37, 45), 9, 1, torch.bfloat16),
+               "ragged_c196": ((1, 196, 7, 9), 21, 2, torch.bfloat16),
+               # the generic kernel: P = 1 (the op's default) and 3, C > 16
+               "p1_c40": ((2, 40, 13, 37), 1, 1, torch.float32),
+               "p3_c35": ((2, 35, 19, 45), 3, 1, torch.bfloat16)}
+# models with the correlation kernel vs the same with its plain version,
+# f32 with TF32 off, relative L2 of the flows: summation order only
+FLOW_F32_REL_L2 = 1e-5
+# FlowNet-family serving: (ID, spatial_corr_fwd launches per request)
+FLOWNETS = (("FlowNetC", 1), ("FlowNetCFlexLarger_k3_reps3", 1),
+            ("FlowNetS", 0))
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s of HBM3 and
 # FLOP/s by input type (bf16 on the tensor cores, f32 outside them)
 HBM_BYTES_PER_S = 3.35e12
@@ -1054,10 +1105,12 @@ def wocontext_phase(gen) -> dict:
     return res
 
 
-def warp_model_phase(gen, name: str, warps: int) -> dict:
+def warp_model_phase(gen, name: str, warps: int, corrs: int = 0) -> dict:
     """``name`` serving REQUESTS requests of B pairs at HxW through
-    ``predict_flow``, each warp through the kernel; then the same model
-    with the plain warp, and pairs/s."""
+    ``predict_flow``, each warp and each of its ``corrs`` correlations
+    through the kernels; then the same model with the plain warp and the
+    plain correlation together, and pairs/s, with ``corrs`` also with the
+    plain correlation alone (the path before the correlation kernel)."""
     from understanding_flow_robustness_tpu_torch.models import (
         fetch_model,
         predict_flow,
@@ -1073,65 +1126,286 @@ def warp_model_phase(gen, name: str, warps: int) -> dict:
                  torch.rand((B, H, W, 3), generator=gen, device="cuda"))
                 for _ in range(REQUESTS)]
 
-    # the main path: count the kernel's launches while serving
+    # the main path: count the kernels' launches while serving
     flows = []
     LAUNCH_COUNTS.clear()
+    expect = {"warp_fwd": warps, "spatial_corr_fwd": corrs}
     for i, (a, b) in enumerate(requests):
-        before = LAUNCH_COUNTS["warp_fwd"]
+        before = dict(LAUNCH_COUNTS)
         flow = predict_flow(model, a, b)
         torch.cuda.synchronize()
-        n = LAUNCH_COUNTS["warp_fwd"] - before
+        n = {k: LAUNCH_COUNTS[k] - before.get(k, 0) for k in expect}
         check(tuple(flow.shape) == (B, H, W, 2),
               f"{name} request {i}: flow shape {tuple(flow.shape)}")
         check(bool(torch.isfinite(flow).all()),
               f"{name} request {i}: non-finite flow")
-        check(n == warps, f"{name} request {i}: warp_fwd launched {n} times, "
-                          f"not {warps}")
+        check(n == expect, f"{name} request {i}: launches {n}, not {expect}")
         flows.append(flow)
     res["launches"] = LAUNCH_COUNTS["warp_fwd"]
+    res["corr_launches"] = LAUNCH_COUNTS["spatial_corr_fwd"]
     res["mean_flow_px"] = torch.stack(
         [torch.linalg.vector_norm(f, dim=-1).mean() for f in flows]
     ).mean().item()
-    print(f"warp_fwd launches while serving {REQUESTS} requests: "
-          f"{res['launches']} ({warps} per request); mean |flow| "
+    print(f"launches while serving {REQUESTS} requests: warp_fwd "
+          f"{res['launches']} ({warps} per request), spatial_corr_fwd "
+          f"{res['corr_launches']} ({corrs} per request); mean |flow| "
           f"{res['mean_flow_px']:.3f} px", flush=True)
 
-    # the kernel against the plain warp, end to end
+    # the kernels against the plain warp and correlation, end to end
     a, b = requests[0]
     points = [(model, flows[0], mixed)]
     if mixed:  # PWC-Net's f32 configuration as well
         m32 = fetch_model(name, device="cuda", seed=0, mixed_precision=False)
         points.append((m32, predict_flow(m32, a, b), False))
+    what = "warp and correlation kernels" if corrs else "warp kernel"
     for m, got, bf16 in points:
         m.module.plain_warp = True
+        if corrs:
+            m.module.plain_corr = True
         plain = predict_flow(m, a, b)
         m.module.plain_warp = False
+        if corrs:
+            m.module.plain_corr = False
         mx, rel = flow_stats(got, plain)
         key = "bf16" if bf16 else "f32"
         res[f"{key}/max_abs_px"], res[f"{key}/rel_epe"] = mx, rel
         bar = (f"rel EPE bound {100 * BF16_REL_EPE_TOL:g}%" if bf16
                else f"max bound {FLOW_F32_TOL_PX} px")
-        print(f"{key}: warp kernel vs plain warp max|dflow|={mx:.3e} px, "
+        print(f"{key}: {what} vs plain versions max|dflow|={mx:.3e} px, "
               f"rel EPE={100 * rel:.5f}% ({bar})", flush=True)
         check(rel <= BF16_REL_EPE_TOL if bf16 else mx <= FLOW_F32_TOL_PX,
-              f"{name} {key}: warp kernel vs plain warp beyond bound")
+              f"{name} {key}: {what} vs plain versions beyond bound")
     del points
 
-    # steady-state throughput
-    for a, b in requests[:2]:
-        predict_flow(model, a, b)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    n = 0
+    # steady-state throughput; with correlations also on the plain
+    # correlation (the path before its kernel), the two in turns
+    variants = ("kernel", "plain_corr") if corrs else ("kernel",)
+    times = {v: [] for v in variants}
     for _ in range(2):
-        for a, b in requests:
-            predict_flow(model, a, b)
-            n += 1
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    res["pairs_per_s"] = B * n / dt
-    print(f"{name}: {B * n / dt:.2f} pairs/s ({1e3 * dt / n:.1f} ms per "
-          f"request of {B} pairs, {n} requests)", flush=True)
+        for v in variants:
+            if corrs:
+                model.module.plain_corr = v == "plain_corr"
+            for a, b in requests[:1]:
+                predict_flow(model, a, b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for a, b in requests:
+                predict_flow(model, a, b)
+            torch.cuda.synchronize()
+            times[v].append(time.perf_counter() - t0)
+    if corrs:
+        model.module.plain_corr = False
+    for v, dts in times.items():
+        dt, n = sum(dts), REQUESTS * len(dts)
+        key = "pairs_per_s" if v == "kernel" else "plain_corr_pairs_per_s"
+        res[key] = B * n / dt
+        print(f"{name}{'' if v == 'kernel' else ' (plain correlation)'}: "
+              f"{B * n / dt:.2f} pairs/s ({1e3 * dt / n:.1f} ms per request "
+              f"of {B} pairs, {n} requests)", flush=True)
+    return res
+
+
+def corr_pairs(h: int, w: int, patch: int, dil: int) -> int:
+    """The (pixel, displacement) pairs whose displaced pixel lies inside an
+    h x w map: the products a correlation needs per image and channel."""
+    r = (patch - 1) // 2
+    offs = [(k - r) * dil for k in range(patch)]
+    return (sum(max(0, h - abs(d)) for d in offs)
+            * sum(max(0, w - abs(d)) for d in offs))
+
+
+def _corr_err(got, ref, dtype) -> tuple:
+    """(max abs error, whether it is within the bar CORR_REL_TOL states)."""
+    err = (got.float() - ref.float()).abs()
+    bar = CORR_REL_TOL * ref.float().abs().max().item()
+    if dtype == torch.float32:
+        return err.max().item(), err.max().item() <= bar
+    return err.max().item(), bool(
+        (err <= torch.clamp(bf16_ulp(ref.float()), min=bar)).all())
+
+
+def spatial_corr_phase(gen) -> dict:
+    """csrc/spatial_corr_fwd.cu and csrc/spatial_corr_bwd.cu against the
+    plain version and its autograd on the same inputs, at the main paths'
+    shapes and ragged ones; times at FlowNetC's serving shape and PWC-Net's
+    level 2 (forward) and at FlowNetC's attack shape (backward)."""
+    from understanding_flow_robustness_tpu_torch import ops
+    from understanding_flow_robustness_tpu_torch.ops import correlation as corr
+
+    print("== spatial_corr_fwd / spatial_corr_bwd vs plain (TF32 off) ==",
+          flush=True)
+    res = {}
+    for name, (shape, patch, dil, dtype) in {**CORR_MAIN, **CORR_PWC,
+                                             **CORR_RAGGED}.items():
+        f1 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        f2 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g = torch.randn((shape[0], patch ** 2) + shape[2:], generator=gen,
+                        device="cuda").to(dtype)
+        got = ops.spatial_correlation(f1, f2, patch, dilation_patch=dil)
+        ref = ops.spatial_correlation_reference(f1, f2, patch, dil)
+        torch.cuda.synchronize()
+        check(got.shape == ref.shape and got.dtype == dtype
+              and bool(torch.isfinite(got).all()),
+              f"{name}: spatial_corr_fwd output malformed")
+        err, ok = _corr_err(got, ref, dtype)
+        # the backward kernel (f32 sums written in the inputs' dtype)
+        # against the plain version's autograd in f32 on the same values,
+        # at the forward's bar
+        dk = corr._spatial_corr_bwd_cuda(f1, f2, g, patch, dil)
+        a, b = f1.float().requires_grad_(), f2.float().requires_grad_()
+        dp = torch.autograd.grad(ops.spatial_correlation_reference(
+            a, b, patch, dil), (a, b), g.float())
+        torch.cuda.synchronize()
+        bres = [_corr_err(k, p, dtype) for k, p in zip(dk, dp)]
+        babs, bok = max(e for e, _ in bres), all(o for _, o in bres)
+        berr = max((k.float() - p).abs().max().item() / p.abs().max().item()
+                   for k, p in zip(dk, dp))
+        bar = "1e-5 x max|plain|" if dtype == torch.float32 else \
+            "1 bf16 ulp (1e-5 x max|plain| at cancellations)"
+        print(f"{name:12s} {tuple(shape)} P={patch} d={dil} "
+              f"{str(dtype).split('.')[-1]}: fwd max_abs_err={err:.3e}; "
+              f"bwd max err / max|grad| = {berr:.2e} (bar {bar})", flush=True)
+        check(ok, f"{name}: spatial_corr_fwd disagrees with the plain version")
+        check(all(k.dtype == dtype for k in dk) and bok,
+              f"{name}: spatial_corr_bwd disagrees with the plain version's "
+              "autograd")
+        res[name] = {"fwd_err": err, "bwd_err": babs, "bwd_rel_err": berr}
+        pairs = corr_pairs(shape[2], shape[3], patch, dil) * shape[0] * shape[1]
+        if name in ("flownetc", "pwc_l2"):
+            k_ms = cuda_ms(lambda: ops.spatial_correlation(
+                f1, f2, patch, dilation_patch=dil), reps=20)
+            p_ms = cuda_ms(lambda: ops.spatial_correlation_reference(
+                f1, f2, patch, dil), reps=3, warmup=1)
+            # a multiply-add per pair inside the map and channel
+            res[name].update(ms=k_ms, plain_ms=p_ms, **bound(
+                nbytes(f1, f2, got), 2 * pairs, dtype))
+            m = res[name]
+            print(f"{name:12s} forward: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.3f} ms, bound {m['bound_ms']:.4f} ms "
+                  f"({m['bound_by']}; the kernel at "
+                  f"{100 * m['bound_ms'] / k_ms:.1f}% of it)", flush=True)
+        if name in ("attack", "pwc_l2"):
+            k_ms = cuda_ms(lambda: corr._spatial_corr_bwd_cuda(
+                f1, f2, g, patch, dil), reps=20)
+            a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+            out = ops.spatial_correlation_reference(a, b, patch, dil)
+            p_ms = cuda_ms(lambda: torch.autograd.grad(
+                out, (a, b), g, retain_graph=True), reps=3, warmup=1)
+            # two multiply-adds per pair and channel (df1 and df2); g read
+            # and the gradients written once, in the inputs' dtype
+            res[f"{name}/bwd"] = {"ms": k_ms, "plain_ms": p_ms, **bound(
+                nbytes(f1, f2, g, *dk), 4 * pairs, dtype)}
+            m = res[f"{name}/bwd"]
+            print(f"{name:12s} backward: kernel {k_ms:.4f} ms, plain "
+                  f"(autograd) {p_ms:.3f} ms, bound {m['bound_ms']:.4f} ms "
+                  f"({m['bound_by']}; the kernel at "
+                  f"{100 * m['bound_ms'] / k_ms:.1f}% of it)", flush=True)
+            del out
+        del f1, f2, g, got, ref, dk, dp
+    return res
+
+
+def flownet_phase(gen) -> dict:
+    """The FlowNet family serving REQUESTS requests of B pairs at HxW
+    through ``predict_flow``: launches of the correlation kernel per
+    request, the flow against the same model with the plain correlation,
+    pairs/s over the requests after the first; then one taps request on
+    FlowNetC."""
+    from understanding_flow_robustness_tpu_torch.models import (
+        fetch_model,
+        get_feature_map_keys,
+        predict_flow,
+    )
+    from understanding_flow_robustness_tpu_torch.models.flownet_family import (
+        correlate_flownetc,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    res = {"launches": 0}
+    requests = [(torch.rand((B, H, W, 3), generator=gen, device="cuda"),
+                 torch.rand((B, H, W, 3), generator=gen, device="cuda"))
+                for _ in range(REQUESTS)]
+    for name, corrs in FLOWNETS:
+        print(f"== {name} serving, batch {B} at {H}x{W}, f32 ==", flush=True)
+        model = fetch_model(name, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        flows = []
+        LAUNCH_COUNTS.clear()
+        for i, (a, b) in enumerate(requests):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            before = LAUNCH_COUNTS["spatial_corr_fwd"]
+            flows.append(predict_flow(model, a, b))
+            n = LAUNCH_COUNTS["spatial_corr_fwd"] - before
+            check(n == corrs, f"{name} request {i}: spatial_corr_fwd "
+                              f"launched {n} times, not {corrs}")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for i, flow in enumerate(flows):
+            check(tuple(flow.shape) == (B, H, W, 2)
+                  and bool(torch.isfinite(flow).all()),
+                  f"{name} request {i}: flow malformed")
+        res["launches"] += LAUNCH_COUNTS["spatial_corr_fwd"]
+        pps = B * (REQUESTS - 1) / dt
+        res[f"{name}/pairs_per_s"] = pps
+        mag = torch.linalg.vector_norm(flows[0], dim=-1).mean().item()
+        line = (f"{name}: {pps:.2f} pairs/s ({1e3 * dt / (REQUESTS - 1):.1f} "
+                f"ms per request of {B} pairs, requests 2-{REQUESTS}); "
+                f"spatial_corr_fwd {corrs} per request; mean |flow| "
+                f"{mag:.3f} px")
+        if corrs:
+            model.module.plain_corr = True
+            plain = predict_flow(model, *requests[0])
+            model.module.plain_corr = False
+            rel = ((flows[0] - plain).norm() / plain.norm()).item()
+            res[f"{name}/rel_l2_vs_plain"] = rel
+            line += (f"; kernel vs plain correlation rel L2 {rel:.2e} (bound "
+                     f"{FLOW_F32_REL_L2:g})")
+            check(rel <= FLOW_F32_REL_L2, f"{name}: flow with the kernel "
+                                          "beyond bound of the plain one's")
+        print(line, flush=True)
+        del model, flows
+
+    print("== FlowNetC feature taps (return_features=True), one request ==",
+          flush=True)
+    model = fetch_model("FlowNetC", device="cuda", seed=0,
+                        return_features=True)
+    a, b = (x.permute(0, 3, 1, 2) for x in requests[0])
+    LAUNCH_COUNTS.clear()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        flow, feats = model.module(a, b)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        plain = correlate_flownetc(feats["conv3a"], feats["conv3b"],
+                                   plain=True)
+    h2, w2 = H // 2, W // 2
+    shapes = {"conv1a": (B, 64, h2, w2), "conv1b": (B, 64, h2, w2),
+              "conv2a": (B, 128, h2 // 2, w2 // 2),
+              "conv2b": (B, 128, h2 // 2, w2 // 2),
+              "conv3a": (B, 256, H // 8, W // 8),
+              "conv3b": (B, 256, H // 8, W // 8),
+              "corr": (B, 441, H // 8, W // 8),
+              "conv_redir": (B, 32, H // 8, W // 8),
+              "conv3_1": (B, 256, H // 8, W // 8)}
+    keys = get_feature_map_keys("FlowNetC")
+    check(sorted(feats) == sorted(keys), "FlowNetC taps: keys differ from "
+                                         "get_feature_map_keys")
+    for k in keys:
+        check(tuple(feats[k].shape) == shapes[k]
+              and bool(torch.isfinite(feats[k]).all()),
+              f"FlowNetC taps: {k} is {tuple(feats[k].shape)}, not "
+              f"{shapes[k]}, or not finite")
+    err, ok = _corr_err(feats["corr"], plain, torch.float32)
+    check(ok and LAUNCH_COUNTS["spatial_corr_fwd"] == 1,
+          "FlowNetC taps: corr is not the kernel's correlation, or it was "
+          f"launched {LAUNCH_COUNTS['spatial_corr_fwd']} times")
+    res["launches"] += LAUNCH_COUNTS["spatial_corr_fwd"]
+    check(tuple(flow.shape) == (B, 2, H, W), "FlowNetC taps: flow malformed")
+    print(f"taps: {len(keys)} keys, shapes and finiteness as expected; corr "
+          f"within {err:.2e} of the plain correlation; 1 spatial_corr_fwd "
+          f"launch; request {ms:.1f} ms", flush=True)
     return res
 
 
@@ -1363,7 +1637,8 @@ def attack_phase() -> dict:
                                    "kernels beyond bound of the plain lookup's")
         del m, kernel, plain, grads
 
-    # one FGSM on PWC-Net: the attack crosses the warp kernel
+    # one FGSM on PWC-Net: the attack crosses the warp kernel and the
+    # correlation's two kernels
     pwc = fetch_model("PWCNet", device="cuda", seed=0)
     gt = target(pwc, a, b)
     LAUNCH_COUNTS.clear()
@@ -1371,10 +1646,16 @@ def attack_phase() -> dict:
         lambda x, y: predict_flow_differentiable(pwc, x, y),
         dataclasses.replace(cfg, perturb_method="fgsm"))(a, b, gt)
     torch.cuda.synchronize()
-    res["pwc_launches/warp_fwd"] = LAUNCH_COUNTS["warp_fwd"]
+    res.update({f"pwc_launches/{k}": LAUNCH_COUNTS[k] for k in
+                ("warp_fwd", "spatial_corr_fwd", "spatial_corr_bwd")})
     check(LAUNCH_COUNTS["warp_fwd"] == 4,
           f"PWC-Net FGSM: warp_fwd launched {LAUNCH_COUNTS['warp_fwd']} "
           "times, not 4")
+    check(LAUNCH_COUNTS["spatial_corr_fwd"] == 5
+          and LAUNCH_COUNTS["spatial_corr_bwd"] == 5,
+          "PWC-Net FGSM: the correlation kernels launched "
+          f"{LAUNCH_COUNTS['spatial_corr_fwd']} and "
+          f"{LAUNCH_COUNTS['spatial_corr_bwd']} times, not 5 and 5")
     check(bool(torch.isfinite(n0).all()) and n0.abs().max().item() <= ATTACK_EPS
           + 1e-6 and 0.0 <= adv1.min().item() and adv1.max().item() <= 1.0,
           "PWC-Net FGSM: noise or images out of range")
@@ -1382,28 +1663,160 @@ def attack_phase() -> dict:
         before = flow_attack_loss(predict_flow(pwc, a, b), gt, "l2").item()
         after = flow_attack_loss(predict_flow(pwc, adv0, adv1), gt, "l2").item()
     print(f"PWC-Net FGSM: warp_fwd launches {res['pwc_launches/warp_fwd']} "
-          f"(the gradient through the plain sampler); l2 loss {before:.3f} -> "
+          f"(the gradient through the plain sampler), spatial_corr_fwd / "
+          f"_bwd {res['pwc_launches/spatial_corr_fwd']} / "
+          f"{res['pwc_launches/spatial_corr_bwd']}; l2 loss {before:.3f} -> "
           f"{after:.3f}", flush=True)
     return res
 
 
-def attack_cli_phase() -> dict:
+def flownetc_attack_phase() -> dict:
+    """I-FGSM with the attack CLI's defaults on ``fetch_model("FlowNetC")``
+    (the CLI's default model, f32) at the attack geometry, each step's
+    backward through ``spatial_corr_bwd``; then one image gradient with the
+    kernels against one with the plain correlation."""
+    from understanding_flow_robustness_tpu_torch.attacks import (
+        PerturbConfig,
+        flow_attack_loss,
+        make_attack,
+    )
+    from understanding_flow_robustness_tpu_torch.models import (
+        fetch_model,
+        predict_flow,
+        predict_flow_differentiable,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    print(f"== I-FGSM on FlowNetC, batch {AB} at {AH}x{AW}, {ATTACK_STEPS} "
+          f"steps, eps {ATTACK_EPS}, l2 ==", flush=True)
+    res = {}
+    model = fetch_model("FlowNetC", device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(ATTACK_SEED)
+    a = torch.rand((AB, AH, AW, 3), generator=gen, device="cuda")
+    b = torch.rand((AB, AH, AW, 3), generator=gen, device="cuda")
+    flow = predict_flow(model, a, b)
+    gt = torch.cat([flow + 1.0, torch.ones_like(flow[..., :1])], -1)
+
+    def predict(x, y):
+        return predict_flow_differentiable(model, x, y)
+
+    cfg = PerturbConfig(perturb_method="ifgsm", flow_loss="l2",
+                        output_norm=ATTACK_EPS, n_step=ATTACK_STEPS)
+    make_attack(predict, dataclasses.replace(cfg, n_step=2))(a, b, gt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: count the kernels' launches while attacking
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    n0, n1, adv0, adv1 = make_attack(predict, cfg)(a, b, gt)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = {k: LAUNCH_COUNTS[k] for k in ("spatial_corr_fwd", "spatial_corr_bwd")}
+    res.update({f"launches/{k}": v for k, v in n.items()})
+    check(n == {"spatial_corr_fwd": ATTACK_STEPS,
+                "spatial_corr_bwd": ATTACK_STEPS},
+          f"FlowNetC attack: launches {n}, not one of each per step")
+    res["ms_per_step"] = 1e3 * dt / ATTACK_STEPS
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    nmax = max(n0.abs().max().item(), n1.abs().max().item())
+    check(nmax <= ATTACK_EPS + 1e-6, f"FlowNetC attack: noise {nmax} outside "
+                                     "the eps-ball")
+    check(0.0 <= min(adv0.min().item(), adv1.min().item())
+          and max(adv0.max().item(), adv1.max().item()) <= 1.0,
+          "FlowNetC attack: adversarial images outside [0, 1]")
+    with torch.no_grad():
+        before = flow_attack_loss(predict(a, b), gt, "l2").item()
+        after = flow_attack_loss(predict(adv0, adv1), gt, "l2").item()
+    res["loss_clean"], res["loss_attacked"] = before, after
+    print(f"FlowNetC attack: launches {n}; max|noise|={nmax:.4f}; l2 loss "
+          f"{before:.3f} -> {after:.3f}; {res['ms_per_step']:.2f} ms per step "
+          f"({ATTACK_STEPS} steps, {1e3 * dt:.0f} ms); peak memory "
+          f"{res['peak_mem_gib']:.2f} GiB", flush=True)
+    check(after > before, "FlowNetC attack: the l2 loss did not grow")
+
+    # one image gradient with the kernels, one with the plain correlation
+    # (f32, TF32 off), held to the worst-tensor bound of RAFT's early layers
+    # (GRAD_F32_REL_L2): the image gradient sits upstream of every layer.
+    # Two witnesses of why it is not at the forward's 1e-5: the leaky-ReLU
+    # inputs (nn.LeakyReLU, sign-preserving) whose sign differs between the
+    # two forwards, where the slope flips between 1 and 0.1; and a third
+    # gradient in f64 with the plain correlation, the one both f32 paths
+    # round, with each path's distance to it
+    signs = ([], [])
+    grads = []
+    for plain in (False, True):
+        model.module.plain_corr = plain
+        hooks = [m.register_forward_hook(
+                     lambda m, i, o, out=signs[plain]: out.append(i[0] > 0))
+                 for m in model.module.modules()
+                 if isinstance(m, torch.nn.LeakyReLU)]
+        x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+        loss = flow_attack_loss(predict(x, y), gt, "l2")
+        grads.append(torch.autograd.grad(loss, (x, y)))
+        for h in hooks:
+            h.remove()
+    flips = sum(int((p != q).sum()) for p, q in zip(*signs))
+    n_act = sum(p.numel() for p in signs[0])
+    del signs
+    model.module.plain_corr = True
+    model.module.double()
+    try:
+        x, y = a.double().requires_grad_(), b.double().requires_grad_()
+        loss = flow_attack_loss(predict(x, y), gt.double(), "l2")
+        exact = torch.autograd.grad(loss, (x, y))
+    finally:
+        model.module.float()
+        model.module.plain_corr = False
+
+    def rel(u, v):
+        return [((p.double() - q).norm() / q.norm()).item()
+                for p, q in zip(u, v)]
+
+    rels = rel(grads[0], grads[1])
+    to_exact = [rel(grads[0], exact), rel(grads[1], exact)]
+    res["image_grad_rel_l2"] = max(rels)
+    res["image_grad_witness"] = {"leaky_relu_sign_flips": flips,
+                                 "leaky_relu_inputs": n_act,
+                                 "kernel_to_f64": to_exact[0],
+                                 "plain_to_f64": to_exact[1]}
+    print(f"f32 FlowNetC: image gradient with the kernels vs plain "
+          f"correlation, rel L2 {rels[0]:.3e} / {rels[1]:.3e} (bound "
+          f"{GRAD_F32_REL_L2[0]:g}); leaky-ReLU inputs of another sign in "
+          f"the two forwards: {flips} of {n_act}; rel L2 to the f64 "
+          f"gradient: kernels {to_exact[0][0]:.3e} / {to_exact[0][1]:.3e}, "
+          f"plain {to_exact[1][0]:.3e} / {to_exact[1][1]:.3e}", flush=True)
+    check(max(rels) <= GRAD_F32_REL_L2[0], "FlowNetC: image gradient with "
+          "the kernels beyond bound of the plain correlation's")
+    return res
+
+
+def attack_cli_phase(flownet=None) -> dict:
+    """The attack CLI with ``--perturb_method ifgsm --synthetic 2 --n_step
+    3`` on ``flownet``, or without ``--flownet`` on its default
+    (FlowNetC)."""
     from understanding_flow_robustness_tpu_torch.cli import run_perturb_model
     from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
 
-    print("== attack CLI: RAFT, I-FGSM, --synthetic 2 --n_step 3 ==",
-          flush=True)
+    name = flownet or run_perturb_model.build_parser().parse_args([]).flownet
+    print(f"== attack CLI: {name}{'' if flownet else ' (the default)'}, "
+          "I-FGSM, --synthetic 2 --n_step 3 ==", flush=True)
     out = Path(__file__).resolve().parent / "build" / "chip_smoke_attack"
     shutil.rmtree(out, ignore_errors=True)
-    argv = ["--flownet", "RAFT", "--perturb_method", "ifgsm", "--synthetic",
-            "2", "--n_step", "3", "--output_path", str(out)]
+    argv = (["--flownet", flownet] if flownet else []) + [
+        "--perturb_method", "ifgsm", "--synthetic", "2", "--n_step", "3",
+        "--output_path", str(out)]
     LAUNCH_COUNTS.clear()
     res = run_perturb_model.main(argv)
-    n = {k: LAUNCH_COUNTS[k] for k in ("alt_corr_fwd", "alt_corr_bwd")}
-    # per pair: the clean, adversarial and noise-only flows and 3 steps
-    expect = {"alt_corr_fwd": 2 * ITERS * (3 + 3), "alt_corr_bwd": 2 * ITERS * 3}
+    # per pair: the clean, adversarial and noise-only flows and 3 steps,
+    # each forward with RAFT's 12 lookups or FlowNetC's one correlation
+    per, kernels = ((ITERS, ("alt_corr_fwd", "alt_corr_bwd")) if
+                    name.startswith("RAFT") else
+                    (1, ("spatial_corr_fwd", "spatial_corr_bwd")))
+    n = {k: LAUNCH_COUNTS[k] for k in kernels}
+    expect = {kernels[0]: 2 * per * (3 + 3), kernels[1]: 2 * per * 3}
     check(n == expect, f"attack CLI: launches {n}, not {expect}")
-    path = out / "kitti2015" / "RAFT" / "both" / "ifgsm_l2" / "0.02"
+    path = out / "kitti2015" / name / "both" / "ifgsm_l2" / "0.02"
     keys = [line.split(":")[0] for line in
             (path / "results0.txt").read_text().splitlines()]
     check(keys == [k for k in res if k != "time_per_frame"] and len(keys) == 10,
@@ -1487,11 +1900,15 @@ def main() -> None:
     fres = phase(taps_phase, gen)
     cres = phase(wocontext_phase, gen)
     sres = phase(warp_model_phase, gen, "SpyNet", 6)
-    pres = phase(warp_model_phase, gen, "PWCNet", 4)
+    pres = phase(warp_model_phase, gen, "PWCNet", 4, 5)
     tres = phase(train_phase, gen)
     phase(grad_phase, gen)
+    scres = phase(spatial_corr_phase, gen)
+    fnres = phase(flownet_phase, gen)
     ares = phase(attack_phase)
-    acres = phase(attack_cli_phase)
+    fares = phase(flownetc_attack_phase)
+    acres = phase(attack_cli_phase, "RAFT")
+    afres = phase(attack_cli_phase)
     phase(cli_phase)
     print(f"all phases, build included: {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -1575,6 +1992,41 @@ def main() -> None:
         "bound_by": vol["bound_by"],
         "library_ms": vol["library_ms"],
         "grid_sample_ms": vol["library_ms"],
+    }, {
+        "name": "spatial_corr_fwd",
+        "route": "cuda",
+        "source": "understanding_flow_robustness_tpu_torch/csrc/spatial_corr_fwd.cu",
+        "replaces": "understanding_flow_robustness_tpu/ops/correlation.py:56",
+        "launches": (fnres["launches"] + pres["corr_launches"]
+                     + ares["pwc_launches/spatial_corr_fwd"]
+                     + fares["launches/spatial_corr_fwd"]
+                     + afres["launches/spatial_corr_fwd"]),
+        "max_abs_err": scres["flownetc"]["fwd_err"],
+        "ms": scres["flownetc"]["ms"],
+        "plain_ms": scres["flownetc"]["plain_ms"],
+        "bound_ms": scres["flownetc"]["bound_ms"],
+        "bound_by": scres["flownetc"]["bound_by"],
+        "library_ms": None,
+        "pwc_l2_ms": scres["pwc_l2"]["ms"],
+        "pwc_l2_plain_ms": scres["pwc_l2"]["plain_ms"],
+        "pwc_l2_bound_ms": scres["pwc_l2"]["bound_ms"],
+    }, {
+        "name": "spatial_corr_bwd",
+        "route": "cuda",
+        "source": "understanding_flow_robustness_tpu_torch/csrc/spatial_corr_bwd.cu",
+        "replaces": "understanding_flow_robustness_tpu/ops/correlation.py:56",
+        "launches": (ares["pwc_launches/spatial_corr_bwd"]
+                     + fares["launches/spatial_corr_bwd"]
+                     + afres["launches/spatial_corr_bwd"]),
+        "max_abs_err": scres["attack"]["bwd_err"],
+        "ms": scres["attack/bwd"]["ms"],
+        "plain_ms": scres["attack/bwd"]["plain_ms"],
+        "bound_ms": scres["attack/bwd"]["bound_ms"],
+        "bound_by": scres["attack/bwd"]["bound_by"],
+        "library_ms": None,
+        "pwc_l2_ms": scres["pwc_l2/bwd"]["ms"],
+        "pwc_l2_plain_ms": scres["pwc_l2/bwd"]["plain_ms"],
+        "pwc_l2_bound_ms": scres["pwc_l2/bwd"]["bound_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,13 +43,21 @@ of ``make_train_step``), I-FGSM steps/s (RAFT-12, batch 1 at 256x640, 2 +
 10 steps of ``make_attack``), and, for 4 seeded image pairs at the attack
 geometry, the relative L2 distance of the f32 image gradient with the
 kernels from the one with the plain lookup (``chip_smoke.py``'s
-attack-gradient check).  Prints the card's name and power limit and one
-JSON line.  Needs a CUDA device.
+attack-gradient check).  Where the checkout has them, ``--e2e`` also times
+the correlation models serving 8 pairs at 384x1280 (2 + 6 requests of
+``predict_flow``): PWC-Net in its registry precision (bf16 convolutions,
+f32 flow heads), FlowNetC, Robust FlowNetC (``FlowNetCFlexLarger_k3_reps3``)
+and FlowNetS in f32, FlowNetC again with its correlation's plain version
+(``plain_corr``), and I-FGSM on FlowNetC (batch 1 at 256x640, the attack
+CLI's 40 steps of eps 0.02, l2, after a 2-step warm-up) in ms per step.
+Prints the card's name and power limit and one JSON line.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -275,7 +283,6 @@ def time_b4(ops, reps: int) -> dict:
 
 
 def time_e2e() -> dict:
-    import dataclasses
     import time
 
     from understanding_flow_robustness_tpu_torch.attacks import (
@@ -356,6 +363,61 @@ def time_e2e() -> dict:
     return res
 
 
+def time_correlation_models() -> dict:
+    """Pairs/s of the correlation models the checkout ports (PWC-Net; the
+    FlowNet family with FlowNetC's plain-correlation twin) and FlowNetC's
+    I-FGSM ms per step."""
+    import time
+
+    from understanding_flow_robustness_tpu_torch import attacks, models
+
+    ported = set(getattr(models.registry, "_SPECS", {}))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    requests = [(torch.rand((8, 384, 1280, 3), generator=gen, device="cuda"),
+                 torch.rand((8, 384, 1280, 3), generator=gen, device="cuda"))
+                for _ in range(2)]
+    res = {}
+    for key, name, plain in (
+            ("pwcnet", "PWCNet", False), ("flownetc", "FlowNetC", False),
+            ("flownetc_plain_corr", "FlowNetC", True),
+            ("robust_flownetc", "FlowNetCFlexLarger_k3_reps3", False),
+            ("flownets", "FlowNetS", False)):
+        if name not in ported:
+            continue
+        model = models.fetch_model(name, device="cuda", seed=0)
+        model.module.plain_corr = plain
+        for a, b in requests:
+            models.predict_flow(model, a, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a, b in requests * 3:
+            models.predict_flow(model, a, b)
+        torch.cuda.synchronize()
+        res[f"{key}_pairs_per_s"] = 8 * 6 / (time.perf_counter() - t0)
+        del model
+        torch.cuda.empty_cache()
+    if "FlowNetC" not in ported:
+        return res
+    model = models.fetch_model("FlowNetC", device="cuda", seed=0)
+    a = torch.rand((1, 256, 640, 3), generator=gen, device="cuda")
+    b = torch.rand((1, 256, 640, 3), generator=gen, device="cuda")
+    flow = models.predict_flow(model, a, b)
+    gt = torch.cat([flow + 1.0, torch.ones_like(flow[..., :1])], -1)
+
+    def predict(x, y):
+        return models.predict_flow_differentiable(model, x, y)
+
+    cfg = attacks.PerturbConfig(perturb_method="ifgsm", flow_loss="l2",
+                                output_norm=0.02, n_step=2)
+    attacks.make_attack(predict, cfg)(a, b, gt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    attacks.make_attack(predict, dataclasses.replace(cfg, n_step=40))(a, b, gt)
+    torch.cuda.synchronize()
+    res["flownetc_ifgsm_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / 40
+    return res
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -378,7 +440,8 @@ def main(argv=None) -> dict:
     res = {"root": args.root, **time_b1_b5(ops, corr, args.reps),
            "b2": time_b2(ops, corr, args.reps), "b4": time_b4(ops, args.reps)}
     if args.e2e:
-        res["e2e"] = {**time_serving(), **time_e2e()}
+        res["e2e"] = {**time_serving(), **time_e2e(),
+                      **time_correlation_models()}
     print(json.dumps(res))
     return res
 

@@ -1,9 +1,11 @@
 """The port's CUDA kernels on the card: ``csrc/alt_corr_fwd.cu``,
-``csrc/alt_corr_bwd.cu``, ``csrc/alt_corr_dcoords.cu``, ``csrc/warp_fwd.cu``
-and ``csrc/corr_lookup_fwd.cu`` against their plain PyTorch versions, their
+``csrc/alt_corr_bwd.cu``, ``csrc/alt_corr_dcoords.cu``, ``csrc/warp_fwd.cu``,
+``csrc/corr_lookup_fwd.cu``, ``csrc/spatial_corr_fwd.cu`` and
+``csrc/spatial_corr_bwd.cu`` against their plain PyTorch versions, their
 wrappers' checks and launch counts, RAFT driving the lookup kernels in
 inference (both paths, with and without the feature taps), a short train
-step and a short attack, SpyNet and PWC-Net driving the warp kernel.
+step and a short attack, SpyNet and PWC-Net driving the warp kernel, the
+FlowNetC family and PWC-Net driving the correlation kernel.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports only torch and the port, so it also runs where JAX is absent:
@@ -692,3 +694,138 @@ def test_raft_volume_path_launches_lookup_per_iteration(cuda, mixed, monkeypatch
         assert feats[f"idx_corr_vol_{it}"].data_ptr() == out.data_ptr()
         torch.testing.assert_close(feats[f"idx_corr_vol_{it}"],
                                    out.permute(0, 3, 1, 2), rtol=0, atol=0)
+
+
+# --- the spatial correlation: csrc/spatial_corr_fwd.cu, spatial_corr_bwd.cu --
+
+CORR_REL_TOL = 1e-5  # f32 x max|plain|: the same products, other sum orders
+
+
+def _bf16_ulp(x):
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("shape,patch,dil,dtype", [
+    ((8, 256, 48, 160), 21, 2, torch.float32),   # FlowNetC serving
+    ((1, 256, 32, 80), 21, 2, torch.float32),    # FlowNetC attack
+    ((8, 196, 6, 20), 9, 1, torch.bfloat16),     # PWC-Net mixed, levels 6..2
+    ((8, 128, 12, 40), 9, 1, torch.bfloat16),
+    ((8, 96, 24, 80), 9, 1, torch.bfloat16),
+    ((8, 64, 48, 160), 9, 1, torch.bfloat16),
+    ((8, 32, 96, 320), 9, 1, torch.bfloat16),
+    ((2, 3, 13, 21), 21, 2, torch.float32),      # ragged: H, W off the tile,
+    ((2, 33, 37, 45), 9, 1, torch.bfloat16),     # C = 3, 33, 196
+    ((1, 196, 7, 9), 21, 2, torch.bfloat16),
+    ((2, 33, 37, 45), 7, 3, torch.float32),      # other patches and dilations
+    ((2, 20, 11, 40), 5, 2, torch.bfloat16),
+    ((1, 16, 20, 70), 23, 1, torch.float32),     # > 128 displacements: 5 passes
+    ((2, 40, 13, 37), 1, 1, torch.float32),      # P = 1 (the default) and 3,
+    ((2, 40, 13, 37), 1, 1, torch.bfloat16),     # C > 16 (more than one
+    ((2, 35, 19, 45), 3, 1, torch.float32),      # staged chunk)
+    ((1, 33, 9, 70), 3, 4, torch.bfloat16),
+])
+def test_spatial_corr_kernels_match_plain(cuda, shape, patch, dil, dtype):
+    """Forward and backward kernels against the plain version and its
+    autograd on the same inputs: f32 within 1e-5 x max|plain|; bf16 within
+    one bf16 ulp of the plain value (both round one f32 sum), or the f32
+    bar where a sum cancels below it; gradients (f32 sums, written in the
+    inputs' dtype) within 1e-5 x max|plain| in f32, one bf16 ulp in bf16."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    f1 = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    f2 = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    cot = torch.randn((shape[0], patch ** 2) + shape[2:], generator=g,
+                      device="cuda").to(dtype)
+    got = ops.spatial_correlation(f1, f2, patch, dilation_patch=dil)
+    ref = ops.spatial_correlation_reference(f1, f2, patch, dil)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs()
+    bar = CORR_REL_TOL * ref.float().abs().max().item()
+    if dtype == torch.bfloat16:
+        assert bool((err <= torch.clamp(_bf16_ulp(ref.float()), min=bar)).all())
+    else:
+        assert err.max().item() <= bar
+    # the backward kernel against the plain version's autograd
+    a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    ops.spatial_correlation(a, b, patch, dilation_patch=dil).backward(cot)
+    pa, pb = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    ops.spatial_correlation_reference(pa, pb, patch, dil).backward(cot)
+    torch.cuda.synchronize()
+    for k, p in ((a.grad, pa.grad), (b.grad, pb.grad)):
+        assert k.dtype == dtype and bool(torch.isfinite(k).all())
+        e = (k.float() - p.float()).abs()
+        tol = CORR_REL_TOL * p.float().abs().max().item()
+        if dtype == torch.bfloat16:
+            assert bool((e <= torch.clamp(_bf16_ulp(p.float()), min=tol)).all())
+        else:
+            assert e.max().item() <= tol
+
+
+def test_spatial_corr_wrappers_count_launches_and_reject_bad_input(cuda):
+    from understanding_flow_robustness_tpu_torch.ops import correlation as corr
+
+    x = torch.randn((1, 8, 12, 20), device="cuda")
+    y = torch.randn((1, 8, 12, 20), device="cuda")
+    before = dict(ops.LAUNCH_COUNTS)
+
+    def launched(k):
+        return ops.LAUNCH_COUNTS[k] - before.get(k, 0)
+
+    out = ops.spatial_correlation(x, y, 9)
+    assert launched("spatial_corr_fwd") == 1 and out.shape == (1, 81, 12, 20)
+    # mixed dtypes run in the common one and come back in f1's
+    assert ops.spatial_correlation(x.bfloat16(), y, 9).dtype == torch.bfloat16
+    # with autograd: one forward and one backward launch; only the wanted
+    # gradient is computed
+    a = x.clone().requires_grad_()
+    ops.spatial_correlation(a, y, 9, dilation_patch=2).sum().backward()
+    assert launched("spatial_corr_fwd") == 3 and launched("spatial_corr_bwd") == 1
+    df1, df2 = corr._spatial_corr_bwd_cuda(
+        x, y, torch.ones((1, 81, 12, 20), device="cuda"), 9, 2,
+        want=(True, False))
+    assert df2 is None and torch.allclose(df1, a.grad, rtol=0, atol=1e-5)
+    for bad in (lambda: corr._spatial_corr_fwd_cuda(x, y, 4, 1),
+                lambda: corr._spatial_corr_fwd_cuda(x, y, 9, 0),
+                lambda: corr._spatial_corr_fwd_cuda(x.double(), y.double(), 9, 1),
+                lambda: corr._spatial_corr_fwd_cuda(x, y.bfloat16(), 9, 1),
+                lambda: corr._spatial_corr_fwd_cuda(x, y[:, :4], 9, 1),
+                lambda: corr._spatial_corr_fwd_cuda(x, y.cpu(), 9, 1),
+                lambda: corr._spatial_corr_fwd_cuda(x, y.transpose(2, 3), 9, 1),
+                lambda: corr._spatial_corr_bwd_cuda(
+                    x, y, torch.ones((1, 80, 12, 20), device="cuda"), 9, 1),
+                lambda: corr._spatial_corr_bwd_cuda(
+                    x, y, torch.ones((1, 81, 12, 20), device="cuda",
+                                     dtype=torch.bfloat16), 9, 1)):
+        with pytest.raises((TypeError, ValueError)):
+            bad()
+    with pytest.raises(NotImplementedError):
+        ops.spatial_correlation(x, y, 9, padding=1)
+    assert launched("spatial_corr_fwd") == 3 and launched("spatial_corr_bwd") == 2
+
+
+@pytest.mark.parametrize("name,launches", [
+    ("FlowNetC", 1), ("FlowNetCFlexLarger_k3_reps3", 1),
+    ("FlowNetC_larger_field", 1), ("FlowNetS", 0), ("PWCNet", 5)])
+def test_models_launch_spatial_corr_and_match_plain(cuda, name, launches):
+    """A forward correlates through the kernel (once for the FlowNetC
+    family, once per level for PWC-Net, never for FlowNetS); the flow
+    matches the model's with the plain correlation (f32 with TF32 off:
+    1e-5 relative L2; PWC-Net mixed: the 1 % bar)."""
+    model = fetch_model(name, device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.rand((2, 128, 256, 3), generator=g, device="cuda")
+    b = torch.rand((2, 128, 256, 3), generator=g, device="cuda")
+    before = ops.LAUNCH_COUNTS["spatial_corr_fwd"]
+    flow = predict_flow(model, a, b)
+    assert ops.LAUNCH_COUNTS["spatial_corr_fwd"] == before + launches
+    assert flow.shape == (2, 128, 256, 2) and bool(torch.isfinite(flow).all())
+    if not launches:
+        return
+    model.module.plain_corr = True
+    plain = predict_flow(model, a, b)
+    assert ops.LAUNCH_COUNTS["spatial_corr_fwd"] == before + launches
+    if getattr(model.module, "mixed_precision", False):
+        epe = torch.linalg.vector_norm(flow - plain, dim=-1).mean()
+        assert (epe / torch.linalg.vector_norm(plain, dim=-1).mean()) < 1e-2
+    else:
+        assert ((flow - plain).norm() / plain.norm()).item() <= 1e-5

@@ -191,8 +191,22 @@ def test_cli_runs_raft_on_the_cpu(tmp_path):
     assert np.isfinite(res["flow_epe"][0])
 
 
+def test_cli_runs_its_default_flownetc_on_the_cpu(tmp_path):
+    """The default ``--flownet`` is FlowNetC (ported, ROADMAP A7)."""
+    argv = ["--device", "cpu", "--synthetic", "1", "--n_step", "2",
+            "--n_height", "64", "--n_width", "64", "--perturb_method",
+            "ifgsm", "--output_path", str(tmp_path)]
+    assert tcli.build_parser().parse_args([]).flownet == "FlowNetC"
+    res = tcli.main(argv)
+    out = os.path.join(str(tmp_path), "kitti2015", "FlowNetC", "both",
+                       "ifgsm_l2", "0.02", "results0.txt")
+    assert os.path.exists(out)
+    assert 0 < res["noise0_l0pix"][0] <= 0.02 + 1e-6
+    assert np.isfinite(res["flow_epe"][0])
+
+
 @pytest.mark.parametrize("argv,err,match", [
-    (["--synthetic", "1"], KeyError, "A7"),  # the default FlowNetC
+    (["--synthetic", "1", "--flownet", "FlowNet2"], KeyError, "A9"),
     (["--flownet", "RAFT"], NotImplementedError, "A11"),  # no dataset yet
     (["--flownet", "RAFT", "--perturb_method", "fog"], NotImplementedError,
      "A8"),

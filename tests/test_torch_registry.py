@@ -33,15 +33,31 @@ def test_fetch_model_ids_and_precision():
     assert not fetch_model("RAFT_adv_kitti2012_ifgsm_l2_002", iters=1,
                            device="cpu").module.mixed_precision
     with pytest.raises(KeyError, match="ROADMAP"):
-        fetch_model("FlowNetC", device="cpu")
+        fetch_model("FlowNet2", device="cpu")
 
 
-@pytest.mark.parametrize("name,item", [
-    ("FlowNetC", "A7"), ("FlowNetS", "A7"), ("FlowNetCFlexLarger_k5_reps0", "A7"),
-    ("FlowNet2", "A9")])
+@pytest.mark.parametrize("name,item", [("FlowNet2", "A9")])
 def test_unported_ids_name_their_roadmap_item(name, item):
     with pytest.raises(KeyError, match=f"ROADMAP {item}"):
         fetch_model(name, device="cpu")
+
+
+@pytest.mark.parametrize("name,cls", [
+    ("FlowNetC", "FlowNetC"), ("FlowNetS", "FlowNetS2"),
+    ("FlowNetCFlexLarger_k5_reps0", "FlowNetCFlex")])
+def test_flownet_ids_are_built(name, cls):
+    """The FlowNet family is ported (ROADMAP A7): f32, inputs in multiples
+    of 64, the reference's parameter names (strict loading); the flat
+    names of FlowNetC_predict_bias for k5_reps0."""
+    model = fetch_model(name, device="cpu")
+    assert type(model.module).__name__ == cls and not model.is_raft
+    assert model.size_multiple == 64
+    sd = model.module.state_dict()
+    assert "conv1.0.weight" in sd and "predict_flow2.weight" in sd
+    assert not any(k.startswith("convs1") for k in sd)
+    a, b = _images(1, h=64, w=64)
+    flow = predict_flow(model, a, b)
+    assert tuple(flow.shape) == (1, 64, 64, 2) and bool(torch.isfinite(flow).all())
 
 
 def test_fetch_model_builds_wocontext():
@@ -63,20 +79,36 @@ def test_fetch_model_builds_wocontext():
         fetch_model("RAFT", device="cpu", corr_impl="sparse")
 
 
-@pytest.mark.parametrize("name,item", [
-    ("FlowNetC", "A7"), ("FlowNetCFlexLarger_k3_reps3", "A7"),
-    ("PWCNet", "A9")])
+@pytest.mark.parametrize("name,item", [("PWCNet", "A9")])
 def test_feature_map_keys_of_unported_taps_name_their_roadmap_item(name, item):
-    """RAFT's taps are ported; the FlowNetC family's and PWC-Net's raise
-    with their ROADMAP item; SpyNet exposes none, as in the JAX package;
-    an unknown ID raises."""
+    """RAFT's and the FlowNetC family's taps are ported; PWC-Net's raise
+    with their ROADMAP item; SpyNet and FlowNetS expose none, as in the JAX
+    package; an unknown ID raises."""
     assert get_feature_map_keys("RAFT_FlowNetCEncoder_WoContext") == \
         get_feature_map_keys("RAFT")
     assert get_feature_map_keys("SpyNet") == []
+    assert get_feature_map_keys("FlowNetS") == []
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         get_feature_map_keys(name)
     with pytest.raises(KeyError):
         get_feature_map_keys("RAFT_small")
+
+
+@pytest.mark.parametrize("name", ["FlowNetC", "FlowNetCFlexLarger_k3_reps3"])
+def test_feature_map_keys_of_flownetc_family_match_jax(name):
+    """The FlowNetC family's taps, as the JAX registry lists them
+    (registry.py:329-331), are the keys its return_features dict holds."""
+    from understanding_flow_robustness_tpu.models.registry import (
+        get_feature_map_keys as jax_keys,
+    )
+
+    keys = get_feature_map_keys(name)
+    assert keys == jax_keys(name) and len(keys) == 9
+    model = fetch_model(name, device="cpu", return_features=True)
+    a, b = _images(1, h=64, w=64)
+    with torch.no_grad():
+        _, feats = model.module(a.permute(0, 3, 1, 2), b.permute(0, 3, 1, 2))
+    assert set(feats) == set(keys)
 
 
 def test_fetch_model_defaults_to_the_card():

@@ -6,6 +6,8 @@ time.
     python -m understanding_flow_robustness_tpu_torch.cli.profile \\
         --model RAFT --corr_impl volume
     python -m understanding_flow_robustness_tpu_torch.cli.profile \\
+        --model FlowNetC
+    python -m understanding_flow_robustness_tpu_torch.cli.profile \\
         --model RAFT --attack --batch 1 --size 256 640
     python -m understanding_flow_robustness_tpu_torch.cli.profile \\
         --model RAFT --train --batch 4 --size 288 960
@@ -37,6 +39,8 @@ import time
 import torch
 
 CLASSES = (
+    ("spatial_corr_fwd/bwd (correlation kernels)",
+     re.compile(r"spatial_corr")),
     ("warp_fwd (B4 kernel)", re.compile(r"warp_fwd")),
     ("alt_corr_dcoords (B3 kernel)", re.compile(r"alt_corr_dcoords")),
     ("alt_corr_fwd/bwd (B1/B2 kernels)", re.compile(r"alt_corr")),
@@ -44,8 +48,7 @@ CLASSES = (
     ("convolution", re.compile(
         r"conv|xmma|cudnn|implicit|gemm|sm90|cutlass|winograd|fft", re.I)),
     ("norm", re.compile(r"norm|welford|bn_", re.I)),
-    ("reduction (sums, incl. the spatial correlation's)",
-     re.compile(r"reduce", re.I)),
+    ("reduction (sums)", re.compile(r"reduce", re.I)),
 )
 
 
@@ -56,7 +59,8 @@ def _device_us(evt) -> float:
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", default="SpyNet", help="ported model ID")
+    p.add_argument("--model", default="SpyNet",
+                   help="ported model ID, e.g. SpyNet, PWCNet, RAFT, FlowNetC")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--size", type=int, nargs=2, default=[384, 1280])
     p.add_argument("--reps", type=int, default=2)

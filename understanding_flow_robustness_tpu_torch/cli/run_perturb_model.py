@@ -10,8 +10,8 @@ Not ported yet, and raising: the KITTI dataset branch (ROADMAP A11; use
 ``--synthetic N``), the corruption sweeps (ROADMAP A8), and ``--disparity``
 (unimplemented upstream too).  ``--device`` defaults to ``cuda``, with no
 fallback; ``--device cpu`` runs on the CPU.  ``--flownet`` takes the port's
-registry IDs; the default FlowNetC raises as ``fetch_model`` does
-(ROADMAP A7).
+registry IDs, FlowNetC by default (FlowNet2 raises as ``fetch_model`` does,
+ROADMAP A9).
 
 Example:
   python -m understanding_flow_robustness_tpu_torch.cli.run_perturb_model \\

@@ -19,14 +19,15 @@ import os
 
 import numpy as np
 
-from ..models import NOT_PORTED, fetch_model
+from ..models import FLOWNET_IDS, NOT_PORTED, fetch_model
 from ..training import TrainConfig, train
 from ..training.checkpoint import load_weights
 
 # model IDs the port cannot train yet, by the ROADMAP item that ports them:
-# the unbuilt ones, and SpyNet, PWC-Net and RAFT's FlowNetC-encoder variant,
-# which serve but do not train
-_NOT_TRAINED = {**NOT_PORTED, "SpyNet": "A9", "PWCNet": "A9",
+# the unbuilt ones, and the FlowNet family, SpyNet, PWC-Net and RAFT's
+# FlowNetC-encoder variant, which serve but do not train
+_NOT_TRAINED = {**NOT_PORTED, **dict.fromkeys(FLOWNET_IDS, "A7"),
+                "SpyNet": "A9", "PWCNet": "A9",
                 "PWCNet_adv_ifgsm_l2_002": "A9",
                 "RAFT_FlowNetCEncoder_WoContext": "A10"}
 # flags of the JAX CLI that belong to paths not ported yet

@@ -1,16 +1,22 @@
 """Ported model families (RAFT and its FlowNetC-encoder variant, SPyNet,
-PWC-Net), NCHW ``nn.Module``s."""
+PWC-Net, the FlowNet family), NCHW ``nn.Module``s."""
 
 from .convert import (
+    flownet_c_flex_state_dict_from_jax,
+    flownet_c_state_dict_from_jax,
+    flownet_s_state_dict_from_jax,
     load_reference_state_dict,
     load_spynet_dir,
     pwcnet_state_dict_from_jax,
     raft_state_dict_from_jax,
     spynet_state_dict_from_jax,
 )
+from .flownet2 import FlowNet2SSub, FlowNetS2
+from .flownet_family import FlowNetC, FlowNetCFlex, FlowNetS
 from .pwcnet import PWCNet
 from .raft_model import RAFT, scale_flow_head, upsample_flow_convex
 from .registry import (
+    FLOWNET_IDS,
     NOT_PORTED,
     FlowModel,
     fetch_model,
@@ -21,12 +27,21 @@ from .registry import (
 from .spynet import SpyNet
 
 __all__ = [
+    "FLOWNET_IDS",
     "NOT_PORTED",
     "FlowModel",
+    "FlowNet2SSub",
+    "FlowNetC",
+    "FlowNetCFlex",
+    "FlowNetS",
+    "FlowNetS2",
     "PWCNet",
     "RAFT",
     "SpyNet",
     "fetch_model",
+    "flownet_c_flex_state_dict_from_jax",
+    "flownet_c_state_dict_from_jax",
+    "flownet_s_state_dict_from_jax",
     "get_feature_map_keys",
     "load_reference_state_dict",
     "load_spynet_dir",

@@ -6,9 +6,12 @@ Port modules carry the reference's parameter names, so a reference
 checkpoint is a port ``state_dict`` once its wrappers are removed
 (``load_reference_state_dict``; SPyNet's per-level files:
 ``load_spynet_dir``), and the JAX package's ``convert_raft`` /
-``convert_pwcnet`` map a port ``state_dict`` to flax variables.
-``raft_state_dict_from_jax``, ``pwcnet_state_dict_from_jax`` and
-``spynet_state_dict_from_jax`` go the other way.
+``convert_pwcnet`` / ``convert_flownet_c`` / ``convert_flownet_c_flex`` /
+``convert_flownet_c_larger`` / ``convert_flownet_s`` map a port
+``state_dict`` to flax variables.  ``raft_state_dict_from_jax``,
+``pwcnet_state_dict_from_jax``, ``spynet_state_dict_from_jax``,
+``flownet_c_state_dict_from_jax``, ``flownet_c_flex_state_dict_from_jax``
+and ``flownet_s_state_dict_from_jax`` go the other way.
 """
 
 from __future__ import annotations
@@ -134,6 +137,76 @@ def pwcnet_state_dict_from_jax(variables, deconv2: dict) -> dict:
     sd["deconv2.weight"] = deconv2["weight"].detach().float().clone()
     sd["deconv2.bias"] = deconv2["bias"].detach().float().clone()
     return sd
+
+
+# the FlowNet family's block leaves: (sub-module, flax leaf) -> (index in
+# the reference's Sequential, torch name)
+_FLOWNET_BLOCK = {
+    ("conv", "kernel"): ("0", "weight"), ("conv", "bias"): ("0", "bias"),
+    ("deconv", "kernel"): ("0", "weight"), ("deconv", "bias"): ("0", "bias"),
+    ("bn", "scale"): ("1", "weight"), ("bn", "bias"): ("1", "bias"),
+    ("bn", "mean"): ("1", "running_mean"), ("bn", "var"): ("1", "running_var"),
+}
+
+
+def _flownet_state_dict_from_jax(variables, rename=lambda name: name) -> dict:
+    """Flax FlowNet-family variables -> reference/port state dict of f32
+    tensors, the inverse of the JAX package's FlowNet rules
+    (convert.py:140-171): a ConvBlock ``conv1/conv/kernel`` becomes
+    ``conv1.0.weight`` (its batch norm ``conv1.1.*``), a DeconvBlock
+    ``deconv5/deconv/kernel`` becomes ``deconv5.0.weight``, the plain
+    ``predict_flow*`` and ``upsampled_flow*`` keep their names; transposed
+    convs (``deconv*``, ``upsampled_flow*``) go back to (I, O, kh, kw).
+    ``rename`` maps each flax module name to the port's."""
+    sd = {}
+    for path, val in _flatten(variables).items():
+        _, *names, leaf = path
+        transposed = names[-1] == "deconv" or names[-1].startswith(
+            "upsampled_flow")
+        if names[-1] in ("conv", "deconv", "bn"):
+            idx, attr = _FLOWNET_BLOCK[(names[-1], leaf)]
+            mod = f"{rename(names[-2])}.{idx}"
+        else:
+            attr = _LEAF[(path[0], leaf)]
+            mod = rename(names[-1])
+        if leaf == "kernel":
+            sd[f"{mod}.{attr}"] = (_iohw if transposed else _oihw)(val)
+        else:
+            sd[f"{mod}.{attr}"] = _bias(val)
+    return sd
+
+
+def flownet_c_state_dict_from_jax(variables) -> dict:
+    """Flax FlowNetC variables -> port state dict; the inverse of
+    ``convert_flownet_c``."""
+    return _flownet_state_dict_from_jax(variables)
+
+
+def flownet_c_flex_state_dict_from_jax(variables,
+                                       stage_names: str = "convs") -> dict:
+    """Flax FlowNetCFlex variables -> state dict of the port's
+    ``FlowNetCFlex(stage_names=...)``: the inverse of
+    ``convert_flownet_c_flex`` ("convs": ``convs1_0`` -> ``convs1.0``;
+    "flat": entries ``conv1`` stay, repetitions ``convs1_1`` ->
+    ``convs1.1``) and, with "larger_field", of ``convert_flownet_c_larger``
+    (``convs1_0`` -> ``conv1``, ``convs1_1`` -> ``conv11``)."""
+    def rename(name):
+        m = re.fullmatch(r"convs(\d)_(\d)", name)
+        if m is None:
+            return name
+        if stage_names == "larger_field":
+            stage, rep = m.groups()
+            return f"conv{stage}" + (rep if rep != "0" else "")
+        return f"convs{m.group(1)}.{m.group(2)}"
+    return _flownet_state_dict_from_jax(variables, rename)
+
+
+def flownet_s_state_dict_from_jax(variables) -> dict:
+    """Flax FlowNetS2 variables (the registry's "FlowNetS", its layers
+    under ``net``) -> port state dict with the layers at the top level, as
+    in the reference's checkpoint; the inverse of ``convert_flownet_s``."""
+    inner = {coll: tree["net"] for coll, tree in variables.items()}
+    return _flownet_state_dict_from_jax(inner)
 
 
 def spynet_state_dict_from_jax(variables) -> dict:

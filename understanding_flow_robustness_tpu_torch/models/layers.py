@@ -4,7 +4,9 @@
 The JAX package reimplements PyTorch's layers; here they are PyTorch's own:
 ``TorchConv`` is ``nn.Conv2d`` with dilation * (k-1)//2 padding per axis,
 ``TorchConvTranspose`` is ``nn.ConvTranspose2d`` (``deconv``),
-``leaky_relu`` is ``nn.LeakyReLU(0.1)``,
+``leaky_relu`` is ``nn.LeakyReLU(0.1)``, ``ConvBlock`` and ``DeconvBlock``
+are ``conv_block`` and ``deconv_block`` (``nn.Sequential``s, as the
+reference names them),
 ``InstanceNorm2d`` is ``nn.InstanceNorm2d(affine=False, eps=1e-5)`` and
 ``TorchBatchNorm`` is ``nn.BatchNorm2d(eps=1e-5, momentum=0.1)``.  In eval
 mode it normalises with the running statistics; in train mode with the
@@ -23,7 +25,7 @@ from torch import nn
 
 
 def conv(in_ch: int, out_ch: int, kernel_size, stride: int = 1,
-         dilation: int = 1) -> nn.Conv2d:
+         dilation: int = 1, bias: bool = True) -> nn.Conv2d:
     """nn.Conv2d with the JAX package's TorchConv default padding:
     dilation * (k-1)//2 per axis, so (1, 5) pads (0, 2)
     (layers.py:109, 149)."""
@@ -31,18 +33,46 @@ def conv(in_ch: int, out_ch: int, kernel_size, stride: int = 1,
     return nn.Conv2d(in_ch, out_ch, (kh, kw), stride=stride,
                      padding=(dilation * ((kh - 1) // 2),
                               dilation * ((kw - 1) // 2)),
-                     dilation=dilation)
+                     dilation=dilation, bias=bias)
 
 
-def deconv(in_ch: int, out_ch: int) -> nn.ConvTranspose2d:
+def deconv(in_ch: int, out_ch: int, bias: bool = True) -> nn.ConvTranspose2d:
     """The reference's learned 2x upsampling, ConvTranspose2d(k=4, s=2,
-    p=1) with a bias (TorchConvTranspose, layers.py:251-310)."""
-    return nn.ConvTranspose2d(in_ch, out_ch, 4, stride=2, padding=1)
+    p=1) (TorchConvTranspose, layers.py:251-310): the flow upsamplers and
+    PWC-Net's deconvs."""
+    return nn.ConvTranspose2d(in_ch, out_ch, 4, stride=2, padding=1,
+                              bias=bias)
 
 
 def leaky_relu() -> nn.LeakyReLU:
     """LeakyReLU(0.1) (layers.py:32)."""
     return nn.LeakyReLU(0.1)
+
+
+def conv_block(in_ch: int, out_ch: int, kernel_size, stride: int = 1,
+               dilation: int = 1, batch_norm: bool = False) -> nn.Sequential:
+    """The reference's ``conv()`` helper (models/submodules.py:18-43; JAX
+    ``ConvBlock``, layers.py:433-474): ``conv`` (+ BatchNorm2d, and then
+    no conv bias) + LeakyReLU(0.1), named ``<name>.0`` (conv) and
+    ``<name>.1`` (batch norm) as in the reference's checkpoints."""
+    layers = [conv(in_ch, out_ch, kernel_size, stride, dilation,
+                   bias=not batch_norm)]
+    if batch_norm:
+        layers.append(nn.BatchNorm2d(out_ch, eps=1e-5, momentum=0.1))
+    return nn.Sequential(*layers, leaky_relu())
+
+
+def deconv_block(in_ch: int, out_ch: int, bias: bool = True) -> nn.Sequential:
+    """The reference's ``deconv()`` helper: ``deconv`` + LeakyReLU(0.1)
+    (JAX ``DeconvBlock``, layers.py:478-498), named ``<name>.0``; FlowNetS
+    and the flexible FlowNetC have no bias, FlowNetC has one."""
+    return nn.Sequential(deconv(in_ch, out_ch, bias), leaky_relu())
+
+
+def crop_like(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Crop x's trailing rows and columns to target's size, NCHW
+    (models/FlowNetS.py:52-57; layers.py:503-507)."""
+    return x[:, :, :target.shape[2], :target.shape[3]]
 
 
 def norm(norm_fn: str, channels: int) -> nn.Module:
@@ -85,6 +115,7 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> None:
             std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
             nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
-            nn.init.zeros_(m.bias)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()

@@ -5,7 +5,9 @@ models/PWCNet.py:53-402).
 6-level siamese feature pyramid; per level from 5 to 2: warp the second
 image's features by the upsampled flow (``ops.warp_backward``, mode
 "zeros_mask": the CUDA kernel ``csrc/warp_fwd.cu`` on the card), an
-81-channel correlation (patch 9, divided by C), a DenseNet decoder and
+81-channel correlation (patch 9, divided by C; the CUDA kernel
+``csrc/spatial_corr_fwd.cu`` on the card, its backward
+``csrc/spatial_corr_bwd.cu`` in an attack), a DenseNet decoder and
 learned-deconv upsampling of flow and features; a dilated context network
 on level 2.  Images are RGB in [0, 1], flipped to BGR at entry; the eval
 output is 20 x the x4 bilinear upsample of the level-2 flow.
@@ -30,10 +32,13 @@ import contextlib
 import torch
 from torch import nn
 
-from ..ops.correlation import spatial_correlation
+from ..ops.correlation import (
+    spatial_correlation,
+    spatial_correlation_reference,
+)
 from ..ops.interp import resize_bilinear, warp_backward_reference
 from ..ops.warp import warp_backward
-from .layers import conv, deconv, leaky_relu
+from .layers import conv, conv_block, deconv
 
 _DD = (128, 256, 352, 416, 448)  # cumsum([128, 128, 96, 64, 32])
 _DECODER = (128, 128, 96, 64, 32)
@@ -49,38 +54,39 @@ _PYRAMID = ((1, 16, ("conv1a", "conv1aa", "conv1b")),
 _CONTEXT = ((128, 1), (128, 2), (128, 4), (96, 8), (64, 16), (32, 1))
 
 
-def correlate_pwc(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
-    """models/PWCNet.py:42-50: patch 9, divided by C, no activation."""
-    return spatial_correlation(f1, f2, patch_size=9) / f1.shape[1]
-
-
-def _block(cin, cout, stride=1, dilation=1):
-    return nn.Sequential(conv(cin, cout, 3, stride, dilation), leaky_relu())
+def correlate_pwc(f1: torch.Tensor, f2: torch.Tensor,
+                  plain: bool = False) -> torch.Tensor:
+    """models/PWCNet.py:42-50: patch 9, divided by C, no activation; the
+    kernel ``csrc/spatial_corr_fwd.cu`` on the card, or with ``plain`` its
+    plain version."""
+    corr = spatial_correlation_reference if plain else spatial_correlation
+    return corr(f1, f2, patch_size=9) / f1.shape[1]
 
 
 class PWCNet(nn.Module):
     """PWCDCNet(md=4).  Images (B, 3, H, W) RGB in [0, 1], H and W
     multiples of 64 -> flow (B, 2, H, W); ``train=True`` returns the x4
     upsampled flows of levels 2..6 (without the x20).  ``plain_warp`` runs
-    the warps' plain version also on the card, to hold the kernel against
-    it."""
+    the warps' plain version also on the card, and ``plain_corr`` the
+    correlations', to hold the kernels against them."""
 
     def __init__(self, md: int = 4, mixed_precision: bool = False,
-                 plain_warp: bool = False):
+                 plain_warp: bool = False, plain_corr: bool = False):
         super().__init__()
         self.mixed_precision = mixed_precision
         self.plain_warp = plain_warp
+        self.plain_corr = plain_corr
         nd = (2 * md + 1) ** 2
         cin = 3
         for _, ch, names in _PYRAMID:
             for i, name in enumerate(names):
-                setattr(self, name, _block(cin, ch, stride=2 if i == 0 else 1))
+                setattr(self, name, conv_block(cin, ch, 3, 2 if i == 0 else 1))
                 cin = ch
         for lvl, od in ((6, nd), (5, nd + 128 + 4), (4, nd + 96 + 4),
                         (3, nd + 64 + 4), (2, nd + 32 + 4)):
             for i, ch in enumerate(_DECODER):
                 setattr(self, f"conv{lvl}_{i}",
-                        _block(od + (_DD[i - 1] if i else 0), ch))
+                        conv_block(od + (_DD[i - 1] if i else 0), ch, 3))
             setattr(self, f"predict_flow{lvl}", conv(od + _DD[4], 2, 3))
             # deconv2 is dead in the reference (PWCNet.py:143): kept for
             # strict loading, never called
@@ -89,7 +95,8 @@ class PWCNet(nn.Module):
                 setattr(self, f"upfeat{lvl}", deconv(od + _DD[4], 2))
         cin = nd + 32 + 4 + _DD[4]
         for i, (ch, dil) in enumerate(_CONTEXT):
-            setattr(self, f"dc_conv{i + 1}", _block(cin, ch, dilation=dil))
+            setattr(self, f"dc_conv{i + 1}", conv_block(cin, ch, 3,
+                                                        dilation=dil))
             cin = ch
         self.dc_conv7 = conv(32, 2, 3)
 
@@ -135,14 +142,15 @@ class PWCNet(nn.Module):
         c2 = self._pyramid(im2.flip(1))
         warp = warp_backward_reference if self.plain_warp else warp_backward
         flows = {}
-        x, flows[6] = self._decoder(
-            nn.functional.leaky_relu(correlate_pwc(c1[5], c2[5]), 0.1), 6)
+        x, flows[6] = self._decoder(nn.functional.leaky_relu(
+            correlate_pwc(c1[5], c2[5], self.plain_corr), 0.1), 6)
         up_flow = self._head(self.deconv6, flows[6])
         up_feat = self.upfeat6(x)
         for lvl in (5, 4, 3, 2):
             i = lvl - 1
             warped = warp(c2[i], up_flow * _WARP_SCALE[lvl], mode="zeros_mask")
-            corr = nn.functional.leaky_relu(correlate_pwc(c1[i], warped), 0.1)
+            corr = nn.functional.leaky_relu(
+                correlate_pwc(c1[i], warped, self.plain_corr), 0.1)
             x, flows[lvl] = self._decoder(
                 torch.cat([corr, c1[i], up_flow, up_feat], dim=1), lvl)
             if lvl > 2:

@@ -1,9 +1,8 @@
 """Model factory and inference API (counterpart of
 ``understanding_flow_robustness_tpu/models/registry.py``).
 
-Ported so far: the three RAFT IDs, SpyNet and the two PWC-Net IDs.  The
-other model IDs of the JAX registry raise with the ROADMAP item that ports
-them.
+Ported so far: the three RAFT IDs, SpyNet, the two PWC-Net IDs and the six
+FlowNet-family IDs.  FlowNet2 raises with the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -16,6 +15,8 @@ import torch
 from torch import nn
 
 from .convert import load_reference_state_dict, load_spynet_dir
+from .flownet2 import FlowNetS2
+from .flownet_family import FlowNetC, FlowNetCFlex
 from .layers import init_like_flax
 from .pwcnet import PWCNet
 from .raft_model import RAFT
@@ -31,6 +32,22 @@ class ModelSpec:
 
 
 _SPECS: dict = {
+    # registry.py:58-91: the FlowNet family, f32
+    "FlowNetS": ModelSpec(lambda **kw: FlowNetS2(**kw)),
+    "FlowNetC": ModelSpec(lambda **kw: FlowNetC(**{"div_flow": 20.0, **kw})),
+    "FlowNetCFlexLarger_k3_reps3": ModelSpec(
+        lambda **kw: FlowNetCFlex(**{"kernel_size": 3, "number_of_reps": 3,
+                                     **kw})),
+    "FlowNetCFlexLarger_k3_reps3_adv_ifgsm_l2_002": ModelSpec(
+        lambda **kw: FlowNetCFlex(**{"kernel_size": 3, "number_of_reps": 3,
+                                     **kw})),
+    "FlowNetCFlexLarger_k5_reps0": ModelSpec(
+        lambda **kw: FlowNetCFlex(**{"kernel_size": 5, "number_of_reps": 0,
+                                     "stage_names": "flat", **kw})),
+    # training's --larger_field variant, under its own checkpoint names
+    "FlowNetC_larger_field": ModelSpec(
+        lambda **kw: FlowNetCFlex(**{"kernel_size": 5, "number_of_reps": 1,
+                                     "stage_names": "larger_field", **kw})),
     # registry.py:92-95
     "SpyNet": ModelSpec(lambda **kw: SpyNet(**{"nlevels": 6, **kw}),
                         size_multiple=32),
@@ -56,26 +73,27 @@ _SPECS: dict = {
 
 # model IDs of the JAX registry that the port does not build yet, by the
 # ROADMAP item that ports them
-NOT_PORTED = {
-    "FlowNetS": "A7", "FlowNetC": "A7", "FlowNetC_larger_field": "A7",
-    "FlowNetCFlexLarger_k3_reps3": "A7",
-    "FlowNetCFlexLarger_k3_reps3_adv_ifgsm_l2_002": "A7",
-    "FlowNetCFlexLarger_k5_reps0": "A7",
-    "FlowNet2": "A9",
-}
+NOT_PORTED = {"FlowNet2": "A9"}
+
+# the FlowNet-family IDs (ROADMAP A7): FlowNetS and the FlowNetC family
+FLOWNET_IDS = ("FlowNetS", "FlowNetC", "FlowNetC_larger_field",
+               "FlowNetCFlexLarger_k3_reps3",
+               "FlowNetCFlexLarger_k3_reps3_adv_ifgsm_l2_002",
+               "FlowNetCFlexLarger_k5_reps0")
 
 # families whose feature taps the JAX package exposes and the port does not
 # yet, by the ROADMAP item that ports them
-_TAPS_NOT_PORTED = {"FlowNetC": "A7", "PWC": "A9"}
+_TAPS_NOT_PORTED = {"PWC": "A9"}
 
 
 def get_feature_map_keys(name: str) -> list:
     """The keys of the ``return_features`` dict of model ``name``
     (registry.py:315-348).  RAFT: the fmaps, the four pyramid levels, the
     context and, for each of the 12 iterations, the lookup, the hidden
-    state, the motion encoder's taps and the upsampled flow.  SpyNet,
-    FlowNetS and FlowNet2 expose none.  The FlowNetC family and PWC-Net raise
-    with the ROADMAP item that ports their taps."""
+    state, the motion encoder's taps and the upsampled flow.  The FlowNetC
+    family: the siamese encoder's maps, the raw correlation, conv_redir and
+    conv3_1 (registry.py:329-331).  SpyNet, FlowNetS and FlowNet2 expose
+    none.  PWC-Net raises with the ROADMAP item that ports its taps."""
     if name not in _SPECS and name not in NOT_PORTED:
         raise KeyError(f"unknown model '{name}'")
     if name.startswith("RAFT"):
@@ -85,6 +103,9 @@ def get_feature_map_keys(name: str) -> list:
             keys += [f"idx_corr_vol_{i}", f"net_{i}", f"motion_features_{i}",
                      f"cor1_{i}", f"cor_{i}", f"cor_flo_{i}", f"flow_pred_{i}"]
         return keys
+    if "FlowNetC" in name:
+        return ["conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b",
+                "corr", "conv_redir", "conv3_1"]
     for family, item in _TAPS_NOT_PORTED.items():
         if family in name:
             raise NotImplementedError(
@@ -104,33 +125,42 @@ class FlowModel:
     is_raft: bool = True
     size_multiple: int = 8
 
-    def predict(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
-        return predict_flow(self, img1, img2)
+    def predict(self, img1: torch.Tensor, img2: torch.Tensor,
+                overrides: Optional[dict] = None) -> torch.Tensor:
+        return predict_flow(self, img1, img2, overrides)
 
 
-def _forward(model: FlowModel, img1: torch.Tensor,
-             img2: torch.Tensor) -> torch.Tensor:
+def _forward(model: FlowModel, img1: torch.Tensor, img2: torch.Tensor,
+             overrides: Optional[dict] = None) -> torch.Tensor:
     a = img1.permute(0, 3, 1, 2)
     b = img2.permute(0, 3, 1, 2)
     if model.is_raft:  # (flow_low, flow_up), or with taps (..., feats)
         flow = model.module(a * 255.0, b * 255.0)[1]
     else:
-        flow = model.module(a, b)
+        kw = {} if overrides is None else {"overrides": overrides}
+        flow = model.module(a, b, **kw)
+        if isinstance(flow, tuple):  # with taps: (flow, feats)
+            flow = flow[0]
     return flow.permute(0, 2, 3, 1)
 
 
-def predict_flow(model: FlowModel, img1: torch.Tensor,
-                 img2: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, 3) images in [0, 1] -> (B, H, W, 2) full-resolution flow
-    (models/utils_model.py:627-681), the serving call, under
-    ``torch.inference_mode()``.  RAFT takes [0, 255] in test mode; SpyNet
-    and PWC-Net take the [0, 1] images (JAX registry.py:182-191)."""
+def predict_flow(model: FlowModel, img1: torch.Tensor, img2: torch.Tensor,
+                 overrides: Optional[dict] = None) -> torch.Tensor:
+    """(B, H, W, 3) images in [0, 1] -> (B, H, W, 2) flow at the model's
+    output resolution (full, but H/4 x W/4 for the JAX package's FlowNetS;
+    models/utils_model.py:627-681), the serving call, under
+    ``torch.inference_mode()``.  RAFT takes [0, 255] in test mode; the
+    others take the [0, 1] images (JAX registry.py:182-191).  ``overrides``
+    (the FlowNetC family only, NCHW tensors by tap name) are injected at
+    their taps, as the JAX ``FlowModel.predict(..., overrides)`` does."""
     with torch.inference_mode():
-        return _forward(model, img1, img2)
+        return _forward(model, img1, img2, overrides)
 
 
 def predict_flow_differentiable(model: FlowModel, img1: torch.Tensor,
-                                img2: torch.Tensor) -> torch.Tensor:
+                                img2: torch.Tensor,
+                                overrides: Optional[dict] = None
+                                ) -> torch.Tensor:
     """``predict_flow`` with autograd on, differentiable in the images: the
     attacks' forward (the JAX package's ``FlowModel.predict_fn``,
     registry.py:155-171).  The module runs in eval mode (RAFT in test mode,
@@ -147,7 +177,7 @@ def predict_flow_differentiable(model: FlowModel, img1: torch.Tensor,
         for p in params:
             p.requires_grad_(False)
         with torch.enable_grad():
-            return _forward(model, img1, img2)
+            return _forward(model, img1, img2, overrides)
     finally:
         for p, flag in zip(params, flags):
             p.requires_grad_(flag)

@@ -9,6 +9,7 @@ from .correlation import (
     alt_corr_lookup,
     alt_corr_lookup_backward_reference,
     alt_corr_lookup_reference,
+    channel_norm,
     corr_lookup,
     corr_lookup_fwd,
     corr_lookup_reference,
@@ -16,6 +17,7 @@ from .correlation import (
     pool_fmap_levels,
     prepare_alt_corr,
     spatial_correlation,
+    spatial_correlation_reference,
     volume_pyramid,
 )
 from .interp import (
@@ -39,6 +41,7 @@ __all__ = [
     "alt_corr_lookup_reference",
     "avg_pool2",
     "bilinear_sample",
+    "channel_norm",
     "coords_grid",
     "corr_lookup",
     "corr_lookup_fwd",
@@ -48,6 +51,7 @@ __all__ = [
     "prepare_alt_corr",
     "resize_bilinear",
     "spatial_correlation",
+    "spatial_correlation_reference",
     "unnormalize_coords",
     "volume_pyramid",
     "warp_backward",

@@ -29,7 +29,7 @@ NVCC_FLAGS = (
 # Every kernel source under csrc/, by the name its library and its launch
 # count go by
 KERNELS = ("alt_corr_fwd", "alt_corr_bwd", "alt_corr_dcoords", "warp_fwd",
-           "corr_lookup_fwd")
+           "corr_lookup_fwd", "spatial_corr_fwd", "spatial_corr_bwd")
 
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}

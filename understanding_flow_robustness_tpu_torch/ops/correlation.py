@@ -1,10 +1,16 @@
-"""Correlation: RAFT's all-pairs volume, pyramid and window lookup, and the
-spatial correlation of PWC-Net (counterpart of
-``understanding_flow_robustness_tpu/ops/correlation.py`` and
-``ops/pallas/alt_corr.py``).
+"""Correlation: RAFT's all-pairs volume, pyramid and window lookup, the
+spatial correlation of the FlowNetC family and PWC-Net, and the channel
+norm (counterpart of ``understanding_flow_robustness_tpu/ops/correlation.py``
+and ``ops/pallas/alt_corr.py``).
 
 RAFT's functions keep the JAX package's channels-last layouts;
-``spatial_correlation`` takes NCHW, the layout of PWC-Net's convolutions.
+``spatial_correlation`` and ``channel_norm`` take NCHW, the layout of the
+convolutions around them.  ``spatial_correlation`` launches the CUDA kernel
+``csrc/spatial_corr_fwd.cu`` for a CUDA tensor and runs its plain version,
+``spatial_correlation_reference``, for a CPU tensor; its gradient
+(``_SpatialCorrelation``) launches ``csrc/spatial_corr_bwd.cu`` for a CUDA
+tensor and runs the plain version's autograd for a CPU tensor.  The JAX
+package computes this correlation on XLA (banded einsums), not in Pallas.
 The on-demand lookup ``alt_corr_features`` never builds the all-pairs volume on
 the GPU: ``alt_corr_lookup`` launches the CUDA kernel
 ``csrc/alt_corr_fwd.cu`` for a CUDA tensor and runs its plain PyTorch
@@ -40,6 +46,9 @@ from ._build import LAUNCH_COUNTS, kernel_fn
 _MAX_LEVELS = 8
 _RADIUS = 4
 _MAX_CHUNKS = 2 * 32
+# the shared memory a block of csrc/spatial_corr_{fwd,bwd}.cu may use (the
+# H100's per-block limit)
+_SPATIAL_SMEM_MAX = 232448
 
 
 def _widen(t: torch.Tensor) -> torch.Tensor:
@@ -58,26 +67,209 @@ def all_pairs_correlation(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
     return corr.reshape(B, H * W, H, W).to(f1.dtype)
 
 
-def spatial_correlation(f1: torch.Tensor, f2: torch.Tensor,
-                        patch_size: int = 1) -> torch.Tensor:
-    """Spatial correlation with kernel 1, stride 1, padding 0 and patch
-    dilation 1, PWC-Net's configuration (correlation.py:56-102; the
-    spatial-correlation-sampler op).  NCHW: f1, f2 (B, C, H, W) ->
-    (B, P*P, H, W), P = patch_size, du-major: channel pu*P + pv is
-    <f1[:, :, y, x], f2[:, :, y + pu - r, x + pv - r]>, r = (P-1)//2, zero
-    outside; not divided by C.  Products and sums in f32, cast back to
-    f1's dtype (``_corr_k1_band``, correlation.py:182).  Plain PyTorch: the
-    JAX package runs this on XLA, not in a Pallas kernel."""
+def spatial_correlation_reference(f1: torch.Tensor, f2: torch.Tensor,
+                                  patch_size: int = 1,
+                                  dilation_patch: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of the kernel ``csrc/spatial_corr_fwd.cu``, one
+    multiply and one channel sum per displacement; its autograd is the
+    plain version of ``csrc/spatial_corr_bwd.cu``.  NCHW f1, f2 (B, C, H,
+    W) -> (B, P*P, H, W), P = patch_size odd, r = (P-1)//2, d =
+    dilation_patch, du-major: channel pu*P + pv is <f1[:, :, y, x],
+    f2[:, :, y + (pu-r)*d, x + (pv-r)*d]>, zero outside; not divided by C.
+    Products and sums in f32 (f64 stays), cast back to f1's dtype
+    (``_corr_k1_band``, correlation.py:128-182)."""
     B, C, H, W = f1.shape
-    r = (patch_size - 1) // 2
+    reach = (patch_size - 1) // 2 * dilation_patch
     a = _widen(f1)
-    b = torch.nn.functional.pad(_widen(f2), (r, r, r, r))
+    b = torch.nn.functional.pad(_widen(f2), (reach,) * 4)
     out = a.new_empty((B, patch_size * patch_size, H, W))
     for pu in range(patch_size):
         for pv in range(patch_size):
+            y0, x0 = pu * dilation_patch, pv * dilation_patch
             out[:, pu * patch_size + pv] = (
-                a * b[:, :, pu:pu + H, pv:pv + W]).sum(1)
+                a * b[:, :, y0:y0 + H, x0:x0 + W]).sum(1)
     return out.to(f1.dtype)
+
+
+def _check_spatial_args(name, f1, f2, patch_size, dilation_patch):
+    """Raise on what csrc/spatial_corr_{fwd,bwd}.cu do not take."""
+    if f1.dtype not in (torch.float32, torch.bfloat16) or f2.dtype != f1.dtype:
+        raise TypeError(f"{name} takes f32 or bf16 features of one dtype, got "
+                        f"{f1.dtype} and {f2.dtype}")
+    if f1.dim() != 4 or f1.shape != f2.shape:
+        raise ValueError(f"{name} takes f1, f2 of one (B, C, H, W) shape, got "
+                         f"{tuple(f1.shape)} and {tuple(f2.shape)}")
+    if patch_size < 1 or patch_size % 2 == 0 or dilation_patch < 1:
+        raise ValueError(f"{name} takes an odd patch_size and "
+                         f"dilation_patch >= 1, got {patch_size}, "
+                         f"{dilation_patch}")
+    # the forward's two buffers of one channel, the backward's cotangent
+    # and feature rows
+    sw = 32 + (patch_size - 1) * dilation_patch
+    smem = max(8 * (32 + patch_size * sw), 4 * (patch_size + 32) * sw)
+    if smem > _SPATIAL_SMEM_MAX or f1.shape[2] > 65535 \
+            or f1.shape[0] > 65535:
+        raise ValueError(f"{name}: patch {patch_size} at dilation "
+                         f"{dilation_patch} (or B, H = {f1.shape[0]}, "
+                         f"{f1.shape[2]}) exceeds the kernel's shared memory "
+                         "or grid")
+    for t in (f1, f2):
+        if t.device != f1.device or t.device.type != "cuda":
+            raise ValueError(f"{name} inputs must be on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} inputs must be contiguous")
+
+
+def _spatial_corr_fwd_cuda(f1: torch.Tensor, f2: torch.Tensor,
+                           patch_size: int, dilation_patch: int
+                           ) -> torch.Tensor:
+    """Launch csrc/spatial_corr_fwd.cu: (B, P*P, H, W) in f1's dtype."""
+    import ctypes
+
+    _check_spatial_args("spatial_corr_fwd", f1, f2, patch_size,
+                        dilation_patch)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn, lib = kernel_fn("spatial_corr_fwd", "ufr_spatial_corr_fwd",
+                        [vp, vp, vp] + [i32] * 7 + [vp])
+    B, C, H, W = f1.shape
+    out = torch.empty((B, patch_size ** 2, H, W), device=f1.device,
+                      dtype=f1.dtype)
+    if out.numel() == 0 or C == 0:
+        return out.zero_()
+    with torch.cuda.device(f1.device):
+        stream = torch.cuda.current_stream(f1.device).cuda_stream
+        err = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), B, C, H, W,
+                 patch_size, dilation_patch, int(f1.dtype == torch.bfloat16),
+                 stream)
+    if err:
+        raise RuntimeError("spatial_corr_fwd launch failed: "
+                           + lib.ufr_cuda_error_string(err).decode())
+    LAUNCH_COUNTS["spatial_corr_fwd"] += 1
+    return out
+
+
+def _spatial_corr_bwd_cuda(f1: torch.Tensor, f2: torch.Tensor,
+                           g: torch.Tensor, patch_size: int,
+                           dilation_patch: int, want=(True, True)):
+    """Launch csrc/spatial_corr_bwd.cu: (df1, df2), each (B, C, H, W) in
+    the inputs' dtype (summed in f32), or None where ``want`` says it is not
+    needed; g: (B, P*P, H, W) contiguous, in the inputs' dtype.  One launch
+    computes both."""
+    import ctypes
+
+    _check_spatial_args("spatial_corr_bwd", f1, f2, patch_size,
+                        dilation_patch)
+    B, C, H, W = f1.shape
+    if g.dtype != f1.dtype or tuple(g.shape) != (
+            B, patch_size ** 2, H, W) or g.device != f1.device \
+            or not g.is_contiguous():
+        raise ValueError(f"g must be contiguous {f1.dtype} (B, P*P, H, W) = "
+                         f"({B}, {patch_size ** 2}, {H}, {W}) on {f1.device}, "
+                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    fn, lib = kernel_fn("spatial_corr_bwd", "ufr_spatial_corr_bwd",
+                        [vp] * 5 + [i32] * 7 + [vp])
+    grads = [torch.empty_like(f1) if w else None for w in want]
+    if f1.numel() == 0 or not any(want):
+        return tuple(grads)
+    with torch.cuda.device(f1.device):
+        stream = torch.cuda.current_stream(f1.device).cuda_stream
+        err = fn(f1.data_ptr(), f2.data_ptr(), g.data_ptr(),
+                 *[None if t is None else t.data_ptr() for t in grads],
+                 B, C, H, W, patch_size, dilation_patch,
+                 int(f1.dtype == torch.bfloat16), stream)
+    if err:
+        raise RuntimeError("spatial_corr_bwd launch failed: "
+                           + lib.ufr_cuda_error_string(err).decode())
+    LAUNCH_COUNTS["spatial_corr_bwd"] += 1
+    return tuple(grads)
+
+
+def _spatial_corr(f1, f2, patch_size, dilation_patch):
+    """The forward: the plain version for CPU tensors, the kernel for CUDA
+    tensors (on both inputs in their common dtype), f1's dtype out."""
+    if f1.device.type == "cpu":
+        return spatial_correlation_reference(f1, f2, patch_size,
+                                             dilation_patch)
+    if f1.device.type != "cuda":
+        raise ValueError(f"spatial_correlation: unsupported device "
+                         f"{f1.device}")
+    dtype = torch.promote_types(f1.dtype, f2.dtype)
+    out = _spatial_corr_fwd_cuda(f1.to(dtype).contiguous(),
+                                 f2.to(dtype).contiguous(), patch_size,
+                                 dilation_patch)
+    return out.to(f1.dtype)
+
+
+class _SpatialCorrelation(torch.autograd.Function):
+    """The spatial correlation with its gradient into both feature maps:
+    the kernels ``csrc/spatial_corr_fwd.cu`` / ``csrc/spatial_corr_bwd.cu``
+    for CUDA tensors, the plain version and its autograd for CPU tensors
+    (the JAX package differentiates its einsums with XLA's autodiff).
+    Gradients come back in each input's dtype, summed in f32."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, patch_size, dilation_patch):
+        ctx.args = (patch_size, dilation_patch)
+        ctx.save_for_backward(f1, f2)
+        return _spatial_corr(f1, f2, patch_size, dilation_patch)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        f1, f2 = ctx.saved_tensors
+        want = ctx.needs_input_grad[:2]
+        if f1.device.type == "cpu":
+            with torch.enable_grad():
+                ins = [t.detach().requires_grad_(w) for t, w in zip((f1, f2),
+                                                                     want)]
+                out = spatial_correlation_reference(*ins, *ctx.args)
+                grads = iter(torch.autograd.grad(
+                    out, [t for t in ins if t.requires_grad], g))
+            df1, df2 = (next(grads) if w else None for w in want)
+        else:
+            dtype = torch.promote_types(f1.dtype, f2.dtype)
+            df1, df2 = _spatial_corr_bwd_cuda(
+                f1.to(dtype).contiguous(), f2.to(dtype).contiguous(),
+                g.to(dtype).contiguous(), *ctx.args, want=want)
+        return (None if df1 is None else df1.to(f1.dtype),
+                None if df2 is None else df2.to(f2.dtype), None, None)
+
+
+def spatial_correlation(f1: torch.Tensor, f2: torch.Tensor,
+                        patch_size: int = 1, kernel_size: int = 1,
+                        stride: int = 1, padding: int = 0,
+                        dilation: int = 1,
+                        dilation_patch: int = 1) -> torch.Tensor:
+    """Spatial correlation sampling, NCHW (the JAX package's
+    ``spatial_correlation``, correlation.py:56-103; the
+    spatial-correlation-sampler op): f1, f2 (B, C, H, W) -> (B, P*P, H, W)
+    in f1's dtype, du-major, zero outside, not divided by C (callers divide
+    by C); ``spatial_correlation_reference`` says what it computes.
+
+    The CUDA kernel ``csrc/spatial_corr_fwd.cu`` for CUDA tensors, the
+    plain version for CPU tensors; any other device raises.  Differentiable
+    in f1 and f2 through ``_SpatialCorrelation`` (the backward kernel
+    ``csrc/spatial_corr_bwd.cu`` on the card).  Only kernel 1, stride 1,
+    padding 0 (every reference model's configuration) is ported; the
+    general path (correlation.py:203-255) raises."""
+    if (kernel_size, stride, padding) != (1, 1, 0):
+        raise NotImplementedError(
+            "spatial_correlation: only kernel_size 1, stride 1, padding 0 "
+            f"are ported (got {kernel_size}, {stride}, {padding}; ROADMAP "
+            "A7)")
+    if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
+        return _SpatialCorrelation.apply(f1, f2, patch_size, dilation_patch)
+    return _spatial_corr(f1, f2, patch_size, dilation_patch)
+
+
+def channel_norm(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Per-pixel L2 norm over channels, NCHW (B, C, H, W) -> (B, 1, H, W),
+    squares summed in f32 and cast back to x's dtype (the JAX package's
+    ``channel_norm``, correlation.py:962-970; the ChannelNorm CUDA op with
+    norm_deg 2).  Plain PyTorch: an elementwise pass and a channel sum."""
+    sq = _widen(x).square().sum(dim=1, keepdim=True)
+    return torch.sqrt(sq + eps).to(x.dtype)
 
 
 def corr_pyramid(corr: torch.Tensor, num_levels: int = 4) -> list:
