@@ -102,6 +102,24 @@ phases' random inputs stay as they were):
    plain correlation's, with the leaky-ReLU inputs whose sign differs
    between the two forwards and both gradients' distance to an f64 one),
    and the attack CLI with its default ``--flownet``.
+The patch slice adds, after the train CLI:
+16. The patch attack's inner loop on FlowNetC (f32) at the JAX bench's
+   geometry (batch 1 at 384x1280, a 100x100 mask at rows and columns
+   100:200, target = -clean flow, 8 iterations pinned by
+   ``loss_threshold=0``): one launch of each correlation kernel per
+   iteration plus the clean flow's forward, the images bit-equal to the
+   clean ones outside the mask and inside [0, 1], the loss falling; ms per
+   inner iteration, iterations/s, peak memory; then one iteration's update
+   against the plain correlation's, with phase 15's witnesses.
+17. The patch CLI on FlowNetC (a 153-pixel circle, 2 epochs of 3
+   synthetic 384x1280 batches, 2 inner iterations): launches, the patches'
+   shape, the validation metrics; then ``test_patch`` on its patch in the
+   default, ``--true_motion`` (``patch3d``) and ``--different_pos`` modes.
+18. The patch CLI on RAFT (mixed precision): 12 launches of each lookup
+   kernel per inner iteration, none of ``alt_corr_dcoords``.
+19. The universal-perturbation CLI on FlowNetC (256x640, 2 batches of 3
+   steps): one ``spatial_corr_bwd`` per step, the eps-ball, the snapshot;
+   then ``run_perturb_model --universal_evaluation`` on that snapshot.
 PWC-Net's serving phase (7) also counts its 5 ``spatial_corr_fwd``
 launches per request, holds the flow against the plain warp and the plain
 correlation together, and times pairs/s with the plain correlation too, in
@@ -109,7 +127,9 @@ turns with the kernel; its FGSM (10) counts 5 launches of each correlation
 kernel.
 
 Any failed check raises, so the script exits non-zero and prints no result.
-The last three lines are the card's name and power limit, a JSON object per
+Before them, one line gives the patch step's ms per inner iteration and
+iterations/s with the card.  The last three lines are the card's name and
+power limit, a JSON object per
 kernel (its launches on the main paths, its error against its plain
 version, its time, the plain version's, the least time the card could take
 and what bounds it, and the time of a PyTorch call that computes the same
@@ -130,6 +150,7 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 B, H, W = 8, 384, 1280
@@ -209,6 +230,14 @@ FLOW_F32_REL_L2 = 1e-5
 # FlowNet-family serving: (ID, spatial_corr_fwd launches per request)
 FLOWNETS = (("FlowNetC", 1), ("FlowNetCFlexLarger_k3_reps3", 1),
             ("FlowNetS", 0))
+# the patch step: the JAX bench's geometry (bench.py:200-230): batch 1 at
+# 384x1280, a 100x100 mask at rows and columns 100:200, 8 inner iterations
+# pinned by loss_threshold=0; its images from a generator of its own
+PB, PH, PW = 1, 384, 1280
+PATCH_ITERS = 8
+PATCH_SEED = 200
+# the patch and universal CLIs' outputs, under the ignored build/
+PATCH_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_patch"
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s of HBM3 and
 # FLOP/s by input type (bf16 on the tensor cores, f32 outside them)
 HBM_BYTES_PER_S = 3.35e12
@@ -279,16 +308,20 @@ def bound(moved: int, flops: float, dtype) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def lookup_cases(gen, main_shape, more_shapes=(), smooth=False):
+def lookup_cases(gen, main_shape, more_shapes=(), smooth=False,
+                 main="main", ragged=True):
     """(name, b, h, w, c, coords) for the kernel-vs-plain phases: the main
-    path's feature shape, ``more_shapes`` ((name, (b, h, w, c)), ...) and a
-    ragged one whose pooled levels drop rows and columns, each with
-    calibrated (2 px of noise on every centre), wild and hand-placed edge
-    centres, and with ``smooth`` a smooth field (``warp_flow``'s)."""
+    path's feature shape (named ``main``), ``more_shapes`` ((name, (b, h,
+    w, c)), ...) and with ``ragged`` a ragged one whose pooled levels drop
+    rows and columns, each with calibrated (2 px of noise on every
+    centre), wild and hand-placed edge centres, and with ``smooth`` a
+    smooth field (``warp_flow``'s)."""
     from understanding_flow_robustness_tpu_torch.ops import coords_grid
 
-    for shape_name, (b, h, w, c) in (("main", main_shape), *more_shapes,
-                                     ("ragged", (2, 13, 21, 64))):
+    shapes = ((main, main_shape), *more_shapes)
+    if ragged:
+        shapes += (("ragged", (2, 13, 21, 64)),)
+    for shape_name, (b, h, w, c) in shapes:
         grid = coords_grid(h, w, device="cuda")[None].expand(b, h, w, 2)
         noise = torch.randn((b, h, w, 2), generator=gen, device="cuda")
         edge = grid + noise
@@ -332,13 +365,17 @@ def path_share(counts: torch.Tensor) -> tuple:
                            enumerate(zip(tile, per_query)))
 
 
-def kernel_phase(gen) -> dict:
+def kernel_phase(gen, shape=(B, H // 8, W // 8, 256), main="main",
+                 ragged=True) -> dict:
+    """B1 against its plain version at ``shape`` (named ``main``, timed)
+    and, with ``ragged``, at a ragged shape."""
     from understanding_flow_robustness_tpu_torch.ops import correlation as corr
 
-    print("== alt_corr_fwd vs plain (TF32 off) ==", flush=True)
+    print(f"== alt_corr_fwd vs plain (TF32 off), {main} shape {shape} ==",
+          flush=True)
     res = {}
     for name, b, h, w, c, coords in lookup_cases(
-            gen, (B, H // 8, W // 8, 256), smooth=True):
+            gen, shape, smooth=True, main=main, ragged=ragged):
         fm1 = torch.randn((b, h, w, c), generator=gen, device="cuda")
         fm2 = torch.randn((b, h, w, c), generator=gen, device="cuda")
         cflat = coords.reshape(b, h * w, 2).contiguous()
@@ -363,11 +400,11 @@ def kernel_phase(gen) -> dict:
             res[f"{tag}/tile_share"] = share
             res.setdefault("paths", counts.new_zeros(2 * LEVELS))
             res["paths"] += counts
-            if name.split("/")[0] == "main" and name != "main/edge":
+            if name.split("/")[0] == main and not name.endswith("/edge"):
                 k_ms = cuda_ms(lambda: corr.alt_corr_lookup(
                     f1, levels, cflat, RADIUS), reps=20)
                 res[f"{tag}/ms"] = k_ms
-                if name == "main/calibrated":
+                if name == f"{main}/calibrated":
                     p_ms = cuda_ms(lambda: corr.alt_corr_lookup_reference(
                         f1, levels, cflat, RADIUS), reps=5, warmup=1)
                     res[f"{tag}/plain_ms"] = p_ms
@@ -391,15 +428,20 @@ def kernel_phase(gen) -> dict:
     return res
 
 
-def backward_phase(gen) -> dict:
+def backward_phase(gen, shape=(TB, TH // 8, TW // 8, 256),
+                   more=(("attack", (AB, AH // 8, AW // 8, 256)),),
+                   main="main", ragged=True) -> dict:
+    """B2 against its plain backward at ``shape`` (named ``main``), the
+    ``more`` shapes and, with ``ragged``, a ragged one; the calibrated and
+    smooth bf16 cases timed, the plain backward at ``shape``'s."""
     from understanding_flow_robustness_tpu_torch.ops import correlation as corr
 
-    print("== alt_corr_bwd vs plain backward (TF32 off) ==", flush=True)
+    print(f"== alt_corr_bwd vs plain backward (TF32 off), {main} shape "
+          f"{shape} ==", flush=True)
     res = {}
     n2 = (2 * RADIUS + 1) ** 2
     for name, b, h, w, c, coords in lookup_cases(
-            gen, (TB, TH // 8, TW // 8, 256),
-            (("attack", (AB, AH // 8, AW // 8, 256)),), smooth=True):
+            gen, shape, more, smooth=True, main=main, ragged=ragged):
         fm1 = torch.randn((b, h, w, c), generator=gen, device="cuda")
         fm2 = torch.randn((b, h, w, c), generator=gen, device="cuda")
         cflat = coords.reshape(b, h * w, 2).contiguous()
@@ -448,7 +490,7 @@ def backward_phase(gen) -> dict:
                 line = (f"{tag:28s} kernel {k_ms:.3f} ms, bound "
                         f"{res[f'{tag}/bound']['bound_ms']:.4f} ms "
                         f"({res[f'{tag}/bound']['bound_by']})")
-                if tag == "main/calibrated/bfloat16":
+                if tag == f"{main}/calibrated/bfloat16":
                     p_ms = cuda_ms(
                         lambda: corr.alt_corr_lookup_backward_reference(
                             f1, levels, cflat, g, RADIUS), reps=2, warmup=0)
@@ -1670,6 +1712,20 @@ def attack_phase() -> dict:
     return res
 
 
+@contextlib.contextmanager
+def leaky_relu_signs(module):
+    """Every ``nn.LeakyReLU`` of ``module`` appends the sign of its input
+    (``> 0``) to the yielded list at each forward inside."""
+    signs = []
+    hooks = [m.register_forward_hook(lambda m, i, o: signs.append(i[0] > 0))
+             for m in module.modules() if isinstance(m, torch.nn.LeakyReLU)]
+    try:
+        yield signs
+    finally:
+        for h in hooks:
+            h.remove()
+
+
 def flownetc_attack_phase() -> dict:
     """I-FGSM with the attack CLI's defaults on ``fetch_model("FlowNetC")``
     (the CLI's default model, f32) at the attack geometry, each step's
@@ -1743,19 +1799,15 @@ def flownetc_attack_phase() -> dict:
     # two forwards, where the slope flips between 1 and 0.1; and a third
     # gradient in f64 with the plain correlation, the one both f32 paths
     # round, with each path's distance to it
-    signs = ([], [])
+    signs = []
     grads = []
     for plain in (False, True):
         model.module.plain_corr = plain
-        hooks = [m.register_forward_hook(
-                     lambda m, i, o, out=signs[plain]: out.append(i[0] > 0))
-                 for m in model.module.modules()
-                 if isinstance(m, torch.nn.LeakyReLU)]
-        x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
-        loss = flow_attack_loss(predict(x, y), gt, "l2")
-        grads.append(torch.autograd.grad(loss, (x, y)))
-        for h in hooks:
-            h.remove()
+        with leaky_relu_signs(model.module) as sign:
+            x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+            loss = flow_attack_loss(predict(x, y), gt, "l2")
+            grads.append(torch.autograd.grad(loss, (x, y)))
+        signs.append(sign)
     flips = sum(int((p != q).sum()) for p, q in zip(*signs))
     n_act = sum(p.numel() for p in signs[0])
     del signs
@@ -1855,6 +1907,487 @@ def cli_phase() -> dict:
     return {"final_loss": out["history"][-1]["loss"]}
 
 
+@contextlib.contextmanager
+def recording(module, name: str, builds_step: bool = False):
+    """Wraps ``module.<name>`` so that every call appends its result to the
+    yielded list; with ``builds_step`` (``make_patch_attack_step``,
+    ``make_universal_attack_step``) every call of a step it builds appends
+    (the step's result, its seconds with the device synchronised)."""
+    results = []
+    fn = getattr(module, name)
+
+    def wrapped(*a, **k):
+        out = fn(*a, **k)
+        if not builds_step:
+            results.append(out)
+            return out
+
+        def step(*sa):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = out(*sa)
+            torch.cuda.synchronize()
+            results.append((res, time.perf_counter() - t))
+            return res
+        return step
+
+    setattr(module, name, wrapped)
+    try:
+        yield results
+    finally:
+        setattr(module, name, fn)
+
+
+def patch_step_phase() -> dict:
+    """The patch attack's inner loop on FlowNetC (f32) at the JAX bench's
+    geometry: PATCH_ITERS iterations pinned by ``loss_threshold=0``, each a
+    forward and a backward through the correlation kernels to both
+    composited images, the canvas update and the host's read of the loss;
+    then one iteration's update with the kernels against the plain
+    correlation's and an f64 one's."""
+    from understanding_flow_robustness_tpu_torch.attacks import (
+        PatchAttackConfig,
+        make_patch_attack_step,
+    )
+    from understanding_flow_robustness_tpu_torch.models import (
+        fetch_model,
+        predict_flow,
+        predict_flow_differentiable,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    print(f"== patch attack on FlowNetC, batch {PB} at {PH}x{PW}, 100x100 "
+          f"mask, {PATCH_ITERS} inner iterations ==", flush=True)
+    res = {}
+    model = fetch_model("FlowNetC", device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(PATCH_SEED)
+    a = torch.rand((PB, PH, PW, 3), generator=gen, device="cuda")
+    b = torch.rand((PB, PH, PW, 3), generator=gen, device="cuda")
+    mask = torch.zeros_like(a)
+    mask[:, 100:200, 100:200] = 1.0
+    patch = torch.rand(a.shape, generator=gen, device="cuda") * mask
+
+    def predict(x, y):
+        return predict_flow_differentiable(model, x, y)
+
+    cfg = PatchAttackConfig(max_count=PATCH_ITERS, loss_threshold=0.0)
+    one = dataclasses.replace(cfg, max_count=1)
+    target = -1.0 * predict_flow(model, a, b)
+    # warm-up; its one iteration's loss is the first loss of the main run
+    first = make_patch_attack_step(predict, one)(a, b, patch, mask, patch,
+                                                 target)[3].item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: count the kernels' launches over the clean flow and
+    # the inner loop
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    target = -1.0 * predict_flow(model, a, b)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adv_tgt, adv_ref, new, loss, count = make_patch_attack_step(
+        predict, cfg)(a, b, patch, mask, patch, target)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    n = {k: LAUNCH_COUNTS[k] for k in ("spatial_corr_fwd", "spatial_corr_bwd")}
+    res.update({f"launches/{k}": v for k, v in n.items()})
+    check(count == PATCH_ITERS and n == {"spatial_corr_fwd": PATCH_ITERS + 1,
+                                         "spatial_corr_bwd": PATCH_ITERS},
+          f"patch step: {count} iterations, launches {n}, not "
+          f"{PATCH_ITERS} and one of each per iteration plus the clean "
+          "flow's forward")
+    res["ms_per_iter"] = 1e3 * dt / PATCH_ITERS
+    res["iters_per_s"] = PATCH_ITERS / dt
+    res["clean_flow_ms"] = 1e3 * (t1 - t0)
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    outside = mask == 0
+    check(torch.equal(adv_tgt[outside], a[outside])
+          and torch.equal(adv_ref[outside], b[outside]),
+          "patch step: adversarial images differ from the clean ones outside "
+          "the mask")
+    check(0.0 <= min(adv_tgt.min().item(), adv_ref.min().item())
+          and max(adv_tgt.max().item(), adv_ref.max().item()) <= 1.0,
+          "patch step: adversarial images outside [0, 1]")
+    last = loss.item()
+    res["loss_first"], res["loss_last"] = first, last
+    print(f"patch step: launches {n}; {count} iterations; cossim loss "
+          f"{first:.6f} -> {last:.6f} (last one evaluated); "
+          f"{res['ms_per_iter']:.2f} ms per inner iteration, "
+          f"{res['iters_per_s']:.2f} iterations/s ({PATCH_ITERS} iterations, "
+          f"{1e3 * dt:.0f} ms; clean flow {res['clean_flow_ms']:.1f} ms); "
+          f"peak memory {res['peak_mem_gib']:.2f} GiB", flush=True)
+    check(math.isfinite(last) and last < first,
+          "patch step: the loss is not finite or did not fall")
+    del adv_tgt, adv_ref, new
+
+    # one iteration's update, 0.5 lr (g_tgt + g_ref) clamped, with the
+    # kernels and with the plain correlation (f32, TF32 off), held to phase
+    # 15's image-gradient bound, with its witnesses: the leaky-ReLU inputs
+    # whose sign differs between the two forwards, and each update's
+    # distance to the update in f64 with the plain correlation
+    step = make_patch_attack_step(predict, one)
+    signs, updates = [], []
+    for plain in (False, True):
+        model.module.plain_corr = plain
+        with leaky_relu_signs(model.module) as sign:
+            updates.append(step(a, b, patch, mask, patch, target)[2] - patch)
+        signs.append(sign)
+    flips = sum(int((p != q).sum()) for p, q in zip(*signs))
+    n_act = sum(p.numel() for p in signs[0])
+    del signs
+    model.module.plain_corr = True
+    model.module.double()
+    try:
+        d = [x.double() for x in (a, b, patch, mask, target)]
+        exact = step(d[0], d[1], d[2], d[3], d[2], d[4])[2] - d[2]
+    finally:
+        model.module.float()
+        model.module.plain_corr = False
+
+    def rel(u, v):
+        return ((u.double() - v.double()).norm() / v.double().norm()).item()
+
+    r = rel(updates[0], updates[1])
+    res["update_rel_l2"] = r
+    res["update_witness"] = {"leaky_relu_sign_flips": flips,
+                             "leaky_relu_inputs": n_act,
+                             "kernel_to_f64": rel(updates[0], exact),
+                             "plain_to_f64": rel(updates[1], exact)}
+    clamped = (exact.abs() >= 2.0).double().mean().item()
+    print(f"f32 FlowNetC patch update with the kernels vs plain correlation, "
+          f"rel L2 {r:.3e} (bound {GRAD_F32_REL_L2[0]:g}); leaky-ReLU inputs "
+          f"of another sign: {flips} of {n_act}; rel L2 to the f64 update: "
+          f"kernels {res['update_witness']['kernel_to_f64']:.3e}, plain "
+          f"{res['update_witness']['plain_to_f64']:.3e}; share of the canvas "
+          f"at the +-2 clamp {clamped:.2e}", flush=True)
+    check(updates[1].abs().max().item() > 0 and r <= GRAD_F32_REL_L2[0],
+          "patch step: update with the kernels beyond bound of the plain "
+          "correlation's")
+    return res
+
+
+def patch_cli_phase() -> dict:
+    """The patch CLI on FlowNetC at the reference's largest patch (0.4 of
+    384: a 153-pixel circle), 2 epochs of 3 synthetic 384x1280 batches;
+    then test_patch on its epoch-1 patch in the default, --true_motion and
+    --different_pos modes."""
+    from understanding_flow_robustness_tpu_torch.cli import (
+        patch_attack as cli_patch,
+    )
+    from understanding_flow_robustness_tpu_torch.cli import test_patch
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    print(f"== patch CLI: FlowNetC, --synthetic 3 at {PH}x{PW}, --patch-size "
+          "0.4, --epochs 2 --max-count 2 ==", flush=True)
+    out = PATCH_OUT / "flownetc"
+    shutil.rmtree(out, ignore_errors=True)
+    res = {}
+    argv = ["--flownet", "FlowNetC", "--synthetic", "3", "--synthetic-size",
+            str(PH), str(PW), "--image-size", "384", "--patch-size", "0.4",
+            "--epochs", "2", "--max-count", "2", "--output", str(out),
+            "--name", "run"]
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    with recording(cli_patch, "make_patch_attack_step", True) as steps, \
+            recording(cli_patch, "validate_patch") as metrics:
+        patch, _ = cli_patch.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = [r[4] for r, _ in steps]
+    # the steps after the first (which runs the backward's first, tuning
+    # pass): ms per inner iteration inside the CLI
+    res["cli_ms_per_iter"] = (1e3 * sum(t for _, t in steps[1:])
+                              / sum(counts[1:]))
+    # per epoch: 3 batches of a clean forward and their inner iterations,
+    # 1 validation sample of a clean and an adversarial forward
+    expect = {"spatial_corr_fwd": len(counts) + sum(counts) + 2 * 2,
+              "spatial_corr_bwd": sum(counts)}
+    n = {k: LAUNCH_COUNTS[k] for k in expect}
+    res.update({f"launches/{k}": v for k, v in n.items()})
+    check(len(counts) == 6 and n == expect,
+          f"patch CLI: {len(counts)} batches of {counts} iterations, "
+          f"launches {n}, not {expect}")
+    for e in (0, 1):
+        f = out / "run" / "patches" / f"epoch_{e}.npy"
+        check(f.exists() and np.load(f).shape == (1, 153, 153, 3),
+              f"patch CLI: {f.name} missing or not (1, 153, 153, 3)")
+    check(len(metrics) == 2 and all(math.isfinite(v) for m in metrics
+                                    for v in m.values()),
+          f"patch CLI: validation metrics {metrics}")
+    print(f"patch CLI: {len(counts)} batches of {counts} inner iterations "
+          f"({res['cli_ms_per_iter']:.2f} ms each after the first batch); "
+          f"launches {n}; patches/epoch_{{0,1}}.npy (1, 153, 153, 3); epoch "
+          f"1 epe {metrics[1]['epe']:.3f} adv_epe {metrics[1]['adv_epe']:.3f} "
+          f"cos_sim {metrics[1]['cos_sim']:.3f} adv_cos_sim "
+          f"{metrics[1]['adv_cos_sim']:.3f}; {dt:.1f} s", flush=True)
+    check(patch.shape == (1, 153, 153, 3), "patch CLI: patch malformed")
+
+    for mode, suffix in (([], ""), (["--true_motion"], "_true_motion"),
+                         (["--different_pos"], "_different_pos")):
+        LAUNCH_COUNTS.clear()
+        avg = test_patch.main([
+            "--patch_path", str(out / "run" / "patches" / "epoch_1.npy"),
+            "--synthetic", "2", "--synthetic-size", str(PH), str(PW),
+            "--no_viz", "--output", str(out)] + mode)
+        n = LAUNCH_COUNTS["spatial_corr_fwd"]
+        res["launches/spatial_corr_fwd"] += n
+        d = out / "test_patch"
+        rows = (d / f"test_result_scenes{suffix}.csv").read_text().splitlines()
+        check(n == 4 and len(rows) == 3 and len(avg) == 4
+              and all(math.isfinite(v) for v in avg)
+              and (d / f"test_results{suffix}.csv").exists(),
+              f"test_patch{suffix}: launches {n}, {len(rows)} CSV rows, "
+              f"averages {avg}")
+        print(f"test_patch{suffix or ' (default)'}: 2 scenes, launches "
+              f"{n}; epe {avg[0]:.3f} adv_epe {avg[1]:.3f} cos_sim "
+              f"{avg[2]:.3f} adv_cos_sim {avg[3]:.3f}", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    return res
+
+
+def patch_lookup_phase() -> tuple:
+    """B1 and B2 against their plain versions at the feature shape the
+    RAFT patch CLI gives them (batch PB at PHxPW: (1, 48, 160, 256)), with
+    calibrated, wild, edge and smooth centres, from a generator of this
+    phase's own."""
+    gen = torch.Generator(device="cuda").manual_seed(PATCH_SEED + 1)
+    shape = (PB, PH // 8, PW // 8, 256)
+    return (kernel_phase(gen, shape, main="patch", ragged=False),
+            backward_phase(gen, shape, more=(), main="patch", ragged=False))
+
+
+def patch_cli_raft_phase() -> dict:
+    """The patch CLI on RAFT (mixed precision): 12 launches of each lookup
+    kernel per inner iteration, none of the coordinate gradient's; then one
+    inner iteration's update with the kernels against the plain lookup's
+    at phase 16's geometry, bf16 and f32."""
+    from understanding_flow_robustness_tpu_torch.attacks import (
+        PatchAttackConfig,
+        make_patch_attack_step,
+    )
+    from understanding_flow_robustness_tpu_torch.cli import (
+        patch_attack as cli_patch,
+    )
+    from understanding_flow_robustness_tpu_torch.models import (
+        FlowModel,
+        fetch_model,
+        predict_flow,
+        predict_flow_differentiable,
+        scale_flow_head,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    print(f"== patch CLI: RAFT, --synthetic 2 at {PH}x{PW}, --patch-size 0.4, "
+          "--epochs 1 --max-count 2 ==", flush=True)
+    out = PATCH_OUT / "raft"
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--flownet", "RAFT", "--synthetic", "2", "--synthetic-size",
+            str(PH), str(PW), "--patch-size", "0.4", "--epochs", "1",
+            "--max-count", "2", "--output", str(out)]
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    with recording(cli_patch, "make_patch_attack_step", True) as steps, \
+            recording(cli_patch, "validate_patch") as metrics:
+        cli_patch.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = [r[4] for r, _ in steps]
+    ms_per_iter = 1e3 * steps[-1][1] / counts[-1]
+    expect = {"alt_corr_fwd": ITERS * (len(counts) + sum(counts) + 2),
+              "alt_corr_bwd": ITERS * sum(counts), "alt_corr_dcoords": 0}
+    n = {k: LAUNCH_COUNTS[k] for k in expect}
+    check(len(counts) == 2 and sum(counts) > 0 and n == expect,
+          f"RAFT patch CLI: {len(counts)} batches of {counts} iterations, "
+          f"launches {n}, not {expect}")
+    check(len(metrics) == 1 and all(math.isfinite(v) for v in
+                                    metrics[0].values()),
+          f"RAFT patch CLI: validation metrics {metrics}")
+    print(f"RAFT patch CLI: {counts} inner iterations ({ms_per_iter:.2f} ms "
+          f"each in the second batch); launches {n} ({ITERS} of each lookup "
+          f"kernel per iteration); epe {metrics[0]['epe']:.3f} adv_epe "
+          f"{metrics[0]['adv_epe']:.3f}; {dt:.1f} s", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    res = {"ms_per_iter": ms_per_iter,
+           **{f"launches/{k}": v for k, v in n.items()}}
+
+    # one inner iteration's update, 0.5 lr (g_tgt + g_ref) clamped, with
+    # the kernels and with the plain lookup, batch 1 at 384x1280 with phase
+    # 16's images, mask and patch, in bf16 autocast (how the CLI serves
+    # RAFT) and in f32 (TF32 off), with the CLI's own seeded weights (their
+    # ~150 px iterates put the lookups' centres far off the grid) and with
+    # the flow head scaled to trained magnitudes (calibrated).  Held, as
+    # attack_phase holds the image gradient: the calibrated l2 update, f32
+    # and bf16.  Printed: the CLI's cossim loss, which starts at its
+    # stationary point (the target is -flow), so its update is the small
+    # flow change the patch makes and carries each path's rounding; and
+    # each bf16 update's distance to the f32 plain one
+    gen = torch.Generator(device="cuda").manual_seed(PATCH_SEED)
+    a = torch.rand((PB, PH, PW, 3), generator=gen, device="cuda")
+    b = torch.rand((PB, PH, PW, 3), generator=gen, device="cuda")
+    mask = torch.zeros_like(a)
+    mask[:, 100:200, 100:200] = 1.0
+    patch = torch.rand(a.shape, generator=gen, device="cuda") * mask
+    bases = {"bf16": fetch_model("RAFT", device="cuda", seed=0),
+             "f32": fetch_model("RAFT", device="cuda", seed=0,
+                                mixed_precision=False)}
+
+    def rel(u, v):
+        return ((u - v).norm() / v.norm()).item()
+
+    for kind in ("cli_weights", "calibrated"):
+        models = {}
+        for prec, base in bases.items():
+            module = (base.module if kind == "cli_weights"
+                      else scale_flow_head(base.module, 0.05))
+            models[prec, "kernels"] = FlowModel("RAFT", module, base.device)
+            models[prec, "plain"] = FlowModel("RAFT", copy.deepcopy(module),
+                                              base.device)
+            models[prec, "plain"].module.plain_lookup = True
+        target = -1.0 * predict_flow(models["bf16", "kernels"], a, b)
+        for loss in ("l2", "cossim"):
+            cfg = PatchAttackConfig(max_count=1, loss_threshold=0.0,
+                                    l2=loss == "l2")
+            u = {}
+            for key, mm in models.items():
+                step = make_patch_attack_step(
+                    lambda x, y, mm=mm: predict_flow_differentiable(mm, x, y),
+                    cfg)
+                u[key] = step(a, b, patch, mask, patch, target)[2] - patch
+                check(bool(torch.isfinite(u[key]).all())
+                      and u[key].abs().max().item() > 0,
+                      f"RAFT patch update ({kind}, {loss}, {key}): not "
+                      "finite or zero")
+            r16 = rel(u["bf16", "kernels"], u["bf16", "plain"])
+            r32 = rel(u["f32", "kernels"], u["f32", "plain"])
+            ref = u["f32", "plain"]
+            w = (rel(u["bf16", "kernels"], ref), rel(u["bf16", "plain"], ref))
+            held = kind == "calibrated" and loss == "l2"
+            tag = f"{kind}/{loss}"
+            res[f"update_rel_l2/{tag}/bf16"] = r16
+            res[f"update_rel_l2/{tag}/f32"] = r32
+            res[f"update_to_f32/{tag}"] = w
+            print(f"RAFT patch update ({kind}, {loss}), kernels vs plain "
+                  f"lookup: bf16 rel L2 {r16:.3e} (bound "
+                  f"{GRAD_BF16_REL_L2[0]:g}), f32 {r32:.3e} (bound "
+                  f"{GRAD_F32_REL_L2[0]:g}){'' if held else ', not held'}; "
+                  f"bf16 to the f32 plain update: kernels {w[0]:.3e}, "
+                  f"plain {w[1]:.3e}; share at the +-2 clamp "
+                  f"{(ref.abs() >= 2.0).float().mean().item():.2e}",
+                  flush=True)
+            if held:
+                check(r16 <= GRAD_BF16_REL_L2[0]
+                      and r32 <= GRAD_F32_REL_L2[0],
+                      "RAFT patch update with the kernels beyond bound of "
+                      "the plain lookup's")
+            del u
+        del models
+    return res
+
+
+def universal_phase() -> dict:
+    """The universal-perturbation CLI on FlowNetC at its defaults (256x640,
+    ifgsm, cossim, eps 0.02) for one epoch of 2 synthetic batches of 3
+    steps; then the attack CLI's --universal_evaluation of its snapshot;
+    then the CLI once more with --flow_loss l2, each batch's steps checked
+    to lower the loss."""
+    from understanding_flow_robustness_tpu_torch.attacks import (
+        flow_attack_loss,
+    )
+    from understanding_flow_robustness_tpu_torch.cli import (
+        run_perturb_model,
+        universal_perturbation,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    print("== universal perturbation CLI: FlowNetC, --synthetic 2 --epochs 1 "
+          "--n_step 3 ==", flush=True)
+    out = PATCH_OUT / "universal"
+    shutil.rmtree(out, ignore_errors=True)
+    res = {}
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    with recording(universal_perturbation, "make_universal_attack_step",
+                   True) as steps:
+        n0, n1 = universal_perturbation.main([
+            "--synthetic", "2", "--epochs", "1", "--n_step", "3", "--seed",
+            "1", "--output_path", str(out)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    # the second batch's 3 steps (the first runs the backward's first,
+    # tuning pass)
+    res["ms_per_step"] = 1e3 * steps[-1][1] / 3
+    # per batch a clean forward and 3 steps; the epoch's report 2 forwards
+    expect = {"spatial_corr_fwd": 2 * (1 + 3) + 2, "spatial_corr_bwd": 2 * 3}
+    n = {k: LAUNCH_COUNTS[k] for k in expect}
+    res.update({f"launches/{k}": v for k, v in n.items()})
+    nmax = max(np.abs(n0).max(), np.abs(n1).max())
+    check(n == expect, f"universal CLI: launches {n}, not {expect}")
+    check(0 < nmax <= 0.02 + 1e-6, f"universal CLI: max|noise| {nmax}")
+    run_dir = (out / "kitti2015" / "FlowNetC" / "universal" / "both"
+               / "ifgsm_cossim" / "0.02" / "0.002_3_1")
+    snap = np.load(run_dir / "perturbations" / "epoch_0.npy")
+    check(snap.shape == (1, 2, 256, 640, 3), f"universal CLI: snapshot "
+                                             f"{snap.shape}")
+    print(f"universal CLI: launches {n} (one spatial_corr_bwd per step); "
+          f"max|noise| {nmax:.4f} (eps 0.02); snapshot {snap.shape}; "
+          f"{res['ms_per_step']:.2f} ms per step (second batch); {dt:.1f} s "
+          "with the model's build", flush=True)
+
+    LAUNCH_COUNTS.clear()
+    ev = run_perturb_model.main([
+        "--universal_evaluation", "--folder_name", "0.002_3_1",
+        "--epoch_number", "0", "--perturb_method", "ifgsm", "--flow_loss",
+        "cossim", "--synthetic", "2", "--output_path", str(out)])
+    n = LAUNCH_COUNTS["spatial_corr_fwd"]
+    res["launches/spatial_corr_fwd"] += n
+    check(n == 2 * 3 and LAUNCH_COUNTS["spatial_corr_bwd"] == 0
+          and (run_dir / "results0.txt").exists()
+          and all(math.isfinite(v[0]) for v in ev.values()),
+          f"universal evaluation: launches {n}, results0.txt "
+          f"{(run_dir / 'results0.txt').exists()}")
+    print(f"universal evaluation: read perturbations/epoch_0.npy; epe "
+          f"{ev['flow_epe_origin'][0]:.3f} -> {ev['flow_epe'][0]:.3f}; "
+          f"results0.txt written; spatial_corr_fwd {n}", flush=True)
+
+    # the defaults' cossim descent toward -flow starts at cossim's
+    # stationary point, where the gradient is rounding noise: run the CLI
+    # once more in l2, where each batch's 3 steps must lower the loss
+    losses = []
+    make = universal_perturbation.make_universal_attack_step
+
+    def make_checked(predict, cfg):
+        step = make(predict, cfg)
+
+        def loss(x, y, target):
+            with torch.no_grad():
+                return flow_attack_loss(predict(x, y), target, "l2").item()
+
+        def checked(img0, img1, n0, n1, target):
+            before = loss(torch.clamp(img0 + n0, 0.0, 1.0),
+                          torch.clamp(img1 + n1, 0.0, 1.0), target)
+            adv = step(img0, img1, n0, n1, target)
+            losses.append((before, loss(adv[0], adv[1], target)))
+            return adv
+        return checked
+
+    universal_perturbation.make_universal_attack_step = make_checked
+    try:
+        universal_perturbation.main([
+            "--synthetic", "2", "--epochs", "1", "--n_step", "3", "--seed",
+            "1", "--flow_loss", "l2", "--output_path", str(out)])
+    finally:
+        universal_perturbation.make_universal_attack_step = make
+    res["l2_losses"] = losses
+    print("universal CLI, --flow_loss l2: per batch the l2 loss to -flow "
+          "before -> after its 3 steps: " + "; ".join(
+              f"{u:.4f} -> {v:.4f}" for u, v in losses), flush=True)
+    check(len(losses) == 2 and all(v < u for u, v in losses),
+          f"universal CLI, l2: the steps did not lower the loss ({losses})")
+    shutil.rmtree(out, ignore_errors=True)
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device: torch.cuda.is_available() is False")
@@ -1910,10 +2443,25 @@ def main() -> None:
     acres = phase(attack_cli_phase, "RAFT")
     afres = phase(attack_cli_phase)
     phase(cli_phase)
+    psres = phase(patch_step_phase)
+    pcres = phase(patch_cli_phase)
+    plres, pbres = phase(patch_lookup_phase)
+    prres = phase(patch_cli_raft_phase)
+    ures = phase(universal_phase)
     print(f"all phases, build included: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    print(f"patch attack, FlowNetC, batch {PB} at {PH}x{PW} ({card}): "
+          f"{psres['ms_per_iter']:.3f} ms per inner iteration, "
+          f"{psres['iters_per_s']:.2f} iterations/s; in the CLI "
+          f"{pcres['cli_ms_per_iter']:.3f} ms; RAFT "
+          f"{prres['ms_per_iter']:.3f} ms; universal step on FlowNetC at "
+          f"256x640 {ures['ms_per_step']:.3f} ms", flush=True)
 
     print(card)  # name, power limit: nvidia-smi's own line
+
+    def patch_err(r):  # the worst case at the RAFT patch CLI's shape
+        return max(v for k, v in r.items() if k.startswith("patch/")
+                   and k.count("/") == 2)
     fwd = "main/calibrated/bfloat16"
     warp = wres["spynet/main"]
     vol = vkres["main/calibrated/bfloat16/main"]
@@ -1925,7 +2473,8 @@ def main() -> None:
         "launches": (mres["launches"] + cres["launches"]
                      + tres["launches/alt_corr_fwd"]
                      + ares["launches/alt_corr_fwd"]
-                     + acres["launches/alt_corr_fwd"]),
+                     + acres["launches/alt_corr_fwd"]
+                     + prres["launches/alt_corr_fwd"]),
         "max_abs_err": kres[fwd],
         "ms": kres[f"{fwd}/ms"],
         "plain_ms": kres[f"{fwd}/plain_ms"],
@@ -1935,6 +2484,11 @@ def main() -> None:
         "wild_ms": kres["main/wild/bfloat16/ms"],
         "serving_tile_share": mres["calibrated/tile_share"],
         "serving_wild_tile_share": mres["wild/tile_share"],
+        "patch_shape_max_abs_err": patch_err(plres),
+        "patch_shape_ms": plres["patch/calibrated/bfloat16/ms"],
+        "patch_shape_plain_ms": plres["patch/calibrated/bfloat16/plain_ms"],
+        "patch_shape_bound_ms":
+            plres["patch/calibrated/bfloat16/bound"]["bound_ms"],
     }, {
         "name": "alt_corr_bwd",
         "route": "cuda",
@@ -1942,7 +2496,8 @@ def main() -> None:
         "replaces": "understanding_flow_robustness_tpu/ops/pallas/alt_corr.py:571",
         "launches": (tres["launches/alt_corr_bwd"]
                      + ares["launches/alt_corr_bwd"]
-                     + acres["launches/alt_corr_bwd"]),
+                     + acres["launches/alt_corr_bwd"]
+                     + prres["launches/alt_corr_bwd"]),
         "max_abs_err": bres[fwd],
         "ms": bres[f"{fwd}/ms"],
         "plain_ms": bres[f"{fwd}/plain_ms"],
@@ -1953,6 +2508,15 @@ def main() -> None:
         "attack_bound_ms":
             bres["attack/calibrated/bfloat16/bound"]["bound_ms"],
         "train_step_tile_share": tres["tile_share"],
+        "patch_shape_max_abs_err": patch_err(pbres),
+        "patch_shape_ms": pbres["patch/calibrated/bfloat16/ms"],
+        "patch_shape_plain_ms": pbres["patch/calibrated/bfloat16/plain_ms"],
+        "patch_shape_bound_ms":
+            pbres["patch/calibrated/bfloat16/bound"]["bound_ms"],
+        "raft_patch_update_rel_l2_bf16":
+            prres["update_rel_l2/calibrated/l2/bf16"],
+        "raft_patch_update_rel_l2_f32":
+            prres["update_rel_l2/calibrated/l2/f32"],
     }, {
         "name": "alt_corr_dcoords",
         "route": "cuda",
@@ -2000,7 +2564,10 @@ def main() -> None:
         "launches": (fnres["launches"] + pres["corr_launches"]
                      + ares["pwc_launches/spatial_corr_fwd"]
                      + fares["launches/spatial_corr_fwd"]
-                     + afres["launches/spatial_corr_fwd"]),
+                     + afres["launches/spatial_corr_fwd"]
+                     + psres["launches/spatial_corr_fwd"]
+                     + pcres["launches/spatial_corr_fwd"]
+                     + ures["launches/spatial_corr_fwd"]),
         "max_abs_err": scres["flownetc"]["fwd_err"],
         "ms": scres["flownetc"]["ms"],
         "plain_ms": scres["flownetc"]["plain_ms"],
@@ -2017,7 +2584,10 @@ def main() -> None:
         "replaces": "understanding_flow_robustness_tpu/ops/correlation.py:56",
         "launches": (ares["pwc_launches/spatial_corr_bwd"]
                      + fares["launches/spatial_corr_bwd"]
-                     + afres["launches/spatial_corr_bwd"]),
+                     + afres["launches/spatial_corr_bwd"]
+                     + psres["launches/spatial_corr_bwd"]
+                     + pcres["launches/spatial_corr_bwd"]
+                     + ures["launches/spatial_corr_bwd"]),
         "max_abs_err": scres["attack"]["bwd_err"],
         "ms": scres["attack/bwd"]["ms"],
         "plain_ms": scres["attack/bwd"]["plain_ms"],

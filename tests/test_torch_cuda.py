@@ -5,7 +5,8 @@
 wrappers' checks and launch counts, RAFT driving the lookup kernels in
 inference (both paths, with and without the feature taps), a short train
 step and a short attack, SpyNet and PWC-Net driving the warp kernel, the
-FlowNetC family and PWC-Net driving the correlation kernel.
+FlowNetC family and PWC-Net driving the correlation kernel, and one inner
+patch-attack iteration on FlowNetC through both correlation kernels.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports only torch and the port, so it also runs where JAX is absent:
@@ -123,6 +124,7 @@ def _lookup_coords(b, h, w, kind, seed=0):
 @pytest.mark.parametrize("kind", ["smooth", "calibrated", "wild", "edge"])
 @pytest.mark.parametrize("shape", [
     (8, 48, 160, 256),  # RAFT serving: batch 8 at 384x1280
+    (1, 48, 160, 256),  # RAFT's patch attack: batch 1 at 384x1280
     (2, 13, 21, 64),    # ragged tiles and pooled levels
     (2, 24, 40, 64),
     (2, 24, 40, 128),
@@ -309,6 +311,8 @@ def test_backward_kernel_tile_path_on_smooth_coords(cuda, dtype, shape):
     ((2, 20, 28, 96), "calibrated"),
     ((1, 36, 60, 256), "smooth"),
     ((1, 36, 60, 256), "wild"),
+    ((1, 48, 160, 256), "calibrated"),  # RAFT's patch attack at 384x1280
+    ((1, 48, 160, 256), "wild"),
 ])
 def test_backward_kernel_both_paths_match_plain(cuda, dtype, shape, kind):
     """Per-query jittered (calibrated, wild) and smooth (amplitude 3)
@@ -829,3 +833,49 @@ def test_models_launch_spatial_corr_and_match_plain(cuda, name, launches):
         assert (epe / torch.linalg.vector_norm(plain, dim=-1).mean()) < 1e-2
     else:
         assert ((flow - plain).norm() / plain.norm()).item() <= 1e-5
+
+
+def test_flownetc_patch_iteration_launches_kernels_and_matches_plain(cuda):
+    """One inner patch-attack iteration on FlowNetC (f32, TF32 off): one
+    launch of each correlation kernel, none with the plain correlation; the
+    canvas update (0.5 lr (g_tgt + g_ref), clamped) within the image
+    gradient's bound against the plain correlation's (chip_smoke.py phase
+    15: 2e-3 relative L2), the loss within the flows' 1e-5."""
+    from understanding_flow_robustness_tpu_torch.attacks import (
+        PatchAttackConfig,
+        make_patch_attack_step,
+    )
+    from understanding_flow_robustness_tpu_torch.models import (
+        predict_flow_differentiable,
+    )
+
+    model = fetch_model("FlowNetC", device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.rand((1, 128, 256, 3), generator=g, device="cuda")
+    b = torch.rand((1, 128, 256, 3), generator=g, device="cuda")
+    mask = torch.zeros_like(a)
+    mask[:, 32:80, 96:144] = 1.0
+    patch = torch.rand(a.shape, generator=g, device="cuda") * mask
+    target = -1.0 * predict_flow(model, a, b)
+    step = make_patch_attack_step(
+        lambda x, y: predict_flow_differentiable(model, x, y),
+        PatchAttackConfig(max_count=1, loss_threshold=0.0, l2=True))
+    outs = []
+    for plain in (False, True):
+        model.module.plain_corr = plain
+        before = [ops.LAUNCH_COUNTS[k] for k in ("spatial_corr_fwd",
+                                                 "spatial_corr_bwd")]
+        outs.append(step(a, b, patch, mask, patch, target))
+        after = [ops.LAUNCH_COUNTS[k] for k in ("spatial_corr_fwd",
+                                                "spatial_corr_bwd")]
+        assert [y - x for x, y in zip(before, after)] == (
+            [0, 0] if plain else [1, 1])
+    (adv, _, new, loss, count), (padv, _, pnew, ploss, pcount) = outs
+    assert count == pcount == 1
+    assert bool(torch.isfinite(new).all()) and bool(torch.isfinite(loss))
+    assert torch.equal(adv * (1 - mask), a * (1 - mask))
+    assert 0.0 <= adv.min().item() and adv.max().item() <= 1.0
+    upd, pupd = new - patch, pnew - patch
+    assert pupd.abs().max().item() > 0
+    assert ((upd - pupd).norm() / pupd.norm()).item() <= 2e-3
+    assert abs(loss.item() - ploss.item()) <= 1e-5 * abs(ploss.item())

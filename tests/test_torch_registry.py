@@ -209,7 +209,10 @@ def test_port_imports_no_jax():
         "assert len(names) >= 8, names\n"
         "for k in ('attacks.global_attacks', 'attacks.perturb_runner',\n"
         "          'attacks.log_utils', 'flowviz.flowlib',\n"
-        "          'cli.run_perturb_model'):\n"
+        "          'cli.run_perturb_model', 'attacks.patch',\n"
+        "          'attacks.patch3d', 'attacks.patch_attack',\n"
+        "          'attacks.universal', 'utils.meters', 'cli.patch_attack',\n"
+        "          'cli.test_patch', 'cli.universal_perturbation'):\n"
         "    assert p.__name__ + '.' + k in names, k\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax'))\n"
         "       or m.startswith('understanding_flow_robustness_tpu.')\n"

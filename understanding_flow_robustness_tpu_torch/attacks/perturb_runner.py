@@ -22,6 +22,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from ..utils import on_device
 from . import log_utils
 from .global_attacks import (
     PerturbConfig,
@@ -194,9 +195,6 @@ def run(predict: PredictFn, samples: Iterable, cfg: RunConfig) -> dict:
         with torch.no_grad():
             return predict(a, b)
 
-    def on_device(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=device)
-
     universal = None
     if cfg.universal_perturbation_path:
         universal = np.load(cfg.universal_perturbation_path)
@@ -218,7 +216,7 @@ def run(predict: PredictFn, samples: Iterable, cfg: RunConfig) -> dict:
     t_start = time.time()
 
     for img0, img1, gt_small, gt_full in samples:
-        img0, img1 = on_device(img0), on_device(img1)
+        img0, img1 = on_device(img0, device), on_device(img1, device)
         if cfg.homogeneous:
             # perturb_main.py:477-481: identical frames, zeroed full-res GT
             # (the attack target gt_small is computed before this upstream
@@ -228,10 +226,10 @@ def run(predict: PredictFn, samples: Iterable, cfg: RunConfig) -> dict:
         flow_origin = predict_eval(img0, img1)
 
         if cfg.arbitrary_gt is not None:
-            target = on_device(cfg.arbitrary_gt)[None].expand(
+            target = on_device(cfg.arbitrary_gt, device)[None].expand(
                 (img0.shape[0],) + cfg.arbitrary_gt.shape)
         else:
-            target = on_device(gt_small)
+            target = on_device(gt_small, device)
 
         fixed = None
         if cfg.arbitrary_noise is not None:
@@ -243,8 +241,8 @@ def run(predict: PredictFn, samples: Iterable, cfg: RunConfig) -> dict:
             # (perturb_main.py:450-464)
             fixed = (universal[:, 0], universal[:, 1])
         if fixed is not None:
-            adv0 = torch.clamp(img0 + on_device(fixed[0]), 0.0, 1.0)
-            adv1 = torch.clamp(img1 + on_device(fixed[1]), 0.0, 1.0)
+            adv0 = torch.clamp(img0 + on_device(fixed[0], device), 0.0, 1.0)
+            adv1 = torch.clamp(img1 + on_device(fixed[1], device), 0.0, 1.0)
             noise0, noise1 = adv0 - img0, adv1 - img1
         else:
             noise0, noise1, adv0, adv1 = attack(img0, img1, target, generator)

@@ -24,9 +24,16 @@ the l2 attack loss to the images (``predict_flow_differentiable``) against
 a target offset from the clean flow, and the update.  ``--train`` traces
 one train step of a RAFT model instead (``make_train_step``: sequence
 loss, backward, clip, AdamW/OneCycle) on random frames and a ``randn``
-flow with all-valid masks.  Only device events count: the host-side ops
-that launched them carry the same time again.  TF32 stays off, as in
-chip_smoke.py.  Needs a CUDA device; fails without one.
+flow with all-valid masks.  ``--patch`` traces inner iterations of the
+patch attack instead (``make_patch_attack_step``, 8 iterations a call
+pinned by ``loss_threshold=0``, the JAX bench's mask: a 100x100 square at
+rows and columns 100:200, target = -clean flow), each a forward and a
+backward to both composited images, the canvas update and the host's read
+of the loss.  Only device events count: the host-side ops that launched
+them carry the same time again.  Besides the idle share it prints the
+largest gap between two kernels a unit (for ``--patch``, the bubble that
+the loop's loss read leaves) and the host's wait in scalar reads.  TF32
+stays off, as in chip_smoke.py.  Needs a CUDA device; fails without one.
 """
 
 from __future__ import annotations
@@ -52,6 +59,9 @@ CLASSES = (
 )
 
 
+PATCH_ITERS = 8  # inner iterations a call (bench.py:210-212)
+
+
 def _device_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total", 0.0)
                  or getattr(evt, "self_cuda_time_total", 0.0))
@@ -73,13 +83,17 @@ def build_parser():
                            "the images) instead of a forward")
     mode.add_argument("--train", action="store_true",
                       help="trace one RAFT train step instead of a forward")
+    mode.add_argument("--patch", action="store_true",
+                      help=f"trace inner patch-attack iterations "
+                           f"({PATCH_ITERS} a call) instead of a forward")
     return p
 
 
 def main(argv=None) -> dict:
-    """Returns {"wall_ms", "busy_ms", "idle_share", "launches", "classes":
-    {name: ms}} per forward (per attack or train step with ``--attack`` or
-    ``--train``)."""
+    """Returns {"wall_ms", "busy_ms", "idle_share", "launches",
+    "largest_gap_ms", "host_wait_ms", "classes": {name: ms}} per forward
+    (per attack step, train step or patch iteration with ``--attack``,
+    ``--train`` or ``--patch``)."""
     args = build_parser().parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -101,7 +115,8 @@ def main(argv=None) -> dict:
     a = torch.rand((args.batch, h, w, 3), generator=g, device="cuda")
     b = torch.rand((args.batch, h, w, 3), generator=g, device="cuda")
     unit = ("attack step" if args.attack else "train step" if args.train
-            else "forward")
+            else "patch iteration" if args.patch else "forward")
+    per_call = PATCH_ITERS if args.patch else 1
     print(f"== {args.model}{'' if not kw else ', corr_impl=' + args.corr_impl}"
           f", batch {args.batch}, {h}x{w}, per {unit} ==")
     if args.attack:
@@ -132,6 +147,23 @@ def main(argv=None) -> dict:
 
         def step():
             train_step(batch)
+    elif args.patch:
+        from ..attacks.patch_attack import (
+            PatchAttackConfig,
+            make_patch_attack_step,
+        )
+        from ..models import predict_flow_differentiable
+
+        mask = torch.zeros_like(a)
+        mask[:, 100:200, 100:200] = 1.0
+        patch = torch.rand(a.shape, generator=g, device="cuda") * mask
+        target = -1.0 * predict_flow(model, a, b)
+        attack = make_patch_attack_step(
+            lambda x, y: predict_flow_differentiable(model, x, y),
+            PatchAttackConfig(max_count=PATCH_ITERS, loss_threshold=0.0))
+
+        def step():
+            attack(a, b, patch, mask, patch, target)
     else:
         def step():
             predict_flow(model, a, b)
@@ -144,34 +176,55 @@ def main(argv=None) -> dict:
         for _ in range(args.reps):
             step()
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / args.reps
+        wall_ms = 1e3 * (time.perf_counter() - t0) / (args.reps * per_call)
+    n_units = args.reps * per_call
     # device activity only: kernels and copies, not the host ops that
     # launched them (an autograd Function's node, e.g.
     # _AltCorrLookupBackward, carries its kernel's device time too) nor
     # the profiler's "Command Buffer Full" marker
+    def is_device(e):
+        return (e.device_type == DeviceType.CUDA
+                and not e.key.startswith(("cuda", "aten", "Command Buffer")))
+
     kernels = [e for e in prof.key_averages() if _device_us(e) > 0
-               and e.device_type == DeviceType.CUDA
-               and not e.key.startswith(("cuda", "aten", "Command Buffer"))]
-    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / args.reps
-    launches = sum(e.count for e in kernels) // args.reps
+               and is_device(e)]
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / n_units
+    launches = sum(e.count for e in kernels) // n_units
     idle = max(0.0, 1 - busy_ms / wall_ms)
     print(f"  wall {wall_ms:.2f} ms/{unit} (under the profiler), device "
           f"busy {busy_ms:.2f} ms in {launches} kernels and copies, idle "
           f"share {100 * idle:.1f}%")
+    # the idle gaps between consecutive device events of the trace
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if is_device(e))
+    gaps, end = [], spans[0][1] if spans else 0.0
+    for start, stop in spans[1:]:
+        gaps.append(max(0.0, start - end))
+        end = max(end, stop)
+    gaps.sort(reverse=True)
+    host_wait_ms = sum(
+        e.cpu_time_total for e in prof.key_averages()
+        if e.key == "aten::_local_scalar_dense") / 1e3 / n_units
+    largest = sum(gaps[:n_units]) / 1e3 / n_units
+    print(f"  largest device gap {largest:.3f} ms/{unit} (mean of the "
+          f"{n_units} largest), all gaps {sum(gaps) / 1e3 / n_units:.3f} "
+          f"ms/{unit}; host waiting in scalar reads {host_wait_ms:.3f} "
+          f"ms/{unit}")
     by_class: dict = {}
     for e in kernels:
         name = next((c for c, rx in CLASSES if rx.search(e.key)),
                     "elementwise/copies/other")
         by_class[name] = (by_class.get(name, 0.0)
-                          + _device_us(e) / 1e3 / args.reps)
+                          + _device_us(e) / 1e3 / n_units)
     for name, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {name:50s} {ms:8.3f} ms  {100 * ms / busy_ms:5.1f}%")
     print(f"  top kernels (ms/{unit}, calls/{unit}):")
     for e in sorted(kernels, key=_device_us, reverse=True)[:15]:
-        print(f"    {_device_us(e) / 1e3 / args.reps:8.3f}  "
-              f"{e.count // args.reps:5d}  {e.key[:110]}")
+        print(f"    {_device_us(e) / 1e3 / n_units:8.3f}  "
+              f"{e.count // n_units:5d}  {e.key[:110]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": idle,
-            "launches": launches, "classes": by_class}
+            "launches": launches, "largest_gap_ms": largest,
+            "host_wait_ms": host_wait_ms, "classes": by_class}
 
 
 if __name__ == "__main__":

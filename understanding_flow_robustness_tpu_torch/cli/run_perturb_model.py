@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import sys
 
 import numpy as np
 
@@ -165,31 +164,10 @@ def _output_path(args) -> str:
     return os.path.join(*[str(x) for x in parts if str(x)])
 
 
-def _checkpoint(path: str, name: str):
-    """``--pretrained_path`` for ``fetch_model``: a checkpoint file (or
-    SpyNet's weight directory) passes through; a missing path means seeded
-    random weights, with a warning unless it is the default (the JAX
-    package's ``checkpoint_arg``).  The JAX package's zoo directory with
-    per-model file names is not ported: pass the file itself."""
-    if path and os.path.isfile(path):
-        return path
-    if path and os.path.isdir(path):
-        if name == "SpyNet":
-            return path
-        raise NotImplementedError(
-            f"--pretrained_path {path!r} is a directory: pass the "
-            f"checkpoint file of {name} itself")
-    if path and path != "pretrained_models":
-        print(f"WARNING: pretrained path '{path}' not found; using random "
-              "init", file=sys.stderr)
-    return None
-
-
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     args.perturb_method = args.perturb_method.lower()
     args.perturb_mode = args.perturb_mode.lower()
-    device = {"gpu": "cuda"}.get(args.device.lower(), args.device.lower())
 
     if args.disparity:
         raise NotImplementedError(
@@ -204,11 +182,18 @@ def main(argv=None) -> dict:
             f"image corruption '{args.perturb_method}' is not ported yet: "
             "attacks/corruptions.py is ROADMAP A8")
 
-    from ..models import fetch_model, predict_flow_differentiable
+    from ..models import (
+        checkpoint_arg,
+        device_arg,
+        fetch_model,
+        predict_flow_differentiable,
+    )
+
+    device = device_arg(args.device)
 
     model = fetch_model(args.flownet,
-                        pretrained_path=_checkpoint(args.pretrained_path,
-                                                    args.flownet),
+                        pretrained_path=checkpoint_arg(args.pretrained_path,
+                                                       args.flownet),
                         device=device, seed=max(args.seed, 0))
 
     def predict(a, b):

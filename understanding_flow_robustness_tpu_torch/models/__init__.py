@@ -19,6 +19,8 @@ from .registry import (
     FLOWNET_IDS,
     NOT_PORTED,
     FlowModel,
+    checkpoint_arg,
+    device_arg,
     fetch_model,
     get_feature_map_keys,
     predict_flow,
@@ -38,6 +40,8 @@ __all__ = [
     "PWCNet",
     "RAFT",
     "SpyNet",
+    "checkpoint_arg",
+    "device_arg",
     "fetch_model",
     "flownet_c_flex_state_dict_from_jax",
     "flownet_c_state_dict_from_jax",

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 from typing import Callable, Optional
 
 import torch
@@ -182,6 +183,32 @@ def predict_flow_differentiable(model: FlowModel, img1: torch.Tensor,
         for p, flag in zip(params, flags):
             p.requires_grad_(flag)
         module.train(training)
+
+
+def device_arg(name: str) -> str:
+    """A CLI's ``--device`` as a torch device name: ``gpu`` means ``cuda``;
+    any other name passes through (no fallback)."""
+    return {"gpu": "cuda"}.get(name.lower(), name.lower())
+
+
+def checkpoint_arg(path: Optional[str], name: str) -> Optional[str]:
+    """A CLI's ``--pretrained_path`` for ``fetch_model`` (the JAX package's
+    ``checkpoint_arg``): a checkpoint file (or SpyNet's weight directory)
+    passes through; a missing path means seeded random weights, with a
+    warning unless it is the default.  The JAX package's zoo directory with
+    per-model file names is not ported: pass the file itself."""
+    if path and os.path.isfile(path):
+        return path
+    if path and os.path.isdir(path):
+        if name == "SpyNet":
+            return path
+        raise NotImplementedError(
+            f"--pretrained_path {path!r} is a directory: pass the "
+            f"checkpoint file of {name} itself")
+    if path and path != "pretrained_models":
+        print(f"WARNING: pretrained path '{path}' not found; using random "
+              "init", file=sys.stderr)
+    return None
 
 
 def _pretrained_state_dict(name: str, path: str) -> dict:
