@@ -84,12 +84,12 @@ The FlowNet slice adds, after the RAFT grad phase (so that the earlier
 phases' random inputs stay as they were):
 13. The spatial correlation's kernels ``spatial_corr_fwd`` and
    ``spatial_corr_bwd`` against the plain version and its autograd at
-   FlowNetC's serving and attack shapes (f32, patch 21, dilation 2),
-   PWC-Net's five bf16 levels (patch 9), three ragged shapes (C = 3,
+   FlowNetC's serving, attack and patch shapes (f32, patch 21, dilation
+   2), PWC-Net's five bf16 levels (patch 9), three ragged shapes (C = 3,
    33, 196) and the generic kernel's patches 1 and 3 (C = 40, 35); times
-   of kernel, plain version and bound at FlowNetC's
-   serving shape and PWC-Net's level 2 (forward) and at FlowNetC's attack
-   shape and PWC-Net's level 2 (backward).
+   of kernel, plain version and bound at FlowNetC's serving and patch
+   shapes and PWC-Net's level 2 (forward) and at FlowNetC's attack and
+   patch shapes and PWC-Net's level 2 (backward).
 14. FlowNetC, FlowNetCFlexLarger_k3_reps3 and FlowNetS (f32) serving 3
    requests of 8 pairs at 384x1280 through ``predict_flow``: one
    ``spatial_corr_fwd`` launch per FlowNetC-family request and none for
@@ -213,9 +213,11 @@ FLOW_F32_TOL_PX = 1e-3   # max |dflow|, warp kernel vs plain warp, f32 models
 # f32 bar where a sum cancels below it
 CORR_REL_TOL = 1e-5
 # the correlation shapes of the main paths, (B, C, H, W), patch, dilation,
-# dtype: FlowNetC serving and attacked (f32), PWC-Net mixed levels 6..2
+# dtype: FlowNetC serving, attacked and patch-attacked (f32), PWC-Net mixed
+# levels 6..2
 CORR_MAIN = {"flownetc": ((B, 256, H // 8, W // 8), 21, 2, torch.float32),
-             "attack": ((1, 256, 256 // 8, 640 // 8), 21, 2, torch.float32)}
+             "attack": ((1, 256, 256 // 8, 640 // 8), 21, 2, torch.float32),
+             "patch": ((1, 256, 384 // 8, 1280 // 8), 21, 2, torch.float32)}
 CORR_PWC = {f"pwc_l{lvl}": ((B, c, H >> lvl, W >> lvl), 9, 1, torch.bfloat16)
             for lvl, c in ((6, 196), (5, 128), (4, 96), (3, 64), (2, 32))}
 CORR_RAGGED = {"ragged_c3": ((2, 3, 13, 21), 21, 2, torch.float32),
@@ -1269,8 +1271,9 @@ def _corr_err(got, ref, dtype) -> tuple:
 def spatial_corr_phase(gen) -> dict:
     """csrc/spatial_corr_fwd.cu and csrc/spatial_corr_bwd.cu against the
     plain version and its autograd on the same inputs, at the main paths'
-    shapes and ragged ones; times at FlowNetC's serving shape and PWC-Net's
-    level 2 (forward) and at FlowNetC's attack shape (backward)."""
+    shapes and ragged ones; times at FlowNetC's serving and patch shapes
+    and PWC-Net's level 2 (forward) and at FlowNetC's attack and patch
+    shapes and PWC-Net's level 2 (backward)."""
     from understanding_flow_robustness_tpu_torch import ops
     from understanding_flow_robustness_tpu_torch.ops import correlation as corr
 
@@ -1279,9 +1282,13 @@ def spatial_corr_phase(gen) -> dict:
     res = {}
     for name, (shape, patch, dil, dtype) in {**CORR_MAIN, **CORR_PWC,
                                              **CORR_RAGGED}.items():
-        f1 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        f2 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        g = torch.randn((shape[0], patch ** 2) + shape[2:], generator=gen,
+        # the patch shape draws from a generator of its own, so that the
+        # other cases and later phases draw as before
+        cg = torch.Generator(device="cuda").manual_seed(PATCH_SEED) \
+            if name == "patch" else gen
+        f1 = torch.randn(shape, generator=cg, device="cuda").to(dtype)
+        f2 = torch.randn(shape, generator=cg, device="cuda").to(dtype)
+        g = torch.randn((shape[0], patch ** 2) + shape[2:], generator=cg,
                         device="cuda").to(dtype)
         got = ops.spatial_correlation(f1, f2, patch, dilation_patch=dil)
         ref = ops.spatial_correlation_reference(f1, f2, patch, dil)
@@ -1313,7 +1320,7 @@ def spatial_corr_phase(gen) -> dict:
               "autograd")
         res[name] = {"fwd_err": err, "bwd_err": babs, "bwd_rel_err": berr}
         pairs = corr_pairs(shape[2], shape[3], patch, dil) * shape[0] * shape[1]
-        if name in ("flownetc", "pwc_l2"):
+        if name in ("flownetc", "patch", "pwc_l2"):
             k_ms = cuda_ms(lambda: ops.spatial_correlation(
                 f1, f2, patch, dilation_patch=dil), reps=20)
             p_ms = cuda_ms(lambda: ops.spatial_correlation_reference(
@@ -1326,7 +1333,7 @@ def spatial_corr_phase(gen) -> dict:
                   f"{p_ms:.3f} ms, bound {m['bound_ms']:.4f} ms "
                   f"({m['bound_by']}; the kernel at "
                   f"{100 * m['bound_ms'] / k_ms:.1f}% of it)", flush=True)
-        if name in ("attack", "pwc_l2"):
+        if name in ("attack", "patch", "pwc_l2"):
             k_ms = cuda_ms(lambda: corr._spatial_corr_bwd_cuda(
                 f1, f2, g, patch, dil), reps=20)
             a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
@@ -2577,6 +2584,10 @@ def main() -> None:
         "pwc_l2_ms": scres["pwc_l2"]["ms"],
         "pwc_l2_plain_ms": scres["pwc_l2"]["plain_ms"],
         "pwc_l2_bound_ms": scres["pwc_l2"]["bound_ms"],
+        "patch_shape_max_abs_err": scres["patch"]["fwd_err"],
+        "patch_shape_ms": scres["patch"]["ms"],
+        "patch_shape_plain_ms": scres["patch"]["plain_ms"],
+        "patch_shape_bound_ms": scres["patch"]["bound_ms"],
     }, {
         "name": "spatial_corr_bwd",
         "route": "cuda",
@@ -2597,6 +2608,10 @@ def main() -> None:
         "pwc_l2_ms": scres["pwc_l2/bwd"]["ms"],
         "pwc_l2_plain_ms": scres["pwc_l2/bwd"]["plain_ms"],
         "pwc_l2_bound_ms": scres["pwc_l2/bwd"]["bound_ms"],
+        "patch_shape_max_abs_err": scres["patch"]["bwd_err"],
+        "patch_shape_ms": scres["patch/bwd"]["ms"],
+        "patch_shape_plain_ms": scres["patch/bwd"]["plain_ms"],
+        "patch_shape_bound_ms": scres["patch/bwd"]["bound_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Time the port's lookup kernels (B1 ``csrc/alt_corr_fwd.cu``, its
 backward B2 ``csrc/alt_corr_bwd.cu``, the volume lookup B5
-``csrc/corr_lookup_fwd.cu``) and its warp kernel (B4, ``csrc/warp_fwd.cu``)
-of one checkout, for an A/B of two commits on one card.
+``csrc/corr_lookup_fwd.cu``), its warp kernel (B4, ``csrc/warp_fwd.cu``)
+and its spatial-correlation kernels (``csrc/spatial_corr_fwd.cu``,
+``csrc/spatial_corr_bwd.cu``) of one checkout, for an A/B of two commits
+on one card.
 
     python3 scripts/torch_kernel_ab.py [--root DIR] [--reps 20] [--e2e]
 
@@ -49,7 +51,14 @@ the correlation models serving 8 pairs at 384x1280 (2 + 6 requests of
 f32 flow heads), FlowNetC, Robust FlowNetC (``FlowNetCFlexLarger_k3_reps3``)
 and FlowNetS in f32, FlowNetC again with its correlation's plain version
 (``plain_corr``), and I-FGSM on FlowNetC (batch 1 at 256x640, the attack
-CLI's 40 steps of eps 0.02, l2, after a 2-step warm-up) in ms per step.
+CLI's 40 steps of eps 0.02, l2, after a 2-step warm-up) in ms per step,
+and FlowNetC's inner patch iteration (batch 1 at 384x1280, a 100x100
+mask, 16 iterations after a 2-iteration warm-up) in ms.  Where the
+checkout has them, the spatial-correlation kernels are timed through their
+wrappers: ``csrc/spatial_corr_fwd.cu`` at FlowNetC's serving shape (B=8,
+C=256, 48x160, patch 21, dilation 2, f32) and PWC-Net's level 2 (B=8,
+C=32, 96x320, patch 9, bf16), ``csrc/spatial_corr_bwd.cu`` at FlowNetC's
+attack (B=1, 32x80) and patch (B=1, 48x160) shapes and PWC-Net's level 2.
 Prints the card's name and power limit and one JSON line.  Needs a CUDA
 device.
 """
@@ -72,6 +81,13 @@ LOOKUP_SHAPE = (8, 48, 160, 256)  # RAFT serving: batch 8 at 384x1280
 B2_SHAPES = {"train": (4, 36, 120, 256), "attack": (1, 32, 80, 256)}
 B4_SHAPES = {"spynet": ((8, 3, 384, 1280), torch.float32),
              "zeros_mask": ((8, 32, 96, 320), torch.bfloat16)}
+# the spatial correlation kernels' main shapes: (B, C, H, W), patch,
+# dilation, dtype
+SPATIAL_FWD = {"flownetc": ((8, 256, 48, 160), 21, 2, torch.float32),
+               "pwc_l2": ((8, 32, 96, 320), 9, 1, torch.bfloat16)}
+SPATIAL_BWD = {"attack": ((1, 256, 32, 80), 21, 2, torch.float32),
+               "patch": ((1, 256, 48, 160), 21, 2, torch.float32),
+               "pwc_l2": ((8, 32, 96, 320), 9, 1, torch.bfloat16)}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -282,6 +298,49 @@ def time_b4(ops, reps: int) -> dict:
     return res
 
 
+def corr_pairs(h: int, w: int, patch: int, dil: int) -> int:
+    """The (pixel, displacement) pairs whose displaced pixel lies inside an
+    h x w map: the products a correlation needs per image and channel."""
+    r = (patch - 1) // 2
+    offs = [(k - r) * dil for k in range(patch)]
+    return (sum(max(0, h - abs(d)) for d in offs)
+            * sum(max(0, w - abs(d)) for d in offs))
+
+
+def time_spatial(corr, reps: int) -> dict:
+    """``spatial_corr_fwd`` and ``spatial_corr_bwd`` (both gradients, one
+    launch) through their wrappers at the main paths' shapes, with the
+    bound: the larger of the bytes each input and output moves once over
+    3.35 TB/s and the products inside the map (a multiply-add each; two for
+    the backward) over the inputs' peak rate."""
+    if not hasattr(corr, "_spatial_corr_fwd_cuda"):
+        return {}
+    res = {}
+    for kind, shapes in (("fwd", SPATIAL_FWD), ("bwd", SPATIAL_BWD)):
+        for name, (shape, patch, dil, dtype) in shapes.items():
+            gen = torch.Generator(device="cuda").manual_seed(6)
+            f1 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            f2 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            pairs = corr_pairs(shape[2], shape[3], patch, dil) * shape[0] \
+                * shape[1]
+            if kind == "fwd":
+                out = corr._spatial_corr_fwd_cuda(f1, f2, patch, dil)
+                ms = cuda_ms(lambda: corr._spatial_corr_fwd_cuda(
+                    f1, f2, patch, dil), reps)
+                moved, flops = nbytes(f1, f2, out), 2 * pairs
+            else:
+                g = torch.randn((shape[0], patch ** 2) + shape[2:],
+                                generator=gen, device="cuda").to(dtype)
+                out = corr._spatial_corr_bwd_cuda(f1, f2, g, patch, dil)
+                ms = cuda_ms(lambda: corr._spatial_corr_bwd_cuda(
+                    f1, f2, g, patch, dil), reps)
+                moved, flops = nbytes(f1, f2, g, *out), 4 * pairs
+            res[f"{kind}/{name}"] = {"ms": ms, "bound_ms": 1e3 * max(
+                moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])}
+            del out
+    return res
+
+
 def time_e2e() -> dict:
     import time
 
@@ -415,6 +474,41 @@ def time_correlation_models() -> dict:
     attacks.make_attack(predict, dataclasses.replace(cfg, n_step=40))(a, b, gt)
     torch.cuda.synchronize()
     res["flownetc_ifgsm_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / 40
+    if hasattr(attacks, "make_patch_attack_step"):
+        res.update(time_patch_iteration(model))
+    return res
+
+
+def time_patch_iteration(model, iters: int = 16) -> dict:
+    """FlowNetC's inner patch iteration (f32, batch 1 at 384x1280, the JAX
+    bench's 100x100 mask, ``loss_threshold=0`` pinning ``iters``
+    iterations, after a 2-iteration warm-up), as ``chip_smoke.py``'s patch
+    phase runs it: ms per iteration."""
+    import time
+
+    from understanding_flow_robustness_tpu_torch import attacks, models
+
+    gen = torch.Generator(device="cuda").manual_seed(200)
+    a = torch.rand((1, 384, 1280, 3), generator=gen, device="cuda")
+    b = torch.rand((1, 384, 1280, 3), generator=gen, device="cuda")
+    mask = torch.zeros_like(a)
+    mask[:, 100:200, 100:200] = 1.0
+    patch = torch.rand(a.shape, generator=gen, device="cuda") * mask
+    target = -1.0 * models.predict_flow(model, a, b)
+
+    def predict(x, y):
+        return models.predict_flow_differentiable(model, x, y)
+
+    res = {}
+    for n in (2, iters):
+        step = attacks.make_patch_attack_step(predict, attacks.PatchAttackConfig(
+            max_count=n, loss_threshold=0.0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(a, b, patch, mask, patch, target)
+        torch.cuda.synchronize()
+        res["flownetc_patch_ms_per_iter"] = 1e3 * (
+            time.perf_counter() - t0) / n
     return res
 
 
@@ -438,7 +532,8 @@ def main(argv=None) -> dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     res = {"root": args.root, **time_b1_b5(ops, corr, args.reps),
-           "b2": time_b2(ops, corr, args.reps), "b4": time_b4(ops, args.reps)}
+           "b2": time_b2(ops, corr, args.reps), "b4": time_b4(ops, args.reps),
+           "spatial": time_spatial(corr, args.reps)}
     if args.e2e:
         res["e2e"] = {**time_serving(), **time_e2e(),
                       **time_correlation_models()}

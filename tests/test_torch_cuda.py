@@ -727,6 +727,13 @@ def _bf16_ulp(x):
     ((2, 40, 13, 37), 1, 1, torch.bfloat16),     # C > 16 (more than one
     ((2, 35, 19, 45), 3, 1, torch.float32),      # staged chunk)
     ((1, 33, 9, 70), 3, 4, torch.bfloat16),
+    # the tile kernels' edges: W off the tile and its 4-column loads
+    ((2, 256, 48, 157), 21, 2, torch.float32),
+    ((1, 64, 9, 17), 21, 2, torch.float32),      # H, W below the reach
+    ((1, 200, 12, 40), 21, 2, torch.float32),    # C off the backward's
+    ((1, 196, 12, 40), 9, 1, torch.bfloat16),    # channel groups
+    ((1, 50, 10, 44), 9, 1, torch.float32),      # the 64-channel group
+    ((1, 256, 48, 160), 21, 2, torch.float32),   # FlowNetC patch
 ])
 def test_spatial_corr_kernels_match_plain(cuda, shape, patch, dil, dtype):
     """Forward and backward kernels against the plain version and its
@@ -763,6 +770,26 @@ def test_spatial_corr_kernels_match_plain(cuda, shape, patch, dil, dtype):
             assert bool((e <= torch.clamp(_bf16_ulp(p.float()), min=tol)).all())
         else:
             assert e.max().item() <= tol
+
+
+@pytest.mark.parametrize("shape,patch,dil,dtype", [
+    ((1, 256, 32, 80), 21, 2, torch.float32),    # FlowNetC attack
+    ((8, 32, 96, 320), 9, 1, torch.bfloat16),    # PWC-Net level 2
+    ((2, 35, 19, 45), 3, 1, torch.float32),      # the generic kernel
+])
+def test_spatial_corr_bwd_is_deterministic(cuda, shape, patch, dil, dtype):
+    """Two backward launches on the same inputs give bit-equal gradients:
+    gathers, no atomics, every output element written once."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    f1 = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    f2 = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    cot = torch.randn((shape[0], patch ** 2) + shape[2:], generator=g,
+                      device="cuda").to(dtype)
+    first = correlation._spatial_corr_bwd_cuda(f1, f2, cot, patch, dil)
+    second = correlation._spatial_corr_bwd_cuda(f1, f2, cot, patch, dil)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_spatial_corr_wrappers_count_launches_and_reject_bad_input(cuda):

@@ -170,6 +170,25 @@ def test_spatial_correlation_refuses_the_general_path():
         tops.spatial_correlation(x, x, 3, stride=2)
 
 
+@pytest.mark.parametrize("patch,dil,fits", [
+    (21, 2, True), (9, 1, True),       # the register-tiled kernels
+    (155, 1, True), (157, 1, False),   # the generic forward's one channel
+    (113, 2, True), (115, 2, False),   # of two buffers, at the limit
+])
+def test_spatial_corr_shared_memory_limit(patch, dil, fits):
+    """The wrappers refuse exactly the patches whose blocks would need more
+    than the H100's 232,448 bytes of shared memory, by the kernels' own
+    count (``spatial_corr_smem_bytes``); one that fits passes that check
+    and stops at the device check (these tensors lie on the CPU)."""
+    from understanding_flow_robustness_tpu_torch.ops import correlation as tcorr
+
+    assert (max(tcorr.spatial_corr_smem_bytes(patch, dil)) <= 232448) == fits
+    x = torch.zeros(1, 2, 4, 4)
+    match = "CUDA device" if fits else "shared memory"
+    with pytest.raises(ValueError, match=match):
+        tcorr._check_spatial_args("spatial_corr_fwd", x, x, patch, dil)
+
+
 def test_channel_norm_matches_jax():
     x = np.random.RandomState(5).randn(2, 6, 7, 3).astype(np.float32)
     ref = np.asarray(jops.channel_norm(jnp.asarray(x)))

@@ -1,6 +1,7 @@
 """Build the CUDA sources under ``csrc/`` at first use and load them.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+Each ``csrc/<name>.cu`` (with the ``csrc/*.cuh`` headers it includes)
+exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  The library lands in
 ``build/torch_kernels/`` beside the package, named by a hash of the source
@@ -54,10 +55,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built: keyed by source and flags."""
+    """Where ``csrc/<name>.cu`` is built: keyed by source, the headers
+    under ``csrc/`` and the flags."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

@@ -49,6 +49,63 @@ _MAX_CHUNKS = 2 * 32
 # the shared memory a block of csrc/spatial_corr_{fwd,bwd}.cu may use (the
 # H100's per-block limit)
 _SPATIAL_SMEM_MAX = 232448
+# the register-tiled kernels of csrc/spatial_corr_{fwd,bwd}.cu, by (patch,
+# dilation): the forward's (column groups, channels a chunk); the backward
+# takes 4 or 8 column groups as C asks, two output rows a block
+_SPATIAL_TILES = {(21, 2): (4, 8), (9, 1): (10, 16)}
+
+
+def spatial_corr_smem_bytes(patch_size: int, dilation_patch: int,
+                            itemsize: int = 4):
+    """(forward, backward): the bytes of shared memory a block of
+    ``csrc/spatial_corr_fwd.cu`` / ``csrc/spatial_corr_bwd.cu`` takes at
+    this patch and dilation for inputs of ``itemsize`` bytes, the most over
+    the variants C selects.  The kernels compute the same from the same
+    constants (``FwdTile::kSmem``, ``BwdTile::kSmem``, ``chunk_of``, the
+    generic backward's ``launch_generic``); ``_check_spatial_args``
+    refuses what exceeds the H100's per-block limit.
+
+    (21, 2) and (9, 1) take the register-tiled kernels: a tile of G groups
+    of 8 columns, a staged row of its columns and r * d more on each side,
+    widened to whole 16-byte words on the left and right and padded to an
+    odd number of them (``row_stride``); two buffers (the forward's: for
+    each of a chunk's channels, the P f2 rows and the f1 row; the
+    backward's: for each of its two output rows P
+    cotangent rows, and ``128 // G * 2`` feature rows), each region
+    rounded up to 128 bytes
+    (TMA destinations) with 4 words of slack, or, if larger, the f32 tile
+    of rows of G * 8 + 4 the sums go out through; plus 16 bytes of
+    mbarriers.  Any other patch takes the
+    generic kernels: the forward two buffers of (32 + P * sw) f32 a
+    channel, sw = 32 + (P - 1) * d, as many channels as 32 KiB hold (1 to
+    16); the backward (P + 32) f32 rows of sw."""
+    P, d = patch_size, dilation_patch
+    if (P, d) in _SPATIAL_TILES:
+        vec = 16 // itemsize
+
+        def up(n, k):
+            return -(-n // k) * k
+
+        def row(g):  # a staged row, elements
+            reach = (P - 1) // 2 * d
+            words = up(up(reach, vec) + 8 * g + reach, vec) // vec
+            return vec * (words + 1 - words % 2)
+
+        def smem(buf, tile):
+            return up(max(2 * buf * itemsize, 4 * tile), 16) + 16
+
+        g, nc = _SPATIAL_TILES[(P, d)]
+        align = 128 // itemsize
+        fwd = smem(up(up(nc * P * row(g), align) + nc * 8 * g + 4 * vec,
+                      align), P * P * (8 * g + 4))
+        bwd = max(smem(up(2 * up(P * row(g), align) + 256 // g * row(g)
+                          + 4 * vec, align), 2 * 256 // g * (8 * g + 4))
+                  for g in (4, 8))
+        return fwd, bwd
+    sw = 32 + (P - 1) * d
+    per_channel = 4 * (32 + P * sw)
+    chunk = min(max(32 * 1024 // per_channel, 1), 16)
+    return 2 * chunk * per_channel, 4 * (P + 32) * sw
 
 
 def _widen(t: torch.Tensor) -> torch.Tensor:
@@ -103,10 +160,8 @@ def _check_spatial_args(name, f1, f2, patch_size, dilation_patch):
         raise ValueError(f"{name} takes an odd patch_size and "
                          f"dilation_patch >= 1, got {patch_size}, "
                          f"{dilation_patch}")
-    # the forward's two buffers of one channel, the backward's cotangent
-    # and feature rows
-    sw = 32 + (patch_size - 1) * dilation_patch
-    smem = max(8 * (32 + patch_size * sw), 4 * (patch_size + 32) * sw)
+    smem = max(spatial_corr_smem_bytes(patch_size, dilation_patch,
+                                       f1.element_size()))
     if smem > _SPATIAL_SMEM_MAX or f1.shape[2] > 65535 \
             or f1.shape[0] > 65535:
         raise ValueError(f"{name}: patch {patch_size} at dilation "
