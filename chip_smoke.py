@@ -120,6 +120,30 @@ The patch slice adds, after the train CLI:
 19. The universal-perturbation CLI on FlowNetC (256x640, 2 batches of 3
    steps): one ``spatial_corr_bwd`` per step, the eps-ball, the snapshot;
    then ``run_perturb_model --universal_evaluation`` on that snapshot.
+The FlowNet2, corruption and adversarial-training slice adds, after the
+universal perturbation:
+20. FlowNet2 (f32, seeded weights) serving 3 requests of 8 pairs at
+   384x1280 through ``predict_flow``: 4 border-mode ``warp_fwd`` and 1
+   ``spatial_corr_fwd`` launches per request, the flow against the same
+   model with the plain warp and the plain correlation, pairs/s over
+   requests 2-3, peak memory; ``warp_fwd`` in border mode at FlowNet2's
+   (8, 3, 384, 1280) f32 against its plain version, timed beside the
+   plain version, ``F.grid_sample`` and its bound.
+21. I-FGSM with the attack CLI's defaults on that FlowNet2 at 256x640:
+   per step 4 ``warp_fwd``, 1 ``spatial_corr_fwd`` and 1
+   ``spatial_corr_bwd`` (the warps' gradient is the plain sampler's
+   autograd), the eps-ball, the image range, the loss growing, ms per
+   step, peak memory; one image gradient against the plain versions';
+   then ``run_perturb_model --flownet FlowNet2 --synthetic 2 --n_step 3``.
+22. ``run_perturb_model --perturb_method gaussian_noise --synthetic 2``
+   on the default FlowNetC: the severity sweep 1-5 (a numpy corruption,
+   which needs no cv2), one ``spatial_corr_fwd`` per forward, the
+   five results folders, the noise growing with the severity.
+23. The train CLI with ``--model RAFT --adversarial --synthetic 2
+   --batch_size 1`` at 256x640 with 3 attack steps: (3 + 3) x 12 launches
+   of ``alt_corr_fwd`` and ``alt_corr_bwd`` per batch and none of
+   ``alt_corr_dcoords``, finite losses, moved parameters, the train step
+   on the doubled batch, ms per batch.
 PWC-Net's serving phase (7) also counts its 5 ``spatial_corr_fwd``
 launches per request, holds the flow against the plain warp and the plain
 correlation together, and times pairs/s with the plain correlation too, in
@@ -128,7 +152,8 @@ kernel.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Before them, one line gives the patch step's ms per inner iteration and
-iterations/s with the card.  The last three lines are the card's name and
+iterations/s with the card, and one FlowNet2's pairs/s, its I-FGSM ms per
+step and the adversarial train batch's ms.  The last three lines are the card's name and
 power limit, a JSON object per
 kernel (its launches on the main paths, its error against its plain
 version, its time, the plain version's, the least time the card could take
@@ -240,6 +265,22 @@ PATCH_ITERS = 8
 PATCH_SEED = 200
 # the patch and universal CLIs' outputs, under the ignored build/
 PATCH_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_patch"
+# FlowNet2 (f32, TF32 off) with the warp and correlation kernels against
+# the same with their plain versions, relative L2 of the flows: the
+# correlation's sums in another order, carried through the cascade's four
+# warps (the CPU parity with the JAX package: 1.2e-5 at 64x128,
+# tests/test_torch_flownet2.py)
+FLOWNET2_REL_L2 = 1e-4
+# FlowNet2's image gradient with the kernels against the plain versions',
+# relative L2: four chained warps make it jump where a sample coordinate
+# crosses an integer; on the CPU a 1e-6 relative change of the input moves
+# it by 2.3 % (tests/test_torch_flownet2.py)
+FLOWNET2_GRAD_REL_L2 = 5e-2
+# warp_fwd in border mode at FlowNet2's warp shape (B, C, H, W) f32
+WARP_FLOWNET2 = (B, 3, H, W)
+# the adversarial train CLI's batches: batch 1 at the attack geometry,
+# 3 I-FGSM steps, 2 batches of INNER updates
+ADV_TRAIN_STEPS, ADV_TRAIN_BATCHES, ADV_INNER = 3, 2, 3
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s of HBM3 and
 # FLOP/s by input type (bf16 on the tensor cores, f32 outside them)
 HBM_BYTES_PER_S = 3.35e12
@@ -1853,7 +1894,7 @@ def flownetc_attack_phase() -> dict:
 def attack_cli_phase(flownet=None) -> dict:
     """The attack CLI with ``--perturb_method ifgsm --synthetic 2 --n_step
     3`` on ``flownet``, or without ``--flownet`` on its default
-    (FlowNetC)."""
+    (FlowNetC); FlowNet2 adds its four warps a forward."""
     from understanding_flow_robustness_tpu_torch.cli import run_perturb_model
     from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
 
@@ -1872,8 +1913,10 @@ def attack_cli_phase(flownet=None) -> dict:
     per, kernels = ((ITERS, ("alt_corr_fwd", "alt_corr_bwd")) if
                     name.startswith("RAFT") else
                     (1, ("spatial_corr_fwd", "spatial_corr_bwd")))
-    n = {k: LAUNCH_COUNTS[k] for k in kernels}
     expect = {kernels[0]: 2 * per * (3 + 3), kernels[1]: 2 * per * 3}
+    if name == "FlowNet2":  # and its four border warps a forward
+        expect["warp_fwd"] = 2 * 4 * (3 + 3)
+    n = {k: LAUNCH_COUNTS[k] for k in expect}
     check(n == expect, f"attack CLI: launches {n}, not {expect}")
     path = out / "kitti2015" / name / "both" / "ifgsm_l2" / "0.02"
     keys = [line.split(":")[0] for line in
@@ -2395,6 +2438,336 @@ def universal_phase() -> dict:
     return res
 
 
+def flownet2_phase(gen) -> tuple:
+    """FlowNet2 serving REQUESTS requests of B pairs at HxW through
+    ``predict_flow``: 4 ``warp_fwd`` and 1 ``spatial_corr_fwd`` launches a
+    request, the flow against the same model with the plain warp and the
+    plain correlation, pairs/s over the requests after the first, peak
+    memory; then ``warp_fwd`` in border mode at FlowNet2's warp shape
+    against its plain version, timed.  Returns (results, the model)."""
+    from understanding_flow_robustness_tpu_torch import ops
+    from understanding_flow_robustness_tpu_torch.models import (
+        fetch_model,
+        predict_flow,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    print(f"== FlowNet2 serving, batch {B} at {H}x{W}, f32 ==", flush=True)
+    res = {}
+    model = fetch_model("FlowNet2", device="cuda", seed=0)
+    requests = [(torch.rand((B, H, W, 3), generator=gen, device="cuda"),
+                 torch.rand((B, H, W, 3), generator=gen, device="cuda"))
+                for _ in range(REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: count the kernels' launches while serving
+    expect = {"warp_fwd": 4, "spatial_corr_fwd": 1}
+    flows = []
+    LAUNCH_COUNTS.clear()
+    for i, (a, b) in enumerate(requests):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        before = dict(LAUNCH_COUNTS)
+        flows.append(predict_flow(model, a, b))
+        n = {k: LAUNCH_COUNTS[k] - before.get(k, 0) for k in expect}
+        check(n == expect, f"FlowNet2 request {i}: launches {n}, not "
+                           f"{expect}")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    res.update({f"launches/{k}": LAUNCH_COUNTS[k] for k in expect})
+    for i, flow in enumerate(flows):
+        check(tuple(flow.shape) == (B, H, W, 2)
+              and bool(torch.isfinite(flow).all()),
+              f"FlowNet2 request {i}: flow malformed")
+    res["pairs_per_s"] = B * (REQUESTS - 1) / dt
+    res["ms_per_request"] = 1e3 * dt / (REQUESTS - 1)
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    mag = torch.linalg.vector_norm(flows[0], dim=-1).mean().item()
+
+    model.module.plain_warp = model.module.plain_corr = True
+    plain = predict_flow(model, *requests[0])
+    model.module.plain_warp = model.module.plain_corr = False
+    diff = flows[0] - plain
+    rel = (diff.norm() / plain.norm()).item()
+    res["rel_l2_vs_plain"] = rel
+    res["max_abs_px_vs_plain"] = diff.abs().max().item()
+    print(f"FlowNet2: {res['pairs_per_s']:.2f} pairs/s "
+          f"({res['ms_per_request']:.1f} ms per request of {B} pairs, "
+          f"requests 2-{REQUESTS}); per request warp_fwd 4, "
+          f"spatial_corr_fwd 1; mean |flow| {mag:.3f} px; peak memory "
+          f"{res['peak_mem_gib']:.2f} GiB; kernels vs plain warp and "
+          f"correlation rel L2 {rel:.2e} (bound {FLOWNET2_REL_L2:g}), max "
+          f"|dflow| {res['max_abs_px_vs_plain']:.2e} px", flush=True)
+    check(rel <= FLOWNET2_REL_L2, "FlowNet2: flow with the kernels beyond "
+                                  "bound of the plain versions'")
+    del flows, plain, diff, requests
+
+    # B4 in border mode at FlowNet2's warp shape: a smooth flow, f32
+    b, c, h, w = WARP_FLOWNET2
+    img = torch.rand((b, c, h, w), generator=gen, device="cuda")
+    flow = warp_flow(gen, b, h, w, "smooth")
+    got = ops.warp_backward(img, flow, "border")
+    ref = ops.warp_backward_reference(img, flow, "border")
+    err = (got - ref).abs().max().item()
+    tol = WARP_F32_REL_TOL * img.abs().max().item()
+    check(err <= tol, f"warp_fwd border at {WARP_FLOWNET2}: {err} > {tol}")
+    k_ms = graph_ms(lambda: ops.warp_backward(img, flow, "border"), reps=50)
+    p_ms = cuda_ms(lambda: ops.warp_backward_reference(img, flow, "border"),
+                   reps=10)
+    l_ms = graph_ms(grid_sample_call(img, flow, "border"), reps=50)
+    res["warp"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                   "library_ms": l_ms,
+                   **bound(nbytes(img, flow, got), 8 * b * c * h * w,
+                           torch.float32)}
+    wb = res["warp"]
+    print(f"warp_fwd border {WARP_FLOWNET2} f32: max_abs_err={err:.3e} "
+          f"(tol {tol:.1e}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+          f"grid_sample {l_ms:.4f} ms, bound {wb['bound_ms']:.4f} ms "
+          f"({wb['bound_by']}; the kernel at "
+          f"{100 * wb['bound_ms'] / k_ms:.0f}% of it)", flush=True)
+    return res, model
+
+
+def flownet2_attack_phase(model) -> dict:
+    """I-FGSM with the attack CLI's defaults on FlowNet2 (f32) at the
+    attack geometry: per step 4 ``warp_fwd``, 1 ``spatial_corr_fwd`` and 1
+    ``spatial_corr_bwd``; then one image gradient with the kernels against
+    one with the plain warp and correlation; then the attack CLI on
+    FlowNet2."""
+    from understanding_flow_robustness_tpu_torch.attacks import (
+        PerturbConfig,
+        flow_attack_loss,
+        make_attack,
+    )
+    from understanding_flow_robustness_tpu_torch.models import (
+        predict_flow,
+        predict_flow_differentiable,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    print(f"== I-FGSM on FlowNet2, batch {AB} at {AH}x{AW}, {ATTACK_STEPS} "
+          f"steps, eps {ATTACK_EPS}, l2 ==", flush=True)
+    res = {}
+    gen = torch.Generator(device="cuda").manual_seed(ATTACK_SEED)
+    a = torch.rand((AB, AH, AW, 3), generator=gen, device="cuda")
+    b = torch.rand((AB, AH, AW, 3), generator=gen, device="cuda")
+    flow = predict_flow(model, a, b)
+    gt = torch.cat([flow + 1.0, torch.ones_like(flow[..., :1])], -1)
+
+    def predict(x, y):
+        return predict_flow_differentiable(model, x, y)
+
+    cfg = PerturbConfig(perturb_method="ifgsm", flow_loss="l2",
+                        output_norm=ATTACK_EPS, n_step=ATTACK_STEPS)
+    make_attack(predict, dataclasses.replace(cfg, n_step=2))(a, b, gt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: count the kernels' launches while attacking
+    expect = {"warp_fwd": 4 * ATTACK_STEPS,
+              "spatial_corr_fwd": ATTACK_STEPS,
+              "spatial_corr_bwd": ATTACK_STEPS}
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    n0, n1, adv0, adv1 = make_attack(predict, cfg)(a, b, gt)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = {k: LAUNCH_COUNTS[k] for k in expect}
+    res.update({f"launches/{k}": v for k, v in n.items()})
+    check(n == expect, f"FlowNet2 attack: launches {n}, not {expect}")
+    res["ms_per_step"] = 1e3 * dt / ATTACK_STEPS
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    nmax = max(n0.abs().max().item(), n1.abs().max().item())
+    check(nmax <= ATTACK_EPS + 1e-6, f"FlowNet2 attack: noise {nmax} outside "
+                                     "the eps-ball")
+    check(0.0 <= min(adv0.min().item(), adv1.min().item())
+          and max(adv0.max().item(), adv1.max().item()) <= 1.0,
+          "FlowNet2 attack: adversarial images outside [0, 1]")
+    with torch.no_grad():
+        before = flow_attack_loss(predict(a, b), gt, "l2").item()
+        after = flow_attack_loss(predict(adv0, adv1), gt, "l2").item()
+    res["loss_clean"], res["loss_attacked"] = before, after
+    print(f"FlowNet2 attack: launches {n}; max|noise|={nmax:.4f}; l2 loss "
+          f"{before:.3f} -> {after:.3f}; {res['ms_per_step']:.2f} ms per step "
+          f"({ATTACK_STEPS} steps, {1e3 * dt:.0f} ms); peak memory "
+          f"{res['peak_mem_gib']:.2f} GiB", flush=True)
+    check(after > before, "FlowNet2 attack: the l2 loss did not grow")
+
+    # one image gradient with the kernels, one with the plain warp and
+    # correlation (f32, TF32 off)
+    grads = []
+    for plain in (False, True):
+        model.module.plain_warp = model.module.plain_corr = plain
+        x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+        loss = flow_attack_loss(predict(x, y), gt, "l2")
+        grads.append(torch.autograd.grad(loss, (x, y)))
+    model.module.plain_warp = model.module.plain_corr = False
+    rels = [((p - q).norm() / q.norm()).item() for p, q in zip(*grads)]
+    check(all(bool(torch.isfinite(g).all()) for g in grads[0]),
+          "FlowNet2: non-finite image gradient")
+    res["image_grad_rel_l2"] = max(rels)
+    print(f"f32 FlowNet2: image gradient with the kernels vs plain warp and "
+          f"correlation, rel L2 {rels[0]:.3e} / {rels[1]:.3e} (bound "
+          f"{FLOWNET2_GRAD_REL_L2:g})", flush=True)
+    check(max(rels) <= FLOWNET2_GRAD_REL_L2, "FlowNet2: image gradient with "
+          "the kernels beyond bound of the plain versions'")
+    del grads
+    cli = attack_cli_phase("FlowNet2")
+    res.update({f"cli_{k}": v for k, v in cli.items()})
+    return res
+
+
+def corruption_phase() -> dict:
+    """The attack CLI's corruption sweep on its default FlowNetC:
+    ``--perturb_method gaussian_noise --synthetic 2``, severities 1-5 on
+    the host, one ``spatial_corr_fwd`` per forward (the clean, corrupted
+    and noise-only flows of each pair), the five results folders."""
+    from understanding_flow_robustness_tpu_torch.cli import run_perturb_model
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    print("== corruption sweep: FlowNetC, gaussian_noise, severities 1-5, "
+          "--synthetic 2 ==", flush=True)
+    out = PATCH_OUT / "corruption"
+    shutil.rmtree(out, ignore_errors=True)
+    seen = []
+    run = run_perturb_model.run
+
+    def timed_run(predict, samples, cfg):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = run(predict, samples, cfg)
+        torch.cuda.synchronize()
+        seen.append((cfg.output_path, r, time.perf_counter() - t))
+        return r
+
+    LAUNCH_COUNTS.clear()
+    run_perturb_model.run = timed_run
+    try:
+        run_perturb_model.main(["--perturb_method", "gaussian_noise",
+                                "--synthetic", "2", "--output_path",
+                                str(out)])
+    finally:
+        run_perturb_model.run = run
+    expect = {"spatial_corr_fwd": 5 * 2 * 3, "spatial_corr_bwd": 0}
+    n = {k: LAUNCH_COUNTS[k] for k in expect}
+    check(n == expect, f"corruption sweep: launches {n}, not {expect}")
+    base = out / "kitti2015" / "FlowNetC" / "both" / "gaussian_noise"
+    check([Path(p) for p, _, _ in seen] == [base / str(s)
+                                             for s in range(1, 6)],
+          f"corruption sweep: folders {[p for p, _, _ in seen]}")
+    for p, r, _ in seen:
+        check((Path(p) / "results0.txt").exists()
+              and all(math.isfinite(v[0]) for v in r.values()),
+              f"corruption sweep: {p} has no results0.txt or a non-finite "
+              "metric")
+    l1 = [r["noise0_l1pix"][0] for _, r, _ in seen]
+    check(all(u < v for u, v in zip(l1, l1[1:])),
+          f"corruption sweep: the noise does not grow with the severity {l1}")
+    secs = [t for _, _, t in seen]
+    print(f"corruption sweep: launches {n}; results0.txt in 5 folders; "
+          "mean |noise| by severity " + ", ".join(f"{v:.4f}" for v in l1)
+          + "; epe " + ", ".join(f"{r['flow_epe'][0]:.3f}" for _, r, _ in seen)
+          + "; seconds per severity (2 pairs, host corruption included) "
+          + ", ".join(f"{t:.2f}" for t in secs), flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    return {"launches/spatial_corr_fwd": n["spatial_corr_fwd"],
+            "s_per_severity": secs}
+
+
+def adv_train_phase() -> dict:
+    """The train CLI's adversarial training on RAFT (the registry's, mixed
+    precision) at the attack geometry, batch 1, ADV_TRAIN_STEPS I-FGSM
+    steps and ADV_INNER updates a batch: the launches of the lookup
+    kernels (12 a forward or backward, none of ``alt_corr_dcoords``),
+    the train step on the doubled batch, finite losses, moved parameters,
+    ms per batch."""
+    from understanding_flow_robustness_tpu_torch.cli import train as cli_train
+    from understanding_flow_robustness_tpu_torch.models import fetch_model
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+    from understanding_flow_robustness_tpu_torch.training import (
+        checkpoint,
+        trainer,
+    )
+
+    print(f"== adversarial train CLI: RAFT, batch {AB} at {AH}x{AW}, "
+          f"{ADV_TRAIN_STEPS} I-FGSM steps, {ADV_TRAIN_BATCHES} batches ==",
+          flush=True)
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_adv"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shapes, stamps, counts = [], [], []
+    make_step = trainer.make_train_step
+
+    def spy_step(*a, **k):
+        step = make_step(*a, **k)
+
+        def run(batch):
+            shapes.append(tuple(batch["image1"].shape))
+            out = step(batch)
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            counts.append({k: LAUNCH_COUNTS[k] for k in
+                           ("alt_corr_fwd", "alt_corr_bwd",
+                            "alt_corr_dcoords")})
+            return out
+        return run
+
+    argv = ["--model", "RAFT", "--adversarial", "--synthetic",
+            str(ADV_TRAIN_BATCHES), "--num_steps",
+            str(ADV_TRAIN_BATCHES - 1), "--batch_size", str(AB),
+            "--image_size", str(AH), str(AW), "--perturb_n_step",
+            str(ADV_TRAIN_STEPS), "--name", "adv", "--checkpoint_dir",
+            str(ckpt)]
+    LAUNCH_COUNTS.clear()
+    trainer.make_train_step = spy_step
+    try:
+        out = cli_train.main(argv)
+    finally:
+        trainer.make_train_step = make_step
+    per_batch = (ADV_TRAIN_STEPS + ADV_INNER) * ITERS
+    expect = {"alt_corr_fwd": ADV_TRAIN_BATCHES * per_batch,
+              "alt_corr_bwd": ADV_TRAIN_BATCHES * per_batch,
+              "alt_corr_dcoords": 0}
+    n = {k: LAUNCH_COUNTS[k] for k in expect}
+    check(n == expect, f"adversarial train CLI: launches {n}, not {expect}")
+    # per batch: the attack's steps before its first update
+    first = counts[ADV_INNER]["alt_corr_fwd"] - counts[ADV_INNER - 1][
+        "alt_corr_fwd"]
+    check(first == (ADV_TRAIN_STEPS + 1) * ITERS,
+          f"adversarial train CLI: {first} alt_corr_fwd launches between "
+          "batches, not the attack's and one update's")
+    check(out["total_steps"] == ADV_TRAIN_BATCHES
+          and len(shapes) == ADV_TRAIN_BATCHES * ADV_INNER
+          and all(sh == (2 * AB, AH, AW, 3) for sh in shapes),
+          f"adversarial train CLI: {out['total_steps']} batches, train-step "
+          f"batches {shapes}")
+    check(all(math.isfinite(m["loss"]) for m in out["history"]),
+          "adversarial train CLI: non-finite loss")
+    init = fetch_model("RAFT", device="cpu", seed=1234).module.state_dict()
+    trained = checkpoint.load_weights(str(ckpt / "adv" / "adv.pth"),
+                                      fetch_model("RAFT", device="cpu")
+                                      .module).state_dict()
+    moved = sum(not torch.equal(init[k], trained[k]) for k in init
+                if init[k].is_floating_point() and "running" not in k)
+    n_params = sum(1 for k in init if init[k].is_floating_point()
+                   and "running" not in k)
+    # AdamW moves every weight its gradient or its decay reaches; a zero
+    # bias with an exactly zero gradient would stay
+    check(moved >= 0.9 * n_params, f"adversarial train CLI: {moved} of "
+                                   f"{n_params} parameter tensors moved")
+    ms = 1e3 * (stamps[2 * ADV_INNER - 1] - stamps[ADV_INNER - 1])
+    print(f"adversarial train CLI: launches {n} ({per_batch} of each lookup "
+          f"kernel a batch: {ADV_TRAIN_STEPS} attack steps and {ADV_INNER} "
+          f"updates of {ITERS} iterations); train step on {shapes[0]}; "
+          f"losses " + ", ".join(f"{m['loss']:.3f}" for m in out["history"])
+          + f"; {moved} of {n_params} parameter tensors moved; {ms:.1f} ms "
+          "for the second batch (attack and 3 updates)", flush=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"launches/alt_corr_fwd": n["alt_corr_fwd"],
+            "launches/alt_corr_bwd": n["alt_corr_bwd"], "ms_per_batch": ms}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device: torch.cuda.is_available() is False")
@@ -2455,6 +2828,11 @@ def main() -> None:
     plres, pbres = phase(patch_lookup_phase)
     prres = phase(patch_cli_raft_phase)
     ures = phase(universal_phase)
+    f2res, flownet2 = phase(flownet2_phase, gen)
+    f2ares = phase(flownet2_attack_phase, flownet2)
+    del flownet2
+    crres = phase(corruption_phase)
+    atres = phase(adv_train_phase)
     print(f"all phases, build included: {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(f"patch attack, FlowNetC, batch {PB} at {PH}x{PW} ({card}): "
@@ -2463,6 +2841,11 @@ def main() -> None:
           f"{pcres['cli_ms_per_iter']:.3f} ms; RAFT "
           f"{prres['ms_per_iter']:.3f} ms; universal step on FlowNetC at "
           f"256x640 {ures['ms_per_step']:.3f} ms", flush=True)
+    print(f"FlowNet2, batch {B} at {H}x{W} ({card}): "
+          f"{f2res['pairs_per_s']:.2f} pairs/s; its I-FGSM at {AH}x{AW} "
+          f"{f2ares['ms_per_step']:.2f} ms per step; adversarial train "
+          f"batch on RAFT at {AH}x{AW} {atres['ms_per_batch']:.1f} ms",
+          flush=True)
 
     print(card)  # name, power limit: nvidia-smi's own line
 
@@ -2481,7 +2864,8 @@ def main() -> None:
                      + tres["launches/alt_corr_fwd"]
                      + ares["launches/alt_corr_fwd"]
                      + acres["launches/alt_corr_fwd"]
-                     + prres["launches/alt_corr_fwd"]),
+                     + prres["launches/alt_corr_fwd"]
+                     + atres["launches/alt_corr_fwd"]),
         "max_abs_err": kres[fwd],
         "ms": kres[f"{fwd}/ms"],
         "plain_ms": kres[f"{fwd}/plain_ms"],
@@ -2504,7 +2888,8 @@ def main() -> None:
         "launches": (tres["launches/alt_corr_bwd"]
                      + ares["launches/alt_corr_bwd"]
                      + acres["launches/alt_corr_bwd"]
-                     + prres["launches/alt_corr_bwd"]),
+                     + prres["launches/alt_corr_bwd"]
+                     + atres["launches/alt_corr_bwd"]),
         "max_abs_err": bres[fwd],
         "ms": bres[f"{fwd}/ms"],
         "plain_ms": bres[f"{fwd}/plain_ms"],
@@ -2541,7 +2926,10 @@ def main() -> None:
         "source": "understanding_flow_robustness_tpu_torch/csrc/warp_fwd.cu",
         "replaces": "understanding_flow_robustness_tpu/ops/pallas/warp_tile.py:53",
         "launches": (sres["launches"] + pres["launches"]
-                     + ares["pwc_launches/warp_fwd"]),
+                     + ares["pwc_launches/warp_fwd"]
+                     + f2res["launches/warp_fwd"]
+                     + f2ares["launches/warp_fwd"]
+                     + f2ares["cli_launches/warp_fwd"]),
         "max_abs_err": warp["max_abs_err"],
         "ms": warp["ms"],
         "plain_ms": warp["plain_ms"],
@@ -2550,6 +2938,11 @@ def main() -> None:
         "library_ms": warp["library_ms"],
         "grid_sample_ms": warp["library_ms"],
         "launched_ms": warp["launched_ms"],
+        "flownet2_border_max_abs_err": f2res["warp"]["max_abs_err"],
+        "flownet2_border_ms": f2res["warp"]["ms"],
+        "flownet2_border_plain_ms": f2res["warp"]["plain_ms"],
+        "flownet2_border_bound_ms": f2res["warp"]["bound_ms"],
+        "flownet2_border_grid_sample_ms": f2res["warp"]["library_ms"],
     }, {
         "name": "corr_lookup_fwd",
         "route": "cuda",
@@ -2574,7 +2967,11 @@ def main() -> None:
                      + afres["launches/spatial_corr_fwd"]
                      + psres["launches/spatial_corr_fwd"]
                      + pcres["launches/spatial_corr_fwd"]
-                     + ures["launches/spatial_corr_fwd"]),
+                     + ures["launches/spatial_corr_fwd"]
+                     + f2res["launches/spatial_corr_fwd"]
+                     + f2ares["launches/spatial_corr_fwd"]
+                     + f2ares["cli_launches/spatial_corr_fwd"]
+                     + crres["launches/spatial_corr_fwd"]),
         "max_abs_err": scres["flownetc"]["fwd_err"],
         "ms": scres["flownetc"]["ms"],
         "plain_ms": scres["flownetc"]["plain_ms"],
@@ -2598,7 +2995,9 @@ def main() -> None:
                      + afres["launches/spatial_corr_bwd"]
                      + psres["launches/spatial_corr_bwd"]
                      + pcres["launches/spatial_corr_bwd"]
-                     + ures["launches/spatial_corr_bwd"]),
+                     + ures["launches/spatial_corr_bwd"]
+                     + f2ares["launches/spatial_corr_bwd"]
+                     + f2ares["cli_launches/spatial_corr_bwd"]),
         "max_abs_err": scres["attack"]["bwd_err"],
         "ms": scres["attack/bwd"]["ms"],
         "plain_ms": scres["attack/bwd"]["plain_ms"],

@@ -387,7 +387,7 @@ def test_fetch_model_builds_flownet_ids(name):
     assert type(model.module) is cls
     if div is not None:
         assert model.module.div_flow == div
-    assert set(NOT_PORTED) == {"FlowNet2"}
+    assert NOT_PORTED == {}
 
 
 def test_flownetc_image_gradient_matches_jax_grad(built):

@@ -145,9 +145,12 @@ def test_run_fixed_noise_branches(tmp_path):
 
 
 def test_run_refuses_corruptions_and_unknown_methods(tmp_path):
+    """A corruption's severity is int(output_norm), 1-5: the attacks'
+    default eps 0.02 is refused (the JAX runner would take its 0 as
+    severity 5), as an unknown method is, before any output is made."""
     cfg = RunConfig(perturb=PerturbConfig(perturb_method="snow"),
                     output_path=str(tmp_path / "c"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="severity must be 1-5"):
         run_perturbation_eval(toy_predict, _samples(1), cfg)
     cfg = RunConfig(perturb=PerturbConfig(perturb_method="pgd"),
                     output_path=str(tmp_path / "p"), device="cpu")
@@ -206,10 +209,12 @@ def test_cli_runs_its_default_flownetc_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    (["--synthetic", "1", "--flownet", "FlowNet2"], KeyError, "A9"),
+    (["--synthetic", "1", "--flownet", "FlowNet3"], KeyError,
+     "unknown model"),
     (["--flownet", "RAFT"], NotImplementedError, "A11"),  # no dataset yet
+    # the corruption sweep reads the same dataset branch
     (["--flownet", "RAFT", "--perturb_method", "fog"], NotImplementedError,
-     "A8"),
+     "A11"),
     (["--flownet", "RAFT", "--disparity"], NotImplementedError, "disparity"),
     (["--flownet", "RAFT", "--flow_loss", "corr"], NotImplementedError,
      "corr"),

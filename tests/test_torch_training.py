@@ -362,12 +362,12 @@ def test_train_loop_and_resume(tmp_path):
             torch.testing.assert_close(w.state_dict()[k], t)
 
 
-@pytest.mark.parametrize("field,item", [("adversarial", "A8"),
+@pytest.mark.parametrize("field,item", [("grad_transport", "A13"),
                                         ("n_devices", "A13")])
 def test_trainer_refuses_unported_paths(tmp_path, field, item):
     model = FlowModel("RAFT", RAFT(iters=1), torch.device("cpu"))
     cfg = TrainConfig(checkpoint_dir=str(tmp_path),
-                      **{field: True if field == "adversarial" else 2})
+                      **{field: "bf16" if field == "grad_transport" else 2})
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         train(cfg, model, _synthetic())
 
@@ -384,7 +384,7 @@ def test_train_cli_synthetic(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--adversarial"], "A8"), (["--model", "FlowNetC"], "A7"),
+    (["--model", "FlowNet2"], "A7"), (["--model", "FlowNetC"], "A7"),
     (["--pwc"], "A9"), (["--model", "SpyNet"], "A9"),
     (["--model", "RAFT_FlowNetCEncoder_WoContext"], "A10"), ([], "A11")])
 def test_train_cli_refuses_unported_paths(tmp_path, argv, item):

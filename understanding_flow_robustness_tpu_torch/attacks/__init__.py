@@ -3,10 +3,11 @@
 MI-FGSM, Gaussian and uniform noise, the diverse-input transform, their
 losses, the evaluation runner and its logs; the universal patch attack
 (patch construction and placement, ``patch3d``'s true-motion projection,
-the patch training and validation loops) and the universal perturbation
-trainer.  The corruptions are ROADMAP A8's open part."""
+the patch training and validation loops), the universal perturbation
+trainer and the image corruptions (``corruptions``, numpy, scipy and cv2
+on the host)."""
 
-from . import eval_utils, log_utils
+from . import corruptions, eval_utils, log_utils
 from .global_attacks import (
     PerturbConfig,
     apply_diverse_input,
@@ -70,6 +71,7 @@ __all__ = [
     "circle_transform_different",
     "circle_transform_two_patches",
     "compute_cossim",
+    "corruptions",
     "compute_epe",
     "compute_l1",
     "cosine_similarity",

@@ -11,8 +11,8 @@ Methods (global_attacks/global_constants.py:34): fgsm/fgm (one-step sign,
 perturb_model.py:423-473), ifgsm/ifgm (n steps, each clamped to the image
 range and then to the eps-ball, :475-619), mifgsm/mifgm (momentum 0.47 with
 per-sample L1-normalised gradients, :621-757), gaussian (var = (eps/4)^2,
-:274-330), uniform (:332-382), none.  Image corruptions are not ported yet
-(ROADMAP A8).
+:274-330), uniform (:332-382), none.  The image corruptions are
+``attacks/corruptions.py``, on the host.
 
 ``perturb_mode`` ("both"/"left"/"right") selects which frame is attacked;
 ``targeted`` negates the loss (:452-453).  Randomness (noise, the

@@ -3,13 +3,14 @@
 global_attacks/perturb_main.py).
 
 ``run()`` reproduces the reference pipeline (:48-814): per frame pair the
-clean flow, the attack (white-box, noise, or a re-applied universal or
-fixed noise), the adversarial flow and the noise-only flow, with sample
-dumps, per-frame timing and the final ``validate`` aggregation.  The
-attack runs step by step on torch autograd (``global_attacks.make_attack``)
-on ``RunConfig.device``, the card unless the caller asks for the CPU.
-Not ported: the JAX package's mesh branch (ROADMAP A13) and the image
-corruptions (ROADMAP A8), which raise.
+clean flow, the attack (white-box, noise, an image corruption, or a
+re-applied universal or fixed noise), the adversarial flow and the
+noise-only flow, with sample dumps, per-frame timing and the final
+``validate`` aggregation.  The attack runs step by step on torch autograd
+(``global_attacks.make_attack``) on ``RunConfig.device``, the card unless
+the caller asks for the CPU; a corruption runs on the host
+(``corruptions.corrupt_pair``) and its pair is copied to that device.  Not
+ported: the JAX package's mesh branch (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from ..utils import on_device
 from . import log_utils
+from .corruptions import check_severity, corrupt_pair, get_corruption_names
 from .global_attacks import (
     PerturbConfig,
     PredictFn,
@@ -34,14 +36,7 @@ from .losses import compute_epe
 
 WHITEBOX_METHODS = ("fgsm", "fgm", "ifgsm", "ifgm", "mifgsm", "mifgm",
                     "gaussian", "uniform", "none")
-# the JAX package's attacks/corruptions.py::get_corruption_names("all")
-CORRUPTIONS = (
-    "gaussian_noise", "shot_noise", "impulse_noise", "defocus_blur",
-    "glass_blur", "motion_blur", "zoom_blur", "snow", "frost", "fog",
-    "brightness", "contrast", "elastic_transform", "pixelate",
-    "jpeg_compression", "speckle_noise", "gaussian_blur", "spatter",
-    "saturate",
-)
+CORRUPTIONS = tuple(get_corruption_names("all"))
 
 
 def _write_evolution_gifs(path: str, tr0: np.ndarray, tr1: np.ndarray):
@@ -99,6 +94,9 @@ class RunConfig:
     show_evolve_path: Optional[str] = None
     # where the images, the attack and the noise draws live
     device: str = "cuda"
+    # the corruptions' draws (an np.random.RandomState); None: numpy's
+    # global state, as the JAX package's runner draws
+    corruption_rng: Optional[np.random.RandomState] = None
 
 
 def build_arbitrary_gt(kind: str, helper_gt: np.ndarray,
@@ -164,13 +162,13 @@ def run(predict: PredictFn, samples: Iterable, cfg: RunConfig) -> dict:
     clean, adversarial and noise-only flows run it without autograd.
     Returns the aggregate metrics dict (plus ``time_per_frame``, wall
     seconds per frame with the device synchronised) and writes
-    results{seed}.txt and log{seed}.txt under the output path."""
+    results{seed}.txt and log{seed}.txt under the output path.  A
+    corruption's severity is ``int(cfg.perturb.output_norm)``, 1-5."""
     method = cfg.perturb.perturb_method
-    if method in CORRUPTIONS:
-        raise NotImplementedError(
-            f"image corruption '{method}' is not ported yet: "
-            "attacks/corruptions.py is ROADMAP A8")
-    if method not in WHITEBOX_METHODS:
+    is_corruption = method in CORRUPTIONS
+    if is_corruption:
+        check_severity(int(cfg.perturb.output_norm))
+    elif method not in WHITEBOX_METHODS:
         # fail BEFORE creating output dirs, with the reference's explicit
         # dispatch error (perturb_model.py:270-272)
         raise ValueError(f"Invalid perturbation method: {method}")
@@ -181,7 +179,9 @@ def run(predict: PredictFn, samples: Iterable, cfg: RunConfig) -> dict:
     paths = log_utils.create_write_folder_structure(cfg.output_path)
     logf = os.path.join(cfg.output_path, f"log{seed}.txt")
 
-    if cfg.show_evolve_path:
+    if is_corruption:
+        attack = None
+    elif cfg.show_evolve_path:
         def attack(i0, i1, t, gen):
             outs, (tr0, tr1) = perturb_trajectory(predict, i0, i1, t,
                                                   cfg.perturb, gen)
@@ -243,6 +243,16 @@ def run(predict: PredictFn, samples: Iterable, cfg: RunConfig) -> dict:
         if fixed is not None:
             adv0 = torch.clamp(img0 + on_device(fixed[0], device), 0.0, 1.0)
             adv1 = torch.clamp(img1 + on_device(fixed[1], device), 0.0, 1.0)
+            noise0, noise1 = adv0 - img0, adv1 - img1
+        elif is_corruption:
+            # on the host, then onto the run's device (perturb_runner.py:
+            # 270-278 of the JAX package)
+            out0, out1 = corrupt_pair(
+                img0.cpu().numpy(), img1.cpu().numpy(), method,
+                int(cfg.perturb.output_norm), mode=cfg.perturb.perturb_mode,
+                rng=cfg.corruption_rng)
+            adv0 = on_device(np.clip(out0, 0, 1), device)
+            adv1 = on_device(np.clip(out1, 0, 1), device)
             noise0, noise1 = adv0 - img0, adv1 - img1
         else:
             noise0, noise1, adv0, adv1 = attack(img0, img1, target, generator)

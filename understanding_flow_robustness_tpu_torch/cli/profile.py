@@ -8,6 +8,8 @@ time.
     python -m understanding_flow_robustness_tpu_torch.cli.profile \\
         --model FlowNetC
     python -m understanding_flow_robustness_tpu_torch.cli.profile \\
+        --model FlowNet2
+    python -m understanding_flow_robustness_tpu_torch.cli.profile \\
         --model RAFT --attack --batch 1 --size 256 640
     python -m understanding_flow_robustness_tpu_torch.cli.profile \\
         --model RAFT --train --batch 4 --size 288 960
@@ -70,7 +72,8 @@ def _device_us(evt) -> float:
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", default="SpyNet",
-                   help="ported model ID, e.g. SpyNet, PWCNet, RAFT, FlowNetC")
+                   help="ported model ID, e.g. SpyNet, PWCNet, RAFT, FlowNetC, "
+                        "FlowNet2")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--size", type=int, nargs=2, default=[384, 1280])
     p.add_argument("--reps", type=int, default=2)

@@ -4,14 +4,15 @@ global_attacks/run_perturb_model.py:26-281).
 
 The same flags, defaults and output-path taxonomy
 (``output_path[/DEBUG]/dataset/flownet[/targeted][/universal]/mode/...``,
-perturb_main.py:77-119).  Two of the reference's three branches run:
-universal-perturbation evaluation and the white-box and noise attacks.
-Not ported yet, and raising: the KITTI dataset branch (ROADMAP A11; use
-``--synthetic N``), the corruption sweeps (ROADMAP A8), and ``--disparity``
-(unimplemented upstream too).  ``--device`` defaults to ``cuda``, with no
-fallback; ``--device cpu`` runs on the CPU.  ``--flownet`` takes the port's
-registry IDs, FlowNetC by default (FlowNet2 raises as ``fetch_model`` does,
-ROADMAP A9).
+perturb_main.py:77-119).  The reference's three branches run:
+universal-perturbation evaluation, the white-box and noise attacks, and
+the image corruptions, swept over severities 1-5 into
+``.../mode/<corruption>/<severity>/`` (run_perturb_model.py:246-281).  Not
+ported yet, and raising: the KITTI dataset branch (ROADMAP A11; use
+``--synthetic N``) and ``--disparity`` (unimplemented upstream too).
+``--device`` defaults to ``cuda``, with no fallback; ``--device cpu`` runs
+on the CPU.  ``--flownet`` takes every registry ID, FlowNetC by default.
+The corruptions run on the host; those that need ``cv2`` raise without it.
 
 Example:
   python -m understanding_flow_robustness_tpu_torch.cli.run_perturb_model \\
@@ -177,11 +178,6 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             "flow_loss='corr' is accepted but unimplemented upstream "
             "(perturb_model.py:129-142 has no corr branch)")
-    if args.perturb_method in CORRUPTIONS:
-        raise NotImplementedError(
-            f"image corruption '{args.perturb_method}' is not ported yet: "
-            "attacks/corruptions.py is ROADMAP A8")
-
     from ..models import (
         checkpoint_arg,
         device_arg,
@@ -255,6 +251,19 @@ def main(argv=None) -> dict:
         res = run(predict, _samples(args), cfg)
         print(f"universal eval: epe {res['flow_epe_origin'][0]:.3f} -> "
               f"{res['flow_epe'][0]:.3f}; results under {cfg.output_path}")
+        return res
+
+    if args.perturb_method in CORRUPTIONS:
+        # the severity sweep 1-5 (run_perturb_model.py:246-281); returns
+        # the last severity's metrics, as the other branches return theirs
+        for severity in range(1, 6):
+            cfg = make_cfg(args.perturb_method, severity,
+                           os.path.join(base_out, str(severity)))
+            cfg.arbitrary_gt = arbitrary_gt
+            res = run(predict, _samples(args), cfg)
+            print(f"severity {severity}: epe "
+                  f"{res['flow_epe_origin'][0]:.3f} -> "
+                  f"{res['flow_epe'][0]:.3f}")
         return res
 
     cfg = make_cfg(args.perturb_method, args.output_norm, base_out)

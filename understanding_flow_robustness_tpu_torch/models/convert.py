@@ -7,11 +7,12 @@ checkpoint is a port ``state_dict`` once its wrappers are removed
 (``load_reference_state_dict``; SPyNet's per-level files:
 ``load_spynet_dir``), and the JAX package's ``convert_raft`` /
 ``convert_pwcnet`` / ``convert_flownet_c`` / ``convert_flownet_c_flex`` /
-``convert_flownet_c_larger`` / ``convert_flownet_s`` map a port
-``state_dict`` to flax variables.  ``raft_state_dict_from_jax``,
+``convert_flownet_c_larger`` / ``convert_flownet_s`` / ``convert_flownet2``
+map a port ``state_dict`` to flax variables.  ``raft_state_dict_from_jax``,
 ``pwcnet_state_dict_from_jax``, ``spynet_state_dict_from_jax``,
-``flownet_c_state_dict_from_jax``, ``flownet_c_flex_state_dict_from_jax``
-and ``flownet_s_state_dict_from_jax`` go the other way.
+``flownet_c_state_dict_from_jax``, ``flownet_c_flex_state_dict_from_jax``,
+``flownet_s_state_dict_from_jax`` and ``flownet2_state_dict_from_jax`` go
+the other way.
 """
 
 from __future__ import annotations
@@ -207,6 +208,21 @@ def flownet_s_state_dict_from_jax(variables) -> dict:
     in the reference's checkpoint; the inverse of ``convert_flownet_s``."""
     inner = {coll: tree["net"] for coll, tree in variables.items()}
     return _flownet_state_dict_from_jax(inner)
+
+
+def flownet2_state_dict_from_jax(variables) -> dict:
+    """Flax FlowNet2 variables (or a partial stack's) -> port state dict;
+    the inverse of ``convert_flownet2``: each sub-network's FlowNet-family
+    names under its own prefix (``flownetc``, ``flownets_1``,
+    ``flownets_2``, ``flownets_d``, ``flownetfusion``; ``flownets`` in
+    FlowNet2Single("S")), ``inter_conv*`` as conv blocks."""
+    sd = {}
+    for sub in variables["params"]:
+        inner = {coll: tree[sub] for coll, tree in variables.items()
+                 if sub in tree}
+        sd.update({f"{sub}.{k}": v for k, v in
+                   _flownet_state_dict_from_jax(inner).items()})
+    return sd
 
 
 def spynet_state_dict_from_jax(variables) -> dict:

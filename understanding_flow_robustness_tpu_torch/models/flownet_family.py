@@ -124,9 +124,13 @@ class _FlowNetBase(nn.Module):
             if crop:
                 up, dec = crop_like(up, skip), crop_like(dec, skip)
             x = torch.cat([skip, dec, up], dim=1)
-            flow = getattr(self, f"predict_flow{lvl}")(x)
+            flow = self._head(lvl, x)
             flows.append(flow)
         return flows[::-1]
+
+    def _head(self, lvl: int, x: torch.Tensor) -> torch.Tensor:
+        """The flow of decoder level ``lvl`` from its concatenation x."""
+        return getattr(self, f"predict_flow{lvl}")(x)
 
 
 def _up4(flow: torch.Tensor, scale: float) -> torch.Tensor:

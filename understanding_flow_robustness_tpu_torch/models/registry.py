@@ -1,8 +1,8 @@
 """Model factory and inference API (counterpart of
 ``understanding_flow_robustness_tpu/models/registry.py``).
 
-Ported so far: the three RAFT IDs, SpyNet, the two PWC-Net IDs and the six
-FlowNet-family IDs.  FlowNet2 raises with the ROADMAP item that ports it.
+Every model ID of the JAX registry is ported: the three RAFT IDs, SpyNet,
+the two PWC-Net IDs, the six FlowNet-family IDs and FlowNet2.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from .convert import load_reference_state_dict, load_spynet_dir
-from .flownet2 import FlowNetS2
+from .flownet2 import FlowNet2, FlowNetS2
 from .flownet_family import FlowNetC, FlowNetCFlex
 from .layers import init_like_flax
 from .pwcnet import PWCNet
@@ -49,6 +49,8 @@ _SPECS: dict = {
     "FlowNetC_larger_field": ModelSpec(
         lambda **kw: FlowNetCFlex(**{"kernel_size": 5, "number_of_reps": 1,
                                      "stage_names": "larger_field", **kw})),
+    # registry.py:66-68: the 5-net cascade, f32 (bf16 drifts 3.57 %)
+    "FlowNet2": ModelSpec(lambda **kw: FlowNet2(**kw)),
     # registry.py:92-95
     "SpyNet": ModelSpec(lambda **kw: SpyNet(**{"nlevels": 6, **kw}),
                         size_multiple=32),
@@ -74,7 +76,7 @@ _SPECS: dict = {
 
 # model IDs of the JAX registry that the port does not build yet, by the
 # ROADMAP item that ports them
-NOT_PORTED = {"FlowNet2": "A9"}
+NOT_PORTED: dict = {}
 
 # the FlowNet-family IDs (ROADMAP A7): FlowNetS and the FlowNetC family
 FLOWNET_IDS = ("FlowNetS", "FlowNetC", "FlowNetC_larger_field",
@@ -94,7 +96,7 @@ def get_feature_map_keys(name: str) -> list:
     state, the motion encoder's taps and the upsampled flow.  The FlowNetC
     family: the siamese encoder's maps, the raw correlation, conv_redir and
     conv3_1 (registry.py:329-331).  SpyNet, FlowNetS and FlowNet2 expose
-    none.  PWC-Net raises with the ROADMAP item that ports its taps."""
+    none (FlowNet2's ``return_features`` gives an empty dict).  PWC-Net raises with the ROADMAP item that ports its taps."""
     if name not in _SPECS and name not in NOT_PORTED:
         raise KeyError(f"unknown model '{name}'")
     if name.startswith("RAFT"):
@@ -229,8 +231,8 @@ def fetch_model(name: str, pretrained_path: Optional[str] = None,
     if name not in _SPECS:
         item = NOT_PORTED.get(name)
         raise KeyError(
-            f"model '{name}' is not ported yet"
-            + (f" (ROADMAP {item})" if item else "")
+            (f"model '{name}' is not ported yet (ROADMAP {item})" if item
+             else f"unknown model '{name}'")
             + f"; ported: {sorted(_SPECS)}")
     spec: ModelSpec = _SPECS[name]
     module = spec.build(**model_kwargs)

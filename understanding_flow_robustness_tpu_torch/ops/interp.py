@@ -44,6 +44,26 @@ def unnormalize_coords(gx: torch.Tensor, gy: torch.Tensor, height: int,
             ((gy + 1.0) * height - 1.0) * 0.5)
 
 
+class _Clip(torch.autograd.Function):
+    """``x.clamp(lo, hi)`` with ``jnp.clip``'s gradient: g times 1 inside,
+    0.5 at either bound (lax.max/min split a tie) and 0 outside -- a
+    product, so a NaN cotangent stays NaN where torch's clamp would drop
+    it (FlowNet2's channel norm at an exact zero, see ``channel_norm``)."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return x.clamp(lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,), (lo, hi) = ctx.saved_tensors, ctx.bounds
+        inside = ((x > lo) & (x < hi)).to(g.dtype)
+        tie = ((x == lo) | (x == hi)).to(g.dtype)
+        return g * (inside + 0.5 * tie), None, None
+
+
 def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                     padding_mode: str = "zeros") -> torch.Tensor:
     """Bilinear sample of img (B, C, H, W) at pixel coordinates x, y
@@ -51,18 +71,18 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 
     Weights and sums are f32 whatever img's dtype.  "zeros": taps outside
     the image give 0; "border": the coordinate is clamped to [0, size-1]
-    first and the weights come from the clamped coordinate.  In zeros mode
-    a coordinate beyond [-2, size+1] is clamped to that range, where all
-    of its taps stay outside, so the float->int conversion never sees a
-    far-out value."""
+    first (with ``jnp.clip``'s gradient, ``_Clip``) and the weights come
+    from the clamped coordinate.  In zeros mode a coordinate beyond
+    [-2, size+1] is clamped to that range, where all of its taps stay
+    outside, so the float->int conversion never sees a far-out value."""
     if padding_mode not in ("zeros", "border"):
         raise ValueError(f"unknown padding_mode: {padding_mode}")
     B, C, H, W = img.shape
     x = x.float()
     y = y.float()
     if padding_mode == "border":
-        x = x.clamp(0.0, W - 1.0)
-        y = y.clamp(0.0, H - 1.0)
+        x = _Clip.apply(x, 0.0, W - 1.0)
+        y = _Clip.apply(y, 0.0, H - 1.0)
     else:
         x = x.clamp(-2.0, W + 1.0)
         y = y.clamp(-2.0, H + 1.0)
@@ -165,6 +185,13 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
         return x
     return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
                          align_corners=align_corners, antialias=False)
+
+
+def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """F.interpolate(mode="nearest") by an integer ``scale``, NCHW: each
+    value repeated ``scale`` times along H and W (interp.py:597-603;
+    FlowNet2's x4 upsample of its S2 and SD flows)."""
+    return x.repeat_interleave(scale, dim=2).repeat_interleave(scale, dim=3)
 
 
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:

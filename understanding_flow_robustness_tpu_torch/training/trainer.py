@@ -1,12 +1,14 @@
 """The training loop (counterpart of
 ``understanding_flow_robustness_tpu/training/trainer.py``; reference:
-training/train.py:95-353), without its adversarial branch.
+training/train.py:95-353).
 
 Writes ``args.json``, resumes from ``<checkpoint_dir>/checkpoint.pth``,
-adds the optional per-batch noise, takes ``inner_iteration`` updates per
-batch, checkpoints every ``val_freq`` batches, stops after ``num_steps + 1``
-batches or at the time limit, and ends with a checkpoint and the
-``<name>.pth`` weights.
+adds the optional per-batch noise, runs the optional adversarial branch
+(an eval-mode attack on each batch, trained on the clean and adversarial
+pairs together, train.py:171-225), takes ``inner_iteration`` updates per
+batch (``INNER_ITERATION`` under adversarial training), checkpoints every
+``val_freq`` batches, stops after ``num_steps + 1`` batches or at the time
+limit, and ends with a checkpoint and the ``<name>.pth`` weights.
 """
 
 from __future__ import annotations
@@ -15,16 +17,19 @@ import dataclasses
 import json
 import os
 import time
-from typing import Any, Callable, Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from ..attacks.global_attacks import PerturbConfig, make_attack
+from ..models.registry import predict_flow_differentiable
 from . import checkpoint as ckpt
 from .optim import fetch_optimizer
 from .train_step import make_train_step
 
 VAL_FREQ = 5000                     # training/train.py:49
+INNER_ITERATION = 3                 # training/train.py:52 (adversarial)
 TIME_LIMIT = 24 * 60 * 60 - 1000    # training/train.py:50
 _BATCH_KEYS = ("image1", "image2", "flow", "valid")
 
@@ -32,8 +37,7 @@ _BATCH_KEYS = ("image1", "image2", "flow", "valid")
 @dataclasses.dataclass
 class TrainConfig:
     """The JAX package's ``TrainConfig`` (trainer.py:34-78), same fields
-    and defaults.  ``adv_config`` stays None here: the attack
-    configuration arrives with the attacks (ROADMAP A8)."""
+    and defaults."""
 
     name: str = "flow"
     stage: str = "chairs"
@@ -54,7 +58,9 @@ class TrainConfig:
     flownetc_weighing: bool = False
     freeze_bn: bool = False           # non-chairs stages (train.py:131-137)
     adversarial: bool = False
-    adv_config: Optional[Any] = None
+    adv_config: PerturbConfig = dataclasses.field(
+        default_factory=lambda: PerturbConfig(
+            perturb_method="ifgsm", flow_loss="l2", output_norm=0.02))
     inner_iteration: int = 1
     time_limit: float = TIME_LIMIT
     n_devices: Optional[int] = None
@@ -66,20 +72,53 @@ class TrainConfig:
     save_checkpoints: bool = True     # --DEBUG turns them off
 
 
+def _adversarial_batch(cfg: TrainConfig, model, batch: dict,
+                       sample_gt_fn: Optional[Callable], np_rng,
+                       generator: torch.Generator) -> dict:
+    """The batch and its adversarial pair together (train.py:171-221): the
+    attack ``cfg.adv_config`` runs the module in eval mode with its
+    current parameters and running statistics, its parameters frozen
+    (``predict_flow_differentiable``, which restores the module's mode and
+    flags), toward the batch's ground truth or, with ``arbitrary_gt`` and
+    ``sample_gt_fn(np_rng) -> (flow, valid)``, a random sample's
+    (train.py:188-199); images, flow and valid maps come back doubled."""
+    if cfg.arbitrary_gt and sample_gt_fn is not None:
+        flow, valid = sample_gt_fn(np_rng)
+        gt = np.concatenate([np.asarray(flow, np.float32),
+                             np.asarray(valid, np.float32)[..., None]], -1)
+        if gt.ndim == 3:
+            gt = gt[None]
+        gt = torch.as_tensor(gt, device=model.device)
+    else:
+        gt = torch.cat([batch["flow"], batch["valid"][..., None]], -1)
+
+    def predict(a, b):
+        return predict_flow_differentiable(model, a, b)
+
+    _, _, adv1, adv2 = make_attack(predict, cfg.adv_config)(
+        batch["image1"], batch["image2"], gt, generator)
+    return {"image1": torch.cat([batch["image1"], adv1]),
+            "image2": torch.cat([batch["image2"], adv2]),
+            "flow": torch.cat([batch["flow"]] * 2),
+            "valid": torch.cat([batch["valid"]] * 2)}
+
+
 def train(cfg: TrainConfig, model, batches: Callable,
           validate_fn: Optional[Callable] = None,
-          logger: Optional[Callable] = None) -> int:
+          logger: Optional[Callable] = None,
+          sample_gt_fn: Optional[Callable] = None) -> int:
     """Train ``model`` (a ``models.FlowModel``) in place; returns the number
     of batches taken, counting those of a resumed run.
 
     ``batches()`` yields dicts of numpy arrays: ``image1``,
     ``image2`` (B, H, W, 3) in [0, 1], ``flow`` (B, H, W, 2), ``valid``
     (B, H, W).  ``logger(step, metrics)`` sees every batch's metrics;
-    ``validate_fn(module, step)`` runs at each ``val_freq`` checkpoint."""
-    if cfg.adversarial or cfg.arbitrary_gt:
-        raise NotImplementedError(
-            "adversarial training (--adversarial, --arbitrary_gt) needs the "
-            "attacks, ROADMAP A8")
+    ``validate_fn(module, step)`` runs at each ``val_freq`` checkpoint.
+    ``sample_gt_fn(np_rng) -> (flow, valid)`` gives ``arbitrary_gt``'s
+    random target, drawn from the trainer's ``RandomState(cfg.seed)``
+    after the batch's noise.  With ``adversarial`` every batch takes
+    ``INNER_ITERATION`` updates: the schedule advances per update, the
+    step count per batch (train.py:225-338)."""
     if (cfg.n_devices or 1) > 1 or cfg.grad_transport != "f32":
         raise NotImplementedError(
             "data parallelism and bf16 gradient transport are ROADMAP A13; "
@@ -90,10 +129,11 @@ def train(cfg: TrainConfig, model, batches: Callable,
                   indent=2)
 
     module = model.module
+    inner = INNER_ITERATION if cfg.adversarial else cfg.inner_iteration
     optimizer, scheduler = fetch_optimizer(
         module.parameters(), lr=cfg.lr, wdecay=cfg.wdecay,
         epsilon=cfg.epsilon, num_steps=cfg.num_steps,
-        inner_iteration=cfg.inner_iteration, clip=cfg.clip)
+        inner_iteration=inner, clip=cfg.clip)
     total_steps = 0
     restored = ckpt.restore_checkpoint(cfg.checkpoint_dir)
     if restored is not None:
@@ -116,6 +156,8 @@ def train(cfg: TrainConfig, model, batches: Callable,
 
     t_start = time.time()
     np_rng = np.random.RandomState(cfg.seed)
+    # the attack's diverse-input draws
+    generator = torch.Generator(device=model.device).manual_seed(cfg.seed)
     should_keep_training = True
     while should_keep_training:
         for batch in batches():
@@ -131,7 +173,11 @@ def train(cfg: TrainConfig, model, batches: Callable,
             dev_batch = {k: torch.as_tensor(batch[k], dtype=torch.float32,
                                             device=model.device)
                          for k in _BATCH_KEYS}
-            for _ in range(cfg.inner_iteration):
+            if cfg.adversarial:
+                dev_batch = _adversarial_batch(cfg, model, dev_batch,
+                                               sample_gt_fn, np_rng,
+                                               generator)
+            for _ in range(inner):
                 metrics = step_fn(dev_batch)
             if logger is not None:
                 logger(total_steps, metrics)
