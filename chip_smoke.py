@@ -144,6 +144,30 @@ universal perturbation:
    of ``alt_corr_fwd`` and ``alt_corr_bwd`` per batch and none of
    ``alt_corr_dcoords``, finite losses, moved parameters, the train step
    on the doubled batch, ms per batch.
+The evaluation and file-serving slice adds, after adversarial training
+(the phases write their frames and GT under the ignored build/ with the
+port's writers and the phase's own PNG encoder, which cycles every row
+through filter types 0-4, as a file from an encoder that picks a filter
+per row has them):
+24. The PNG codec on the host at 375x1242: a u8 RGB frame and a 16-bit
+   flow PNG with a sparse valid mask round-trip bit for bit; a frame with
+   filter types 0-4 decodes to its samples; decode and encode ms.
+25. ``cli.infer`` serving 8 pairs at 375x1242 through RAFT-12 at batch 8
+   (--save flo,png,viz): 12 ``alt_corr_fwd`` launches, every .flo
+   bit-equal to ``predict_flow`` on the decoded, padded frames and the
+   flows within BF16_REL_EPE_TOL of the plain lookup's, every flow PNG
+   within 1/64 of round(64 flow) / 64; pairs/s with decode and writing,
+   and the model's share of the wall time.
+26. ``cli.evaluate --dataset kitti`` (RAFT f32, 24 iterations, batch 1) on
+   a KITTI 2015 training layout of 8 scenes at the four KITTI sizes, with
+   a seeded, calibrated ``.pth``: 24 ``alt_corr_fwd`` launches a scene,
+   EPE and F1 equal to the phase's own from ``predict_flow``, every
+   scene's flow within F32_FLOW_TOL_PX (max abs) of the plain lookup's;
+   seconds per scene.
+27. The dataset branches on that layout: ``run_perturb_model`` on a
+   2-pair ``kitti_scene_flow_train_*.txt`` list (FlowNetC I-FGSM, 3
+   steps) and ``test_patch --valset kitti2015`` on 2 scenes; both
+   correlation kernels' launches.
 PWC-Net's serving phase (7) also counts its 5 ``spatial_corr_fwd``
 launches per request, holds the flow against the plain warp and the plain
 correlation together, and times pairs/s with the plain correlation too, in
@@ -153,7 +177,9 @@ kernel.
 Any failed check raises, so the script exits non-zero and prints no result.
 Before them, one line gives the patch step's ms per inner iteration and
 iterations/s with the card, and one FlowNet2's pairs/s, its I-FGSM ms per
-step and the adversarial train batch's ms.  The last three lines are the card's name and
+step and the adversarial train batch's ms, and one the infer CLI's pairs/s,
+the PNG decode ms and the evaluate CLI's seconds per scene.  The last three
+lines are the card's name and
 power limit, a JSON object per
 kernel (its launches on the main paths, its error against its plain
 version, its time, the plain version's, the least time the card could take
@@ -171,8 +197,10 @@ import json
 import math
 import re
 import shutil
+import struct
 import subprocess
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -281,6 +309,13 @@ WARP_FLOWNET2 = (B, 3, H, W)
 # the adversarial train CLI's batches: batch 1 at the attack geometry,
 # 3 I-FGSM steps, 2 batches of INNER updates
 ADV_TRAIN_STEPS, ADV_TRAIN_BATCHES, ADV_INNER = 3, 2, 3
+# the evaluation and file-serving slice: KITTI 2015's four frame sizes
+# (375x1242 its own resolution), 8 scenes; frames and GT are written under
+# the ignored build/ by the phases themselves
+KITTI_SIZES = ((375, 1242), (370, 1224), (374, 1238), (376, 1241))
+KITTI_SCENES = 8
+DATA_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_data"
+EVAL_ITERS = 24  # cli.evaluate's RAFT iterations on KITTI (evaluate.py:349)
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s of HBM3 and
 # FLOP/s by input type (bf16 on the tensor cores, f32 outside them)
 HBM_BYTES_PER_S = 3.35e12
@@ -2768,6 +2803,435 @@ def adv_train_phase() -> dict:
             "launches/alt_corr_bwd": n["alt_corr_bwd"], "ms_per_batch": ms}
 
 
+def encode_png_filtered(img: np.ndarray, level: int = 6) -> bytes:
+    """An 8-bit PNG whose rows cycle through filter types 0-4 (None, Sub,
+    Up, Average, Paeth), as an encoder that picks a filter per row writes
+    them; the forward filters read the unfiltered neighbours, so numpy
+    computes each row at once."""
+    img = img if img.ndim == 3 else img[..., None]
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int64)
+    a = np.zeros_like(x)
+    a[:, c:] = x[:, :-c]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    cc = np.zeros_like(x)
+    cc[1:, c:] = x[:-1, :-c]
+    p = a + b - cc
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
+    preds = (np.zeros_like(x), a, b, (a + b) // 2,
+             np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc)))
+    raw = np.empty((h, w * c + 1), np.uint8)
+    raw[:, 0] = np.arange(h) % 5
+    for t in range(5):
+        rows = raw[:, 0] == t
+        raw[rows, 1:] = (x[rows] - preds[t][rows]) % 256
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I4s", len(body), kind) + body
+                + struct.pack(">I", zlib.crc32(body, zlib.crc32(kind))))
+
+    colour = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + chunk(b"IEND", b""))
+
+
+def kitti_frame(gen, h: int, w: int) -> np.ndarray:
+    """A (h, w, 3) u8 frame: smooth random structure plus fine noise, so
+    that it compresses like a photograph rather than like white noise."""
+    coarse = torch.rand((1, 3, h // 16 + 2, w // 16 + 2), generator=gen,
+                        device="cuda")
+    x = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bicubic",
+                                        align_corners=False)
+    x = x + 0.03 * torch.rand((1, 3, h, w), generator=gen, device="cuda")
+    return (x.clamp(0, 1) * 255).to(torch.uint8)[0].permute(1, 2, 0).cpu(
+        ).numpy()
+
+
+def io_phase(gen) -> dict:
+    """The port's PNG codec at KITTI 2015's resolution on the host: a u8
+    RGB frame and a 16-bit flow PNG with a sparse valid mask round-trip bit
+    for bit; a frame whose rows cycle through all five filter types decodes
+    to its samples; decode and encode ms per frame."""
+    from understanding_flow_robustness_tpu_torch.flowviz import io as fio
+
+    print("== PNG codec at 375x1242 ==", flush=True)
+    d = DATA_OUT / "io"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    h, w = KITTI_SIZES[0]
+    frame = kitti_frame(gen, h, w)
+    flow = (torch.randn((h, w, 2), generator=gen, device="cuda") * 30).cpu(
+        ).numpy()
+    valid = (torch.rand((h, w), generator=gen, device="cuda") < 0.3).float(
+        ).cpu().numpy()
+    res = {}
+    t = time.perf_counter()
+    fio.write_image(str(d / "frame.png"), frame)
+    res["encode_ms"] = 1e3 * (time.perf_counter() - t)
+    fio.write_flow_png(str(d / "flow.png"), flow, valid)
+    (d / "filtered.png").write_bytes(encode_png_filtered(frame))
+    check(np.array_equal(fio.read_samples(str(d / "frame.png")), frame),
+          "PNG: the frame does not round-trip")
+    got_flow, got_valid = fio.read_flow_png(str(d / "flow.png"))
+    want = (64.0 * flow.astype(np.float64) + 2 ** 15).astype(np.uint16)
+    check(np.array_equal(got_flow, (want.astype(np.float32) - 2 ** 15) / 64)
+          and np.array_equal(got_valid, valid),
+          "PNG: the 16-bit flow and its valid mask do not round-trip")
+    check(np.array_equal(fio.read_samples(str(d / "filtered.png")), frame),
+          "PNG: the file with filter types 0-4 decodes wrong")
+    for name in ("frame", "filtered"):
+        fio.read_samples(str(d / f"{name}.png"))  # the library is loaded
+        t = time.perf_counter()
+        for _ in range(10):
+            fio.read_samples(str(d / f"{name}.png"))
+        res[f"decode_ms/{name}"] = 100 * (time.perf_counter() - t)
+    res["frame_bytes"] = (d / "filtered.png").stat().st_size
+    print(f"PNG: frame and sparse 16-bit flow bit-equal after a round trip; "
+          f"filter types 0-4 decoded; decode {res['decode_ms/filtered']:.2f} "
+          f"ms per 375x1242 frame with filters 0-4 "
+          f"({res['frame_bytes'] / 1e6:.2f} MB), "
+          f"{res['decode_ms/frame']:.2f} ms with filter 0; encode "
+          f"{res['encode_ms']:.2f} ms (host)", flush=True)
+    shutil.rmtree(d, ignore_errors=True)
+    return res
+
+
+def replicate_pad(x: torch.Tensor, pad: tuple) -> torch.Tensor:
+    """Replicate-pad NHWC by (top, bottom, left, right): the scorer's own
+    padding, by index clamping on the card, apart from the host padding
+    the CLIs use."""
+    t, b, l, r = pad
+    H, W = x.shape[1:3]
+    ys = torch.arange(-t, H + b, device=x.device).clamp(0, H - 1)
+    xs = torch.arange(-l, W + r, device=x.device).clamp(0, W - 1)
+    return x[:, ys][:, :, xs]
+
+
+def write_kitti_layout(gen, root: Path, model) -> None:
+    """A KITTI 2015 ``training/`` layout of KITTI_SCENES scenes at the four
+    KITTI sizes: frames _09/_10/_11 written with filters 0-4, flow_occ = the
+    f32 model's own flow plus 2 px of noise on a 40 % valid mask, and
+    disp_occ_0.  ``model`` runs with the plain lookup, so the GT's
+    forwards launch no kernel."""
+    from understanding_flow_robustness_tpu_torch.flowviz import io as fio
+    from understanding_flow_robustness_tpu_torch.models import predict_flow
+    from understanding_flow_robustness_tpu_torch.ops.interp import (
+        compute_pad,
+        remove_pad,
+    )
+
+    base = root / "training"
+    for sub in ("image_2", "flow_occ", "disp_occ_0"):
+        (base / sub).mkdir(parents=True, exist_ok=True)
+    model.module.plain_lookup = True
+    for i in range(KITTI_SCENES):
+        h, w = KITTI_SIZES[i % len(KITTI_SIZES)]
+        frames = [kitti_frame(gen, h, w) for _ in range(3)]
+        for f, img in zip(("09", "10", "11"), frames):
+            (base / "image_2" / f"{i:06d}_{f}.png").write_bytes(
+                encode_png_filtered(img))
+        pad = compute_pad(h, w, mode="kitti")
+        a, b = (replicate_pad(torch.from_numpy(x).cuda()[None].float() / 255,
+                              pad) for x in frames[1:])
+        flow = remove_pad(predict_flow(model, a, b), pad)[0]
+        flow = flow + 2.0 * torch.randn(flow.shape, generator=gen,
+                                        device="cuda")
+        valid = torch.rand((h, w), generator=gen, device="cuda") < 0.4
+        fio.write_flow_png(str(base / "flow_occ" / f"{i:06d}_10.png"),
+                           flow.cpu().numpy(), valid.float().cpu().numpy())
+        fio.write_image(str(base / "disp_occ_0" / f"{i:06d}_10.png"),
+                        (torch.rand((h, w), generator=gen, device="cuda")
+                         * 20000).to(torch.int32).cpu().numpy().astype(
+                             np.uint16))
+    model.module.plain_lookup = False
+
+
+def infer_phase(gen) -> dict:
+    """``cli.infer`` serving 8 KITTI-size pairs (375x1242, written with
+    filters 0-4) through RAFT-12 (calibrated seeded weights, ``--pretrained``)
+    at batch 8 into .flo, 16-bit KITTI PNG and the colour wheel: 12 launches
+    of ``alt_corr_fwd`` a batch; every .flo bit-equal to ``predict_flow`` on
+    the decoded, padded frames, unpadded, and the 8 flows within
+    BF16_REL_EPE_TOL of the plain lookup's on the same batch; every flow PNG
+    within 1/64 of round(64 flow) / 64; pairs/s with decode and writing,
+    and the model's share of the wall time.  A first run warms the process;
+    the second is the one measured and counted."""
+    from understanding_flow_robustness_tpu_torch.cli import infer
+    from understanding_flow_robustness_tpu_torch.flowviz import io as fio
+    from understanding_flow_robustness_tpu_torch.models import (
+        fetch_model,
+        predict_flow,
+        scale_flow_head,
+    )
+    from understanding_flow_robustness_tpu_torch.native import (
+        batch_u8_to_float01_pad,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+    from understanding_flow_robustness_tpu_torch.ops.interp import (
+        compute_pad,
+        remove_pad,
+    )
+    from understanding_flow_robustness_tpu_torch.training.checkpoint import (
+        save_weights,
+    )
+
+    h, w = KITTI_SIZES[0]
+    print(f"== infer CLI: RAFT-12, 8 pairs at {h}x{w}, batch 8, "
+          "--save flo,png,viz ==", flush=True)
+    d = DATA_OUT / "infer"
+    shutil.rmtree(d, ignore_errors=True)
+    (d / "image_2").mkdir(parents=True)
+    for i in range(8):
+        for f in ("10", "11"):
+            (d / "image_2" / f"{i:06d}_{f}.png").write_bytes(
+                encode_png_filtered(kitti_frame(gen, h, w)))
+    # the serving phase's calibrated point: the wild weights' bf16 flows
+    # part from the plain lookup's by more than the 1 % bar (model_phase)
+    model = fetch_model("RAFT")
+    model.module = scale_flow_head(model.module, 0.05)
+    pth = d / "raft12_calibrated.pth"
+    save_weights(str(pth), model.module)
+    argv = ["--flownet", "RAFT", "--pretrained", str(pth), "--dir",
+            str(d / "image_2"), "--batch_size", "8", "--save", "flo,png,viz",
+            "--output_dir", str(d / "out")]
+    infer.main(argv)
+    LAUNCH_COUNTS.clear()
+    out = infer.main(argv)
+    n = LAUNCH_COUNTS["alt_corr_fwd"]
+    check(out["pairs"] == 8 and n == ITERS,
+          f"infer CLI: {out['pairs']} pairs, {n} alt_corr_fwd launches, "
+          f"not 8 and {ITERS}")
+    res = {"launches": n, "pairs_per_s": out["pairs"] / out["seconds"],
+           "model_share": out["model_seconds"] / out["seconds"]}
+    # the same with .flo alone: what the PNG and colour-wheel writers cost
+    flo = infer.main(argv[:-3] + ["flo", "--output_dir", str(d / "flo")])
+    res["flo_pairs_per_s"] = flo["pairs"] / flo["seconds"]
+
+    pad = compute_pad(h, w, mode="kitti", multiple=model.size_multiple)
+    frames = [np.stack([fio.read_samples(str(d / "image_2" /
+                                             f"{i:06d}_{f}.png"))
+                        for i in range(8)]) for f in ("10", "11")]
+    a, b = (torch.from_numpy(batch_u8_to_float01_pad(
+        x, h + pad[0] + pad[1], w + pad[2] + pad[3], pad[0], pad[2])).cuda()
+        for x in frames)
+    want = remove_pad(predict_flow(model, a, b).float().cpu().numpy(), pad)
+    model.module.plain_lookup = True
+    plain = remove_pad(predict_flow(model, a, b).float(), pad)
+    model.module.plain_lookup = False
+    got = torch.from_numpy(np.stack([
+        fio.read_flo(str(d / "out" / f"{i:06d}.flo")) for i in range(8)])
+        ).cuda()
+    mx, rel = flow_stats(got, plain)
+    res["vs_plain_max_abs_px"], res["vs_plain_rel_epe"] = mx, rel
+    check(rel <= BF16_REL_EPE_TOL,
+          f"infer CLI: flows vs the plain lookup's rel EPE {100 * rel:.4f} % "
+          f"(max|dflow| {mx:.3e} px), beyond the 1 % bar")
+    for i in range(8):
+        got = fio.read_flo(str(d / "out" / f"{i:06d}.flo"))
+        check(np.array_equal(got, want[i]),
+              f"infer CLI: {i:06d}.flo is not predict_flow's flow "
+              f"(max diff {np.abs(got - want[i]).max():.3e})")
+        png, valid = fio.read_flow_png(str(d / "out" / f"{i:06d}_flow.png"))
+        check(bool(valid.all()) and float(np.abs(
+            png - np.round(64 * want[i]) / 64).max()) <= 1 / 64,
+            f"infer CLI: {i:06d}_flow.png off round(64 flow) / 64")
+        check(fio.read_samples(str(d / "out" / f"{i:06d}_viz.png")).shape
+              == (h, w, 3), f"infer CLI: {i:06d}_viz.png malformed")
+    print(f"infer CLI: 8 pairs, {n} alt_corr_fwd launches ({ITERS} a batch); "
+          "every .flo bit-equal to predict_flow, every flow PNG within 1/64; "
+          f"vs the plain lookup max|dflow|={mx:.3e} px, rel EPE="
+          f"{100 * rel:.4f}% (bar {100 * BF16_REL_EPE_TOL:g}%); "
+          f"{res['pairs_per_s']:.2f} pairs/s with decode and writing, the "
+          f"model {100 * res['model_share']:.1f} % of the wall time "
+          f"({out['seconds']:.3f} s); {res['flo_pairs_per_s']:.2f} pairs/s "
+          "with --save flo alone", flush=True)
+    shutil.rmtree(d, ignore_errors=True)
+    return res
+
+
+def kitti_scores(model, root: Path) -> tuple:
+    """KITTI EPE (mean of per-scene means), F1 (% outliers: EPE > 3 px
+    and EPE / |gt| > 5 %, over the valid pixels of all scenes) and the
+    flows of ``predict_flow`` on each scene's frames replicate-padded on
+    their own (kitti mode), computed here from the files."""
+    from understanding_flow_robustness_tpu_torch.flowviz import io as fio
+    from understanding_flow_robustness_tpu_torch.models import predict_flow
+    from understanding_flow_robustness_tpu_torch.ops.interp import (
+        compute_pad,
+        remove_pad,
+    )
+
+    epes, outliers, n_valid, flows = [], 0, 0, []
+    base = root / "training"
+    for i in range(KITTI_SCENES):
+        # / 255 on the host, as the CLI divides: a CUDA division by a
+        # Python number multiplies by the reciprocal, one ulp away at times,
+        # and 24 iterations carry that to ~2e-4 px
+        a, b = (torch.from_numpy(fio.read_samples(
+            str(base / "image_2" / f"{i:06d}_{f}.png")).astype(
+                np.float32)[None] / 255.0).cuda() for f in ("10", "11"))
+        pad = compute_pad(a.shape[1], a.shape[2], mode="kitti")
+        flow = remove_pad(predict_flow(model, replicate_pad(a, pad),
+                                       replicate_pad(b, pad)), pad)[0]
+        flow = flow.float().cpu().numpy()
+        flows.append(flow)
+        gt, valid = fio.read_flow_png(str(base / "flow_occ" / f"{i:06d}_10.png"))
+        epe = np.sqrt(np.sum((flow - gt) ** 2, axis=-1))
+        mag = np.sqrt(np.sum(gt ** 2, axis=-1))
+        v = valid >= 0.5
+        epes.append(epe[v].mean())
+        outliers += int(((epe > 3.0) & (epe / np.maximum(mag, 1e-9) > 0.05))
+                        [v].sum())
+        n_valid += int(v.sum())
+    return float(np.mean(epes)), 100 * (outliers / n_valid), flows
+
+
+def evaluate_phase(gen) -> dict:
+    """``cli.evaluate --dataset kitti`` on a written KITTI 2015 training
+    layout (8 scenes at the four KITTI sizes, each padded on its own) with
+    a seeded, calibrated RAFT ``.pth``: f32, 24 iterations, batch 1; 24
+    ``alt_corr_fwd`` launches a scene; its EPE and F1 equal to those
+    computed here from ``predict_flow`` on the same files; every scene's
+    flow within F32_FLOW_TOL_PX (max abs) of the plain lookup's, which
+    holds B1's f32 path at the four KITTI feature maps (47 rows: edge
+    tiles); seconds per scene."""
+    from understanding_flow_robustness_tpu_torch.cli import evaluate
+    from understanding_flow_robustness_tpu_torch.models import (
+        fetch_model,
+        scale_flow_head,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+    from understanding_flow_robustness_tpu_torch.training import (
+        evaluate as ev,
+    )
+    from understanding_flow_robustness_tpu_torch.training.checkpoint import (
+        save_weights,
+    )
+
+    print(f"== evaluate CLI: RAFT f32, {EVAL_ITERS} iterations, KITTI 2015 "
+          f"layout of {KITTI_SCENES} scenes at {KITTI_SIZES} ==", flush=True)
+    root = DATA_OUT / "kitti"
+    shutil.rmtree(root, ignore_errors=True)
+    model = fetch_model("RAFT", mixed_precision=False, iters=EVAL_ITERS)
+    model.module = scale_flow_head(model.module, 0.05)
+    pth = DATA_OUT / "raft_calibrated.pth"
+    save_weights(str(pth), model.module)
+    write_kitti_layout(gen, root, model)
+
+    argv = ["--model", str(pth), "--dataset", "kitti", "--data_roots",
+            json.dumps({"kitti": str(root)})]
+    seconds = []
+    validate = ev.validate_kitti
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = validate(*a, **k)
+        seconds.append(time.perf_counter() - t)
+        return out
+
+    ev.validate_kitti = timed
+    try:
+        LAUNCH_COUNTS.clear()
+        with recording(ev, "_predict_padded") as cli_flows:
+            got = evaluate.main(argv)
+        n = LAUNCH_COUNTS["alt_corr_fwd"]
+    finally:
+        ev.validate_kitti = validate
+    check(n == EVAL_ITERS * KITTI_SCENES,
+          f"evaluate CLI: {n} alt_corr_fwd launches, not "
+          f"{EVAL_ITERS} x {KITTI_SCENES}")
+    epe, f1, flows = kitti_scores(model, root)
+    diffs = [float(np.abs(a[0] - b).max()) for a, b in zip(cli_flows, flows)]
+    check(got == {"kitti-epe": epe, "kitti-f1": f1},
+          f"evaluate CLI: EPE/F1 {got} are not predict_flow's "
+          f"{epe!r}/{f1!r}; max |dflow| a scene {diffs}")
+    model.module.plain_lookup = True
+    plain_epe, plain_f1, plain_flows = kitti_scores(model, root)
+    vs_plain = [float(np.abs(a - b).max()) for a, b in zip(flows, plain_flows)]
+    check(max(vs_plain) <= F32_FLOW_TOL_PX,
+          f"evaluate: max|dflow| a scene, kernel vs plain lookup, {vs_plain} "
+          f"px, beyond {F32_FLOW_TOL_PX}")
+    res = {"launches": n, "epe": epe, "f1": f1, "plain_epe": plain_epe,
+           "plain_f1": plain_f1, "vs_plain_max_abs_px": max(vs_plain),
+           "s_per_scene": seconds[0] / KITTI_SCENES}
+    print(f"evaluate CLI: EPE {epe:.4f} F1 {f1:.3f} %, equal to the phase's "
+          f"own from predict_flow; plain lookup EPE {plain_epe:.4f} F1 "
+          f"{plain_f1:.3f} %; kernel vs plain lookup max|dflow| "
+          f"{max(vs_plain):.3e} px over the {KITTI_SCENES} scenes (tol "
+          f"{F32_FLOW_TOL_PX}); {n} alt_corr_fwd launches; "
+          f"{res['s_per_scene']:.3f} s per scene (validate_kitti: decode, "
+          "pad, RAFT, metrics)", flush=True)
+    return res
+
+
+def dataset_attack_phase() -> dict:
+    """The dataset branches on the KITTI layout of ``evaluate_phase``:
+    ``run_perturb_model`` on a ``kitti_scene_flow_train_*.txt`` list of 2
+    pairs (FlowNetC I-FGSM, 3 steps, 256x640 with the sparse-aware GT), and
+    ``test_patch --valset kitti2015`` on scenes 1 and 2 (384x1280, a 100 px
+    patch); both correlation kernels' launches."""
+    from understanding_flow_robustness_tpu_torch.cli import (
+        run_perturb_model,
+        test_patch,
+    )
+    from understanding_flow_robustness_tpu_torch.flowviz import io as fio
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    print("== the dataset branches: run_perturb_model on 2 KITTI pairs, "
+          "test_patch on 2 KITTI scenes (FlowNetC) ==", flush=True)
+    root = DATA_OUT / "kitti"
+    lists = DATA_OUT / "lists"
+    lists.mkdir(parents=True, exist_ok=True)
+    for name, sub, f in (("image0", "image_2", "_10"),
+                         ("image1", "image_2", "_11"),
+                         ("flow", "flow_occ", "_10")):
+        fio.write_paths(str(lists / f"kitti_scene_flow_train_{name}.txt"),
+                        [str(root / "training" / sub / f"{i:06d}{f}.png")
+                         for i in range(2)])
+    out = DATA_OUT / "attack"
+    LAUNCH_COUNTS.clear()
+    res = run_perturb_model.main(["--data_list_dir", str(lists),
+                                  "--perturb_method", "ifgsm", "--n_step",
+                                  "3", "--output_path", str(out)])
+    # per pair: the clean, adversarial and noise-only forwards and 3 steps
+    expect = {"spatial_corr_fwd": 2 * (3 + 3), "spatial_corr_bwd": 2 * 3}
+    n = {k: LAUNCH_COUNTS[k] for k in expect}
+    check(n == expect, f"attack CLI on KITTI pairs: launches {n}, not "
+          f"{expect}")
+    check(all(math.isfinite(v[0]) for v in res.values())
+          and (out / "kitti2015" / "FlowNetC" / "both" / "ifgsm_l2" / "0.02"
+               / "results0.txt").exists(),
+          f"attack CLI on KITTI pairs: {res}")
+    print(f"attack CLI on 2 KITTI pairs: launches {n}; epe "
+          f"{res['flow_epe_origin'][0]:.3f} -> {res['flow_epe'][0]:.3f} "
+          "against the full-resolution GT", flush=True)
+    patch = DATA_OUT / "patch.npy"
+    np.save(patch, np.random.RandomState(PATCH_SEED).rand(1, 100, 100, 3)
+            .astype(np.float32))
+    avgs = []
+    for example in (1, 2):
+        LAUNCH_COUNTS.clear()
+        avgs.append(test_patch.main([
+            "--patch_path", str(patch), "--valset", "kitti2015",
+            "--kitti-dir", str(root), "--example", str(example), "--no_viz",
+            "--output", str(out)]))
+        k = LAUNCH_COUNTS["spatial_corr_fwd"]
+        check(k == 2 and all(math.isfinite(v) for v in avgs[-1]),
+              f"test_patch on KITTI scene {example}: {k} launches, "
+              f"{avgs[-1]}")
+        n["spatial_corr_fwd"] += k
+    print(f"test_patch on KITTI scenes 1 and 2 at 384x1280: 2 launches of "
+          f"spatial_corr_fwd each; epe/adv_epe {avgs[0][0]:.3f}/"
+          f"{avgs[0][1]:.3f} and {avgs[1][0]:.3f}/{avgs[1][1]:.3f}",
+          flush=True)
+    shutil.rmtree(DATA_OUT, ignore_errors=True)
+    return {"launches/" + k: v for k, v in n.items()}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device: torch.cuda.is_available() is False")
@@ -2833,6 +3297,12 @@ def main() -> None:
     del flownet2
     crres = phase(corruption_phase)
     atres = phase(adv_train_phase)
+    t_slice = time.perf_counter()
+    iores = phase(io_phase, gen)
+    inres = phase(infer_phase, gen)
+    evres = phase(evaluate_phase, gen)
+    dares = phase(dataset_attack_phase)
+    t_slice = time.perf_counter() - t_slice
     print(f"all phases, build included: {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(f"patch attack, FlowNetC, batch {PB} at {PH}x{PW} ({card}): "
@@ -2846,6 +3316,13 @@ def main() -> None:
           f"{f2ares['ms_per_step']:.2f} ms per step; adversarial train "
           f"batch on RAFT at {AH}x{AW} {atres['ms_per_batch']:.1f} ms",
           flush=True)
+    print(f"evaluation and file serving ({card}): infer CLI "
+          f"{inres['pairs_per_s']:.2f} pairs/s at 375x1242 with decode and "
+          f"writing (model {100 * inres['model_share']:.1f} % of it); PNG "
+          f"decode {iores['decode_ms/filtered']:.2f} ms per 375x1242 frame "
+          f"(host); evaluate {evres['s_per_scene']:.3f} s per KITTI scene "
+          f"(f32, {EVAL_ITERS} iterations); the four phases "
+          f"{t_slice:.1f} s", flush=True)
 
     print(card)  # name, power limit: nvidia-smi's own line
 
@@ -2865,7 +3342,8 @@ def main() -> None:
                      + ares["launches/alt_corr_fwd"]
                      + acres["launches/alt_corr_fwd"]
                      + prres["launches/alt_corr_fwd"]
-                     + atres["launches/alt_corr_fwd"]),
+                     + atres["launches/alt_corr_fwd"]
+                     + inres["launches"] + evres["launches"]),
         "max_abs_err": kres[fwd],
         "ms": kres[f"{fwd}/ms"],
         "plain_ms": kres[f"{fwd}/plain_ms"],
@@ -2971,7 +3449,8 @@ def main() -> None:
                      + f2res["launches/spatial_corr_fwd"]
                      + f2ares["launches/spatial_corr_fwd"]
                      + f2ares["cli_launches/spatial_corr_fwd"]
-                     + crres["launches/spatial_corr_fwd"]),
+                     + crres["launches/spatial_corr_fwd"]
+                     + dares["launches/spatial_corr_fwd"]),
         "max_abs_err": scres["flownetc"]["fwd_err"],
         "ms": scres["flownetc"]["ms"],
         "plain_ms": scres["flownetc"]["plain_ms"],
@@ -2997,7 +3476,8 @@ def main() -> None:
                      + pcres["launches/spatial_corr_bwd"]
                      + ures["launches/spatial_corr_bwd"]
                      + f2ares["launches/spatial_corr_bwd"]
-                     + f2ares["cli_launches/spatial_corr_bwd"]),
+                     + f2ares["cli_launches/spatial_corr_bwd"]
+                     + dares["launches/spatial_corr_bwd"]),
         "max_abs_err": scres["attack"]["bwd_err"],
         "ms": scres["attack/bwd"]["ms"],
         "plain_ms": scres["attack/bwd"]["plain_ms"],

@@ -348,10 +348,12 @@ def test_test_patch_cli_modes_and_refusals(tmp_path):
     assert tcli_test._load_patch_file(nchw).shape == (1, 9, 9, 3)
     with pytest.raises(SystemExit):
         tcli_test.main(base[:4] + ["--random_patch", "self"] + base[6:])
-    with pytest.raises(NotImplementedError, match="A11"):
+    # --mask_path and the dataset branch read files (absent here; they run
+    # in tests/test_torch_dataset_clis.py)
+    with pytest.raises(FileNotFoundError, match="m.png"):
         tcli_test.main(base + ["--mask_path", "m.png"])
-    with pytest.raises(NotImplementedError, match="A11"):
-        tcli_test.main(base[:6])
+    with pytest.raises(FileNotFoundError, match="scene_flow"):
+        tcli_test.main(base[:6] + base[-2:])
 
 
 def _jtoy(img1, img2):

@@ -211,10 +211,12 @@ def test_cli_runs_its_default_flownetc_on_the_cpu(tmp_path):
 @pytest.mark.parametrize("argv,err,match", [
     (["--synthetic", "1", "--flownet", "FlowNet3"], KeyError,
      "unknown model"),
-    (["--flownet", "RAFT"], NotImplementedError, "A11"),  # no dataset yet
+    # the dataset branch reads the path lists of --data_list_dir (here
+    # the default, absent): tests/test_torch_dataset_clis.py runs it
+    (["--flownet", "RAFT"], FileNotFoundError, "kitti_scene_flow_train"),
     # the corruption sweep reads the same dataset branch
-    (["--flownet", "RAFT", "--perturb_method", "fog"], NotImplementedError,
-     "A11"),
+    (["--flownet", "RAFT", "--perturb_method", "fog"], FileNotFoundError,
+     "kitti_scene_flow_train"),
     (["--flownet", "RAFT", "--disparity"], NotImplementedError, "disparity"),
     (["--flownet", "RAFT", "--flow_loss", "corr"], NotImplementedError,
      "corr"),

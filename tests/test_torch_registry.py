@@ -221,7 +221,10 @@ def test_port_imports_no_jax():
         "          'attacks.patch3d', 'attacks.patch_attack',\n"
         "          'attacks.universal', 'utils.meters', 'cli.patch_attack',\n"
         "          'cli.test_patch', 'cli.universal_perturbation',\n"
-        "          'models.flownet2', 'attacks.corruptions'):\n"
+        "          'models.flownet2', 'attacks.corruptions',\n"
+        "          'flowviz.io', 'flowviz.png', 'flowviz.flow_viz', 'native',\n"
+        "          'data.datasets', 'data.validation', 'data.transforms',\n"
+        "          'training.evaluate', 'cli.evaluate', 'cli.infer'):\n"
         "    assert p.__name__ + '.' + k in names, k\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax'))\n"
         "       or m.startswith('understanding_flow_robustness_tpu.')\n"

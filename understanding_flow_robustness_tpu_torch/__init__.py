@@ -9,9 +9,9 @@ module's counterpart: ``ops/`` (plain PyTorch operators and the wrappers of
 the hand-written kernels), ``models/`` (``nn.Module``s in NCHW, keeping the
 original PyTorch repository's parameter names), ``attacks/`` (the global
 and patch attacks and the universal perturbation on torch autograd),
-``flowviz/``, ``training/``, ``utils/`` (meters and loggers), ``cli/`` and
-``csrc/`` (CUDA sources, compiled with ``nvcc`` for ``sm_90a`` at first
-use, ``ops/_build.py``).
+``flowviz/``, ``data/``, ``native/`` (the host library), ``training/``,
+``utils/`` (meters and loggers), ``cli/`` and ``csrc/`` (CUDA sources,
+compiled with ``nvcc`` for ``sm_90a`` at first use, ``ops/_build.py``).
 
 Ported so far: RAFT-12 inference and training (``models.fetch_model(
 "RAFT")``, ``predict_flow``, ``training``) with the correlation lookup and
@@ -25,8 +25,12 @@ correlation and its gradient as CUDA kernels (``csrc/spatial_corr_fwd.cu``,
 ``csrc/spatial_corr_bwd.cu``); the FGSM-family and noise attacks on every
 ported model (``attacks``, ``cli.run_perturb_model``); the patch attacks,
 their 3-D true-motion placement and the universal perturbation
-(``cli.patch_attack``, ``cli.test_patch``, ``cli.universal_perturbation``).
-Entry points run on the card unless the caller asks for the CPU.
+(``cli.patch_attack``, ``cli.test_patch``, ``cli.universal_perturbation``);
+the readers and datasets (``flowviz.io`` on the port's own PNG codec,
+``data``, the host library ``native`` built with g++), evaluation
+(``training.evaluate``, ``cli.evaluate``) and batch inference over files
+(``cli.infer``).  Entry points run on the card unless the caller asks for
+the CPU.
 """
 
 __version__ = "0.1.0"

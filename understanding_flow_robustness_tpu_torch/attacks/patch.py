@@ -9,8 +9,7 @@ canvases (patch, mask, init) plus the location, as the reference does
 ``patch_attack.py`` on the device.  Every random draw comes from the global
 ``np.random`` stream, in the reference's order, so a seeded run places
 patches exactly where the JAX package's does.  Reading a patch or a mask
-from an image file needs the image reader and the u8 resize of ROADMAP
-A11, and raises until they are ported.
+from an image file is ROADMAP A11b, and raises until it is ported.
 """
 
 from __future__ import annotations
@@ -51,11 +50,10 @@ def init_patch_circle(image_size: int, patch_size: float):
 def init_patch_from_image(image_path: str, mask_path: str,
                           image_size: int, patch_size: float):
     """utils_patch.py:769-778: initialize the patch from an image file.
-    Needs the image reader (``flowviz/io``) and the native u8 resize, which
-    are ROADMAP A11: raises until they are ported."""
+    ROADMAP A11b: raises until it is ported."""
     raise NotImplementedError(
-        "initialising a patch from an image file needs flowviz/io and the "
-        "u8 resize, which are not ported yet (ROADMAP A11)")
+        "initialising a patch from an image file is not ported yet "
+        "(ROADMAP A11b)")
 
 
 def create_random_patch(patch_type: str, patch_size: int) -> np.ndarray:
@@ -193,8 +191,7 @@ def get_patch_and_mask(patch_size=None, patch_type="circle",
     shape = patch.shape
     if mask_path:
         raise NotImplementedError(
-            "a mask from an image file needs flowviz/io and the image "
-            "resize, which are not ported yet (ROADMAP A11)")
+            "a mask from an image file is not ported yet (ROADMAP A11b)")
     if patch_type == "circle":
         m = create_circular_mask(shape[1], shape[2]).astype("float32")
         mask = np.tile(m[None, :, :, None], (1, 1, 1, 3))

@@ -9,7 +9,7 @@ adversarial EPE/cossim).  The same flags as the JAX CLI, plus ``--device``:
 the card unless asked for ``cpu`` (no fallback; ``gpu`` means ``cuda``).
 Runs on ``--synthetic N`` frames; the dataset branches (``SequenceFolder``,
 the KITTI evaluation set) and ``--patch-path``/``--mask-path`` (image
-files) raise naming ROADMAP A11 until the loaders are ported.
+files) raise naming ROADMAP A11b until they are ported.
 
 Example:
   python -m understanding_flow_robustness_tpu_torch.cli.patch_attack \\
@@ -38,9 +38,9 @@ def build_parser():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--data", type=str, default="datasets/KITTI/2012_prepared",
                    help="prepared KITTI raw root (SequenceFolder; ROADMAP "
-                        "A11)")
+                        "A11b)")
     p.add_argument("--kitti-data", type=str, default="datasets/KITTI/scene_flow",
-                   help="KITTI scene-flow root for validation (ROADMAP A11)")
+                   help="KITTI scene-flow root for validation (ROADMAP A11b)")
     p.add_argument("--valset", type=str, default="kitti2015",
                    choices=["kitti2012", "kitti2015"])
     p.add_argument("--flownet", type=str, default="FlowNetC")
@@ -61,10 +61,10 @@ def build_parser():
     p.add_argument("--norotate", action="store_true")
     p.add_argument("--patch-path", type=str, default="",
                    help="initialize patch from this image (main.py:48; "
-                        "ROADMAP A11)")
+                        "ROADMAP A11b)")
     p.add_argument("--mask-path", type=str, default="",
                    help="initialize mask from this image (main.py:51; "
-                        "ROADMAP A11)")
+                        "ROADMAP A11b)")
     p.add_argument("--DEBUG", action="store_true",
                    help="truncate the train set to 8 samples (main.py:238)")
     p.add_argument("-j", "--workers", type=int, default=4,
@@ -114,12 +114,12 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if not args.synthetic:
         raise NotImplementedError(
-            "the KITTI loaders (SequenceFolder, the evaluation sets) are not "
-            "ported yet (ROADMAP A11); use --synthetic N")
+            "the dataset branches (SequenceFolder, the evaluation set) are "
+            "not ported yet (ROADMAP A11b); use --synthetic N")
     if args.patch_path or args.mask_path:
         raise NotImplementedError(
-            "--patch-path/--mask-path read image files, which needs "
-            "flowviz/io and the u8 resize (ROADMAP A11)")
+            "--patch-path/--mask-path (a patch from an image file) are not "
+            "ported yet (ROADMAP A11b)")
     np.random.seed(args.seed)
 
     from ..models import (

@@ -7,9 +7,9 @@ The same flags, defaults and output-path taxonomy
 perturb_main.py:77-119).  The reference's three branches run:
 universal-perturbation evaluation, the white-box and noise attacks, and
 the image corruptions, swept over severities 1-5 into
-``.../mode/<corruption>/<severity>/`` (run_perturb_model.py:246-281).  Not
-ported yet, and raising: the KITTI dataset branch (ROADMAP A11; use
-``--synthetic N``) and ``--disparity`` (unimplemented upstream too).
+``.../mode/<corruption>/<severity>/`` (run_perturb_model.py:246-281), on
+the KITTI pairs listed under ``--data_list_dir`` or on ``--synthetic N``
+random pairs.  ``--disparity`` raises (unimplemented upstream too).
 ``--device`` defaults to ``cuda``, with no fallback; ``--device cpu`` runs
 on the CPU.  ``--flownet`` takes every registry ID, FlowNetC by default.
 The corruptions run on the host; those that need ``cv2`` raise without it.
@@ -122,18 +122,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _samples(args):
     """--synthetic N: the JAX CLI's numpy pairs (same RandomState draws)
-    with an all-zero, all-valid GT."""
-    if not args.synthetic:
-        raise NotImplementedError(
-            "the KITTI loaders are not ported yet (ROADMAP A11); use "
-            "--synthetic N")
-    rng = np.random.RandomState(0)
-    for _ in range(args.synthetic):
-        img0 = rng.rand(1, args.n_height, args.n_width, 3).astype(np.float32)
-        img1 = rng.rand(1, args.n_height, args.n_width, 3).astype(np.float32)
-        gt = np.zeros((1, args.n_height, args.n_width, 3), np.float32)
-        gt[..., 2] = 1
-        yield img0, img1, gt, gt
+    with an all-zero, all-valid GT.  Otherwise the KITTI pairs of
+    ``--data_list_dir``'s path lists (``KittiPairDataset.from_lists``):
+    the frames resized to n_height x n_width, the GT downscaled
+    sparse-aware beside the full-resolution GT."""
+    if args.synthetic:
+        rng = np.random.RandomState(0)
+        for _ in range(args.synthetic):
+            img0 = rng.rand(1, args.n_height, args.n_width, 3).astype(
+                np.float32)
+            img1 = rng.rand(1, args.n_height, args.n_width, 3).astype(
+                np.float32)
+            gt = np.zeros((1, args.n_height, args.n_width, 3), np.float32)
+            gt[..., 2] = 1
+            yield img0, img1, gt, gt
+        return
+    from ..data import KittiPairDataset
+
+    year = "2015" if args.dataset == "kitti2015" else "2012"
+    ds = KittiPairDataset.from_lists(
+        args.data_list_dir, year=year, split="train",
+        n_height=args.n_height, n_width=args.n_width)
+    for i in range(len(ds)):
+        img0, img1, gt_small, gt_full = ds[i]
+        yield img0[None], img1[None], gt_small[None], gt_full[None]
 
 
 def _output_path(args) -> str:

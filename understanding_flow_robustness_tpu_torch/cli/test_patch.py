@@ -14,10 +14,11 @@ synthesizes the GT from the composed transform
 calib/poses (utils_patch.py:849-997, project_patch_3d_scene).
 
 The same flags as the JAX CLI, plus ``--device``: the card unless asked
-for ``cpu`` (no fallback; ``gpu`` means ``cuda``).  Runs on
-``--synthetic N`` frames (synthetic calib/poses with --true_motion); the
-dataset branch and ``--mask_path`` (an image file) raise naming ROADMAP
-A11 until the loaders and the image reader are ported.
+for ``cpu`` (no fallback; ``gpu`` means ``cuda``).  Runs on the KITTI /
+Sintel evaluation sets (``get_evaluation_set`` at 384x1280, KITTI raw
+calib/poses with --true_motion) or on ``--synthetic N`` frames (synthetic
+calib/poses with --true_motion).  The viz panels are written with PIL, so
+``--no_viz`` runs without it.
 """
 
 from __future__ import annotations
@@ -148,10 +149,17 @@ def load_patch(args):
     if args.mask_path:
         # custom mask image, resized to the patch and /256
         # (utils_patch.py:24-27)
-        raise NotImplementedError(
-            "--mask_path reads an image file, which needs flowviz/io and "
-            "the u8 resize (ROADMAP A11)")
-    if args.patch_type == "square":
+        from ..flowviz.io import read_image
+        from ..native import resize_bilinear_u8
+
+        m_img = read_image(args.mask_path)
+        if m_img.ndim == 2:   # grayscale mask file -> 3 channels
+            m_img = np.repeat(m_img[..., None], 3, axis=-1)
+        mask = resize_bilinear_u8(
+            m_img[..., :3].astype(np.uint8), patch.shape[1], patch.shape[2]
+        ).astype(np.float32) / 256.0
+        mask = mask[None]
+    elif args.patch_type == "square":
         mask = np.ones(patch.shape, np.float32)  # utils_patch.py:32
     else:
         m = create_circular_mask(patch.shape[1],
@@ -179,8 +187,24 @@ def _synthetic_calib(h, w):
 
 
 def _val_samples(args):
-    """--synthetic N: the JAX CLI's numpy frames (same RandomState draws),
-    zero all-valid GT, constant disparity."""
+    """The evaluation set of ``--valset`` at 384x1280 (the JAX CLI's
+    geometry), or with --synthetic N the JAX CLI's numpy frames (same
+    RandomState draws), zero all-valid GT, constant disparity."""
+    if not args.synthetic:
+        from argparse import Namespace
+
+        from ..data import get_evaluation_set
+
+        ds = get_evaluation_set(args.valset, Namespace(
+            img_height=384, img_width=1280, kitti_dir=args.kitti_dir,
+            sintel_dir=args.sintel_dir, true_motion=args.true_motion,
+            kitti_raw_dir=args.kitti_raw_dir, example=args.example,
+        ))
+        for i in range(len(ds)):
+            past, tgt, fut, gt_flow, disp, calib, poses = ds[i]
+            yield (i, past[None], tgt[None], fut[None], gt_flow[None],
+                   np.asarray(disp), calib, poses)
+        return
     rng = np.random.RandomState(args.seed)
     h, w = args.synthetic_size
     for i in range(args.synthetic):
@@ -236,10 +260,6 @@ def _viz_panel(adv_tgt, adv_ref, flow, adv_flow, gt_adv):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if not args.synthetic:
-        raise NotImplementedError(
-            "the KITTI/Sintel evaluation sets are not ported yet (ROADMAP "
-            "A11); use --synthetic N")
     np.random.seed(args.seed)
 
     from ..models import checkpoint_arg, device_arg, fetch_model, predict_flow

@@ -39,7 +39,7 @@ _NOT_TRAINED = {**NOT_PORTED, **dict.fromkeys(FLOWNET_IDS, "A7"),
                 "RAFT_FlowNetCEncoder_WoContext": "A10"}
 # flags of the JAX CLI that belong to paths not ported yet
 _OTHER_FAMILIES = {
-    "flowNetC": "A7", "pwc": "A9", "small": "A10", "validation": "A11",
+    "flowNetC": "A7", "pwc": "A9", "small": "A10", "validation": "A11b",
     "n_devices": "A13",
 }
 
@@ -144,7 +144,7 @@ def main(argv=None) -> dict:
         what = ("--adversarial's KITTI pairs (training/utils.py:245-289)"
                 if args.adversarial else f"--stage {args.stage}")
         raise NotImplementedError(
-            f"{what} needs its dataset loaders (ROADMAP A11); use "
+            f"{what} needs its dataset loaders (ROADMAP A11b); use "
             "--synthetic N")
     if args.val_freq is None:  # train.py:143-148
         args.val_freq = 1000 if args.adversarial else 5000

@@ -14,7 +14,7 @@ upstream regardless of --valset, reproduced as-is.  ``--device`` is the
 card unless asked for ``cpu`` (no fallback; ``gpu`` means ``cuda``).  Runs
 on ``--synthetic N`` batches, each epoch ending in the JAX CLI's data-free
 report; the dataset branches (``SequenceFolder``, the per-epoch valset
-sweep) raise naming ROADMAP A11 until the loaders are ported.
+sweep) raise naming ROADMAP A11b until they are ported.
 """
 
 from __future__ import annotations
@@ -83,7 +83,7 @@ def build_parser():
     p.add_argument("--log-output", type=bool, default=True,
                    help="flow/adv-flow viz images at the valset sweep "
                         "(universal_perturbation.py:569-620); accepted for "
-                        "parity, the sweep is ROADMAP A11")
+                        "parity, the sweep is ROADMAP A11b")
     p.add_argument("--log_terminal", action="store_true")
     p.add_argument("--training-output-freq", type=int, default=50,
                    help="TensorBoard train-image frequency; 0 disables "
@@ -118,8 +118,8 @@ def main(argv=None):
             "(perturb_model.py:129-142)")
     if not args.synthetic:
         raise NotImplementedError(
-            "the KITTI loaders (SequenceFolder, the evaluation sets) are not "
-            "ported yet (ROADMAP A11); use --synthetic N")
+            "the dataset branches (SequenceFolder, the valset sweep) are not "
+            "ported yet (ROADMAP A11b); use --synthetic N")
     if args.image_size is not None:  # legacy alias
         args.n_height, args.n_width = args.image_size
     if args.seed <= 0:
@@ -195,7 +195,7 @@ def main(argv=None):
     def on_epoch_end(epoch, n0, n1):
         # the JAX CLI's data-free report when no valset is found: EPE
         # degradation vs the clean prediction on one train-style batch
-        # (the valset sweep, universal_perturbation.py:533-620, is A11)
+        # (the valset sweep, universal_perturbation.py:533-620, is A11b)
         tgt, fut = (on_device(x, device) for x in next(iter(batches())))
         clean = predict_eval(tgt, fut)
         gt = torch.cat([clean, torch.ones_like(clean[..., :1])], -1)

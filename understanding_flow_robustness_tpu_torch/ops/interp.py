@@ -2,7 +2,10 @@
 ``understanding_flow_robustness_tpu/ops/interp.py``).
 
 Unlike the JAX package these take NCHW tensors, the layout of the port's
-convolutions.  ``warp_backward`` is the plain PyTorch version of the CUDA
+convolutions; the InputPadder helpers ``compute_pad`` and ``remove_pad``
+keep the JAX package's NHWC, the layout of the images and flows that
+``predict_flow`` takes and returns (the padding itself is done on the host,
+``native.batch_u8_to_float01_pad`` and ``data.loader.pad_batch``).  ``warp_backward`` is the plain PyTorch version of the CUDA
 kernel ``csrc/warp_fwd.cu`` (``ops/warp.py`` launches it for CUDA tensors);
 every function here also runs on the CPU.  The TPU's tiled warp planning,
 its violation count and the bounded correction are not ported: a GPU
@@ -202,3 +205,24 @@ def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     h2, w2 = H // 2, W // 2
     x = x[:, :, : 2 * h2, : 2 * w2].reshape(B, C, h2, 2, w2, 2)
     return x.sum(dim=(3, 5)) * 0.25
+
+
+def compute_pad(height: int, width: int, mode: str = "sintel",
+                multiple: int = 8) -> tuple:
+    """Pad amounts (top, bottom, left, right) to reach a multiple, RAFT's
+    InputPadder rule (interp.py:621-630; models/raft/utils/utils.py:7-23):
+    "sintel" pads both axes symmetrically, "kitti" pads H at the bottom
+    only and W symmetrically."""
+    pad_h = (-height) % multiple
+    pad_w = (-width) % multiple
+    if mode == "sintel":
+        return (pad_h // 2, pad_h - pad_h // 2, pad_w // 2, pad_w - pad_w // 2)
+    return (0, pad_h, pad_w // 2, pad_w - pad_w // 2)
+
+
+def remove_pad(x, pad: tuple):
+    """Crop the (top, bottom, left, right) padding of ``compute_pad`` off
+    NHWC (a tensor or an array)."""
+    t, b, l, r = pad
+    H, W = x.shape[1:3]
+    return x[:, t:H - b, l:W - r]
