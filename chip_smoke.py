@@ -84,8 +84,8 @@ The FlowNet slice adds, after the RAFT grad phase (so that the earlier
 phases' random inputs stay as they were):
 13. The spatial correlation's kernels ``spatial_corr_fwd`` and
    ``spatial_corr_bwd`` against the plain version and its autograd at
-   FlowNetC's serving, attack and patch shapes (f32, patch 21, dilation
-   2), PWC-Net's five bf16 levels (patch 9), three ragged shapes (C = 3,
+   FlowNetC's serving, attack and patch shapes and the patch CLI's 256 px
+   crop (f32, patch 21, dilation 2), PWC-Net's five bf16 levels (patch 9), three ragged shapes (C = 3,
    33, 196) and the generic kernel's patches 1 and 3 (C = 40, 35); times
    of kernel, plain version and bound at FlowNetC's serving and patch
    shapes and PWC-Net's level 2 (forward) and at FlowNetC's attack and
@@ -168,6 +168,38 @@ per row has them):
    2-pair ``kitti_scene_flow_train_*.txt`` list (FlowNetC I-FGSM, 3
    steps) and ``test_patch --valset kitti2015`` on 2 scenes; both
    correlation kernels' launches.
+The training-data slice adds, after the dataset branches (its trees
+under the ignored build/, JPEG frames from the fixtures committed in the
+port's package):
+28. The JPEG decoder on the four 375x1242 fixture frames: each equal to
+   the sha256 of PIL's decode recorded beside them; host ms per frame.
+29. A FlyingChairs tree (16 pairs of 384x512 .ppm + .flo and
+   ``datasets/chairs_split.txt``) and a KITTI 2015 tree (8 scenes at the
+   KITTI sizes): per sample on one thread the ms of decode, colour
+   jitter, spatial transform and collate; the ``DataLoader`` at 4 threads
+   in samples/s, against phase 8's synthetic train step.
+30. The train CLI from those files, run from their parent directory:
+   ``--stage kitti`` at the bench's geometry (batch 4, 288x960, mixed
+   precision) for 6 batches with ``--validation kitti`` every 3,
+   ``--stage chairs`` at the CLI's defaults for 2 batches, and
+   ``--stage kitti2015 --adversarial`` on 2 KITTI pairs (batch 1,
+   256x640, 3 attack steps), then ``--stage kitti`` for 20 batches of
+   one epoch without validation: 12 launches of ``alt_corr_fwd`` and
+   ``alt_corr_bwd`` per forward and backward, finite losses; the last
+   run's frames/s with the loader over its wall time.
+31. ``alt_corr_fwd`` and ``alt_corr_bwd`` against their plain versions at
+   the feature shape of ``--stage chairs`` (6, 32, 80, 256), f32 and bf16.
+32. The patch CLI (FlowNetC) for one epoch of SequenceFolder training on
+   the JPEG fixtures with the KITTI valset at 384x1280, then from a
+   patch and a mask in PNG files; the universal CLI for one epoch from
+   the same fixtures with its valset sweep: both correlation kernels'
+   launches, the files and metrics the CLIs write.
+33. RAFT (f32) at 56x88, whose fourth pyramid level is empty: the alt and
+   volume paths' kernels against the plain lookup within
+   F32_FLOW_TOL_PX, then the lookups (``alt_corr_fwd``, its backward
+   ``alt_corr_bwd``, ``corr_lookup_fwd``) on levels that include the
+   empty one against their plain versions, and the kernels' wrappers
+   refusing the empty level.
 PWC-Net's serving phase (7) also counts its 5 ``spatial_corr_fwd``
 launches per request, holds the flow against the plain warp and the plain
 correlation together, and times pairs/s with the plain correlation too, in
@@ -178,7 +210,9 @@ Any failed check raises, so the script exits non-zero and prints no result.
 Before them, one line gives the patch step's ms per inner iteration and
 iterations/s with the card, and one FlowNet2's pairs/s, its I-FGSM ms per
 step and the adversarial train batch's ms, and one the infer CLI's pairs/s,
-the PNG decode ms and the evaluate CLI's seconds per scene.  The last three
+the PNG decode ms and the evaluate CLI's seconds per scene, and one the
+JPEG decode ms, the loader's samples/s and the train CLI's frames/s from
+files.  The last three
 lines are the card's name and
 power limit, a JSON object per
 kernel (its launches on the main paths, its error against its plain
@@ -266,11 +300,13 @@ FLOW_F32_TOL_PX = 1e-3   # max |dflow|, warp kernel vs plain warp, f32 models
 # f32 bar where a sum cancels below it
 CORR_REL_TOL = 1e-5
 # the correlation shapes of the main paths, (B, C, H, W), patch, dilation,
-# dtype: FlowNetC serving, attacked and patch-attacked (f32), PWC-Net mixed
-# levels 6..2
+# dtype: FlowNetC serving, attacked and patch-attacked (f32; the patch
+# CLI from files trains on 256x256 crops), PWC-Net mixed levels 6..2
 CORR_MAIN = {"flownetc": ((B, 256, H // 8, W // 8), 21, 2, torch.float32),
              "attack": ((1, 256, 256 // 8, 640 // 8), 21, 2, torch.float32),
-             "patch": ((1, 256, 384 // 8, 1280 // 8), 21, 2, torch.float32)}
+             "patch": ((1, 256, 384 // 8, 1280 // 8), 21, 2, torch.float32),
+             "patch_256": ((1, 256, 256 // 8, 256 // 8), 21, 2,
+                           torch.float32)}
 CORR_PWC = {f"pwc_l{lvl}": ((B, c, H >> lvl, W >> lvl), 9, 1, torch.bfloat16)
             for lvl, c in ((6, 196), (5, 128), (4, 96), (3, 64), (2, 32))}
 CORR_RAGGED = {"ragged_c3": ((2, 3, 13, 21), 21, 2, torch.float32),
@@ -1358,10 +1394,10 @@ def spatial_corr_phase(gen) -> dict:
     res = {}
     for name, (shape, patch, dil, dtype) in {**CORR_MAIN, **CORR_PWC,
                                              **CORR_RAGGED}.items():
-        # the patch shape draws from a generator of its own, so that the
+        # the patch shapes draw from generators of their own, so that the
         # other cases and later phases draw as before
         cg = torch.Generator(device="cuda").manual_seed(PATCH_SEED) \
-            if name == "patch" else gen
+            if name.startswith("patch") else gen
         f1 = torch.randn(shape, generator=cg, device="cuda").to(dtype)
         f2 = torch.randn(shape, generator=cg, device="cuda").to(dtype)
         g = torch.randn((shape[0], patch ** 2) + shape[2:], generator=cg,
@@ -3232,6 +3268,561 @@ def dataset_attack_phase() -> dict:
     return {"launches/" + k: v for k, v in n.items()}
 
 
+FILES_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_files"
+CHAIRS_PAIRS, CHAIRS_SIZE = 16, (384, 512)
+LOADER_WORKERS = 4
+LOADER_REPEAT = 4        # the KITTI tree's 8 scenes, 4 times: 32 samples
+FILES_STEPS, FILES_VAL_FREQ = 6, 3   # --stage kitti: batches, validations
+CHAIRS_BATCH = 6         # the train CLI's default batch, at 256x640
+# the train CLI's rate from files: RATE_STEPS batches at the bench's
+# geometry, one epoch of a KITTI tree grown to RATE_STEPS * TB scenes (the
+# written ones, copied), so that only the first batch starts the loader
+RATE_STEPS = 20
+SUB64 = (2, 56, 88)      # RAFT below 64 px: H/8 = 7, levels 7, 3, 1, 0 rows
+
+
+def jpeg_phase() -> dict:
+    """The host library's JPEG decoder on the committed KITTI-raw fixtures
+    (375x1242, 4:2:0, quality 75): each frame's samples against the sha256
+    of PIL's decode recorded beside them; host ms per frame."""
+    import hashlib
+
+    from understanding_flow_robustness_tpu_torch import native
+    from understanding_flow_robustness_tpu_torch.data import fixtures_dir
+
+    root = Path(fixtures_dir("kitti_raw_jpeg"))
+    hashes = json.loads((root / "decoded_sha256.json").read_text())
+    print(f"== JPEG: {len(hashes)} fixture frames ==", flush=True)
+    times = []
+    for rel, want in sorted(hashes.items()):
+        data = (root / rel).read_bytes()
+        img = native.decode_jpeg(data)
+        check(img.shape == (375, 1242, 3)
+              and hashlib.sha256(img.tobytes()).hexdigest() == want,
+              f"JPEG {rel}: {img.shape}, not PIL's decode")
+        for _ in range(5):
+            t = time.perf_counter()
+            native.decode_jpeg(data)
+            times.append(time.perf_counter() - t)
+    ms = 1e3 * float(np.median(times))
+    print(f"JPEG: {len(hashes)} frames equal PIL's decode (sha256); "
+          f"{ms:.2f} ms per 375x1242 frame on the host (median of "
+          f"{len(times)})", flush=True)
+    return {"decode_ms": ms, "frames": len(hashes)}
+
+
+def write_chairs_tree(gen, root: Path) -> None:
+    """FlyingChairs' layout under root: CHAIRS_PAIRS pairs of .ppm frames and
+    a .flo each, and ``datasets/chairs_split.txt`` (all training) where the
+    datasets read it, relative to the working directory."""
+    from understanding_flow_robustness_tpu_torch.flowviz import io as fio
+
+    data = root / "datasets" / "FlyingChairs_release" / "data"
+    data.mkdir(parents=True, exist_ok=True)
+    h, w = CHAIRS_SIZE
+    for i in range(CHAIRS_PAIRS):
+        for k in (1, 2):
+            fio.write_image(str(data / f"{i + 1:05d}_img{k}.ppm"),
+                            kitti_frame(gen, h, w))
+        flow = 4.0 * torch.randn((h, w, 2), generator=gen, device="cuda")
+        fio.write_flo(str(data / f"{i + 1:05d}_flow.flo"), flow.cpu().numpy())
+    (root / "datasets" / "chairs_split.txt").write_text(
+        "1\n" * CHAIRS_PAIRS)
+
+
+def loader_phase(gen, tres) -> dict:
+    """Writes the trees the files phases read -- FlyingChairs (CHAIRS_PAIRS
+    pairs at 384x512) and a KITTI 2015 training layout (write_kitti_layout)
+    under FILES_OUT/datasets -- then times the host's training data path:
+    one pass at num_workers=0 split into decode, colour jitter, spatial
+    transform (resize, flips, crop) and collate; samples/s of the
+    DataLoader at LOADER_WORKERS threads, against what phase 8's synthetic
+    train step consumes."""
+    from understanding_flow_robustness_tpu_torch.data import (
+        DataLoader,
+        Subset,
+        augmentor,
+        fetch_dataset,
+    )
+    from understanding_flow_robustness_tpu_torch.data import loader as dl
+    from understanding_flow_robustness_tpu_torch.flowviz import io as fio
+    from understanding_flow_robustness_tpu_torch.models import fetch_model
+
+    print(f"== training data path: FlyingChairs {CHAIRS_PAIRS} pairs at "
+          f"{CHAIRS_SIZE}, KITTI 2015 {KITTI_SCENES} scenes at {KITTI_SIZES}"
+          f", DataLoader({LOADER_WORKERS} workers) ==", flush=True)
+    shutil.rmtree(FILES_OUT, ignore_errors=True)
+    write_chairs_tree(gen, FILES_OUT)
+    model = fetch_model("RAFT", mixed_precision=False, iters=ITERS)
+    write_kitti_layout(gen, FILES_OUT / "datasets" / "KITTI" / "2015", model)
+    del model
+
+    timers = {}
+
+    def timed(owner, name, key):
+        fn = getattr(owner, name)
+
+        def wrapped(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            timers[key] = timers.get(key, 0.0) + time.perf_counter() - t
+            return out
+        return fn, wrapped
+
+    res = {}
+    # the train runs' geometries: chairs at the CLI's defaults, KITTI at
+    # the JAX bench's
+    stages = (("chairs", (256, 640), CHAIRS_BATCH), ("kitti", (TH, TW), TB))
+    with contextlib.chdir(FILES_OUT):
+        for stage, size, batch in stages:
+            ds = fetch_dataset(stage, size)
+            n = len(ds)
+            patches = [
+                (fio, "read_gen", "decode"), (fio, "read_flow_png", "decode"),
+                (augmentor.ColorJitter, "__call__", "jitter"),
+                (augmentor.FlowAugmentor, "spatial_transform", "spatial"),
+                (augmentor.SparseFlowAugmentor, "spatial_transform",
+                 "spatial"),
+                (dl.DataLoader, "_collate", "collate")]
+            saved = []
+            timers.clear()
+            for owner, name, key in patches:
+                fn, wrapped = timed(owner, name, key)
+                saved.append((owner, name, fn))
+                setattr(owner, name, wrapped)
+            try:
+                t = time.perf_counter()
+                seen = sum(b["image1"].shape[0] for b in DataLoader(
+                    ds, batch_size=1, num_workers=0, seed=1))
+                total = time.perf_counter() - t
+            finally:
+                for owner, name, fn in saved:
+                    setattr(owner, name, fn)
+            check(seen == n, f"{stage}: {seen} of {n} samples loaded")
+            split = {k: 1e3 * v / n for k, v in timers.items()}
+            split["total"] = 1e3 * total / n
+            rep = Subset(ds, list(range(n)) * LOADER_REPEAT)
+            loader = DataLoader(rep, batch_size=batch,
+                                num_workers=LOADER_WORKERS, seed=2)
+            t = time.perf_counter()
+            shapes = [b["image1"].shape for b in loader]
+            dt = time.perf_counter() - t
+            count = sum(s[0] for s in shapes)
+            check(count == len(loader) * batch and all(
+                s == (batch, *size, 3) for s in shapes),
+                f"{stage} loader: batches {shapes}")
+            sps = count / dt
+            res[stage] = {"samples_per_s": sps, "ms_per_sample": split}
+            print(f"{stage} at {size}: one thread, ms per sample "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+                  + f"; DataLoader({LOADER_WORKERS} workers, batch {batch}) "
+                  f"{sps:.1f} samples/s over {count} samples; the synthetic "
+                  f"train step (phase 8) takes {tres['frames_per_s']:.1f} "
+                  f"frames/s: the loader "
+                  + ("outruns it" if sps > tres["frames_per_s"] else
+                     "does NOT keep up"), flush=True)
+    return res
+
+
+def _spy_train_steps(trainer, stamps, counts):
+    """Wraps ``trainer.make_train_step`` so each step records when it ended
+    and the lookup kernels' launch counts then; returns the original."""
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    make_step = trainer.make_train_step
+
+    def spy(*a, **k):
+        step = make_step(*a, **k)
+
+        def run(batch):
+            out = step(batch)
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            counts.append({k: LAUNCH_COUNTS[k] for k in
+                           ("alt_corr_fwd", "alt_corr_bwd")})
+            return out
+        return run
+    trainer.make_train_step = spy
+    return make_step
+
+
+def train_files_phase(tres) -> dict:
+    """The train CLI from the files loader_phase wrote, run from their
+    parent directory (chairs' split file and --validation's default roots
+    are relative to it): ``--stage kitti`` at the JAX bench's geometry
+    (batch 4, 288x960, mixed precision) for FILES_STEPS batches with
+    ``--validation kitti`` every FILES_VAL_FREQ; ``--stage chairs`` at the
+    CLI's defaults for 2 batches; ``--stage kitti2015 --adversarial`` on 2
+    KITTI pairs of written path lists (batch 1, 256x640, 3 attack steps);
+    ``--stage kitti`` again, without validation, for RATE_STEPS batches
+    of one epoch.  B1 and B2 launch 12 times per forward or backward: per
+    step or update, per attack step, and B1 per validation scene; losses
+    finite.  The last run's frames/s with the loader -- batches 2..N over
+    the wall time from the end of the first to the end of the last --
+    against phase 8's synthetic train step; the median time between two
+    batches' ends (validation excluded) of every run."""
+    from understanding_flow_robustness_tpu_torch.cli import train as cli_train
+    from understanding_flow_robustness_tpu_torch.flowviz import io as fio
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+    from understanding_flow_robustness_tpu_torch.training import (
+        evaluate as ev,
+    )
+    from understanding_flow_robustness_tpu_torch.training import trainer
+
+    ckpt = FILES_OUT / "checkpoints"
+    lists = FILES_OUT / "lists"
+    lists.mkdir(parents=True, exist_ok=True)
+    base = FILES_OUT / "datasets" / "KITTI" / "2015" / "training"
+    for name, sub, f in (("image0", "image_2", "_10"),
+                         ("image1", "image_2", "_11"),
+                         ("flow", "flow_occ", "_10")):
+        fio.write_paths(str(lists / f"kitti_scene_flow_train_{name}.txt"),
+                        [str(base / sub / f"{i:06d}{f}.png")
+                         for i in range(ADV_TRAIN_BATCHES)])
+    vals = []
+    validate = ev.validate_kitti
+
+    def timed_validate(*a, **k):
+        t = time.perf_counter()
+        out = validate(*a, **k)
+        torch.cuda.synchronize()
+        vals.append((t, time.perf_counter(), out))
+        return out
+
+    runs = (
+        ("kitti", TB, ["--stage", "kitti", "--image_size", str(TH), str(TW),
+                       "--batch_size", str(TB), "--mixed_precision",
+                       "--num_steps", str(FILES_STEPS - 1), "--validation",
+                       "kitti", "--val_freq", str(FILES_VAL_FREQ)], 1),
+        ("chairs", 6, ["--stage", "chairs", "--num_steps", "1"], 1),
+        ("kitti2015", 1, ["--stage", "kitti2015", "--adversarial",
+                          "--batch_size", "1", "--image_size", str(AH),
+                          str(AW), "--num_steps",
+                          str(ADV_TRAIN_BATCHES - 1), "--perturb_n_step",
+                          str(ADV_TRAIN_STEPS), "--data_list_dir",
+                          str(lists)], ADV_INNER),
+        ("kitti_rate", TB, ["--stage", "kitti", "--image_size", str(TH),
+                            str(TW), "--batch_size", str(TB),
+                            "--mixed_precision", "--num_steps",
+                            str(RATE_STEPS - 1)], 1))
+    res = {"launches/alt_corr_fwd": 0, "launches/alt_corr_bwd": 0}
+    for name, batch, argv, inner in runs:
+        if name == "kitti_rate":  # grow the tree to one epoch of the run
+            for i in range(KITTI_SCENES, RATE_STEPS * TB):
+                for sub, f in (("image_2", "_10"), ("image_2", "_11"),
+                               ("flow_occ", "_10")):
+                    shutil.copyfile(
+                        base / sub / f"{i % KITTI_SCENES:06d}{f}.png",
+                        base / sub / f"{i:06d}{f}.png")
+        print(f"== train CLI from files: {' '.join(argv)} ==", flush=True)
+        stamps, counts = [], []
+        vals.clear()
+        LAUNCH_COUNTS.clear()
+        make_step = _spy_train_steps(trainer, stamps, counts)
+        ev.validate_kitti = timed_validate
+        try:
+            with contextlib.chdir(FILES_OUT):
+                out = cli_train.main(argv + [
+                    "--checkpoint_dir", str(ckpt), "--name", name])
+        finally:
+            trainer.make_train_step = make_step
+            ev.validate_kitti = validate
+        steps = out["total_steps"]
+        attack = ADV_TRAIN_STEPS if "--adversarial" in argv else 0
+        scenes = KITTI_SCENES * len(vals)
+        expect = {"alt_corr_fwd": ITERS * (steps * (inner + attack) + scenes),
+                  "alt_corr_bwd": ITERS * steps * (inner + attack)}
+        n = {k: LAUNCH_COUNTS[k] for k in expect}
+        check(n == expect, f"train CLI --stage {name}: launches {n}, not "
+                           f"{expect}")
+        want_vals = (FILES_STEPS // FILES_VAL_FREQ if name == "kitti" else 0)
+        check(len(vals) == want_vals and all(
+            math.isfinite(v) for _, _, r in vals for v in r.values()),
+            f"train CLI --stage {name}: validations {vals}")
+        losses = [m["loss"] for m in out["history"]]
+        check(len(losses) == steps and all(map(math.isfinite, losses)),
+              f"train CLI --stage {name}: losses {losses}")
+        for k in expect:
+            res[f"launches/{k}"] += n[k]
+        # the ends of the batches' last updates; the median time between
+        # two, validation excluded, after the first batch
+        ends = stamps[inner - 1::inner]
+        gaps = []
+        for a, b in zip(ends, ends[1:]):
+            gaps.append(b - a - sum(t1 - t0 for t0, t1, _ in vals
+                                    if a <= t0 < b))
+        ms = 1e3 * float(np.median(gaps))
+        res[name] = {"median_ms_per_batch": ms, "losses": losses}
+        line = (f"train CLI --stage {name}: {steps} batches of {batch}, "
+                f"launches {n}; losses " + " ".join(f"{x:.3f}" for x in losses)
+                + f"; median {ms:.1f} ms between two batches' ends")
+        if name == "kitti_rate":
+            fps = (len(ends) - 1) * batch / (ends[-1] - ends[0])
+            res[name]["frames_per_s"] = fps
+            line += (f"; {fps:.2f} frames/s with the loader over batches 2.."
+                     f"{len(ends)} (synthetic train step, phase 8: "
+                     f"{tres['frames_per_s']:.2f} frames/s at batch {TB}, "
+                     f"{TH}x{TW})")
+        if vals:
+            line += (f"; validation at steps {FILES_VAL_FREQ - 1} and "
+                     f"{2 * FILES_VAL_FREQ - 1}: " + ", ".join(
+                         f"epe {r['kitti-epe']:.2f} f1 {r['kitti-f1']:.1f}"
+                         for _, _, r in vals))
+        print(line, flush=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return res
+
+
+def chairs_lookup_phase() -> tuple:
+    """B1 and B2 against their plain versions at the feature shape
+    ``--stage chairs`` gives them at the train CLI's defaults (batch
+    CHAIRS_BATCH at 256x640: (6, 32, 80, 256)), f32 and bf16, with
+    calibrated, wild, edge and smooth centres, from a generator of this
+    phase's own."""
+    gen = torch.Generator(device="cuda").manual_seed(PATCH_SEED + 2)
+    shape = (CHAIRS_BATCH, 256 // 8, 640 // 8, 256)
+    return (kernel_phase(gen, shape, main="chairs", ragged=False),
+            backward_phase(gen, shape, more=(), main="chairs", ragged=False))
+
+
+@contextlib.contextmanager
+def valset_cut_to(n: int):
+    """``data.get_evaluation_set`` cut to the n scenes the phase wrote (of
+    KITTI's 200), as the CLIs' tests cut it."""
+    from understanding_flow_robustness_tpu_torch import data
+
+    fn = data.get_evaluation_set
+
+    def cut(valset, args):
+        ds = fn(valset, args)
+        ds.N = n
+        return ds
+    data.get_evaluation_set = cut
+    try:
+        yield
+    finally:
+        data.get_evaluation_set = fn
+
+
+def patch_files_phase() -> dict:
+    """The patch CLI (FlowNetC) for one epoch of SequenceFolder training on
+    the committed JPEG fixtures (a 256 px crop: --patch-size 0.3) with the
+    KITTI 2015 valset loader_phase wrote, at 384x1280; then again from a
+    patch and a mask in PNG files the phase writes.  The universal CLI for
+    one epoch from the same fixtures (256x640) with its valset sweep.
+    Launches of both correlation kernels, the files and metrics each CLI
+    writes."""
+    from understanding_flow_robustness_tpu_torch.cli import (
+        patch_attack as cli_patch,
+    )
+    from understanding_flow_robustness_tpu_torch.cli import (
+        universal_perturbation,
+    )
+    from understanding_flow_robustness_tpu_torch.data import fixtures_dir
+    from understanding_flow_robustness_tpu_torch.flowviz import io as fio
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    fixture = fixtures_dir("kitti_raw_jpeg")
+    kitti = str(FILES_OUT / "datasets" / "KITTI" / "2015")
+    out = FILES_OUT / "attacks"
+    rng = np.random.RandomState(PATCH_SEED)
+    png = str(FILES_OUT / "patch.png")
+    mask_png = str(FILES_OUT / "mask.png")
+    fio.write_image(png, (rng.rand(120, 120, 3) * 255).astype(np.uint8))
+    fio.write_image(mask_png, np.full((120, 120, 3), 255, np.uint8))
+    res = {"launches/spatial_corr_fwd": 0, "launches/spatial_corr_bwd": 0}
+    for name, extra, side in (
+            ("run", ["--patch-size", "0.3", "--log-output"], 115),
+            ("from_png", ["--patch-size", "0.05", "--patch-path", png,
+                          "--mask-path", mask_png], 85)):
+        print(f"== patch CLI from files: FlowNetC, SequenceFolder fixtures, "
+              f"KITTI valset of {KITTI_SCENES} scenes, {' '.join(extra)} ==",
+              flush=True)
+        LAUNCH_COUNTS.clear()
+        t0 = time.perf_counter()
+        with recording(cli_patch, "make_patch_attack_step", True) as steps, \
+                recording(cli_patch, "validate_patch") as metrics, \
+                valset_cut_to(KITTI_SCENES):
+            patch, mask = cli_patch.main([
+                "--flownet", "FlowNetC", "--data", fixture, "--kitti-data",
+                kitti, "--epochs", "1", "--max-count", "2", "--output",
+                str(out), "--name", name] + extra)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = [r[4] for r, _ in steps]
+        # per train sample a clean forward and its inner iterations; per
+        # validation scene a clean and an adversarial forward
+        expect = {"spatial_corr_fwd": len(counts) + sum(counts)
+                  + 2 * KITTI_SCENES, "spatial_corr_bwd": sum(counts)}
+        n = {k: LAUNCH_COUNTS[k] for k in expect}
+        check(len(counts) == 2 and n == expect,
+              f"patch CLI {name}: {len(counts)} samples of {counts} "
+              f"iterations, launches {n}, not {expect}")
+        files = ["args.json", "patches/epoch_0.npy"] + (
+            ["patches/epoch_0.png"] if "--log-output" in extra else [])
+        check(all((out / name / f).exists() for f in files)
+              and patch.shape == mask.shape == (1, side, side, 3)
+              and np.load(out / name / "patches" / "epoch_0.npy").shape
+              == patch.shape,
+              f"patch CLI {name}: files {files}, patch {patch.shape}")
+        check(len(metrics) == 1 and all(math.isfinite(v) for v in
+                                        metrics[0].values()),
+              f"patch CLI {name}: validation metrics {metrics}")
+        for k in expect:
+            res[f"launches/{k}"] += n[k]
+        m = metrics[0]
+        print(f"patch CLI {name}: 2 samples of {counts} inner iterations, "
+              f"launches {n}; {', '.join(files)}; KITTI valset epe "
+              f"{m['epe']:.3f} adv_epe {m['adv_epe']:.3f} cos_sim "
+              f"{m['cos_sim']:.3f} adv_cos_sim {m['adv_cos_sim']:.3f}; "
+              f"{dt:.1f} s", flush=True)
+
+    print(f"== universal CLI from files: FlowNetC, SequenceFolder fixtures, "
+          f"KITTI valset of {KITTI_SCENES} scenes ==", flush=True)
+    epes = []
+    compute_epe = universal_perturbation.compute_epe
+
+    def recorded_epe(gt, flow):
+        epes.append(float(compute_epe(gt, flow)))
+        return compute_epe(gt, flow)
+    LAUNCH_COUNTS.clear()
+    universal_perturbation.compute_epe = recorded_epe
+    try:
+        with valset_cut_to(KITTI_SCENES):
+            n0, n1 = universal_perturbation.main([
+                "--data", fixture, "--kitti_dir", kitti, "--epochs", "1",
+                "--n_step", "3", "--seed", "1", "--output_path", str(out)])
+    finally:
+        universal_perturbation.compute_epe = compute_epe
+    # per train sample a clean forward and 3 steps; per scene 2 forwards
+    expect = {"spatial_corr_fwd": 2 * (1 + 3) + 2 * KITTI_SCENES,
+              "spatial_corr_bwd": 2 * 3}
+    n = {k: LAUNCH_COUNTS[k] for k in expect}
+    check(n == expect, f"universal CLI from files: launches {n}, not "
+                       f"{expect}")
+    snap = (out / "kitti2015" / "FlowNetC" / "universal" / "both"
+            / "ifgsm_cossim" / "0.02" / "0.002_3_1" / "perturbations"
+            / "epoch_0.npy")
+    nmax = max(np.abs(n0).max(), np.abs(n1).max())
+    check(snap.exists() and np.load(snap).shape == (1, 2, 256, 640, 3)
+          and 0 < nmax <= 0.02 + 1e-6
+          and len(epes) == 2 * KITTI_SCENES and all(map(math.isfinite, epes)),
+          f"universal CLI from files: snapshot {snap.exists()}, max|noise| "
+          f"{nmax}, valset EPEs {epes}")
+    for k in expect:
+        res[f"launches/{k}"] += n[k]
+    print(f"universal CLI from files: launches {n}; max|noise| {nmax:.4f}; "
+          f"perturbations/epoch_0.npy (1, 2, 256, 640, 3); valset sweep "
+          f"mean epe {np.mean(epes[0::2]):.3f} clean, "
+          f"{np.mean(epes[1::2]):.3f} adversarial", flush=True)
+    shutil.rmtree(FILES_OUT, ignore_errors=True)
+    return res
+
+
+def sub64_phase(gen) -> dict:
+    """RAFT (f32, seeded weights, calibrated as in evaluate_phase) on 56x88
+    frames, whose fourth pyramid level is empty: the kernels (alt path: B1;
+    volume path: B5) against the plain lookup within F32_FLOW_TOL_PX; then
+    the lookups (B1 and its backward B2, B5) on levels that include the
+    empty one, against their plain versions, and the wrappers refusing
+    that level."""
+    from understanding_flow_robustness_tpu_torch.models import (
+        fetch_model,
+        predict_flow,
+        scale_flow_head,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import (
+        LAUNCH_COUNTS,
+        correlation,
+    )
+
+    b, h, w = SUB64
+    print(f"== RAFT below 64 px: batch {b} at {h}x{w}, f32 ==", flush=True)
+    img1 = torch.rand((b, h, w, 3), generator=gen, device="cuda")
+    img2 = torch.roll(img1, 2, dims=2)
+    res = {}
+    for impl, kernel in (("alt", "alt_corr_fwd"),
+                         ("volume", "corr_lookup_fwd")):
+        model = fetch_model("RAFT", mixed_precision=False, iters=ITERS,
+                            corr_impl=impl)
+        # raw init iterates at ~100 px, where 12 f32 iterations amplify a
+        # summation order's ulps; a trained checkpoint's 5-40 px do not
+        model.module = scale_flow_head(model.module, 0.05)
+        LAUNCH_COUNTS.clear()
+        flow = predict_flow(model, img1, img2)
+        n = LAUNCH_COUNTS[kernel]
+        model.module.plain_lookup = True
+        plain = predict_flow(model, img1, img2)
+        mx = float((flow - plain).abs().max())
+        check(n == ITERS and flow.shape == (b, h, w, 2)
+              and bool(torch.isfinite(flow).all()) and mx <= F32_FLOW_TOL_PX,
+              f"RAFT {impl} at {h}x{w}: {n} launches of {kernel}, max|dflow| "
+              f"{mx:.3e}")
+        res[f"launches/{kernel}"] = n
+        res[f"{impl}/max_abs_flow"] = mx
+        print(f"RAFT {impl} path at {h}x{w}: {n} launches of {kernel}; "
+              f"max|dflow| {mx:.3e} px against the plain lookup (tol "
+              f"{F32_FLOW_TOL_PX}); mean|flow| {float(flow.abs().mean()):.3f}",
+              flush=True)
+        del model
+    # the lookups on levels that include the empty one, against the
+    # plain versions: the kernels read the three live levels
+    f1 = torch.randn((b, (h // 8) * (w // 8), 256), generator=gen,
+                     device="cuda") / 16
+    fmap2 = torch.randn((b, h // 8, w // 8, 256), generator=gen,
+                        device="cuda")
+    levels = correlation.pool_fmap_levels(fmap2, 4)
+    check(levels[3].shape[1] == 0, f"levels {[l.shape for l in levels]}")
+    coords = (torch.rand((b, f1.shape[1], 2), generator=gen, device="cuda")
+              * torch.tensor([w // 8, h // 8], device="cuda"))
+    LAUNCH_COUNTS.clear()
+    got = correlation.alt_corr_lookup(f1, levels, coords, 4)
+    ref = correlation.alt_corr_lookup_reference(f1, levels, coords, 4)
+    e_fwd = float((got - ref).abs().max())
+    g = torch.randn(got.shape, generator=gen, device="cuda")
+    ins = [t.clone().requires_grad_() for t in (f1, *levels)]
+    df1, *dl = torch.autograd.grad(
+        correlation.alt_corr_lookup(ins[0], ins[1:], coords, 4), ins, g)
+    rf1, rl = correlation.alt_corr_lookup_backward_reference(f1, levels,
+                                                             coords, g, 4)
+    e_bwd = max(float((df1 - rf1).abs().max()), *[
+        float((a - r).abs().max()) if a.numel() else 0.0
+        for a, r in zip(dl, rl)])
+    fmap1 = torch.randn(fmap2.shape, generator=gen, device="cuda")
+    pyramid = correlation.volume_pyramid(fmap1, fmap2, 4)
+    c4 = coords.reshape(b, h // 8, w // 8, 2)
+    got_v = correlation.corr_lookup(pyramid, c4, 4)
+    ref_v = correlation.corr_lookup_reference(pyramid, c4, 4)
+    e_vol = float((got_v - ref_v).abs().max())
+    n = {k: LAUNCH_COUNTS[k] for k in ("alt_corr_fwd", "alt_corr_bwd",
+                                       "corr_lookup_fwd")}
+    check(n == {"alt_corr_fwd": 2, "alt_corr_bwd": 1, "corr_lookup_fwd": 1}
+          and dl[3].shape == levels[3].shape
+          and got[..., 3 * 81:].abs().max() == 0
+          and got_v[..., 3 * 81:].abs().max() == 0 and e_fwd <= VOL_TOL
+          and e_vol <= VOL_TOL and e_bwd <= 1e-4,
+          f"empty level: launches {n}, fwd {e_fwd:.3e}, bwd {e_bwd:.3e}, "
+          f"volume {e_vol:.3e}")
+    # a wrapper passed the empty level refuses it, launching nothing
+    vol = [p.reshape(b * f1.shape[1], *p.shape[2:]) for p in pyramid]
+    refused = 0
+    for call in (
+            lambda: correlation._alt_corr_lookup_cuda(f1, levels, coords, 4),
+            lambda: correlation._alt_corr_bwd_cuda(f1, levels, coords, g, 4),
+            lambda: correlation.corr_lookup_fwd(vol, coords.reshape(-1, 2))):
+        try:
+            call()
+        except ValueError:
+            refused += 1
+    check(refused == 3 and n == {k: LAUNCH_COUNTS[k] for k in n},
+          f"the wrappers took an empty level ({refused} of 3 refused)")
+    print(f"empty fourth level: alt_corr_fwd max abs err {e_fwd:.3e}, "
+          f"alt_corr_bwd {e_bwd:.3e}, corr_lookup_fwd {e_vol:.3e} against "
+          "the plain versions; the level's taps are zeros; the wrappers "
+          "refuse the empty level", flush=True)
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device: torch.cuda.is_available() is False")
@@ -3303,6 +3894,14 @@ def main() -> None:
     evres = phase(evaluate_phase, gen)
     dares = phase(dataset_attack_phase)
     t_slice = time.perf_counter() - t_slice
+    t_files = time.perf_counter()
+    jres = phase(jpeg_phase)
+    ldres = phase(loader_phase, gen, tres)
+    trfres = phase(train_files_phase, tres)
+    clres, cbres = phase(chairs_lookup_phase)
+    pfres = phase(patch_files_phase)
+    s64res = phase(sub64_phase, gen)
+    t_files = time.perf_counter() - t_files
     print(f"all phases, build included: {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(f"patch attack, FlowNetC, batch {PB} at {PH}x{PW} ({card}): "
@@ -3323,11 +3922,20 @@ def main() -> None:
           f"(host); evaluate {evres['s_per_scene']:.3f} s per KITTI scene "
           f"(f32, {EVAL_ITERS} iterations); the four phases "
           f"{t_slice:.1f} s", flush=True)
+    print(f"training from files ({card}): JPEG decode {jres['decode_ms']:.2f}"
+          f" ms per 375x1242 frame (host); DataLoader({LOADER_WORKERS}) "
+          f"{ldres['kitti']['samples_per_s']:.1f} KITTI samples/s at {TH}x{TW}"
+          f", {ldres['chairs']['samples_per_s']:.1f} chairs samples/s at "
+          f"256x640; train CLI --stage kitti "
+          f"{trfres['kitti_rate']['frames_per_s']:.2f} frames/s with the "
+          f"loader over {RATE_STEPS} batches against "
+          f"{tres['frames_per_s']:.2f} synthetic (phase 8); the six phases "
+          f"{t_files:.1f} s", flush=True)
 
     print(card)  # name, power limit: nvidia-smi's own line
 
-    def patch_err(r):  # the worst case at the RAFT patch CLI's shape
-        return max(v for k, v in r.items() if k.startswith("patch/")
+    def shape_err(r, shape="patch"):  # the worst case at a path's shape
+        return max(v for k, v in r.items() if k.startswith(f"{shape}/")
                    and k.count("/") == 2)
     fwd = "main/calibrated/bfloat16"
     warp = wres["spynet/main"]
@@ -3343,7 +3951,9 @@ def main() -> None:
                      + acres["launches/alt_corr_fwd"]
                      + prres["launches/alt_corr_fwd"]
                      + atres["launches/alt_corr_fwd"]
-                     + inres["launches"] + evres["launches"]),
+                     + inres["launches"] + evres["launches"]
+                     + trfres["launches/alt_corr_fwd"]
+                     + s64res["launches/alt_corr_fwd"]),
         "max_abs_err": kres[fwd],
         "ms": kres[f"{fwd}/ms"],
         "plain_ms": kres[f"{fwd}/plain_ms"],
@@ -3353,7 +3963,8 @@ def main() -> None:
         "wild_ms": kres["main/wild/bfloat16/ms"],
         "serving_tile_share": mres["calibrated/tile_share"],
         "serving_wild_tile_share": mres["wild/tile_share"],
-        "patch_shape_max_abs_err": patch_err(plres),
+        "patch_shape_max_abs_err": shape_err(plres),
+        "chairs_shape_max_abs_err": shape_err(clres, "chairs"),
         "patch_shape_ms": plres["patch/calibrated/bfloat16/ms"],
         "patch_shape_plain_ms": plres["patch/calibrated/bfloat16/plain_ms"],
         "patch_shape_bound_ms":
@@ -3367,7 +3978,8 @@ def main() -> None:
                      + ares["launches/alt_corr_bwd"]
                      + acres["launches/alt_corr_bwd"]
                      + prres["launches/alt_corr_bwd"]
-                     + atres["launches/alt_corr_bwd"]),
+                     + atres["launches/alt_corr_bwd"]
+                     + trfres["launches/alt_corr_bwd"]),
         "max_abs_err": bres[fwd],
         "ms": bres[f"{fwd}/ms"],
         "plain_ms": bres[f"{fwd}/plain_ms"],
@@ -3378,7 +3990,8 @@ def main() -> None:
         "attack_bound_ms":
             bres["attack/calibrated/bfloat16/bound"]["bound_ms"],
         "train_step_tile_share": tres["tile_share"],
-        "patch_shape_max_abs_err": patch_err(pbres),
+        "patch_shape_max_abs_err": shape_err(pbres),
+        "chairs_shape_max_abs_err": shape_err(cbres, "chairs"),
         "patch_shape_ms": pbres["patch/calibrated/bfloat16/ms"],
         "patch_shape_plain_ms": pbres["patch/calibrated/bfloat16/plain_ms"],
         "patch_shape_bound_ms":
@@ -3426,7 +4039,8 @@ def main() -> None:
         "route": "cuda",
         "source": "understanding_flow_robustness_tpu_torch/csrc/corr_lookup_fwd.cu",
         "replaces": "understanding_flow_robustness_tpu/ops/pallas/corr_lookup_fused.py:59",
-        "launches": vres["launches"] + fres["launches"],
+        "launches": (vres["launches"] + fres["launches"]
+                     + s64res["launches/corr_lookup_fwd"]),
         "max_abs_err": vol["max_abs_err"],
         "ms": vol["ms"],
         "plain_ms": vol["plain_ms"],
@@ -3450,7 +4064,8 @@ def main() -> None:
                      + f2ares["launches/spatial_corr_fwd"]
                      + f2ares["cli_launches/spatial_corr_fwd"]
                      + crres["launches/spatial_corr_fwd"]
-                     + dares["launches/spatial_corr_fwd"]),
+                     + dares["launches/spatial_corr_fwd"]
+                     + pfres["launches/spatial_corr_fwd"]),
         "max_abs_err": scres["flownetc"]["fwd_err"],
         "ms": scres["flownetc"]["ms"],
         "plain_ms": scres["flownetc"]["plain_ms"],
@@ -3464,6 +4079,7 @@ def main() -> None:
         "patch_shape_ms": scres["patch"]["ms"],
         "patch_shape_plain_ms": scres["patch"]["plain_ms"],
         "patch_shape_bound_ms": scres["patch"]["bound_ms"],
+        "patch_256_max_abs_err": scres["patch_256"]["fwd_err"],
     }, {
         "name": "spatial_corr_bwd",
         "route": "cuda",
@@ -3477,7 +4093,8 @@ def main() -> None:
                      + ures["launches/spatial_corr_bwd"]
                      + f2ares["launches/spatial_corr_bwd"]
                      + f2ares["cli_launches/spatial_corr_bwd"]
-                     + dares["launches/spatial_corr_bwd"]),
+                     + dares["launches/spatial_corr_bwd"]
+                     + pfres["launches/spatial_corr_bwd"]),
         "max_abs_err": scres["attack"]["bwd_err"],
         "ms": scres["attack/bwd"]["ms"],
         "plain_ms": scres["attack/bwd"]["plain_ms"],
@@ -3491,6 +4108,7 @@ def main() -> None:
         "patch_shape_ms": scres["patch/bwd"]["ms"],
         "patch_shape_plain_ms": scres["patch/bwd"]["plain_ms"],
         "patch_shape_bound_ms": scres["patch/bwd"]["bound_ms"],
+        "patch_256_max_abs_err": scres["patch_256"]["bwd_err"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

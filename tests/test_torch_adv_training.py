@@ -295,9 +295,13 @@ def test_train_cli_adversarial_and_resume(tmp_path):
 @pytest.mark.parametrize("stage", ["kitti2015", "kitti2012"])
 def test_train_cli_refuses_adversarial_kitti_pairs(tmp_path, stage):
     """Adversarial training's data path, KITTI pairs at batch 1
-    (training/utils.py:245-289), waits on the loaders: it raises naming
-    ROADMAP A11."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        cli_train.main(["--adversarial", "--stage", stage, "--batch_size",
-                        "1", "--checkpoint_dir", str(tmp_path),
-                        "--device", "cpu"])
+    (training/utils.py:245-289), is ported (tests/test_torch_train_clis.py
+    trains on it): a batch other than 1 raises, and so do missing path
+    lists."""
+    argv = ["--adversarial", "--stage", stage, "--checkpoint_dir",
+            str(tmp_path), "--device", "cpu", "--data_list_dir",
+            str(tmp_path / "none")]
+    with pytest.raises(ValueError, match="batch_size 1"):
+        cli_train.main(argv + ["--batch_size", "2"])
+    with pytest.raises(FileNotFoundError):
+        cli_train.main(argv + ["--batch_size", "1"])

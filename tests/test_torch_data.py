@@ -222,12 +222,14 @@ def test_chairs_things_concat_subset(roots):
 
 
 def test_refusals(roots):
+    """HD1K raises, as in the reference; an unknown stage raises.  (The
+    training augmentors are ported: aug_params builds the augmentor.)"""
     with pytest.raises(NotImplementedError, match="HD1K"):
         tds.HD1K(root=roots["kitti"])
-    with pytest.raises(NotImplementedError, match="A11b"):
-        tds.KITTI({"crop_size": (32, 32)}, root=roots["kitti"])
-    with pytest.raises(NotImplementedError, match="A11b"):
-        tds.fetch_dataset("chairs", (32, 32))
+    assert type(tds.KITTI({"crop_size": (32, 32)}, root=roots["kitti"])
+                .augmentor).__name__ == "SparseFlowAugmentor"
+    with pytest.raises(ValueError, match="unknown stage"):
+        tds.fetch_dataset("hd1k", (32, 32))
 
 
 @pytest.mark.parametrize("valset", ["kitti2015", "kitti2012", "sintel"])

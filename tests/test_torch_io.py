@@ -241,7 +241,9 @@ def test_png_refusals(tmp_path):
         tpng.decode_png(tpng.SIGNATURE + struct.pack(">I4s", 13, b"IHDR")
                         + ihdr + struct.pack(">I", zlib.crc32(b"IHDR" + ihdr))
                         + tpng.encode_png(img)[33:])
-    with pytest.raises(NotImplementedError, match="A11b"):
+    # JPEG is read now (tests/test_torch_jpeg.py); a progressive one raises
+    Image.fromarray(img).save(str(tmp_path / "x.jpg"), progressive=True)
+    with pytest.raises(ValueError, match="progressive"):
         tio.read_image(str(tmp_path / "x.jpg"))
 
 

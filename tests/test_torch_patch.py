@@ -36,6 +36,7 @@ from understanding_flow_robustness_tpu_torch.cli import test_patch as tcli_test
 from understanding_flow_robustness_tpu_torch.cli import (
     universal_perturbation as tcli_universal,
 )
+from understanding_flow_robustness_tpu_torch.flowviz import io as fio
 from understanding_flow_robustness_tpu_torch.utils import meters as tmeters
 
 # the projection's warps: the same f32 coordinates and weights in both
@@ -152,9 +153,16 @@ def test_get_patch_and_mask_from_file_and_refusals(tmp_path):
           jpatch.get_patch_and_mask(patch_path=path))
     with pytest.raises(ValueError):
         tpatch.get_patch_and_mask(patch_size=8)
-    with pytest.raises(NotImplementedError, match="A11"):
+    # a mask and a patch from image files (tests/test_torch_train_data.py
+    # holds them against the JAX package); a .npy is no image file
+    mask_png = str(tmp_path / "m.png")
+    fio.write_image(mask_png, (np.random.RandomState(1).rand(9, 11, 3)
+                               * 255).astype(np.uint8))
+    _same(tpatch.get_patch_and_mask(patch_path=path, mask_path=mask_png),
+          jpatch.get_patch_and_mask(patch_path=path, mask_path=mask_png))
+    with pytest.raises(ValueError, match="not a PNG"):
         tpatch.get_patch_and_mask(patch_path=path, mask_path=path)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="not a PNG"):
         tpatch.init_patch_from_image(path, path, 64, 0.1)
 
 
@@ -311,13 +319,21 @@ def test_patch_attack_cli_layout_and_refusals(tmp_path, capsys):
     np.testing.assert_array_equal(np.load(out / "r" / "patches" / "epoch_1.npy"),
                                   patch)
     assert "avg over 2 epochs" in capsys.readouterr().out
-    for bad, match in ((["--patch-path", "x.png"], "A11"),
-                       (["--mask-path", "x.png"], "A11")):
-        with pytest.raises(NotImplementedError, match=match):
-            tcli_patch.main(argv + bad)
+    # a patch from image files (ported; tests/test_torch_train_clis.py
+    # holds it against the JAX CLI), and missing files raise
+    png = str(tmp_path / "p.png")
+    fio.write_image(png, (np.random.RandomState(2).rand(30, 30, 3) * 255)
+                    .astype(np.uint8))
+    patch, mask = tcli_patch.main(argv + ["--patch-path", png,
+                                          "--mask-path", png])
+    assert patch.shape == mask.shape == (1, 35, 35, 3)
+    with pytest.raises(FileNotFoundError):
+        tcli_patch.main(argv + ["--patch-path", str(tmp_path / "x.png"),
+                                "--mask-path", png])
     i = argv.index("--synthetic")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tcli_patch.main(argv[:i] + argv[i + 2:])
+    with pytest.raises(FileNotFoundError, match="train.txt"):
+        tcli_patch.main(argv[:i] + argv[i + 2:]
+                        + ["--data", str(tmp_path / "none")])
 
 
 def test_test_patch_cli_modes_and_refusals(tmp_path):
@@ -472,7 +488,14 @@ def test_universal_cli_layout_and_evaluation(tmp_path):
         str(tmp_path)])
     assert np.isfinite(res["flow_epe"][0])
     assert (run_dir / "results0.txt").exists()
-    for bad in (["--disparity"], ["--flow_loss", "corr"], []):
+    for bad in (["--disparity"], ["--flow_loss", "corr"]):
         with pytest.raises(NotImplementedError):
-            tcli_universal.main(["--device", "cpu"] + bad
-                                + ([] if not bad else ["--synthetic", "1"]))
+            tcli_universal.main(["--device", "cpu", "--synthetic", "1"] + bad)
+    # the dataset branch is ported (tests/test_torch_train_clis.py): with no
+    # SequenceFolder on disk it raises reading its scene list
+    with pytest.raises(FileNotFoundError, match="train.txt"):
+        tcli_universal.main([
+            "--device", "cpu", "--flownet", "FlowNetS", "--n_height", "64",
+            "--n_width", "128", "--epochs", "1", "--seed", "3",
+            "--data", str(tmp_path / "none"), "--kitti_dir",
+            str(tmp_path / "none"), "--output_path", str(tmp_path)])

@@ -224,7 +224,8 @@ def test_port_imports_no_jax():
         "          'models.flownet2', 'attacks.corruptions',\n"
         "          'flowviz.io', 'flowviz.png', 'flowviz.flow_viz', 'native',\n"
         "          'data.datasets', 'data.validation', 'data.transforms',\n"
-        "          'training.evaluate', 'cli.evaluate', 'cli.infer'):\n"
+        "          'training.evaluate', 'cli.evaluate', 'cli.infer',\n"
+        "          'data.augmentor', 'data.loader', 'data.sequence_folders'):\n"
         "    assert p.__name__ + '.' + k in names, k\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax'))\n"
         "       or m.startswith('understanding_flow_robustness_tpu.')\n"

@@ -8,8 +8,9 @@ canvases (patch, mask, init) plus the location, as the reference does
 (utils_patch.py:257-358) -- the canvases then feed the attack loop of
 ``patch_attack.py`` on the device.  Every random draw comes from the global
 ``np.random`` stream, in the reference's order, so a seeded run places
-patches exactly where the JAX package's does.  Reading a patch or a mask
-from an image file is ROADMAP A11b, and raises until it is ported.
+patches exactly where the JAX package's does.  Patches and masks read
+from image files go through the port's own readers and resizes
+(``flowviz.io``, ``native.resize_bilinear_u8``, ``data.transforms.imresize``).
 """
 
 from __future__ import annotations
@@ -50,10 +51,30 @@ def init_patch_circle(image_size: int, patch_size: float):
 def init_patch_from_image(image_path: str, mask_path: str,
                           image_size: int, patch_size: float):
     """utils_patch.py:769-778: initialize the patch from an image file.
-    ROADMAP A11b: raises until it is ported."""
-    raise NotImplementedError(
-        "initialising a patch from an image file is not ported yet "
-        "(ROADMAP A11b)")
+
+    Side = floor(image_size * sqrt(patch_size)); the patch image maps to
+    [-1, 1) via /128 - 1, the mask image to [0, 1) via /256.  NHWC
+    (1, d, d, 3) instead of the reference's NCHW.
+    """
+    from ..flowviz.io import read_image
+    from ..native import resize_bilinear_u8
+
+    def _rgb(img):
+        # a grey file -> 3 channels, alpha stripped (as the JAX package)
+        if img.ndim == 2:
+            img = np.repeat(img[..., None], 3, axis=-1)
+        return img[..., :3]
+
+    dim = int(np.floor(image_size * np.sqrt(patch_size)))
+    patch_img = _rgb(read_image(image_path))
+    patch = resize_bilinear_u8(
+        patch_img.astype(np.uint8), dim, dim
+    ).astype(np.float32) / 128.0 - 1.0
+    mask_img = _rgb(read_image(mask_path))
+    mask = resize_bilinear_u8(
+        mask_img.astype(np.uint8), dim, dim
+    ).astype(np.float32) / 256.0
+    return patch[None], mask[None], (1, dim, dim, 3)
 
 
 def create_random_patch(patch_type: str, patch_size: int) -> np.ndarray:
@@ -190,9 +211,12 @@ def get_patch_and_mask(patch_size=None, patch_type="circle",
         raise ValueError("need one of self_correlated/random_type/patch_path")
     shape = patch.shape
     if mask_path:
-        raise NotImplementedError(
-            "a mask from an image file is not ported yet (ROADMAP A11b)")
-    if patch_type == "circle":
+        from ..data.transforms import imresize
+        from ..flowviz import io as fio
+
+        mask_img = imresize(fio.read_image(mask_path), shape[1:3]) / 256.0
+        mask = mask_img[None]
+    elif patch_type == "circle":
         m = create_circular_mask(shape[1], shape[2]).astype("float32")
         mask = np.tile(m[None, :, :, None], (1, 1, 1, 3))
     else:

@@ -7,9 +7,10 @@ sequences; per epoch the patch is saved under
 ``<output>/<name>/patches/epoch_N.npy`` and validated (clean vs
 adversarial EPE/cossim).  The same flags as the JAX CLI, plus ``--device``:
 the card unless asked for ``cpu`` (no fallback; ``gpu`` means ``cuda``).
-Runs on ``--synthetic N`` frames; the dataset branches (``SequenceFolder``,
-the KITTI evaluation set) and ``--patch-path``/``--mask-path`` (image
-files) raise naming ROADMAP A11b until they are ported.
+Trains on ``SequenceFolder(--data)`` (prepared KITTI raw, JPEG frames) and
+validates on ``--valset`` under ``--kitti-data`` at 384x1280, or on
+``--synthetic N`` random frames; ``--patch-path``/``--mask-path`` start from
+image files.
 
 Example:
   python -m understanding_flow_robustness_tpu_torch.cli.patch_attack \\
@@ -24,23 +25,27 @@ import os
 
 import numpy as np
 
-from ..attacks.patch import init_patch_circle, init_patch_square
+from ..attacks.patch import (
+    init_patch_circle,
+    init_patch_from_image,
+    init_patch_square,
+)
 from ..attacks.patch_attack import (
     PatchAttackConfig,
     make_patch_attack_step,
     train_patch_epoch,
     validate_patch,
 )
+from ..flowviz.io import write_image
 from ..utils.meters import AverageMeter, make_summary_writer
 
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--data", type=str, default="datasets/KITTI/2012_prepared",
-                   help="prepared KITTI raw root (SequenceFolder; ROADMAP "
-                        "A11b)")
+                   help="prepared KITTI raw root (SequenceFolder)")
     p.add_argument("--kitti-data", type=str, default="datasets/KITTI/scene_flow",
-                   help="KITTI scene-flow root for validation (ROADMAP A11b)")
+                   help="KITTI scene-flow root for validation")
     p.add_argument("--valset", type=str, default="kitti2015",
                    choices=["kitti2012", "kitti2015"])
     p.add_argument("--flownet", type=str, default="FlowNetC")
@@ -60,11 +65,9 @@ def build_parser():
     p.add_argument("--l2", action="store_true", help="L2 loss (else cossim)")
     p.add_argument("--norotate", action="store_true")
     p.add_argument("--patch-path", type=str, default="",
-                   help="initialize patch from this image (main.py:48; "
-                        "ROADMAP A11b)")
+                   help="initialize patch from this image (main.py:48)")
     p.add_argument("--mask-path", type=str, default="",
-                   help="initialize mask from this image (main.py:51; "
-                        "ROADMAP A11b)")
+                   help="initialize mask from this image (main.py:51)")
     p.add_argument("--DEBUG", action="store_true",
                    help="truncate the train set to 8 samples (main.py:238)")
     p.add_argument("-j", "--workers", type=int, default=4,
@@ -72,7 +75,7 @@ def build_parser():
     p.add_argument("--log-terminal", action="store_true",
                    help="multi-bar terminal UI (logger.py TermLogger)")
     p.add_argument("--log-output", action="store_true",
-                   help="save each epoch's patch as a PNG (PIL)")
+                   help="save each epoch's patch as a PNG")
     p.add_argument("--log-summary", default="progress_log_summary.csv",
                    help="accepted for reference parity; the reference "
                         "parses but never writes it (main.py:136-141)")
@@ -112,14 +115,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if not args.synthetic:
-        raise NotImplementedError(
-            "the dataset branches (SequenceFolder, the evaluation set) are "
-            "not ported yet (ROADMAP A11b); use --synthetic N")
-    if args.patch_path or args.mask_path:
-        raise NotImplementedError(
-            "--patch-path/--mask-path (a patch from an image file) are not "
-            "ported yet (ROADMAP A11b)")
     np.random.seed(args.seed)
 
     from ..models import (
@@ -153,6 +148,12 @@ def main(argv=None):
     else:
         patch, patch_shape = init_patch_square(args.image_size, args.patch_size)
         mask = np.ones(patch_shape, np.float32)
+    if args.patch_path:
+        # resume/warm-start from an image pair (main.py:287-291)
+        patch, mask, patch_shape = init_patch_from_image(
+            args.patch_path, args.mask_path, args.image_size,
+            args.patch_size,
+        )
     patch_init = patch.copy()
 
     cfg = PatchAttackConfig(
@@ -162,22 +163,62 @@ def main(argv=None):
         lambda a, b: predict_flow_differentiable(model, a, b), cfg)
 
     def train_batches():
-        rng = np.random.RandomState(args.seed)
-        h, w = args.synthetic_size
-        n = min(args.synthetic, 8) if args.DEBUG else args.synthetic
-        for _ in range(n):
-            yield (rng.rand(1, h, w, 3).astype(np.float32),
-                   rng.rand(1, h, w, 3).astype(np.float32))
+        if args.synthetic:
+            rng = np.random.RandomState(args.seed)
+            h, w = args.synthetic_size
+            n = min(args.synthetic, 8) if args.DEBUG else args.synthetic
+            for _ in range(n):
+                yield (rng.rand(1, h, w, 3).astype(np.float32),
+                       rng.rand(1, h, w, 3).astype(np.float32))
+            return
+        from ..data import (
+            Compose,
+            RandomHorizontalFlip,
+            RandomScaleCrop,
+            SequenceFolder,
+            ToFloat01,
+        )
+
+        ds = SequenceFolder(args.data, seed=args.seed, train=True,
+                            sequence_length=3)
+        # the JAX package's SequenceFolder re-seeds the global np.random,
+        # which its scale-crop and this CLI's patch placement share
+        np.random.seed(args.seed)
+        # the reference's train crop is SQUARE and keyed on the patch
+        # size, not --image-size: 384x384 iff int(patch_size*384) == 153,
+        # else 256x256 (patch_attacks/main.py:203-206)
+        side = 384 if int(args.patch_size * 384) == 153 else 256
+        ds.transform = Compose([
+            RandomHorizontalFlip(ds.rng),
+            RandomScaleCrop(side, side, np.random),
+            ToFloat01(),
+        ])
+        n = min(len(ds), 8) if args.DEBUG else len(ds)  # main.py:238-241
+        for i in range(n):
+            tgt, refs, _ = ds[i]
+            yield tgt[None], refs[1][None]
 
     def val_samples():
-        rng = np.random.RandomState(args.seed + 1)
-        h, w = args.synthetic_size
-        for _ in range(max(args.synthetic // 2, 1)):
-            tgt = rng.rand(1, h, w, 3).astype(np.float32)
-            fut = rng.rand(1, h, w, 3).astype(np.float32)
-            gt = np.zeros((1, h, w, 3), np.float32)
-            gt[..., 2] = 1
-            yield tgt, tgt, fut, gt
+        if args.synthetic:
+            rng = np.random.RandomState(args.seed + 1)
+            h, w = args.synthetic_size
+            for _ in range(max(args.synthetic // 2, 1)):
+                tgt = rng.rand(1, h, w, 3).astype(np.float32)
+                fut = rng.rand(1, h, w, 3).astype(np.float32)
+                gt = np.zeros((1, h, w, 3), np.float32)
+                gt[..., 2] = 1
+                yield tgt, tgt, fut, gt
+            return
+        from argparse import Namespace
+
+        from ..data import get_evaluation_set
+
+        ds = get_evaluation_set(args.valset, Namespace(
+            img_height=384, img_width=1280, kitti_dir=args.kitti_data,
+        ))
+        for i in range(len(ds)):
+            past, tgt, fut, gt_flow, _, _, _ = ds[i]
+            yield past[None], tgt[None], fut[None], gt_flow[None]
 
     term = None
     if args.log_terminal:
@@ -221,11 +262,8 @@ def main(argv=None):
         if args.log_output:
             # qualitative dump of the current patch (main.py:699 logs viz
             # images to TensorBoard; the patch is saved as a PNG)
-            from PIL import Image
-
-            Image.fromarray(
-                (np.clip(patch[0], 0, 1) * 255).astype(np.uint8)
-            ).save(os.path.join(out_dir, "patches", f"epoch_{epoch}.png"))
+            write_image(os.path.join(out_dir, "patches", f"epoch_{epoch}.png"),
+                        (np.clip(patch[0], 0, 1) * 255).astype(np.uint8))
         if writer is not None:
             for k, v in metrics.items():
                 writer.add_scalar(f"val/{k}", v, epoch)

@@ -7,20 +7,28 @@ Takes the flags the RAFT path reads, adversarial training's among them
 together with its adversarial pair, 3 updates a batch; ``--arbitrary_gt``:
 the attack targets a random sample's ground truth).  ``--synthetic N``
 trains on N random batches made with numpy from ``--seed``, as the JAX CLI
-does; the dataset stages (the KITTI pairs of adversarial training among
-them), the other model families and multi-device training raise with the
-ROADMAP item that ports them.
+does; without it the stage's dataset is read from disk: ``--stage
+chairs|things|sintel|kitti`` through ``data.fetch_dataset`` (``--data_roots``
+JSON, ``--trans_rot``, ``--online_subset``) and ``--stage
+kitti2015|kitti2012`` (adversarial training's KITTI pairs) from
+``--data_list_dir``'s path lists, batches from the threaded
+``data.DataLoader``.  ``--validation kitti|sintel|chairs`` runs at every
+``--val_freq`` on the default dataset roots, skipped when they are absent.
+The other model families and multi-device training raise with the ROADMAP
+item that ports them.
 
     python -m understanding_flow_robustness_tpu_torch.cli.train --model RAFT \\
-        --stage chairs --num_steps 100 --batch_size 4 \\
-        --image_size 288 960 --mixed_precision --synthetic 8
+        --stage kitti --num_steps 100 --batch_size 4 \\
+        --image_size 288 960 --mixed_precision \\
+        --data_roots '{"kitti": "datasets/KITTI/2015"}'
     python -m understanding_flow_robustness_tpu_torch.cli.train --model RAFT \\
-        --adversarial --batch_size 1 --synthetic 4 --num_steps 3
+        --adversarial --stage kitti2015 --batch_size 1 --num_steps 3
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 import numpy as np
@@ -39,8 +47,7 @@ _NOT_TRAINED = {**NOT_PORTED, **dict.fromkeys(FLOWNET_IDS, "A7"),
                 "RAFT_FlowNetCEncoder_WoContext": "A10"}
 # flags of the JAX CLI that belong to paths not ported yet
 _OTHER_FAMILIES = {
-    "flowNetC": "A7", "pwc": "A9", "small": "A10", "validation": "A11b",
-    "n_devices": "A13",
+    "flowNetC": "A7", "pwc": "A9", "small": "A10", "n_devices": "A13",
 }
 
 
@@ -107,7 +114,22 @@ def build_parser():
         p.add_argument(flag, action="store_true",
                        help="not ported yet; raises")
     p.add_argument("--validation", nargs="+", default=None,
-                   help="not ported yet; raises")
+                   choices=["chairs", "sintel", "kitti"],
+                   help="validation sets run at every val_freq "
+                        "(train.py:302-313); skipped when absent")
+    p.add_argument("--data_list_dir",
+                   default="datasets/KITTI/global_attacks/training",
+                   help="path-list dir for the kitti2015/kitti2012 pair "
+                        "stages (setup_dataset_kitti.py output)")
+    p.add_argument("--data_roots", default=None,
+                   help="JSON dict of dataset roots (chairs, things, "
+                        "sintel, kitti)")
+    p.add_argument("--trans_rot", action="store_true",
+                   help="translation/rotation augmentation "
+                        "(augmentor.py:88-165)")
+    p.add_argument("--online_subset", type=int, nargs="+", default=None,
+                   help="train on a fixed subset of dataset indices "
+                        "(training/utils.py:275-283)")
     p.add_argument("--n_devices", "--gpus", dest="n_devices", type=int,
                    default=None, help="not ported yet; raises")
     return p
@@ -127,6 +149,87 @@ def _synthetic_batches(n: int, batch_size: int, h: int, w: int, seed: int):
     return batches
 
 
+class _PairView:
+    """(img0, img1, gt_small, gt_full) of ``KittiPairDataset`` -> the
+    loader's 4-tuple with the small GT as the training target
+    (kitti_datasets.py:112-118 finetune return; the full-res GT only feeds
+    the reference's epe_attacked metric)."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        img0, img1, gt_small, _ = self.ds[i]
+        # DataLoader._collate divides images by 255
+        return (img0 * 255.0, img1 * 255.0, gt_small[..., :2],
+                gt_small[..., 2])
+
+
+def _dataset(args):
+    """The stage's training dataset (cli/train.py:383-436 of the JAX
+    package)."""
+    from ..data import Subset, fetch_dataset
+    from ..data.validation import KittiPairDataset
+
+    if args.stage in ("kitti2015", "kitti2012"):
+        # the reference's adversarial-training data path
+        # (training/utils.py:245-289): Scale'd KITTI pairs, batch 1
+        if args.adversarial and args.batch_size != 1:
+            raise ValueError("--adversarial on KITTI pairs takes "
+                             "--batch_size 1 (training/utils.py:249)")
+        dataset = _PairView(KittiPairDataset.from_lists(
+            args.data_list_dir,
+            year="2015" if args.stage == "kitti2015" else "2012",
+            split="train", n_height=args.image_size[0],
+            n_width=args.image_size[1]))
+    else:
+        if args.adversarial:
+            raise SystemExit(
+                "--adversarial needs --stage kitti2015 or kitti2012 (the "
+                "reference's adv_train branch, training/utils.py:245-272, "
+                "raises NotImplementedError for other stages)")
+        roots = json.loads(args.data_roots) if args.data_roots else None
+        dataset = fetch_dataset(args.stage, tuple(args.image_size),
+                                trans_rot=args.trans_rot, roots=roots)
+    if args.online_subset is not None:
+        # train on a fixed index subset (training/utils.py:275-276)
+        dataset = Subset(dataset, list(args.online_subset))
+    return dataset
+
+
+def _validate_fn(model, valsets):
+    """``--validation``'s sets at every val_freq checkpoint, on the default
+    dataset roots (cli/train.py:444-470 of the JAX package), with the
+    module in eval mode; a set that is not on disk is skipped."""
+    from ..data.datasets import KITTI, FlyingChairs, MpiSintel
+    from ..training import evaluate as ev
+
+    def validate(module, step):
+        training = module.training
+        module.eval()
+        try:
+            for valset in valsets:
+                try:
+                    if valset == "kitti":
+                        res = ev.validate_kitti(model, KITTI(split="training"))
+                    elif valset == "sintel":
+                        res = ev.validate_sintel(
+                            model, lambda d: MpiSintel(dstype=d))
+                    else:
+                        res = ev.validate_chairs(
+                            model, FlyingChairs(split="validation"))
+                    print(f"step {step} [{valset}]: " + " ".join(
+                        f"{k}={v:.3f}" for k, v in res.items()))
+                except (FileNotFoundError, OSError) as e:
+                    print(f"step {step} [{valset}]: skipped ({e})")
+        finally:
+            module.train(training)
+    return validate
+
+
 def main(argv=None) -> dict:
     """Run the CLI; returns {"total_steps": batches taken, "history":
     metrics of each batch of this run}."""
@@ -140,12 +243,6 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             f"training --model {args.model} is not ported yet (ROADMAP "
             f"{_NOT_TRAINED[args.model]})")
-    if not args.synthetic:
-        what = ("--adversarial's KITTI pairs (training/utils.py:245-289)"
-                if args.adversarial else f"--stage {args.stage}")
-        raise NotImplementedError(
-            f"{what} needs its dataset loaders (ROADMAP A11b); use "
-            "--synthetic N")
     if args.val_freq is None:  # train.py:143-148
         args.val_freq = 1000 if args.adversarial else 5000
 
@@ -180,11 +277,33 @@ def main(argv=None) -> dict:
     h, w = args.image_size
     history = []
 
-    def sample_gt_fn(rng):
-        # --arbitrary_gt's random target in synthetic mode (cli/train.py:
-        # 377-381 of the JAX package)
-        flow = rng.randn(args.batch_size, h, w, 2).astype(np.float32)
-        return flow, np.ones((args.batch_size, h, w), np.float32)
+    if args.synthetic:
+        batches = _synthetic_batches(args.synthetic, args.batch_size, h, w,
+                                     args.seed)
+
+        def sample_gt_fn(rng):
+            # --arbitrary_gt's random target in synthetic mode (cli/train.py:
+            # 377-381 of the JAX package)
+            flow = rng.randn(args.batch_size, h, w, 2).astype(np.float32)
+            return flow, np.ones((args.batch_size, h, w), np.float32)
+    else:
+        from ..data import DataLoader
+
+        dataset = _dataset(args)
+        # one loader for the whole run: its shuffle advances across epochs
+        loader = DataLoader(dataset, batch_size=args.batch_size,
+                            num_workers=4, seed=args.seed)
+        if len(loader) == 0:  # the trainer would wait for a batch forever
+            raise ValueError(f"--stage {args.stage}: {len(dataset)} samples "
+                             f"hold no batch of {args.batch_size}")
+
+        def batches():
+            yield from loader
+
+        def sample_gt_fn(rng):
+            # a random training sample's GT (train.py:188-199)
+            _, _, flow, valid = dataset[rng.randint(len(dataset))][:4]
+            return np.asarray(flow)[None], np.asarray(valid)[None]
 
     def logger(step, metrics):
         history.append(metrics)
@@ -192,9 +311,9 @@ def main(argv=None) -> dict:
             print(f"step {step}: " + " ".join(
                 f"{k}={v:.4f}" for k, v in metrics.items()), flush=True)
 
-    steps = train(cfg, model,
-                  _synthetic_batches(args.synthetic, args.batch_size, h, w,
-                                     args.seed),
+    validate_fn = (_validate_fn(model, args.validation) if args.validation
+                   else None)
+    steps = train(cfg, model, batches, validate_fn=validate_fn,
                   logger=logger, sample_gt_fn=sample_gt_fn)
     print(f"training done at step {steps}")
     return {"total_steps": steps, "history": history}

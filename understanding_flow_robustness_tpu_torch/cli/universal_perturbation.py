@@ -11,10 +11,11 @@ toward the negated clean flow; per-epoch snapshots under
 ``output_path/kitti2015/<flownet>/universal/<mode>/<method>_<loss>/<norm>/
 <lr>_<nstep>_<seed>[_addG]`` — the "kitti2015" segment is hardcoded
 upstream regardless of --valset, reproduced as-is.  ``--device`` is the
-card unless asked for ``cpu`` (no fallback; ``gpu`` means ``cuda``).  Runs
-on ``--synthetic N`` batches, each epoch ending in the JAX CLI's data-free
-report; the dataset branches (``SequenceFolder``, the per-epoch valset
-sweep) raise naming ROADMAP A11b until they are ported.
+card unless asked for ``cpu`` (no fallback; ``gpu`` means ``cuda``).
+Trains on ``SequenceFolder(--data)`` (prepared KITTI raw, JPEG frames) and
+ends each epoch with a sweep of ``--valset`` under ``--kitti_dir`` (the JAX
+CLI's data-free report when the valset is not on disk), or on
+``--synthetic N`` random batches, each epoch ending in that report.
 """
 
 from __future__ import annotations
@@ -27,13 +28,14 @@ import shutil
 import numpy as np
 import torch
 
-from ..attacks.losses import compute_epe
+from ..attacks.losses import compute_cossim, compute_epe
 from ..attacks.universal import (
     UniversalConfig,
     make_universal_attack_step,
     train_universal_perturbation,
 )
-from ..utils import TermLogger, make_summary_writer, on_device
+from ..flowviz import flow_to_image
+from ..utils import AverageMeter, TermLogger, make_summary_writer, on_device
 
 
 def build_parser():
@@ -81,9 +83,8 @@ def build_parser():
     p.add_argument("--output_path", "--output", dest="output_path",
                    default="output/universal")
     p.add_argument("--log-output", type=bool, default=True,
-                   help="flow/adv-flow viz images at the valset sweep "
-                        "(universal_perturbation.py:569-620); accepted for "
-                        "parity, the sweep is ROADMAP A11b")
+                   help="write flow/adv-flow viz images to TensorBoard at "
+                        "validation (universal_perturbation.py:569-620)")
     p.add_argument("--log_terminal", action="store_true")
     p.add_argument("--training-output-freq", type=int, default=50,
                    help="TensorBoard train-image frequency; 0 disables "
@@ -116,10 +117,6 @@ def main(argv=None):
         raise NotImplementedError(
             "flow_loss='corr' is accepted but unimplemented upstream "
             "(perturb_model.py:129-142)")
-    if not args.synthetic:
-        raise NotImplementedError(
-            "the dataset branches (SequenceFolder, the valset sweep) are not "
-            "ported yet (ROADMAP A11b); use --synthetic N")
     if args.image_size is not None:  # legacy alias
         args.n_height, args.n_width = args.image_size
     if args.seed <= 0:
@@ -178,13 +175,48 @@ def main(argv=None):
     with open(os.path.join(out_dir, "args.json"), "w") as f:
         json.dump(vars(args), f, indent=2)
     train_writer = make_summary_writer(os.path.join(out_dir, "train"))
+    valid_writer = make_summary_writer(os.path.join(out_dir, "valid_attack"))
 
     def batches():
-        rng = np.random.RandomState(args.seed)
-        n = 8 if args.DEBUG else args.synthetic
-        for _ in range(n):
-            yield (rng.rand(1, h, w, 3).astype(np.float32),
-                   rng.rand(1, h, w, 3).astype(np.float32))
+        if args.synthetic:
+            rng = np.random.RandomState(args.seed)
+            n = 8 if args.DEBUG else args.synthetic
+            for _ in range(n):
+                yield (rng.rand(1, h, w, 3).astype(np.float32),
+                       rng.rand(1, h, w, 3).astype(np.float32))
+            return
+        from ..data import (
+            Compose,
+            RandomHorizontalFlip,
+            RandomScaleCrop,
+            SequenceFolder,
+            ToFloat01,
+        )
+
+        ds = SequenceFolder(args.data, seed=args.seed, train=True,
+                            sequence_length=3)
+        ds.transform = Compose([RandomHorizontalFlip(ds.rng),
+                                RandomScaleCrop(h, w, ds.np_rng),
+                                ToFloat01()])
+        n = 8 if args.DEBUG else len(ds)  # DEBUG truncation, run() :263-266
+        for i in range(n):
+            tgt, refs, _ = ds[i]
+            yield tgt[None], refs[1][None]
+
+    val_samples = None
+    if not args.synthetic:
+        from argparse import Namespace
+
+        from ..data import get_evaluation_set
+
+        try:
+            val_set = get_evaluation_set(args.valset, Namespace(
+                img_height=h, img_width=w, kitti_dir=args.kitti_dir))
+            val_samples = lambda: (  # noqa: E731
+                val_set[i] for i in range(len(val_set)))
+        except (FileNotFoundError, OSError):
+            print("no validation data found; epoch validation degrades "
+                  "to a train-batch report")
 
     logger = None
     if args.log_terminal:
@@ -192,10 +224,40 @@ def main(argv=None):
                             train_size=args.epoch_size or 0,
                             valid_size=0, attack_size=args.n_step)
 
+    def validation(epoch, n0, n1):
+        """Per-epoch valset sweep (universal_perturbation.py:533-620)."""
+        errors = AverageMeter(i=4)
+        d0, d1 = on_device(n0, device), on_device(n1, device)
+        for i, sample in enumerate(val_samples()):
+            tgt = on_device(sample[1][None], device)
+            fut = on_device(sample[2][None], device)
+            gt = on_device(sample[3][None], device)
+            flow = predict_eval(tgt, fut)
+            adv = predict_eval(torch.clamp(tgt + d0, 0, 1),
+                               torch.clamp(fut + d1, 0, 1))
+            errors.update([
+                float(compute_epe(gt, flow)), float(compute_epe(gt, adv)),
+                float(compute_cossim(gt, flow)),
+                float(compute_cossim(gt, adv)),
+            ])
+            if args.log_output and valid_writer is not None and i % 100 == 0:
+                valid_writer.add_image(
+                    "val adv Flow Output",
+                    flow_to_image(adv[0].cpu().numpy()).transpose(2, 0, 1),
+                    epoch)
+        names = ["epe", "adv_epe", "cos_sim", "adv_cos_sim"]
+        msg = ", ".join(f"{n} : {e:.3f}" for n, e in zip(names, errors.avg))
+        print(f"epoch {epoch}: * Avg {msg}")
+        if train_writer is not None:
+            for e, n in zip(errors.avg, names):
+                train_writer.add_scalar(n, e, epoch)
+
     def on_epoch_end(epoch, n0, n1):
+        if val_samples is not None:
+            validation(epoch, n0, n1)
+            return
         # the JAX CLI's data-free report when no valset is found: EPE
         # degradation vs the clean prediction on one train-style batch
-        # (the valset sweep, universal_perturbation.py:533-620, is A11b)
         tgt, fut = (on_device(x, device) for x in next(iter(batches())))
         clean = predict_eval(tgt, fut)
         gt = torch.cat([clean, torch.ones_like(clean[..., :1])], -1)
@@ -229,8 +291,9 @@ def main(argv=None):
         rng=np.random.RandomState(args.seed), on_epoch_end=on_epoch_end,
         on_batch_end=on_train_batch, logger=logger, device=device,
     )
-    if train_writer is not None:
-        train_writer.close()
+    for writer in (train_writer, valid_writer):
+        if writer is not None:
+            writer.close()
     print(f"saved perturbations under {out_dir}/perturbations")
     return n0, n1
 

@@ -3,32 +3,41 @@
 dataset_utils/datasets.py:16-326).
 
 Numpy-native FlowDataset + MpiSintel / FlyingChairs / FlyingThings3D /
-KITTI / HD1K, read through the port's own ``flowviz.io``.  Samples are NHWC
-numpy: (img1, img2 uint8->float, flow f32, valid f32), or with
-``is_test`` (img1, img2, extra_info).  The training augmentors
-(``aug_params``) and the stage mixes of ``fetch_dataset`` are not ported
-yet (ROADMAP A11b): the datasets serve evaluation (``aug_params=None``) and
-``transforms``.
+KITTI / HD1K, read through the port's own ``flowviz.io``, and the training
+stages' augmented mixes (``fetch_dataset``).  Samples are NHWC numpy:
+(img1, img2 uint8->float, flow f32, valid f32), or with ``is_test`` (img1,
+img2, extra_info).
+
+An augmenting dataset draws from explicit generators: ``sample(index, rng,
+np_rng)`` takes a ``random.Random`` and a ``np.random.RandomState`` (the
+``DataLoader`` gives each sample its own); ``dataset[index]`` draws from
+the dataset's ``rng`` / ``np_rng``, seeded 0 unless replaced.
 """
 
 from __future__ import annotations
 
 import os
 import os.path as osp
+import random
 from glob import glob
 
 import numpy as np
 
 from ..flowviz import io as fio
-
-_A11B = "the training augmentors are not ported yet (ROADMAP A11b)"
+from .augmentor import FlowAugmentor, SparseFlowAugmentor
 
 
 class FlowDataset:
     def __init__(self, aug_params=None, sparse=False, transforms=None):
-        if aug_params is not None:
-            raise NotImplementedError(f"aug_params: {_A11B}")
+        self.augmentor = None
         self.sparse = sparse
+        if aug_params is not None:
+            if sparse:
+                self.augmentor = SparseFlowAugmentor(**aug_params)
+            else:
+                self.augmentor = FlowAugmentor(**aug_params)
+        self.rng = random.Random(0)
+        self.np_rng = np.random.RandomState(0)
         self.transforms = transforms
         self.is_test = False
         self.flow_list: list[str] = []
@@ -36,6 +45,12 @@ class FlowDataset:
         self.extra_info: list = []
 
     def __getitem__(self, index):
+        return self.sample(index)
+
+    def sample(self, index, rng: random.Random | None = None,
+               np_rng: np.random.RandomState | None = None):
+        """Sample ``index``, augmented with draws from ``rng`` / ``np_rng``
+        (by default the dataset's own)."""
         if self.is_test:
             img1 = np.array(fio.read_gen(self.image_list[index][0]))
             img2 = np.array(fio.read_gen(self.image_list[index][1]))
@@ -65,6 +80,14 @@ class FlowDataset:
             img1, img2 = self.transforms([img1, img2])
             valid = (np.abs(flow[..., 0]) < 1000) & (np.abs(flow[..., 1]) < 1000)
             return img1, img2, flow, valid.astype(np.float32)
+
+        if self.augmentor is not None:
+            rngs = (rng or self.rng, np_rng or self.np_rng)
+            if self.sparse:
+                img1, img2, flow, valid = self.augmentor(img1, img2, flow,
+                                                         valid, *rngs)
+            else:
+                img1, img2, flow = self.augmentor(img1, img2, flow, *rngs)
 
         img1 = img1.astype(np.float32)
         img2 = img2.astype(np.float32)
@@ -103,10 +126,10 @@ class ConcatFlowDataset(FlowDataset):
     def __len__(self):
         return sum(len(d) for d in self.datasets)
 
-    def __getitem__(self, index):
+    def sample(self, index, rng=None, np_rng=None):
         for d in self.datasets:
             if index < len(d):
-                return d[index]
+                return d.sample(index, rng, np_rng)
             index -= len(d)
         raise IndexError
 
@@ -127,6 +150,9 @@ class Subset:
 
     def __getitem__(self, index):
         return self.dataset[self.indices[index]]
+
+    def sample(self, index, rng=None, np_rng=None):
+        return self.dataset.sample(self.indices[index], rng, np_rng)
 
 
 class MpiSintel(FlowDataset):
@@ -225,6 +251,61 @@ class HD1K(FlowDataset):
 
 def fetch_dataset(stage: str, image_size, trans_rot: bool = False,
                   roots: dict | None = None):
-    """The training stages' augmented mixes (training/utils.py:289-398):
-    not ported yet, they need the augmentors."""
-    raise NotImplementedError(f"fetch_dataset('{stage}'): {_A11B}")
+    """Stage -> dataset with the reference's aug params
+    (training/utils.py:289-398 -- the reference's own fork of RAFT's
+    datasets.py, which changed chairs' min_scale from RAFT's -0.1 to
+    -0.2):
+
+      chairs: scale [-0.2, 1.0], flips; trans_rot adds translate 10,
+              rot 17 deg, diff_angle 0 (SHARED rotation between frames)
+      things: scale [-0.4, 0.8], flips (clean+final passes); trans_rot
+              adds translate 10, rot 17 deg, diff_angle 5
+      sintel: scale [-0.2, 0.6], flips; mix 100*clean+100*final+200*KITTI
+              +5*HD1K(skipped, unsupported)+things
+      kitti:  sparse, scale [-0.2, 0.4], no flips
+    """
+    roots = roots or {}
+
+    def r(key, default):
+        return roots.get(key, default)
+
+    def tr(aug, diff_angle):
+        # training/utils.py:293-302,313-322: explicit translate/rot/diff
+        if trans_rot:
+            aug.update(do_trans_rot=True, translate=10, rot_angle=17,
+                       diff_angle=diff_angle)
+        return aug
+
+    if stage == "chairs":
+        aug = tr({"crop_size": image_size, "min_scale": -0.2,
+                  "max_scale": 1.0, "do_flip": True}, diff_angle=0)
+        return FlyingChairs(aug, split="training",
+                            root=r("chairs", "datasets/FlyingChairs_release/data"))
+    if stage == "things":
+        aug = tr({"crop_size": image_size, "min_scale": -0.4,
+                  "max_scale": 0.8, "do_flip": True}, diff_angle=5)
+        clean = FlyingThings3D(aug, root=r("things", "datasets/FlyingThings3D"),
+                               dstype="frames_cleanpass")
+        final = FlyingThings3D(aug, root=r("things", "datasets/FlyingThings3D"),
+                               dstype="frames_finalpass")
+        return clean + final
+    if stage == "sintel":
+        aug = {"crop_size": image_size, "min_scale": -0.2, "max_scale": 0.6,
+               "do_flip": True}
+        things = FlyingThings3D(aug, root=r("things", "datasets/FlyingThings3D"),
+                                dstype="frames_cleanpass")
+        clean = MpiSintel(aug, split="training", dstype="clean",
+                          root=r("sintel", "datasets/Sintel"))
+        final = MpiSintel(aug, split="training", dstype="final",
+                          root=r("sintel", "datasets/Sintel"))
+        kitti = KITTI(
+            {"crop_size": image_size, "min_scale": -0.3, "max_scale": 0.5,
+             "do_flip": True},
+            root=r("kitti", "datasets/KITTI/2015"),
+        )
+        return 100 * clean + 100 * final + 200 * kitti + things
+    if stage == "kitti":
+        aug = {"crop_size": image_size, "min_scale": -0.2, "max_scale": 0.4,
+               "do_flip": False}
+        return KITTI(aug, split="training", root=r("kitti", "datasets/KITTI/2015"))
+    raise ValueError(f"unknown stage: {stage}")

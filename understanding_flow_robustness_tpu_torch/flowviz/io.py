@@ -9,8 +9,9 @@ Formats:
   * PFM                        -- FlyingThings3D disparity / flow
   * PNG, PPM, PGM images       -- the port's own codec (``png.py``) and the
                                   host library: no cv2 and no PIL
-JPEG is not read yet (ROADMAP A11b): no dataset of the evaluation path
-uses it.
+  * JPEG images                -- baseline sequential only, through the host
+                                  library's decoder (``native.decode_jpeg``),
+                                  bit-equal to PIL's; other kinds raise
 
 The JAX package reads a KITTI flow PNG with cv2 (BGR) and reverses the
 channels; this reads the file's own (u, v, valid) order.  ``read_image``
@@ -52,19 +53,21 @@ def _decode_pnm(data: bytes) -> np.ndarray:
 
 
 def read_samples(path: str) -> np.ndarray:
-    """A PNG, PPM or PGM file's samples in its own dtype (uint8 or uint16)
-    and channel order: (H, W) or (H, W, C)."""
+    """A PNG, PPM, PGM or JPEG file's samples in its own dtype (uint8 or
+    uint16) and channel order: (H, W) or (H, W, C)."""
     ext = os.path.splitext(path)[-1].lower()
-    if ext in (".jpg", ".jpeg"):
-        raise NotImplementedError(
-            f"{path}: JPEG is not read by the port yet (ROADMAP A11b)")
     with open(path, "rb") as f:
         data = f.read()
+    if ext in (".jpg", ".jpeg"):
+        try:
+            return native.decode_jpeg(data)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
     if ext == ".png":
         return decode_png(data)
     if ext in (".ppm", ".pgm"):
         return _decode_pnm(data)
-    raise ValueError(f"{path}: not a PNG, PPM or PGM file")
+    raise ValueError(f"{path}: not a PNG, PPM, PGM or JPEG file")
 
 
 def write_image(path: str, img: np.ndarray) -> None:

@@ -1,4 +1,5 @@
 """ctypes bindings of the port's host library ``native/src/ufr_native.cpp``
+and ``native/src/ufr_jpeg.cpp``
 (counterpart of ``understanding_flow_robustness_tpu/native/__init__.py``).
 
 The library is standard C++ with OpenMP, built with ``g++`` at first use
@@ -8,10 +9,13 @@ no fallback: when the library cannot be built or loaded, the call raises.
 Nothing is built at import time.  ctypes releases the GIL for each call,
 so decoder threads overlap in these functions.
 
-``png_unfilter``, ``resize_pil_bilinear_u8`` and ``resize_cv2_linear_f32``
-are the port's own: PNG row reconstruction, PIL's ``BILINEAR`` resize and
-cv2's ``INTER_LINEAR`` resize of a float32 image, so that the machine with
-the card reads and resizes frames with neither PIL nor cv2.
+``png_unfilter``, ``resize_pil_bilinear_u8``, ``resize_cv2_linear_f32``,
+``resize_cv2_linear_u8``, ``resize_cv2_linear_f32_by``, ``pil_color_op``
+and ``decode_jpeg`` are the port's own: PNG row reconstruction, PIL's
+``BILINEAR`` resize, cv2's ``INTER_LINEAR`` resize to a size and by
+factors, PIL's colour enhancements and a baseline JPEG decoder, so that
+the machine with the card reads, augments and resizes frames with neither
+PIL nor cv2.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ from pathlib import Path
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parent / "src" / "ufr_native.cpp"
+SRCS = tuple(Path(__file__).resolve().parent / "src" / name
+             for name in ("ufr_native.cpp", "ufr_jpeg.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host_native"
 # portable code (no -march=native); no contraction into FMAs, so that the
 # resizes round as the libraries they match do on every host
@@ -37,7 +42,7 @@ _LIB = None
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SRC.read_bytes()
+    digest = hashlib.sha256(b"".join(src.read_bytes() for src in SRCS)
                             + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"libufr_native_{digest}.so"
 
@@ -45,7 +50,7 @@ def library_path() -> Path:
 def _build(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = ["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)]
+    cmd = ["g++", *CXX_FLAGS, *map(str, SRCS), "-o", str(tmp)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed building the host library "
@@ -69,6 +74,9 @@ def load() -> ctypes.CDLL:
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         u16p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+        f64 = ctypes.c_double
         for name, args in (
                 ("batch_u8_to_float01_pad", [u8p, f32p] + [i64] * 8),
                 ("batch_f32_pad", [f32p, f32p] + [i64] * 8 + [ctypes.c_int]),
@@ -78,10 +86,25 @@ def load() -> ctypes.CDLL:
                 ("resize_bilinear_u8", [u8p, u8p] + [i64] * 5),
                 ("decode_kitti_flow_u16", [u16p, i64, i64, f32p, f32p]),
                 ("resize_pil_bilinear_u8", [u8p, u8p] + [i64] * 5),
-                ("resize_cv2_linear_f32", [u8p, f32p] + [i64] * 5)):
+                ("resize_cv2_linear_f32", [u8p, f32p] + [i64] * 5),
+                ("resize_cv2_linear_u8", [u8p, u8p] + [i64] * 5 + [f64] * 2),
+                ("resize_cv2_linear_f32_by",
+                 [f32p, f32p] + [i64] * 5 + [f64] * 2),
+                ("resize_cv2_linear_f64_by",
+                 [f64p, f64p] + [i64] * 5 + [f64] * 2),
+                ("pil_color_op", [u8p, i64, ctypes.c_int, f64, ctypes.c_int]),
+                ("pil_hsv_convert", [u8p, u8p, i64, ctypes.c_int])):
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = None
+        for name, args in (
+                ("jpeg_header", [ctypes.c_char_p, i64, i64p, ctypes.c_char_p,
+                                 i64]),
+                ("jpeg_decode", [ctypes.c_char_p, i64, u8p, i64, i64, i64,
+                                 ctypes.c_char_p, i64])):
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
         lib.png_unfilter.argtypes = [u8p, u8p, i64, i64, i64]
         lib.png_unfilter.restype = i64
         lib.ufr_native_version.restype = ctypes.c_int
@@ -204,3 +227,85 @@ def png_unfilter(data: np.ndarray, height: int, row_bytes: int,
         raise ValueError(f"PNG row {bad - 1} has filter type "
                          f"{data[(bad - 1) * (row_bytes + 1)]}, not 0-4")
     return out
+
+
+def cv2_factor_size(h: int, w: int, fx: float, fy: float):
+    """cv2.resize's output (oh, ow) for factors: each side times its factor,
+    rounded half to even (saturate_cast<int> of a double)."""
+    return int(np.rint(h * fy)), int(np.rint(w * fx))
+
+
+def resize_cv2_linear_u8(img: np.ndarray, fx: float, fy: float) -> np.ndarray:
+    """``cv2.resize(img, None, fx=fx, fy=fy, interpolation=cv2.INTER_LINEAR)``
+    of a u8 (H, W) or (H, W, C) image, bit for bit; the output keeps the
+    input's rank."""
+    img, x = _hwc_u8(img)
+    oh, ow = cv2_factor_size(x.shape[0], x.shape[1], fx, fy)
+    out = np.empty((oh, ow, x.shape[2]), np.uint8)
+    load().resize_cv2_linear_u8(x, out, *x.shape, oh, ow, float(fx),
+                                float(fy))
+    return out.reshape((oh, ow) + img.shape[2:])
+
+
+def resize_cv2_linear_flow(x: np.ndarray, fx: float, fy: float) -> np.ndarray:
+    """``cv2.resize(x, None, fx=fx, fy=fy, interpolation=cv2.INTER_LINEAR)``
+    of a float32 or float64 (H, W, 2) flow (the augmentors'), bit for bit,
+    in the input's type (an exact 2x reduction only for float32)."""
+    x = np.asarray(x)
+    if x.ndim != 3 or x.shape[2] != 2:
+        raise ValueError(f"expected (H, W, 2), got {x.shape}")
+    dtype = np.float64 if x.dtype == np.float64 else np.float32
+    if dtype == np.float64 and fx == fy == 0.5:
+        raise ValueError("cv2's 2x area reduction of float64 is not ported")
+    x = np.ascontiguousarray(x, dtype)
+    oh, ow = cv2_factor_size(x.shape[0], x.shape[1], fx, fy)
+    out = np.empty((oh, ow, 2), dtype)
+    fn = (load().resize_cv2_linear_f64_by if dtype == np.float64
+          else load().resize_cv2_linear_f32_by)
+    fn(x, out, *x.shape, oh, ow, float(fx), float(fy))
+    return out
+
+
+COLOR_OPS = {"brightness": 0, "contrast": 1, "saturation": 2, "hue": 3}
+
+
+def pil_color_op(img: np.ndarray, op: str, factor: float = 0.0,
+                 shift: int = 0) -> np.ndarray:
+    """One of ColorJitter's PIL operations on a u8 (H, W, 3) image, bit for
+    bit: ``ImageEnhance.Brightness/Contrast/Color(im).enhance(factor)``
+    for "brightness" / "contrast" / "saturation", and for "hue" the HSV
+    round trip with H rolled by ``shift`` (mod 256).  Returns a new array."""
+    out = np.array(img, np.uint8, order="C", copy=True)
+    if out.ndim != 3 or out.shape[2] != 3:
+        raise ValueError(f"expected an (H, W, 3) image, got {out.shape}")
+    n = out.shape[0] * out.shape[1]
+    if n:
+        load().pil_color_op(out.reshape(-1), n, COLOR_OPS[op], float(factor),
+                            int(shift))
+    return out
+
+
+def pil_hsv_convert(px: np.ndarray, to_hsv: bool) -> np.ndarray:
+    """PIL's RGB -> HSV (``to_hsv``) or HSV -> RGB conversion of (..., 3)
+    u8 pixels."""
+    px = np.ascontiguousarray(px, np.uint8)
+    out = np.empty_like(px)
+    load().pil_hsv_convert(px, out, px.size // 3, int(to_hsv))
+    return out
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """A baseline JPEG file's samples as PIL (libjpeg-turbo at its defaults)
+    decodes them: (H, W) u8 for a grey file, (H, W, 3) RGB u8 for a YCbCr
+    one.  Any other kind of file (progressive, arithmetic-coded, 12-bit,
+    CMYK, ...) raises ValueError."""
+    lib = load()
+    err = ctypes.create_string_buffer(256)
+    hwc = np.zeros(3, np.int64)
+    if lib.jpeg_header(data, len(data), hwc, err, len(err)):
+        raise ValueError(err.value.decode())
+    h, w, c = map(int, hwc)
+    out = np.empty((h, w, c), np.uint8)
+    if lib.jpeg_decode(data, len(data), out, h, w, c, err, len(err)):
+        raise ValueError(err.value.decode())
+    return out[..., 0] if c == 1 else out

@@ -13,6 +13,13 @@
 //   resize_pil_bilinear_u8: PIL's Image.resize(BILINEAR) on u8.
 //   resize_cv2_linear_f32:  cv2.resize(INTER_LINEAR) of a float32 image
 //                           (read here from u8 samples).
+//   resize_cv2_linear_u8, resize_cv2_linear_f{32,64}_by: cv2.resize(
+//                           INTER_LINEAR) by factors fx, fy (the training
+//                           augmentors').
+//   pil_color_op, pil_hsv_convert: ImageEnhance's Brightness, Contrast and
+//                           Color and the HSV hue roll of ColorJitter.
+//
+// The JPEG decoder is in ufr_jpeg.cpp, built into the same library.
 
 #include <algorithm>
 #include <cmath>
@@ -368,6 +375,288 @@ void resize_cv2_linear_f32(const uint8_t* in, float* out, int64_t h,
   }
 }
 
-int ufr_native_version() { return 2; }
+// cv2.resize(img, None, fx=fx, fy=fy, interpolation=INTER_LINEAR) of a
+// u8 (h, w, c) image into (oh, ow, c), oh = round(h fy) and ow = round(w
+// fx) (the caller's).  OpenCV's coefficients: per output column the float
+// f = (float)((dx + 0.5) / fx - 0.5), the source sx = floor(f), weights
+// 1 - (f - sx) and f - sx rounded to 11-bit fixed point, clamped to the
+// edge columns with weight 0; rows the same, reading clamped rows.  The
+// horizontal pass sums exactly in int; the vertical one rounds as
+// OpenCV's vector code (VResizeLinearVec_32s8u) does on every element,
+// ((s0 >> 4) b0 >> 16) + ((s1 >> 4) b1 >> 16) + 2 >> 2.  An exact 2x
+// reduction takes OpenCV's area path instead: each full 2x2 block's sum
+// + 2 >> 2 (its vector code for 1, 3 and 4 channels; 2 channels round the
+// quarter half to even) and a partial block's mean rounded half to even.
+namespace {
+
+void cv2_linear_coeffs(int64_t n, int64_t on, double inv_scale, bool clamp,
+                       std::vector<int64_t>* s, std::vector<float>* f) {
+  const double scale = 1.0 / inv_scale;
+  s->resize(on);
+  f->resize(on);
+  for (int64_t d = 0; d < on; ++d) {
+    float fd = (float)((d + 0.5) * scale - 0.5);
+    int64_t i = (int64_t)std::floor(fd);
+    fd -= (float)i;
+    if (clamp && i < 0) i = 0, fd = 0.f;
+    if (clamp && i >= n - 1) i = n - 1, fd = 0.f;
+    (*s)[d] = i;
+    (*f)[d] = fd;
+  }
+}
+
+inline int32_t cv_round_coef(float v) {
+  return (int32_t)std::nearbyint(v * 2048.0f);
+}
+
+}  // namespace
+
+void resize_cv2_linear_u8(const uint8_t* in, uint8_t* out, int64_t h,
+                          int64_t w, int64_t c, int64_t oh, int64_t ow,
+                          double fx, double fy) {
+  if (fx == 0.5 && fy == 0.5) {
+    for (int64_t dy = 0; dy < oh; ++dy) {
+      for (int64_t dx = 0; dx < ow; ++dx) {
+        const int64_t y0 = 2 * dy, x0 = 2 * dx;
+        const bool full = y0 + 1 < h && x0 + 1 < w;
+        for (int64_t ch = 0; ch < c; ++ch) {
+          int32_t sum = 0, count = 0;
+          for (int64_t y = y0; y < std::min(y0 + 2, h); ++y)
+            for (int64_t x = x0; x < std::min(x0 + 2, w); ++x)
+              sum += in[(y * w + x) * c + ch], ++count;
+          int32_t v;
+          if (full && c != 2) v = (sum + 2) >> 2;
+          else if (full) v = (int32_t)std::nearbyint((float)sum * 0.25f);
+          else v = (int32_t)std::nearbyint((float)sum / (float)count);
+          out[(dy * ow + dx) * c + ch] = (uint8_t)std::min(std::max(v, 0), 255);
+        }
+      }
+    }
+    return;
+  }
+  std::vector<int64_t> xofs, yofs;
+  std::vector<float> ax, ay;
+  cv2_linear_coeffs(w, ow, fx, true, &xofs, &ax);
+  cv2_linear_coeffs(h, oh, fy, false, &yofs, &ay);
+  std::vector<int32_t> a0(ow), a1(ow);
+  for (int64_t d = 0; d < ow; ++d) {
+    a0[d] = cv_round_coef(1.f - ax[d]);
+    a1[d] = cv_round_coef(ax[d]);
+  }
+  std::vector<int32_t> row0(ow * c), row1(ow * c);
+  auto hresize = [&](int64_t sy, int32_t* dst) {
+    const uint8_t* s = in + sy * w * c;
+    for (int64_t dx = 0; dx < ow; ++dx) {
+      const int64_t sx = xofs[dx], sx1 = std::min(sx + 1, w - 1);
+      for (int64_t ch = 0; ch < c; ++ch)
+        dst[dx * c + ch] =
+            s[sx * c + ch] * a0[dx] + s[sx1 * c + ch] * a1[dx];
+    }
+  };
+  for (int64_t dy = 0; dy < oh; ++dy) {
+    const int64_t sy = yofs[dy];
+    hresize(std::min(std::max(sy, int64_t(0)), h - 1), row0.data());
+    hresize(std::min(std::max(sy + 1, int64_t(0)), h - 1), row1.data());
+    const int32_t b0 = cv_round_coef(1.f - ay[dy]), b1 = cv_round_coef(ay[dy]);
+    uint8_t* d = out + dy * ow * c;
+    for (int64_t i = 0; i < ow * c; ++i) {
+      const int32_t v = (((row0[i] >> 4) * b0) >> 16) +
+                        (((row1[i] >> 4) * b1) >> 16) + 2 >> 2;
+      d[i] = (uint8_t)std::min(std::max(v, 0), 255);
+    }
+  }
+}
+
+// cv2.resize(flow, None, fx=fx, fy=fy, interpolation=INTER_LINEAR) of a
+// float32 or float64 (h, w, c) array: the coefficients of
+// resize_cv2_linear_u8 in float, each pass s0 (1 - f) + s1 f in the
+// array's type (no FMA).  An exact 2x reduction of a float32 array is
+// OpenCV's area path: a full 2x2 block's samples summed in row order times
+// 0.25, a partial block's sum over its count.
+extern "C++" {
+namespace {
+
+template <typename T>
+void cv2_linear_float_by(const T* in, T* out, int64_t h, int64_t w,
+                         int64_t c, int64_t oh, int64_t ow, double fx,
+                         double fy) {
+  std::vector<int64_t> xofs, yofs;
+  std::vector<float> ax, ay;
+  cv2_linear_coeffs(w, ow, fx, true, &xofs, &ax);
+  cv2_linear_coeffs(h, oh, fy, false, &yofs, &ay);
+  std::vector<T> row0(ow * c), row1(ow * c);
+  auto hresize = [&](int64_t sy, T* dst) {
+    const T* s = in + sy * w * c;
+    for (int64_t dx = 0; dx < ow; ++dx) {
+      const int64_t sx = xofs[dx], sx1 = std::min(sx + 1, w - 1);
+      const float f1 = ax[dx], f0 = 1.f - f1;
+      for (int64_t ch = 0; ch < c; ++ch)
+        dst[dx * c + ch] = s[sx * c + ch] * f0 + s[sx1 * c + ch] * f1;
+    }
+  };
+  for (int64_t dy = 0; dy < oh; ++dy) {
+    const int64_t sy = yofs[dy];
+    hresize(std::min(std::max(sy, int64_t(0)), h - 1), row0.data());
+    hresize(std::min(std::max(sy + 1, int64_t(0)), h - 1), row1.data());
+    const float f1 = ay[dy], f0 = 1.f - f1;
+    T* d = out + dy * ow * c;
+    for (int64_t i = 0; i < ow * c; ++i) d[i] = row0[i] * f0 + row1[i] * f1;
+  }
+}
+
+}  // namespace
+}  // extern "C++"
+
+void resize_cv2_linear_f32_by(const float* in, float* out, int64_t h,
+                              int64_t w, int64_t c, int64_t oh, int64_t ow,
+                              double fx, double fy) {
+  if (fx == 0.5 && fy == 0.5) {
+    for (int64_t dy = 0; dy < oh; ++dy) {
+      for (int64_t dx = 0; dx < ow; ++dx) {
+        const int64_t y0 = 2 * dy, x0 = 2 * dx;
+        const bool full = y0 + 1 < h && x0 + 1 < w;
+        for (int64_t ch = 0; ch < c; ++ch) {
+          float sum = 0.f;
+          int count = 0;
+          for (int64_t y = y0; y < std::min(y0 + 2, h); ++y)
+            for (int64_t x = x0; x < std::min(x0 + 2, w); ++x)
+              sum += in[(y * w + x) * c + ch], ++count;
+          out[(dy * ow + dx) * c + ch] =
+              full ? sum * 0.25f : sum / (float)count;
+        }
+      }
+    }
+    return;
+  }
+  cv2_linear_float_by(in, out, h, w, c, oh, ow, fx, fy);
+}
+
+void resize_cv2_linear_f64_by(const double* in, double* out, int64_t h,
+                              int64_t w, int64_t c, int64_t oh, int64_t ow,
+                              double fx, double fy) {
+  cv2_linear_float_by(in, out, h, w, c, oh, ow, fx, fy);
+}
+
+// PIL's colour operations on an RGB u8 image of n pixels, in place, as
+// Pillow computes them (libImaging/Blend.c, Convert.c): ImageEnhance's
+// Brightness (op 0), Contrast (op 1) and Color (op 2) blend the image
+// with a degenerate image by a float factor; hue (op 3) rolls the H of
+// the RGB -> HSV -> RGB round trip by `shift` (mod 256).
+namespace {
+
+inline uint8_t pil_l(const uint8_t* p) {
+  return (uint8_t)((p[0] * 19595 + p[1] * 38470 + p[2] * 7471 + 0x8000) >> 16);
+}
+
+// Image.blend(im1, im2, alpha): im1 + alpha (im2 - im1) in float,
+// truncated; clipped first when alpha lies outside [0, 1].
+inline uint8_t pil_blend(int in1, int in2, float alpha) {
+  if (alpha >= 0 && alpha <= 1.0) {
+    return (uint8_t)(in1 + alpha * (in2 - in1));
+  }
+  const float t = (float)(in1 + alpha * (in2 - in1));
+  if (t <= 0.0) return 0;
+  if (t >= 255.0) return 255;
+  return (uint8_t)t;
+}
+
+inline uint8_t clip8(int v) { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v)); }
+
+// Convert.c rgb2hsv_row
+inline void rgb2hsv(const uint8_t* in, uint8_t* out) {
+  const uint8_t r = in[0], g = in[1], b = in[2];
+  const uint8_t maxc = std::max(r, std::max(g, b));
+  const uint8_t minc = std::min(r, std::min(g, b));
+  uint8_t uh, us;
+  if (minc == maxc) {
+    uh = 0;
+    us = 0;
+  } else {
+    float h;
+    const float cr = (float)(maxc - minc);
+    const float s = cr / (float)maxc;
+    const float rc = ((float)(maxc - r)) / cr;
+    const float gc = ((float)(maxc - g)) / cr;
+    const float bc = ((float)(maxc - b)) / cr;
+    if (r == maxc) {
+      h = bc - gc;
+    } else if (g == maxc) {
+      h = 2.0 + rc - bc;
+    } else {
+      h = 4.0 + gc - rc;
+    }
+    h = std::fmod((h / 6.0 + 1.0), 1.0);
+    uh = clip8((int)(h * 255.0));
+    us = clip8((int)(s * 255.0));
+  }
+  out[0] = uh;
+  out[1] = us;
+  out[2] = maxc;
+}
+
+// Convert.c hsv2rgb
+inline void hsv2rgb(const uint8_t* in, uint8_t* out) {
+  const uint8_t h = in[0], s = in[1], v = in[2];
+  if (s == 0) {
+    out[0] = out[1] = out[2] = v;
+    return;
+  }
+  const int i = (int)std::floor((float)h * 6.0 / 255.0);
+  const float f = (float)h * 6.0 / 255.0 - (float)i;
+  const float fs = ((float)s) / 255.0;
+  const int p = (int)std::round((float)v * (1.0 - fs));
+  const int q = (int)std::round((float)v * (1.0 - fs * f));
+  const int t = (int)std::round((float)v * (1.0 - fs * (1.0 - f)));
+  const uint8_t up = clip8(p), uq = clip8(q), ut = clip8(t);
+  switch (i % 6) {
+    case 0: out[0] = v; out[1] = ut; out[2] = up; break;
+    case 1: out[0] = uq; out[1] = v; out[2] = up; break;
+    case 2: out[0] = up; out[1] = v; out[2] = ut; break;
+    case 3: out[0] = up; out[1] = uq; out[2] = v; break;
+    case 4: out[0] = ut; out[1] = up; out[2] = v; break;
+    case 5: out[0] = v; out[1] = up; out[2] = uq; break;
+  }
+}
+
+}  // namespace
+
+void pil_color_op(uint8_t* img, int64_t n, int op, double factor,
+                  int shift) {
+  const float alpha = (float)factor;
+  if (op == 0) {
+    for (int64_t i = 0; i < 3 * n; ++i) img[i] = pil_blend(0, img[i], alpha);
+  } else if (op == 1) {
+    // ImageStat's mean of the L image, rounded as int(mean + 0.5)
+    int64_t sum = 0;
+    for (int64_t i = 0; i < n; ++i) sum += pil_l(img + 3 * i);
+    const int mean = (int)((double)sum / (double)n + 0.5);
+    for (int64_t i = 0; i < 3 * n; ++i) img[i] = pil_blend(mean, img[i], alpha);
+  } else if (op == 2) {
+    for (int64_t i = 0; i < n; ++i) {
+      uint8_t* p = img + 3 * i;
+      const int l = pil_l(p);
+      for (int k = 0; k < 3; ++k) p[k] = pil_blend(l, p[k], alpha);
+    }
+  } else {
+    for (int64_t i = 0; i < n; ++i) {
+      uint8_t* p = img + 3 * i;
+      uint8_t hsv[3];
+      rgb2hsv(p, hsv);
+      hsv[0] = (uint8_t)(((hsv[0] + shift) % 256 + 256) % 256);
+      hsv2rgb(hsv, p);
+    }
+  }
+}
+
+// The two conversions alone, for the tests: RGB -> HSV (to_hsv = 1) or
+// HSV -> RGB (0) of n pixels.
+void pil_hsv_convert(const uint8_t* in, uint8_t* out, int64_t n, int to_hsv) {
+  for (int64_t i = 0; i < n; ++i) {
+    if (to_hsv) rgb2hsv(in + 3 * i, out + 3 * i);
+    else hsv2rgb(in + 3 * i, out + 3 * i);
+  }
+}
+
+int ufr_native_version() { return 3; }
 
 }  // extern "C"

@@ -370,6 +370,12 @@ def _grid_taps(vol: torch.Tensor, centers: torch.Tensor, radius: int):
     M, Hl, Wl = vol.shape
     r = radius
     n = 2 * r + 1
+    if Hl * Wl == 0:
+        # an empty level (RAFT's fourth below 64 px): every tap lies
+        # outside it, as in the JAX package's volume lookup
+        cx, cy = _widen(centers[:, 0]), _widen(centers[:, 1])
+        g = torch.zeros((M, n + 1, n + 1), dtype=cx.dtype, device=vol.device)
+        return g, cx - torch.floor(cx), cy - torch.floor(cy)
     # far-out centres are clamped to where the whole window is still out
     # of the volume, so the float->int conversion cannot overflow
     cx = _widen(centers[:, 0]).clamp(-(r + 2.0), Wl + r + 1.0)
@@ -450,8 +456,8 @@ def _corr_lookup_fwd(pyramid, coords, radius):
     B, H1, W1, _ = coords.shape
     BN = B * H1 * W1
     levels = [p.reshape(BN, p.shape[2], p.shape[3]) for p in pyramid]
-    out = corr_lookup_fwd(levels, coords.reshape(BN, 2), radius)
-    return out.reshape(B, H1, W1, -1)
+    out = corr_lookup_fwd(_live_levels(levels), coords.reshape(BN, 2), radius)
+    return _zero_taps(out, len(levels), radius).reshape(B, H1, W1, -1)
 
 
 class _CorrLookup(torch.autograd.Function):
@@ -478,7 +484,10 @@ class _CorrLookup(torch.autograd.Function):
                    for t, need in zip(saved, needs)]
             out = corr_lookup_reference(ins[1:], ins[0], ctx.radius)
             wanted = [t for t in ins if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wanted, g))
+            # an empty level takes no part in the output: zeros
+            grads = iter(torch.zeros_like(t) if d is None else d
+                         for t, d in zip(wanted, torch.autograd.grad(
+                             out, wanted, g, allow_unused=True)))
         return (None, *[next(grads) if t.requires_grad else None
                         for t in ins])
 
@@ -535,7 +544,11 @@ def alt_corr_lookup_backward_reference(f1: torch.Tensor,
         a = _widen(f1.detach()).requires_grad_()
         lv = [_widen(lvl.detach()).requires_grad_() for lvl in levels]
         out = alt_corr_lookup_reference(a, lv, coords.detach(), radius)
-        grads = torch.autograd.grad(out, [a, *lv], g.to(out.dtype))
+        # an empty level (no rows or columns) takes no part in the output
+        grads = torch.autograd.grad(out, [a, *lv], g.to(out.dtype),
+                                    allow_unused=True)
+    grads = [torch.zeros_like(t) if d is None else d
+             for t, d in zip([a, *lv], grads)]
     return grads[0], tuple(grads[1:])
 
 
@@ -651,14 +664,19 @@ class _AltCorrLookup(torch.autograd.Function):
         coords, kf1, *klevels = ctx.saved_tensors
         L = ctx.num_levels
         cpu = kf1.device.type == "cpu"
+        if not cpu:
+            # the kernels read the live levels and their channels of g
+            live = _live_levels(klevels)
+            g = g[..., :len(live) * (2 * ctx.radius + 1) ** 2]
+            g = g.float().contiguous()
         dcoords = None
         if ctx.needs_input_grad[2]:
             if cpu:
                 dcoords = alt_corr_coords_grad_reference(
                     kf1, klevels, coords, g, ctx.radius)
             else:
-                dcoords = _alt_corr_dcoords_cuda(
-                    kf1, klevels, coords, g.float().contiguous(), ctx.radius)
+                dcoords = _alt_corr_dcoords_cuda(kf1, live, coords, g,
+                                                 ctx.radius)
             dcoords = dcoords.to(coords.dtype)
         dfeats = (None,) * (1 + L)
         if any(ctx.needs_input_grad[4 + L:]):
@@ -666,10 +684,33 @@ class _AltCorrLookup(torch.autograd.Function):
                 df1, dlevels = alt_corr_lookup_backward_reference(
                     kf1, klevels, coords, g, ctx.radius)
             else:
-                df1, dlevels = _alt_corr_bwd_cuda(
-                    kf1, klevels, coords, g.float().contiguous(), ctx.radius)
+                df1, dlevels = _alt_corr_bwd_cuda(kf1, live, coords, g,
+                                                  ctx.radius)
+                dlevels += tuple(torch.zeros(lvl.shape, device=lvl.device)
+                                 for lvl in klevels[len(live):])
             dfeats = (df1, *dlevels)
         return (None, None, dcoords, None) + (None,) * L + dfeats
+
+
+def _live_levels(levels) -> tuple:
+    """The leading levels with at least one row and column (and at least
+    the first), the ones the kernels are passed.  Pooling floors, so every
+    level after an empty one is empty: RAFT's fourth below 64 px.  Every
+    window of an empty level lies outside it, so its taps are zeros and
+    its gradient is zero, as in the JAX package."""
+    n = 1
+    while n < len(levels) and levels[n].shape[1] * levels[n].shape[2]:
+        n += 1
+    return tuple(levels[:n])
+
+
+def _zero_taps(out, L, radius):
+    """A kernel's taps (..., live*(2r+1)^2) zero-extended to L levels."""
+    k = L * (2 * radius + 1) ** 2
+    if out.shape[-1] == k:
+        return out
+    return torch.cat([out, out.new_zeros(out.shape[:-1] + (k - out.shape[-1],))],
+                     dim=-1)
 
 
 def _lookup(f1, levels, coords, radius):
@@ -677,7 +718,8 @@ def _lookup(f1, levels, coords, radius):
         return alt_corr_lookup_reference(f1, levels, coords, radius)
     if f1.device.type != "cuda":
         raise ValueError(f"alt_corr_lookup: unsupported device {f1.device}")
-    return _alt_corr_lookup_cuda(f1, levels, coords, radius)
+    out = _alt_corr_lookup_cuda(f1, _live_levels(levels), coords, radius)
+    return _zero_taps(out, len(levels), radius)
 
 
 def alt_corr_lookup(f1: torch.Tensor, levels: Sequence[torch.Tensor],
@@ -755,6 +797,9 @@ def _check_kernel_args(name, f1, levels, coords, radius):
                 or lvl.shape[3] != C:
             raise ValueError(f"each level must be {f1.dtype} (B, Hl, Wl, C), "
                              f"got {lvl.dtype} {tuple(lvl.shape)}")
+        if B * N and not lvl.shape[1] * lvl.shape[2]:
+            raise ValueError(f"{name} takes no empty level (alt_corr_lookup "
+                             "passes only the live ones)")
 
 
 def _level_args(levels):
@@ -924,6 +969,9 @@ def _check_lookup_args(levels, coords, radius):
         if lvl.dtype != dtype or lvl.dim() != 3 or lvl.shape[0] != BN:
             raise ValueError(f"each level must be {dtype} (BN, Hl, Wl) with "
                              f"BN={BN}, got {lvl.dtype} {tuple(lvl.shape)}")
+        if BN and not lvl.shape[1] * lvl.shape[2]:
+            raise ValueError("corr_lookup_fwd takes no empty level "
+                             "(corr_lookup passes only the live ones)")
     if coords.dtype != torch.float32 or tuple(coords.shape) != (BN, 2):
         raise ValueError(f"coords must be f32 (BN, 2) = ({BN}, 2), got "
                          f"{coords.dtype} {tuple(coords.shape)}")
