@@ -200,6 +200,34 @@ port's package):
    ``alt_corr_bwd``, ``corr_lookup_fwd``) on levels that include the
    empty one against their plain versions, and the kernels' wrappers
    refusing the empty level.
+The patch-analysis and family-training slice adds, after phase 33 (its
+files under the ignored build/):
+34. ``test_moving_patch`` on RAFT (mixed precision, calibrated through a
+   seeded ``.pth``) over a 384x1280 pair: the bench's 100 px patch swept
+   with stride 100, 36 locations, 12 ``alt_corr_fwd`` launches a forward;
+   seconds per location, the device's idle share over the sweep
+   (``torch.profiler``); every location's adversarial flow and EPE
+   against the same sweep with the plain lookup; the CSVs and heat maps.
+35. ``test_replace_features`` on FlowNetC (f32) over 2 pairs with ``-fk
+   corr conv_redir conv3_1 --all_key_subsets``: 56 ``spatial_corr_fwd``
+   launches, ``key_sets.json`` and ``results.csv``; injecting a pair's own
+   captured maps gives back its flow bit for bit.
+36. ``test_patch_embeddings`` on FlowNetC (f32) and PWC-Net (mixed; its
+   taps launch 5 ``spatial_corr_fwd`` and 4 ``warp_fwd`` a forward) over
+   8 pairs: the MMD per key, the t-SNE points.
+37. ``spatial_corr_fwd`` / ``spatial_corr_bwd`` and ``warp_fwd`` at the
+   train steps' shapes (FlowNetC's and PWC-Net's level-2 correlation,
+   SPyNet's and PWC-Net's warps at batch 6, 256x640) against their plain
+   versions, with times of kernel, plain version and bound, and the time
+   of the warp's gradient (the plain sampler's autograd).
+38. The train CLI with ``--synthetic`` on FlowNetS, FlowNetC,
+   FlowNetCFlexLarger_k3_reps3, PWC-Net, SpyNet (batch 6) and FlowNet2
+   (batch 2) at 256x640: the kernels' launches per step, finite losses,
+   ms per step, frames/s, peak memory; each family's first step with the
+   kernels against the plain versions (loss, gradient norm).
+39. ``cli.train --adversarial`` on FlowNetCFlexLarger_k3_reps3 and PWC-Net,
+   2 batches of batch 1 at 256x640 with 3 attack steps: the launches of
+   every attack step and update.
 PWC-Net's serving phase (7) also counts its 5 ``spatial_corr_fwd``
 launches per request, holds the flow against the plain warp and the plain
 correlation together, and times pairs/s with the plain correlation too, in
@@ -212,7 +240,8 @@ iterations/s with the card, and one FlowNet2's pairs/s, its I-FGSM ms per
 step and the adversarial train batch's ms, and one the infer CLI's pairs/s,
 the PNG decode ms and the evaluate CLI's seconds per scene, and one the
 JPEG decode ms, the loader's samples/s and the train CLI's frames/s from
-files.  The last three
+files, and one the moving patch's seconds per location and idle share and
+the families' ms per train step.  The last three
 lines are the card's name and
 power limit, a JSON object per
 kernel (its launches on the main paths, its error against its plain
@@ -227,6 +256,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import itertools
 import json
 import math
 import re
@@ -3823,6 +3853,699 @@ def sub64_phase(gen) -> dict:
     return res
 
 
+# --- the patch analyses and the training of the other families ------------
+
+ANALYSIS_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_analyses"
+# the moving patch: the bench's 100 px patch swept with stride 100 over a
+# 384x1280 frame: rows range(0, 284, 100) x columns range(0, 1180, 100),
+# 3 x 12 locations, each one RAFT forward beside the clean one
+MOVING_PATCH = MOVING_STRIDE = 100
+MOVING_GRID = (3, 12)
+# feature replacement on FlowNetC: 2 samples, every subset of three keys
+REPLACE_SAMPLES = 2
+REPLACE_KEYS = ("corr", "conv_redir", "conv3_1")
+EMBED_SAMPLES = 8
+# embeddings: per model the taps whose channel means are compared
+EMBED_KEYS = {"FlowNetC": ("conv3a", "corr", "conv_redir", "conv3_1"),
+              "PWCNet": ("c13", "corr6", "corr3", "conv2_4", "dc_conv6")}
+# the train CLI on each family it now trains, at its defaults (batch 6 at
+# 256x640, JAX cli/train.py:48-49; FlowNet2, 162M parameters, at batch 2):
+# (ID, batch, launches of each kernel a train step)
+FAMILY_TRAIN = (
+    ("FlowNetS", 6, {}),
+    ("FlowNetC", 6, {"spatial_corr_fwd": 1, "spatial_corr_bwd": 1}),
+    ("FlowNetCFlexLarger_k3_reps3", 6,
+     {"spatial_corr_fwd": 1, "spatial_corr_bwd": 1}),
+    ("PWCNet", 6, {"spatial_corr_fwd": 5, "spatial_corr_bwd": 5,
+                   "warp_fwd": 4}),
+    ("SpyNet", 6, {"warp_fwd": 6}),
+    ("FlowNet2", 2, {"spatial_corr_fwd": 1, "spatial_corr_bwd": 1,
+                     "warp_fwd": 4}))
+FAMILY_KERNELS = ("spatial_corr_fwd", "spatial_corr_bwd", "warp_fwd")
+FAMILY_BATCHES = 4       # batches of each run; ms per step: median of 2..4
+FTH, FTW = 256, 640
+# a family's first train step with the kernels against the same step with
+# their plain versions (plain_corr, plain_warp), relative: the loss and
+# the global gradient norm.  f32 (TF32 off): the correlation sums its
+# products in another order (FLOW_F32_REL_L2 of the serving flows), the
+# warp's coordinates and weights are the plain version's (max|d| 1e-5 x
+# max|img|), so the loss parts by ~1e-6; the gradient by more, through the
+# backward's sums and FlowNet2's chained warps, whose gradient jumps where
+# a coordinate crosses an integer (FLOWNET2_GRAD_REL_L2).  PWC-Net mixed:
+# the kernel and the plain version each round their f32 sums to bf16 once,
+# one bf16 ulp apart where they differ, carried through five levels (its
+# serving flows part by up to BF16_REL_EPE_TOL).  Measured on an H100
+# over three runs: f32 losses <= 1.6e-7 apart, gradient norms <= 2.6e-4
+# (FlowNet2); PWC-Net 6.8e-7 and 3.1e-5
+TRAIN_LOSS_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+TRAIN_GRAD_REL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+# adversarial training on the two robust models of the paper: 2 batches of
+# batch 1 at the attack geometry, ADV_TRAIN_STEPS attack steps, ADV_INNER
+# updates; (ID, spatial correlations and warps a forward)
+FAMILY_ADV = (("FlowNetCFlexLarger_k3_reps3", 1, 0), ("PWCNet", 5, 4))
+
+
+def read_csv(path: Path) -> tuple:
+    """(header, rows) of a ``CsvLogger`` file, the rows as lists of
+    strings."""
+    lines = path.read_text().splitlines()
+    check(len(lines) >= 1, f"{path}: empty")
+    rows = [line.split(",") for line in lines]
+    return rows[0], rows[1:]
+
+
+def _floats(row, path) -> list:
+    vals = [float(x) for x in row]
+    check(all(math.isfinite(v) for v in vals), f"{path}: non-finite {row}")
+    return vals
+
+
+def moving_patch_files(out: Path, scenes: int, grid: tuple) -> dict:
+    """What ``test_moving_patch`` wrote under ``out``: the averages of
+    ``moving_results.csv`` (epe, adv_epe, cos_sim, adv_cos_sim), a row per
+    scene of ``moving_result_scenes.csv``, and each scene's heat map
+    ``vis/adv_epe_image_###.npy`` of ``grid`` locations, finite, whose
+    mean and maximum are the scene row's adv_epe_avg and adv_epe_max (the
+    CSV rounds to 4 decimals).  Where matplotlib rendered the map as
+    ``.jpg`` there is no array to read."""
+    head, rows = read_csv(out / "moving_results.csv")
+    check(head == ["epe", "adv_epe", "cos_sim", "adv_cos_sim"]
+          and len(rows) == 1, f"moving_results.csv: {head} {rows}")
+    averages = _floats(rows[0], "moving_results.csv")
+    head, rows = read_csv(out / "moving_result_scenes.csv")
+    check(len(head) == 11 and head[:2] == ["scene", "epe"]
+          and len(rows) == scenes,
+          f"moving_result_scenes.csv: {head}, {len(rows)} rows")
+    table = np.array([_floats(r, "moving_result_scenes.csv") for r in rows])
+    heats = []
+    for i, row in enumerate(table):
+        npy = out / "vis" / f"adv_epe_image_{i:03d}.npy"
+        if not npy.exists():
+            check((out / "vis" / f"adv_epe_image_{i:03d}.jpg").exists(),
+                  f"moving patch: no heat map of scene {i}")
+            continue
+        heat = np.load(npy)
+        check(heat.shape == grid and np.isfinite(heat).all(),
+              f"{npy.name}: {heat.shape}, finite {np.isfinite(heat).all()}")
+        check(abs(float(heat.mean()) - row[2]) <= 1e-4 + 1e-6 * row[2]
+              and abs(float(heat.max()) - row[5]) <= 1e-4 + 1e-6 * row[5],
+              f"{npy.name}: mean {heat.mean()} max {heat.max()} against "
+              f"the scene row's {row[2]} {row[5]}")
+        heats.append(heat)
+    return {"averages": averages, "scenes": table, "heat": heats}
+
+
+def replace_features_files(out: Path, key_sets: list) -> dict:
+    """What ``test_replace_features`` wrote under ``out``: ``key_sets.json``
+    equal to ``key_sets`` and a row of ``results.csv`` per key set in its
+    order, six finite metrics each; returns {"a+b": [epe, adv_epe,
+    replaced_epe, cos_sim, adv_cos_sim, replaced_cos_sim]}."""
+    got = json.loads((out / "key_sets.json").read_text())
+    check(got == [list(k) for k in key_sets],
+          f"key_sets.json: {got}, not {key_sets}")
+    head, rows = read_csv(out / "results.csv")
+    check(head == ["keys", "epe", "adv_epe", "replaced_epe", "cos_sim",
+                   "adv_cos_sim", "replaced_cos_sim"]
+          and [r[0] for r in rows] == ["+".join(k) for k in key_sets],
+          f"results.csv: {head}, keys {[r[0] for r in rows]}")
+    return {r[0]: _floats(r[1:], "results.csv") for r in rows}
+
+
+def embedding_files(out: Path, keys, points: int) -> dict:
+    """What ``test_patch_embeddings`` wrote under ``out``: a row of
+    ``mmd.csv`` per key, finite and not negative beyond rounding, and each
+    key's t-SNE points ``tsne_{key}.npy`` (``points`` x 2, finite; a
+    ``.pdf`` where matplotlib drew them); returns {key: MMD}."""
+    head, rows = read_csv(out / "mmd.csv")
+    check(head == ["layer", "mmd"] and [r[0] for r in rows] == list(keys),
+          f"mmd.csv: {head}, layers {[r[0] for r in rows]}")
+    mmd = {r[0]: _floats(r[1:], "mmd.csv")[0] for r in rows}
+    check(all(v >= -1e-6 for v in mmd.values()), f"mmd.csv: {mmd}")
+    for k in keys:
+        npy = out / f"tsne_{k}.npy"
+        if not npy.exists():
+            check((out / f"tsne_{k}.pdf").exists(), f"no t-SNE of {k}")
+            continue
+        pts = np.load(npy)
+        check(pts.shape == (points, 2) and np.isfinite(pts).all(),
+              f"{npy.name}: {pts.shape}, finite {np.isfinite(pts).all()}")
+    return mmd
+
+
+@contextlib.contextmanager
+def timed_predictions(models):
+    """Wraps ``models.predict_flow`` (the CLIs import it when they run):
+    yields the list of (seconds at its return, the flow) of every call."""
+    calls = []
+    predict = models.predict_flow
+
+    def wrapped(*a, **k):
+        flow = predict(*a, **k)
+        calls.append((time.perf_counter(), flow))
+        return flow
+
+    models.predict_flow = wrapped
+    try:
+        yield calls
+    finally:
+        models.predict_flow = predict
+
+
+def device_activity(prof) -> tuple:
+    """(busy s, span s) of the device in a ``torch.profiler`` run: the
+    union of its kernels' and copies' intervals (not the host ops that
+    launched them, cli/profile.py), from the first kernel's start (the
+    copies of a model's weights before it are left out) to the last
+    interval's end."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not e.name.startswith(
+                       ("cuda", "aten", "Command Buffer")))
+    first = next(s for s, _, name in spans
+                 if not name.startswith(("Memcpy", "Memset")))
+    busy, end = 0.0, first
+    for start, stop, _ in spans:
+        if stop <= first:
+            continue
+        start = max(start, end)
+        if stop > start:
+            busy += stop - start
+            end = stop
+    return busy / 1e6, (end - first) / 1e6
+
+
+def moving_patch_phase() -> dict:
+    """``test_moving_patch`` on RAFT (the registry's mixed precision, at
+    the calibrated point: ``scale_flow_head(0.05)`` saved as a ``.pth``)
+    over one synthetic 384x1280 frame pair, the bench's 100 px patch with
+    stride 100: 36 locations, 12 ``alt_corr_fwd`` launches per forward;
+    seconds per location and the device's idle share over the sweep
+    (``torch.profiler``, device activity only); each location's
+    adversarial flow and EPE against the same sweep with the plain lookup;
+    the CSVs and heat maps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from understanding_flow_robustness_tpu_torch import models
+    from understanding_flow_robustness_tpu_torch.cli import test_moving_patch
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+    from understanding_flow_robustness_tpu_torch.training.checkpoint import (
+        save_weights,
+    )
+
+    locations = MOVING_GRID[0] * MOVING_GRID[1]
+    print(f"== moving patch: RAFT (mixed, calibrated), 1 pair at {PH}x{PW},"
+          f" {MOVING_PATCH} px patch, stride {MOVING_STRIDE}: {locations} "
+          "locations ==", flush=True)
+    out = ANALYSIS_OUT / "moving"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    model = models.fetch_model("RAFT", iters=ITERS)
+    pth = out / "raft_calibrated.pth"
+    save_weights(str(pth), models.scale_flow_head(model.module, 0.05))
+    del model
+    argv = ["--flownet", "RAFT", "--pretrained_path", str(pth),
+            "--random_patch", "uniform", "--patch_size", str(MOVING_PATCH),
+            "--stride", str(MOVING_STRIDE), "--synthetic", "1",
+            "--synthetic-size", str(PH), str(PW), "--no_viz"]
+
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    with timed_predictions(models) as calls, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        avg = test_moving_patch.main(argv + ["--output", str(out),
+                                             "--name", "kernel"])
+        torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    n = LAUNCH_COUNTS["alt_corr_fwd"]
+    check(n == ITERS * (locations + 1),
+          f"moving patch: {n} alt_corr_fwd launches, not {ITERS} x "
+          f"{locations + 1}")
+    check(len(calls) == locations + 1, f"moving patch: {len(calls)} "
+                                       "forwards")
+    t0 = time.perf_counter()
+    busy, wall = device_activity(prof)
+    t_trace = time.perf_counter() - t0
+    # from the clean flow's return to the last location's
+    s_per_loc = (calls[-1][0] - calls[0][0]) / locations
+    files = moving_patch_files(out / "kernel", 1, MOVING_GRID)
+    check(np.allclose(avg, files["averages"], rtol=0, atol=1e-4 + 1e-6),
+          f"moving patch: returned {avg}, moving_results.csv "
+          f"{files['averages']}")
+
+    # the same sweep with the plain lookup: the same seeded placements
+    fetch = models.fetch_model
+
+    def plain(*a, **k):
+        m = fetch(*a, **k)
+        m.module.plain_lookup = True
+        return m
+
+    models.fetch_model = plain
+    t0 = time.perf_counter()
+    try:
+        with timed_predictions(models) as plain_calls:
+            test_moving_patch.main(argv + ["--output", str(out),
+                                           "--name", "plain"])
+    finally:
+        models.fetch_model = fetch
+    t_plain = time.perf_counter() - t0
+    plain_files = moving_patch_files(out / "plain", 1, MOVING_GRID)
+    worst_rel, worst_epe = 0.0, 0.0
+    for (_, f), (_, p) in zip(calls, plain_calls):
+        d = torch.linalg.vector_norm(f - p, dim=-1).mean().item()
+        mag = torch.linalg.vector_norm(p, dim=-1).mean().item()
+        worst_rel = max(worst_rel, d / mag)
+    heat, plain_heat = files["heat"], plain_files["heat"]
+    if heat and plain_heat:
+        # |EPE(gt, f) - EPE(gt, p)| <= mean |f - p| (all GT valid here)
+        worst_epe = float(np.abs(heat[0] - plain_heat[0]).max())
+    check(worst_rel <= BF16_REL_EPE_TOL,
+          f"moving patch: a location's flow, kernel vs plain lookup, "
+          f"{worst_rel:.3e} mean EPE / mean |flow| (tol {BF16_REL_EPE_TOL})")
+    mean_flow = float(np.mean([torch.linalg.vector_norm(
+        p, dim=-1).mean().item() for _, p in plain_calls]))
+    check(worst_epe <= BF16_REL_EPE_TOL * mean_flow,
+          f"moving patch: adversarial EPE kernel vs plain lookup "
+          f"{worst_epe:.4f} px apart at a location")
+    res = {"launches/alt_corr_fwd": n, "s_per_location": s_per_loc,
+           "idle_share": max(0.0, 1.0 - busy / wall), "busy_s": busy,
+           "wall_s": wall, "vs_plain_rel_epe": worst_rel,
+           "vs_plain_adv_epe_px": worst_epe, "averages": files["averages"]}
+    scene = files["scenes"][0]
+    print(f"moving patch: {n} alt_corr_fwd launches; clean EPE "
+          f"{scene[1]:.3f}, adversarial EPE over the {locations} locations "
+          f"avg {scene[2]:.3f} min {scene[3]:.3f} max {scene[5]:.3f}; "
+          f"{s_per_loc:.4f} s per location (placement, composite, RAFT-12, "
+          f"two host reads), device idle {100 * res['idle_share']:.1f} % of "
+          f"the {wall:.3f} s from the clean forward's first kernel to the "
+          f"last ({busy:.3f} s busy); kernel vs plain lookup: worst "
+          f"location {worst_rel:.3e} mean EPE / mean |flow|, adversarial EPE "
+          f"{worst_epe:.4f} px apart; the CLI run {t_run:.1f} s under the "
+          f"profiler, reading its trace {t_trace:.1f} s, the plain run "
+          f"{t_plain:.1f} s", flush=True)
+    return res
+
+
+def replace_features_phase() -> dict:
+    """``test_replace_features`` on FlowNetC (f32) over 2 synthetic
+    384x1280 pairs, ``-fk corr conv_redir conv3_1 --all_key_subsets``: 7
+    key sets x 4 forwards x 2 samples ``spatial_corr_fwd`` launches, the
+    files; then, apart, injecting a test-patch pair's own captured maps
+    gives back its flow bit for bit."""
+    from understanding_flow_robustness_tpu_torch import models
+    from understanding_flow_robustness_tpu_torch.cli import (
+        test_replace_features,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    key_sets = [k for r in range(1, len(REPLACE_KEYS) + 1)
+                for k in itertools.combinations(REPLACE_KEYS, r)]
+    print(f"== replace features: FlowNetC f32, {REPLACE_SAMPLES} pairs at "
+          f"{PH}x{PW}, {len(key_sets)} key sets ==", flush=True)
+    out = ANALYSIS_OUT / "replace"
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--flownet", "FlowNetC", "--random_patch", "uniform",
+            "--patch_size", str(MOVING_PATCH), "--synthetic",
+            str(REPLACE_SAMPLES), "--synthetic-size", str(PH), str(PW),
+            "-fk", *REPLACE_KEYS, "--all_key_subsets", "--output", str(out),
+            "--name", "flownetc"]
+    LAUNCH_COUNTS.clear()
+    t0 = time.perf_counter()
+    test_replace_features.main(argv)
+    seconds = time.perf_counter() - t0
+    n = LAUNCH_COUNTS["spatial_corr_fwd"]
+    expect = len(key_sets) * 4 * REPLACE_SAMPLES
+    check(n == expect, f"replace features: {n} spatial_corr_fwd launches, "
+                       f"not {expect}")
+    rows = replace_features_files(out / "flownetc", key_sets)
+
+    # injecting a pair's own maps changes nothing: bit for bit with cuDNN's
+    # deterministic convolutions (its default choice may sum f32 in an
+    # order that changes from call to call: ~1e-5 px)
+    model = models.fetch_model("FlowNetC", return_features=True)
+    pair = torch.rand((2, 1, PH, PW, 3), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(7))
+    torch.backends.cudnn.deterministic = True
+    try:
+        flow, feats = models.predict_flow_with_features(model, pair[0],
+                                                        pair[1])
+        for keys in key_sets:
+            again = models.predict_flow(model, pair[0], pair[1],
+                                        overrides={k: feats[k] for k in keys})
+            check(torch.equal(again, flow),
+                  f"replace features: injecting its own {keys} moved the "
+                  f"flow by {float((again - flow).abs().max()):.3e}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    moved = {k: abs(v[2] - v[1]) for k, v in rows.items()}
+    print(f"replace features: {n} spatial_corr_fwd launches in "
+          f"{seconds:.2f} s; adv EPE -> replaced EPE per key set: " + ", ".join(
+              f"{k} {v[1]:.3f} -> {v[2]:.3f}" for k, v in rows.items())
+          + "; a pair's own maps injected give its flow bit for bit",
+          flush=True)
+    return {"launches/spatial_corr_fwd": n, "seconds": seconds,
+            "moved": moved}
+
+
+def embeddings_phase() -> dict:
+    """``test_patch_embeddings`` on FlowNetC (f32) and PWC-Net (mixed) over
+    EMBED_SAMPLES synthetic 384x1280 pairs: the launches (FlowNetC one
+    ``spatial_corr_fwd`` a forward; PWC-Net's taps 5 and 4 ``warp_fwd``),
+    the MMD per key, the t-SNE points."""
+    from understanding_flow_robustness_tpu_torch.cli import (
+        test_patch_embeddings,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    res = {"launches/spatial_corr_fwd": 0, "launches/warp_fwd": 0}
+    for name, (corrs, warps) in (("FlowNetC", (1, 0)), ("PWCNet", (5, 4))):
+        keys = EMBED_KEYS[name]
+        print(f"== embeddings: {name}, {EMBED_SAMPLES} pairs at {PH}x{PW}, "
+              f"taps {keys} ==", flush=True)
+        out = ANALYSIS_OUT / "embeddings"
+        shutil.rmtree(out / name, ignore_errors=True)
+        LAUNCH_COUNTS.clear()
+        t0 = time.perf_counter()
+        test_patch_embeddings.main([
+            "--flownet", name, "--random_patch", "uniform", "--patch_size",
+            str(MOVING_PATCH), "--synthetic", str(EMBED_SAMPLES),
+            "--max_samples", str(EMBED_SAMPLES), "--synthetic-size", str(PH),
+            str(PW), "--feature_keys", *keys, "--output", str(out),
+            "--name", name])
+        seconds = time.perf_counter() - t0
+        n = {k: LAUNCH_COUNTS[k] for k in ("spatial_corr_fwd", "warp_fwd")}
+        expect = {"spatial_corr_fwd": 2 * EMBED_SAMPLES * corrs,
+                  "warp_fwd": 2 * EMBED_SAMPLES * warps}
+        check(n == expect, f"embeddings {name}: launches {n}, not {expect}")
+        mmd = embedding_files(out / name, keys, 2 * EMBED_SAMPLES)
+        for k in n:
+            res[f"launches/{k}"] += n[k]
+        res[name] = mmd
+        print(f"embeddings {name}: launches {n}; MMD " + ", ".join(
+            f"{k} {v:.6f}" for k, v in mmd.items())
+            + f"; {seconds:.2f} s with t-SNE", flush=True)
+    return res
+
+
+def _first_step(model, batch: dict, pwc: bool) -> tuple:
+    """(loss, global gradient norm) of one train-mode forward and backward
+    of ``model`` on ``batch``, with the train step's loss."""
+    from understanding_flow_robustness_tpu_torch.training import sequence_loss
+
+    module = model.module.train()
+    module.zero_grad(set_to_none=True)
+    img1 = batch["image1"].permute(0, 3, 1, 2)
+    img2 = batch["image2"].permute(0, 3, 1, 2)
+    preds = module(img1, img2, train=True)
+    preds = list(preds) if isinstance(preds, (list, tuple)) else [preds]
+    loss, _ = sequence_loss([p.permute(0, 2, 3, 1) for p in preds],
+                            batch["flow"], batch["valid"], flownetc=True,
+                            pwc=pwc)
+    loss.backward()
+    norm = torch.linalg.vector_norm(torch.stack([
+        torch.linalg.vector_norm(p.grad) for p in module.parameters()
+        if p.grad is not None]))
+    return float(loss.detach()), float(norm)
+
+
+@contextlib.contextmanager
+def spied_train_steps(trainer):
+    """Wraps ``trainer.make_train_step``: yields the list of (seconds of
+    each step with the device synchronised, the launch counts after it)."""
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    steps = []
+    make_step = trainer.make_train_step
+
+    def spy(*a, **k):
+        step = make_step(*a, **k)
+
+        def run(batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(batch)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t,
+                          {k: LAUNCH_COUNTS[k] for k in FAMILY_KERNELS}))
+            return out
+        return run
+
+    trainer.make_train_step = spy
+    try:
+        yield steps
+    finally:
+        trainer.make_train_step = make_step
+
+
+def family_train_phase() -> dict:
+    """The train CLI with ``--synthetic`` on FlowNetS, FlowNetC,
+    FlowNetCFlexLarger_k3_reps3 (f32), PWC-Net (mixed), SpyNet (f32) and
+    FlowNet2 (f32, batch 2) at the CLI's 256x640: launches of the
+    correlation and warp kernels per step, finite losses, ms per step
+    (median of steps 2..4), frames/s, peak memory; then each family's
+    first step (the CLI's initial weights, its first batch) with the
+    kernels against the plain versions: the loss and the gradient norm."""
+    from understanding_flow_robustness_tpu_torch.cli import train as cli_train
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+    from understanding_flow_robustness_tpu_torch.training import trainer
+
+    res = {f"launches/{k}": 0 for k in FAMILY_KERNELS}
+    ckpt = ANALYSIS_OUT / "train"
+    fetch = cli_train.fetch_model
+    for name, batch, per_step in FAMILY_TRAIN:
+        print(f"== train CLI: {name}, batch {batch} at {FTH}x{FTW}, "
+              f"{FAMILY_BATCHES} synthetic batches ==", flush=True)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        built = {}
+
+        def keep(*a, _fetch=fetch, **k):
+            built["model"] = _fetch(*a, **k)
+            built["init"] = copy.deepcopy(built["model"].module.state_dict())
+            return built["model"]
+
+        cli_train.fetch_model = keep
+        LAUNCH_COUNTS.clear()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with spied_train_steps(trainer) as steps:
+                out = cli_train.main([
+                    "--model", name, "--synthetic", str(FAMILY_BATCHES),
+                    "--num_steps", str(FAMILY_BATCHES - 1), "--batch_size",
+                    str(batch), "--image_size", str(FTH), str(FTW),
+                    "--name", "fam", "--checkpoint_dir", str(ckpt)])
+        finally:
+            cli_train.fetch_model = fetch
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n = {k: LAUNCH_COUNTS[k] for k in FAMILY_KERNELS}
+        expect = {k: FAMILY_BATCHES * per_step.get(k, 0)
+                  for k in FAMILY_KERNELS}
+        check(n == expect, f"train CLI {name}: launches {n}, not {expect}")
+        check(len(steps) == FAMILY_BATCHES
+              and all(math.isfinite(m["loss"]) for m in out["history"]),
+              f"train CLI {name}: {len(steps)} steps, losses "
+              f"{[m['loss'] for m in out['history']]}")
+        ms = 1e3 * float(np.median([s for s, _ in steps[1:]]))
+        for k in FAMILY_KERNELS:
+            res[f"launches/{k}"] += n[k]
+
+        # the first step again, kernels and plain versions, from the CLI's
+        # initial weights on its first batch
+        model = built["model"]
+        model.module.load_state_dict(built["init"])
+        first = next(cli_train._synthetic_batches(
+            1, batch, FTH, FTW, 1234)())
+        dev = {k: torch.as_tensor(v, device="cuda") for k, v in first.items()}
+        LAUNCH_COUNTS.clear()
+        loss_k, norm_k = _first_step(model, dev, "PWC" in name)
+        for flag in ("plain_corr", "plain_warp"):
+            if hasattr(model.module, flag):
+                setattr(model.module, flag, True)
+        loss_p, norm_p = _first_step(model, dev, "PWC" in name)
+        dtype = torch.bfloat16 if name == "PWCNet" else torch.float32
+        d_loss = abs(loss_k - loss_p) / abs(loss_p)
+        d_norm = abs(norm_k - norm_p) / norm_p
+        check(d_loss <= TRAIN_LOSS_REL[dtype] and d_norm <= TRAIN_GRAD_REL[dtype],
+              f"train {name}: first step, kernels vs plain: loss {loss_k} "
+              f"vs {loss_p} ({d_loss:.2e}), grad norm {norm_k} vs {norm_p} "
+              f"({d_norm:.2e})")
+        cli_loss = out["history"][0]["loss"]
+        check(abs(cli_loss - loss_k) <= 1e-5 * abs(loss_k),
+              f"train {name}: the CLI's first loss {cli_loss} is not the "
+              f"phase's {loss_k}")
+        res[name] = {"ms_per_step": ms, "frames_per_s": 1e3 * batch / ms,
+                     "peak_gib": peak, "launches": n,
+                     "loss_rel": d_loss, "grad_norm_rel": d_norm}
+        print(f"train CLI {name}: launches {n} ({per_step} a step); losses "
+              + ", ".join(f"{m['loss']:.3f}" for m in out["history"])
+              + f"; {ms:.1f} ms per step (median of steps 2..{FAMILY_BATCHES}"
+              f"), {1e3 * batch / ms:.1f} frames/s, peak {peak:.2f} GiB; "
+              f"first step kernels vs plain: loss {d_loss:.2e}, grad norm "
+              f"{d_norm:.2e} (relative)", flush=True)
+        del model, built
+        torch.cuda.empty_cache()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return res
+
+
+def family_adv_train_phase() -> dict:
+    """``cli.train --adversarial`` on FlowNetCFlexLarger_k3_reps3 (f32) and
+    PWC-Net (mixed): 2 batches of batch 1 at the attack geometry, each an
+    eval-mode I-FGSM of ADV_TRAIN_STEPS steps and ADV_INNER updates on the
+    doubled batch: every forward and backward launches the model's
+    correlation kernels (and PWC-Net's warps), finite losses, ms per
+    batch."""
+    from understanding_flow_robustness_tpu_torch.cli import train as cli_train
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+    from understanding_flow_robustness_tpu_torch.training import trainer
+
+    res = {f"launches/{k}": 0 for k in FAMILY_KERNELS}
+    ckpt = ANALYSIS_OUT / "adv"
+    for name, corrs, warps in FAMILY_ADV:
+        print(f"== adversarial train CLI: {name}, batch {AB} at {AH}x{AW}, "
+              f"{ADV_TRAIN_STEPS} I-FGSM steps, {ADV_TRAIN_BATCHES} batches "
+              "==", flush=True)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        LAUNCH_COUNTS.clear()
+        with spied_train_steps(trainer) as steps:
+            t0 = time.perf_counter()
+            out = cli_train.main([
+                "--model", name, "--adversarial", "--synthetic",
+                str(ADV_TRAIN_BATCHES), "--num_steps",
+                str(ADV_TRAIN_BATCHES - 1), "--batch_size", str(AB),
+                "--image_size", str(AH), str(AW), "--perturb_n_step",
+                str(ADV_TRAIN_STEPS), "--name", "adv", "--checkpoint_dir",
+                str(ckpt)])
+            seconds = time.perf_counter() - t0
+        passes = ADV_TRAIN_BATCHES * (ADV_TRAIN_STEPS + ADV_INNER)
+        expect = {"spatial_corr_fwd": passes * corrs,
+                  "spatial_corr_bwd": passes * corrs,
+                  "warp_fwd": passes * warps}
+        n = {k: LAUNCH_COUNTS[k] for k in FAMILY_KERNELS}
+        check(n == expect, f"adversarial train {name}: launches {n}, not "
+                           f"{expect}")
+        check(out["total_steps"] == ADV_TRAIN_BATCHES
+              and len(steps) == ADV_TRAIN_BATCHES * ADV_INNER
+              and all(math.isfinite(m["loss"]) for m in out["history"]),
+              f"adversarial train {name}: {out['total_steps']} batches, "
+              f"{len(steps)} updates, losses {out['history']}")
+        for k in FAMILY_KERNELS:
+            res[f"launches/{k}"] += n[k]
+        res[name] = {"launches": n, "seconds": seconds}
+        print(f"adversarial train CLI {name}: launches {n}; losses "
+              + ", ".join(f"{m['loss']:.3f}" for m in out["history"])
+              + f"; {seconds:.2f} s for the run", flush=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return res
+
+
+# the train steps' shapes of the spatial correlation and the warp, batch 6
+# at the train CLI's 256x640: FlowNetC's (21, 2) correlation on the conv3
+# maps (f32), PWC-Net's level 2 (bf16 under its autocast), SPyNet's finest
+# warp (f32, mode "spynet") and PWC-Net's level-2 warp (bf16, zeros_mask)
+CORR_TRAIN = {"flownetc_train": ((6, 256, FTH // 8, FTW // 8), 21, 2,
+                                 torch.float32),
+              "pwc_train_l2": ((6, 32, FTH // 4, FTW // 4), 9, 1,
+                               torch.bfloat16)}
+WARP_TRAIN = {"spynet_train": ((6, 3, FTH, FTW), "spynet", torch.float32,
+                               False),
+              "pwc_train_l2": ((6, 32, FTH // 4, FTW // 4), "zeros_mask",
+                               torch.bfloat16, True)}
+TRAIN_SHAPES_SEED = 300
+
+
+def train_shapes_phase() -> dict:
+    """``spatial_corr_fwd`` / ``spatial_corr_bwd`` and ``warp_fwd`` at the
+    train steps' shapes (CORR_TRAIN, WARP_TRAIN) against their plain
+    versions at the bars of spatial_corr_phase and warp_phase, with the
+    times of kernel, plain version and bound; beside the warp kernel the
+    time of its gradient, the plain sampler's autograd (into the flow, and
+    into PWC-Net's features, which the train step differentiates too)."""
+    from understanding_flow_robustness_tpu_torch import ops
+    from understanding_flow_robustness_tpu_torch.ops import correlation as corr
+
+    print("== the train shapes: spatial_corr_fwd/bwd and warp_fwd vs plain "
+          "==", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SHAPES_SEED)
+    res = {}
+    for name, (shape, patch, dil, dtype) in CORR_TRAIN.items():
+        f1 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        f2 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g = torch.randn((shape[0], patch ** 2) + shape[2:], generator=gen,
+                        device="cuda").to(dtype)
+        got = ops.spatial_correlation(f1, f2, patch, dilation_patch=dil)
+        ref = ops.spatial_correlation_reference(f1, f2, patch, dil)
+        err, ok = _corr_err(got, ref, dtype)
+        dk = corr._spatial_corr_bwd_cuda(f1, f2, g, patch, dil)
+        a, b = f1.float().requires_grad_(), f2.float().requires_grad_()
+        dp = torch.autograd.grad(ops.spatial_correlation_reference(
+            a, b, patch, dil), (a, b), g.float())
+        bres = [_corr_err(k, p, dtype) for k, p in zip(dk, dp)]
+        check(ok and all(o for _, o in bres),
+              f"{name}: the spatial correlation's kernels disagree with the "
+              f"plain version (fwd {err:.3e}, bwd {bres})")
+        pairs = corr_pairs(shape[2], shape[3], patch, dil) * shape[0] * shape[1]
+        fwd = {"max_abs_err": err, "ms": cuda_ms(lambda: ops.spatial_correlation(
+            f1, f2, patch, dilation_patch=dil), reps=20),
+               "plain_ms": cuda_ms(lambda: ops.spatial_correlation_reference(
+                   f1, f2, patch, dil), reps=3, warmup=1),
+               **bound(nbytes(f1, f2, got), 2 * pairs, dtype)}
+        a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+        out = ops.spatial_correlation_reference(a, b, patch, dil)
+        bwd = {"max_abs_err": max(e for e, _ in bres),
+               "ms": cuda_ms(lambda: corr._spatial_corr_bwd_cuda(
+                   f1, f2, g, patch, dil), reps=20),
+               "plain_ms": cuda_ms(lambda: torch.autograd.grad(
+                   out, (a, b), g, retain_graph=True), reps=3, warmup=1),
+               **bound(nbytes(f1, f2, g, *dk), 4 * pairs, dtype)}
+        res[f"corr/{name}"], res[f"corr/{name}/bwd"] = fwd, bwd
+        for tag, m in (("forward", fwd), ("backward", bwd)):
+            print(f"{name:16s} {tuple(shape)} P={patch} d={dil} "
+                  f"{str(dtype).split('.')[-1]} {tag}: max_abs_err "
+                  f"{m['max_abs_err']:.3e}, kernel {m['ms']:.4f} ms, plain "
+                  f"{m['plain_ms']:.3f} ms, bound {m['bound_ms']:.4f} ms "
+                  f"({m['bound_by']}; the kernel at "
+                  f"{100 * m['bound_ms'] / m['ms']:.1f}% of it)", flush=True)
+        del f1, f2, g, got, ref, dk, dp, out
+    for name, ((b, c, h, w), mode, dtype, img_grad) in WARP_TRAIN.items():
+        img = torch.rand((b, c, h, w), generator=gen, device="cuda").to(dtype)
+        flow = warp_flow(gen, b, h, w, "smooth")
+        got = ops.warp_backward(img, flow, mode)
+        ref = ops.warp_backward_reference(img.float(), flow, mode)
+        err = (got.float() - ref).abs()
+        ok = (err.max().item() <= WARP_F32_REL_TOL
+              * img.float().abs().max().item() if dtype == torch.float32
+              else bool((err <= bf16_ulp(ref)).all()))
+        check(ok, f"{name}: warp_fwd disagrees with the plain version "
+                  f"({err.max().item():.3e})")
+        i = img.clone().requires_grad_(img_grad)
+        f = flow.clone().requires_grad_()
+        out = ops.warp_backward(i, f, mode)
+        gout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+        wrt = (i, f) if img_grad else (f,)
+        m = {"max_abs_err": err.max().item(),
+             "ms": graph_ms(lambda: ops.warp_backward(img, flow, mode),
+                            reps=50),
+             "plain_ms": cuda_ms(lambda: ops.warp_backward_reference(
+                 img, flow, mode), reps=10),
+             "library_ms": graph_ms(grid_sample_call(img, flow, mode),
+                                    reps=50),
+             "grad_plain_ms": cuda_ms(lambda: torch.autograd.grad(
+                 out, wrt, gout, retain_graph=True), reps=10),
+             **bound(nbytes(img, flow, got), 8 * b * c * h * w, dtype)}
+        res[f"warp/{name}"] = m
+        print(f"{name:16s} {(b, c, h, w)} {mode} "
+              f"{str(dtype).split('.')[-1]}: max_abs_err "
+              f"{m['max_abs_err']:.3e}, kernel {m['ms']:.4f} ms (graph "
+              f"replay), plain {m['plain_ms']:.4f} ms, grid_sample "
+              f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+              f"({m['bound_by']}); its gradient (the plain sampler's "
+              f"autograd) {m['grad_plain_ms']:.4f} ms", flush=True)
+        del img, flow, got, ref, i, f, out, gout
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device: torch.cuda.is_available() is False")
@@ -3902,6 +4625,14 @@ def main() -> None:
     pfres = phase(patch_files_phase)
     s64res = phase(sub64_phase, gen)
     t_files = time.perf_counter() - t_files
+    t_analyses = time.perf_counter()
+    mpres = phase(moving_patch_phase)
+    rfres = phase(replace_features_phase)
+    emres = phase(embeddings_phase)
+    tsres = phase(train_shapes_phase)
+    ftres = phase(family_train_phase)
+    fvres = phase(family_adv_train_phase)
+    t_analyses = time.perf_counter() - t_analyses
     print(f"all phases, build included: {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(f"patch attack, FlowNetC, batch {PB} at {PH}x{PW} ({card}): "
@@ -3931,6 +4662,13 @@ def main() -> None:
           f"loader over {RATE_STEPS} batches against "
           f"{tres['frames_per_s']:.2f} synthetic (phase 8); the six phases "
           f"{t_files:.1f} s", flush=True)
+    print(f"patch analyses and family training ({card}): moving patch on "
+          f"RAFT {mpres['s_per_location']:.4f} s per location, device idle "
+          f"{100 * mpres['idle_share']:.1f} %; train CLI at batch 6, "
+          f"{FTH}x{FTW} (FlowNet2 batch 2), ms per step: " + ", ".join(
+              f"{name} {ftres[name]['ms_per_step']:.1f}"
+              for name, _, _ in FAMILY_TRAIN)
+          + f"; the six phases {t_analyses:.1f} s", flush=True)
 
     print(card)  # name, power limit: nvidia-smi's own line
 
@@ -3953,7 +4691,8 @@ def main() -> None:
                      + atres["launches/alt_corr_fwd"]
                      + inres["launches"] + evres["launches"]
                      + trfres["launches/alt_corr_fwd"]
-                     + s64res["launches/alt_corr_fwd"]),
+                     + s64res["launches/alt_corr_fwd"]
+                     + mpres["launches/alt_corr_fwd"]),
         "max_abs_err": kres[fwd],
         "ms": kres[f"{fwd}/ms"],
         "plain_ms": kres[f"{fwd}/plain_ms"],
@@ -4020,7 +4759,10 @@ def main() -> None:
                      + ares["pwc_launches/warp_fwd"]
                      + f2res["launches/warp_fwd"]
                      + f2ares["launches/warp_fwd"]
-                     + f2ares["cli_launches/warp_fwd"]),
+                     + f2ares["cli_launches/warp_fwd"]
+                     + emres["launches/warp_fwd"]
+                     + ftres["launches/warp_fwd"]
+                     + fvres["launches/warp_fwd"]),
         "max_abs_err": warp["max_abs_err"],
         "ms": warp["ms"],
         "plain_ms": warp["plain_ms"],
@@ -4034,6 +4776,10 @@ def main() -> None:
         "flownet2_border_plain_ms": f2res["warp"]["plain_ms"],
         "flownet2_border_bound_ms": f2res["warp"]["bound_ms"],
         "flownet2_border_grid_sample_ms": f2res["warp"]["library_ms"],
+        **{f"{name}_{k}": tsres[f"warp/{name}"][k]
+           for name in WARP_TRAIN for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "library_ms",
+                                            "grad_plain_ms")},
     }, {
         "name": "corr_lookup_fwd",
         "route": "cuda",
@@ -4065,7 +4811,11 @@ def main() -> None:
                      + f2ares["cli_launches/spatial_corr_fwd"]
                      + crres["launches/spatial_corr_fwd"]
                      + dares["launches/spatial_corr_fwd"]
-                     + pfres["launches/spatial_corr_fwd"]),
+                     + pfres["launches/spatial_corr_fwd"]
+                     + rfres["launches/spatial_corr_fwd"]
+                     + emres["launches/spatial_corr_fwd"]
+                     + ftres["launches/spatial_corr_fwd"]
+                     + fvres["launches/spatial_corr_fwd"]),
         "max_abs_err": scres["flownetc"]["fwd_err"],
         "ms": scres["flownetc"]["ms"],
         "plain_ms": scres["flownetc"]["plain_ms"],
@@ -4080,6 +4830,9 @@ def main() -> None:
         "patch_shape_plain_ms": scres["patch"]["plain_ms"],
         "patch_shape_bound_ms": scres["patch"]["bound_ms"],
         "patch_256_max_abs_err": scres["patch_256"]["fwd_err"],
+        **{f"{name}_{k}": tsres[f"corr/{name}"][k]
+           for name in CORR_TRAIN for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms")},
     }, {
         "name": "spatial_corr_bwd",
         "route": "cuda",
@@ -4094,7 +4847,9 @@ def main() -> None:
                      + f2ares["launches/spatial_corr_bwd"]
                      + f2ares["cli_launches/spatial_corr_bwd"]
                      + dares["launches/spatial_corr_bwd"]
-                     + pfres["launches/spatial_corr_bwd"]),
+                     + pfres["launches/spatial_corr_bwd"]
+                     + ftres["launches/spatial_corr_bwd"]
+                     + fvres["launches/spatial_corr_bwd"]),
         "max_abs_err": scres["attack"]["bwd_err"],
         "ms": scres["attack/bwd"]["ms"],
         "plain_ms": scres["attack/bwd"]["plain_ms"],
@@ -4109,6 +4864,9 @@ def main() -> None:
         "patch_shape_plain_ms": scres["patch/bwd"]["plain_ms"],
         "patch_shape_bound_ms": scres["patch/bwd"]["bound_ms"],
         "patch_256_max_abs_err": scres["patch_256"]["bwd_err"],
+        **{f"{name}_{k}": tsres[f"corr/{name}/bwd"][k]
+           for name in CORR_TRAIN for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,19 +37,6 @@ def test_fetch_model_ids_and_precision():
         fetch_model("FlowNet3", device="cpu")
 
 
-@pytest.mark.parametrize("name,item", [("FlowNet2", "A7")])
-def test_unported_ids_name_their_roadmap_item(tmp_path, name, item):
-    """An ID that serves but does not train yet: the train CLI refuses it
-    with the ROADMAP item that ports its training (FlowNet2 with the
-    FlowNet family's, A7b), before building anything."""
-    from understanding_flow_robustness_tpu_torch.cli import train as cli_train
-
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli_train.main(["--model", name, "--synthetic", "1",
-                        "--checkpoint_dir", str(tmp_path), "--device",
-                        "cpu"])
-
-
 @pytest.mark.parametrize("name,cls", [
     ("FlowNetC", "FlowNetC"), ("FlowNetS", "FlowNetS2"),
     ("FlowNetCFlexLarger_k5_reps0", "FlowNetCFlex")])
@@ -87,17 +74,14 @@ def test_fetch_model_builds_wocontext():
         fetch_model("RAFT", device="cpu", corr_impl="sparse")
 
 
-@pytest.mark.parametrize("name,item", [("PWCNet", "A9")])
-def test_feature_map_keys_of_unported_taps_name_their_roadmap_item(name, item):
-    """RAFT's and the FlowNetC family's taps are ported; PWC-Net's raise
-    with their ROADMAP item; SpyNet and FlowNetS expose none, as in the JAX
-    package; an unknown ID raises."""
+def test_feature_map_keys_of_the_other_families():
+    """WoContext has RAFT's taps; SpyNet, FlowNetS and FlowNet2 expose
+    none, as in the JAX package; an unknown ID raises.  PWC-Net's taps:
+    tests/test_torch_pwc_taps.py."""
     assert get_feature_map_keys("RAFT_FlowNetCEncoder_WoContext") == \
         get_feature_map_keys("RAFT")
-    assert get_feature_map_keys("SpyNet") == []
-    assert get_feature_map_keys("FlowNetS") == []
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        get_feature_map_keys(name)
+    for name in ("SpyNet", "FlowNetS", "FlowNet2"):
+        assert get_feature_map_keys(name) == []
     with pytest.raises(KeyError):
         get_feature_map_keys("RAFT_small")
 
@@ -225,7 +209,9 @@ def test_port_imports_no_jax():
         "          'flowviz.io', 'flowviz.png', 'flowviz.flow_viz', 'native',\n"
         "          'data.datasets', 'data.validation', 'data.transforms',\n"
         "          'training.evaluate', 'cli.evaluate', 'cli.infer',\n"
-        "          'data.augmentor', 'data.loader', 'data.sequence_folders'):\n"
+        "          'data.augmentor', 'data.loader', 'data.sequence_folders',\n"
+        "          'utils.embedding', 'cli.test_moving_patch',\n"
+        "          'cli.test_replace_features', 'cli.test_patch_embeddings'):\n"
         "    assert p.__name__ + '.' + k in names, k\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax'))\n"
         "       or m.startswith('understanding_flow_robustness_tpu.')\n"

@@ -105,7 +105,8 @@ def test_train_cli_feeds_the_jax_batches(roots, tmp_path, monkeypatch, stage):
     if stage == "kitti":
         argv.remove("--trans_rot")  # sparse: no trans_rot
     monkeypatch.setattr(tcli_train, "fetch_model", lambda *a, **k:
-                        types.SimpleNamespace(module=torch.nn.Linear(1, 1)))
+                        types.SimpleNamespace(module=torch.nn.Linear(1, 1),
+                                              is_raft=True))
     got = []
     monkeypatch.setattr(tcli_train, "train", _recording("torch", got, 3))
     tcli_train.main(argv + ["--device", "cpu"])

@@ -168,6 +168,23 @@ def load_patch(args):
     return patch, mask, patch.shape
 
 
+def analysis_patch(args) -> tuple:
+    """The patch and its circular mask (1, h, w, 3) of the analysis CLIs
+    (test_replace_features.py, test_patch_embeddings.py):
+    ``--self_correlated_patch``, else ``--patch_path``, else
+    ``--random_patch`` (uniform by default) at ``--patch_size``."""
+    if args.self_correlated_patch:
+        patch = create_correlated_patch(args.self_correlated_patch,
+                                        args.patch_size)
+    elif args.patch_path:
+        patch = np.load(args.patch_path)
+    else:
+        patch = create_random_patch(args.random_patch or "uniform",
+                                    args.patch_size)
+    m = create_circular_mask(patch.shape[1], patch.shape[2]).astype("float32")
+    return patch, np.tile(m[None, :, :, None], (1, 1, 1, 3))
+
+
 def _synthetic_calib(h, w):
     """Identity-ish calib + small forward-motion poses for smoke runs."""
     P = np.vstack([

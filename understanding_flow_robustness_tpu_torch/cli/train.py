@@ -1,11 +1,18 @@
-"""Training CLI for RAFT (counterpart of the JAX package's ``ufr-train``,
+"""Training CLI (counterpart of the JAX package's ``ufr-train``,
 ``understanding_flow_robustness_tpu/cli/train.py``; reference:
 training/train.py:355-636).
 
-Takes the flags the RAFT path reads, adversarial training's among them
+Trains RAFT, the FlowNet family, FlowNet2, SpyNet and PWC-Net: ``--model``
+takes a registry ID, or the reference's architecture flags pick one
+(``--flowNetC`` with ``--larger_field`` / ``--flexible_larger_field``,
+``--kernel_size``, ``--numReps``, ``--dilation``, ``--div_flow``;
+``--pwc``).  The other families train on their per-level flows with the
+loss's FlowNetC (and PWC) branch, ``--multiscaleEPE`` for the multiscale
+EPE, ``--flownetc_weighing`` for FlowNetC's scale weights; batch norm is
+frozen after the chairs stage for RAFT only.  Adversarial training
 (``--adversarial``: each batch attacked in eval mode and trained on
 together with its adversarial pair, 3 updates a batch; ``--arbitrary_gt``:
-the attack targets a random sample's ground truth).  ``--synthetic N``
+the attack targets a random sample's ground truth) runs on every family.  ``--synthetic N``
 trains on N random batches made with numpy from ``--seed``, as the JAX CLI
 does; without it the stage's dataset is read from disk: ``--stage
 chairs|things|sintel|kitti`` through ``data.fetch_dataset`` (``--data_roots``
@@ -14,8 +21,8 @@ kitti2015|kitti2012`` (adversarial training's KITTI pairs) from
 ``--data_list_dir``'s path lists, batches from the threaded
 ``data.DataLoader``.  ``--validation kitti|sintel|chairs`` runs at every
 ``--val_freq`` on the default dataset roots, skipped when they are absent.
-The other model families and multi-device training raise with the ROADMAP
-item that ports them.
+RAFT_FlowNetCEncoder_WoContext, small RAFT and multi-device training raise
+with the ROADMAP item that ports them.
 
     python -m understanding_flow_robustness_tpu_torch.cli.train --model RAFT \\
         --stage kitti --num_steps 100 --batch_size 4 \\
@@ -23,6 +30,8 @@ item that ports them.
         --data_roots '{"kitti": "datasets/KITTI/2015"}'
     python -m understanding_flow_robustness_tpu_torch.cli.train --model RAFT \\
         --adversarial --stage kitti2015 --batch_size 1 --num_steps 3
+    python -m understanding_flow_robustness_tpu_torch.cli.train --flowNetC \\
+        --flexible_larger_field --kernel_size 3 --numReps 3 --synthetic 4
 """
 
 from __future__ import annotations
@@ -34,33 +43,30 @@ import os
 import numpy as np
 
 from ..attacks.global_attacks import PerturbConfig
-from ..models import FLOWNET_IDS, NOT_PORTED, fetch_model
+from ..models import NOT_PORTED, fetch_model
 from ..training import TrainConfig, train
 from ..training.checkpoint import load_weights
 
 # model IDs the port cannot train yet, by the ROADMAP item that ports them:
-# the unbuilt ones, and the FlowNet family with FlowNet2, SpyNet, PWC-Net
-# and RAFT's FlowNetC-encoder variant, which serve but do not train
-_NOT_TRAINED = {**NOT_PORTED, **dict.fromkeys(FLOWNET_IDS, "A7"),
-                "FlowNet2": "A7", "SpyNet": "A9", "PWCNet": "A9",
-                "PWCNet_adv_ifgsm_l2_002": "A9",
-                "RAFT_FlowNetCEncoder_WoContext": "A10"}
+# the unbuilt ones, and RAFT's FlowNetC-encoder variant, which serves but
+# does not train
+_NOT_TRAINED = {**NOT_PORTED, "RAFT_FlowNetCEncoder_WoContext": "A10"}
 # flags of the JAX CLI that belong to paths not ported yet
-_OTHER_FAMILIES = {
-    "flowNetC": "A7", "pwc": "A9", "small": "A10", "n_devices": "A13",
-}
+_NOT_PORTED_FLAGS = {"small": "A10", "n_devices": "A13"}
 
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--name", default="flow", help="experiment name")
-    p.add_argument("--model", default="RAFT", help="ported RAFT model ID")
+    p.add_argument("--model", default="RAFT",
+                   help="registry ID; the architecture flags below take "
+                        "precedence")
     p.add_argument("--stage", default="chairs",
                    choices=["chairs", "things", "sintel", "kitti",
                             "kitti2015", "kitti2012"],
-                   help="training stage; batch norm is frozen for every "
-                        "stage but chairs (train.py:130-137)")
+                   help="training stage; RAFT's batch norm is frozen for "
+                        "every stage but chairs (train.py:130-137)")
     p.add_argument("--restore_ckpt", default=None,
                    help="weights-only .pth to start from")
     # the reference's defaults (training/train.py:370-373)
@@ -75,11 +81,22 @@ def build_parser():
     p.add_argument("--iters", type=int, default=12)
     p.add_argument("--val_freq", type=int, default=None,
                    help="checkpoint every this many batches; 1000 with "
-                        "--adversarial, else 5000 (train.py:143-148)")
+                        "--adversarial, 100 with --finetune, else 5000 "
+                        "(train.py:143-148)")
     p.add_argument("--checkpoint_dir", "--ckpt_dir", dest="checkpoint_dir",
                    default="checkpoints")
     p.add_argument("--mixed_precision", action="store_true",
-                   help="bf16 autocast (the registry's RAFT has it already)")
+                   help="bf16 autocast (the registry's RAFT and PWC-Net "
+                        "have it already; the FlowNet family, FlowNet2 and "
+                        "SpyNet take none and raise)")
+    p.add_argument("--multiscaleEPE", action="store_true",
+                   help="the multiscale EPE loss instead of the default "
+                        "sequence loss (train.py:245-264)")
+    p.add_argument("--flownetc_weighing", action="store_true",
+                   help="FlowNetC's per-scale loss weights (train.py:448, "
+                        "utils.py:119)")
+    p.add_argument("--finetune", action="store_true",
+                   help="finetune mode: val_freq 100 (train.py:145-148)")
     p.add_argument("--add_noise", action="store_true",
                    help="per-batch gaussian image noise, stdv ~ U(0, 5) on "
                         "the 0-255 scale (train.py:162-169)")
@@ -110,9 +127,29 @@ def build_parser():
     p.add_argument("--arbitrary_gt", action="store_true",
                    help="targeted adversarial training toward a random "
                         "sample's ground truth (train.py:151,188-199)")
-    for flag in ("--flowNetC", "--pwc", "--small"):
-        p.add_argument(flag, action="store_true",
-                       help="not ported yet; raises")
+    # the reference's get_model() architecture flags (train.py:55-92)
+    p.add_argument("--flowNetC", action="store_true",
+                   help="train a FlowNetC-family model (train.py:489)")
+    p.add_argument("--flexible_larger_field", action="store_true",
+                   help="FlowNetC_flexible_larger_field (train.py:503)")
+    p.add_argument("--larger_field", action="store_true",
+                   help="FlowNetC_larger_field (train.py:497)")
+    p.add_argument("--kernel_size", type=int, default=5,
+                   help="flexible FlowNetC kernel size (train.py:508)")
+    p.add_argument("--numReps", type=int, default=0,
+                   help="flexible FlowNetC conv repetitions (train.py:511)")
+    p.add_argument("--dilation", type=int, default=1,
+                   help="flexible FlowNetC dilation (train.py:528)")
+    p.add_argument("--div_flow", type=float, default=1,
+                   help="flow scaling of the FlowNetC variants "
+                        "(train.py:446)")
+    p.add_argument("--pwc", action="store_true",
+                   help="train PWC-Net (train.py:531)")
+    p.add_argument("--pwcflex", action="store_true",
+                   help="PWCNetFlex (train.py:89): missing from the "
+                        "reference itself; raises")
+    p.add_argument("--small", "--raft_small", dest="small",
+                   action="store_true", help="not ported yet; raises")
     p.add_argument("--validation", nargs="+", default=None,
                    choices=["chairs", "sintel", "kitti"],
                    help="validation sets run at every val_freq "
@@ -230,25 +267,57 @@ def _validate_fn(model, valsets):
     return validate
 
 
+def _model_kwargs(args) -> dict:
+    """The reference's get_model() dispatch (train.py:55-92; the JAX CLI's
+    cli/train.py:231-252): the architecture flags set ``args.model``; the
+    module's keyword arguments."""
+    kwargs = {}
+    if args.flowNetC:
+        if args.flexible_larger_field:
+            args.model = "FlowNetCFlexLarger_k3_reps3"
+            kwargs.update(kernel_size=args.kernel_size,
+                          number_of_reps=args.numReps,
+                          dilation=args.dilation, div_flow=args.div_flow)
+        elif args.larger_field:
+            args.model = "FlowNetC_larger_field"
+            kwargs.update(div_flow=args.div_flow)
+        else:
+            args.model = "FlowNetC"
+            if args.div_flow != 1:
+                kwargs.update(div_flow=args.div_flow)
+    elif args.pwcflex:
+        raise NotImplementedError(
+            "PWCNetFlex does not exist in the reference repo either "
+            "(models/PWCNetFlex.py is missing; its import at "
+            "models/__init__.py:8 makes the reference's --pwcflex branch "
+            "unrunnable) -- use --pwc")
+    elif args.pwc:
+        args.model = "PWCNet"
+    if args.model.startswith("RAFT"):
+        kwargs["iters"] = args.iters
+    if args.mixed_precision:
+        kwargs["mixed_precision"] = True
+    return kwargs
+
+
 def main(argv=None) -> dict:
     """Run the CLI; returns {"total_steps": batches taken, "history":
     metrics of each batch of this run}."""
     args = build_parser().parse_args(argv)
-    other = [f for f, item in _OTHER_FAMILIES.items() if getattr(args, f)]
+    other = [f for f in _NOT_PORTED_FLAGS if getattr(args, f)]
     if other:
         raise NotImplementedError(
             f"--{other[0]} is not ported yet (ROADMAP "
-            f"{_OTHER_FAMILIES[other[0]]})")
+            f"{_NOT_PORTED_FLAGS[other[0]]})")
+    kwargs = _model_kwargs(args)
     if args.model in _NOT_TRAINED:
         raise NotImplementedError(
             f"training --model {args.model} is not ported yet (ROADMAP "
             f"{_NOT_TRAINED[args.model]})")
     if args.val_freq is None:  # train.py:143-148
-        args.val_freq = 1000 if args.adversarial else 5000
+        args.val_freq = (1000 if args.adversarial
+                         else 100 if args.finetune else 5000)
 
-    kwargs = {"iters": args.iters}
-    if args.mixed_precision:
-        kwargs["mixed_precision"] = True
     model = fetch_model(args.model, device=args.device, seed=args.seed,
                         **kwargs)
     n_params = sum(p.numel() for p in model.module.parameters())
@@ -262,7 +331,13 @@ def main(argv=None) -> dict:
         lr=args.lr, wdecay=args.wdecay, epsilon=args.epsilon, clip=args.clip,
         gamma=args.gamma, num_steps=args.num_steps, val_freq=args.val_freq,
         checkpoint_dir=os.path.join(args.checkpoint_dir, args.name),
-        freeze_bn=args.stage != "chairs",  # train.py:130-137, RAFT
+        # train.py:245-264: the sequence loss by default for every model
+        # (its flownetc / pwc branches take the per-level flows)
+        loss_type="multiscale" if args.multiscaleEPE else "sequence",
+        flownetc=not model.is_raft, pwc="PWC" in args.model,
+        flownetc_weighing=args.flownetc_weighing,
+        # train.py:130-137: frozen after chairs, for RAFT-style models only
+        freeze_bn=args.stage != "chairs" and model.is_raft,
         adversarial=args.adversarial,
         adv_config=PerturbConfig(
             perturb_method=args.adv_method, flow_loss=args.adv_loss,

@@ -36,6 +36,7 @@ from .registry import (
     get_feature_map_keys,
     predict_flow,
     predict_flow_differentiable,
+    predict_flow_with_features,
 )
 from .spynet import SpyNet
 
@@ -69,6 +70,7 @@ __all__ = [
     "load_spynet_dir",
     "predict_flow",
     "predict_flow_differentiable",
+    "predict_flow_with_features",
     "pwcnet_state_dict_from_jax",
     "raft_state_dict_from_jax",
     "scale_flow_head",

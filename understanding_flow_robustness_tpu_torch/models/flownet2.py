@@ -226,7 +226,9 @@ class FlowNet2(_CascadeBase):
     (each S stage on the second frame warped by the previous flow) and the
     FlowNetSD branch, fused by FlowNetFusion into the full-resolution flow
     (B, 2, H, W).  Four border-mode warps and one correlation per forward.
-    ``return_features=True`` gives ``(flow, {})``: FlowNet2 has no taps."""
+    ``return_features=True`` gives ``(flow, {})``: FlowNet2 has no taps.
+    ``train`` changes nothing: the cascade trains on its one fused flow,
+    as the JAX package's does (flownet2.py:475)."""
 
     def __init__(self, batch_norm: bool = False, div_flow: float = 20.0,
                  return_features: bool = False, plain_warp: bool = False,
@@ -238,7 +240,8 @@ class FlowNet2(_CascadeBase):
         self.flownets_d = FlowNetSD(6, batch_norm)
         self.flownetfusion = FlowNetFusion(11, batch_norm)
 
-    def forward(self, im1: torch.Tensor, im2: torch.Tensor):
+    def forward(self, im1: torch.Tensor, im2: torch.Tensor,
+                train: bool = False):
         img0, img1 = flownetc_normalize(im1), flownetc_normalize(im2)
         x = torch.cat([img0, img1], 1)
         H, W = x.shape[2:]

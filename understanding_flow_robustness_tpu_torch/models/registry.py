@@ -19,6 +19,7 @@ from .convert import load_reference_state_dict, load_spynet_dir
 from .flownet2 import FlowNet2, FlowNetS2
 from .flownet_family import FlowNetC, FlowNetCFlex
 from .layers import init_like_flax
+from .pwcnet import TAP_KEYS as _PWC_TAPS
 from .pwcnet import PWCNet
 from .raft_model import RAFT
 from .spynet import SpyNet
@@ -84,19 +85,17 @@ FLOWNET_IDS = ("FlowNetS", "FlowNetC", "FlowNetC_larger_field",
                "FlowNetCFlexLarger_k3_reps3_adv_ifgsm_l2_002",
                "FlowNetCFlexLarger_k5_reps0")
 
-# families whose feature taps the JAX package exposes and the port does not
-# yet, by the ROADMAP item that ports them
-_TAPS_NOT_PORTED = {"PWC": "A9"}
-
-
 def get_feature_map_keys(name: str) -> list:
     """The keys of the ``return_features`` dict of model ``name``
     (registry.py:315-348).  RAFT: the fmaps, the four pyramid levels, the
     context and, for each of the 12 iterations, the lookup, the hidden
     state, the motion encoder's taps and the upsampled flow.  The FlowNetC
     family: the siamese encoder's maps, the raw correlation, conv_redir and
-    conv3_1 (registry.py:329-331).  SpyNet, FlowNetS and FlowNet2 expose
-    none (FlowNet2's ``return_features`` gives an empty dict).  PWC-Net raises with the ROADMAP item that ports its taps."""
+    conv3_1 (registry.py:329-331).  PWC-Net: the pyramids, each level's
+    correlation, decoder convs, flow head and upsamplers, the context
+    network (registry.py:332-347; ``corr2`` holds corr5, as in the
+    reference).  SpyNet, FlowNetS and FlowNet2 expose none (FlowNet2's
+    ``return_features`` gives an empty dict)."""
     if name not in _SPECS and name not in NOT_PORTED:
         raise KeyError(f"unknown model '{name}'")
     if name.startswith("RAFT"):
@@ -109,11 +108,8 @@ def get_feature_map_keys(name: str) -> list:
     if "FlowNetC" in name:
         return ["conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b",
                 "corr", "conv_redir", "conv3_1"]
-    for family, item in _TAPS_NOT_PORTED.items():
-        if family in name:
-            raise NotImplementedError(
-                f"the feature taps of '{name}' are not ported yet (ROADMAP "
-                f"{item})")
+    if name.startswith("PWC"):
+        return list(_PWC_TAPS)
     return []
 
 
@@ -138,6 +134,10 @@ def _forward(model: FlowModel, img1: torch.Tensor, img2: torch.Tensor,
     a = img1.permute(0, 3, 1, 2)
     b = img2.permute(0, 3, 1, 2)
     if model.is_raft:  # (flow_low, flow_up), or with taps (..., feats)
+        if overrides is not None:
+            # injection is the FlowNetC family's (registry.py:315-321); a
+            # module without it raises, as forward(overrides=) does elsewhere
+            raise TypeError(f"{model.name} takes no overrides")
         flow = model.module(a * 255.0, b * 255.0)[1]
     else:
         kw = {} if overrides is None else {"overrides": overrides}
@@ -158,6 +158,22 @@ def predict_flow(model: FlowModel, img1: torch.Tensor, img2: torch.Tensor,
     their taps, as the JAX ``FlowModel.predict(..., overrides)`` does."""
     with torch.inference_mode():
         return _forward(model, img1, img2, overrides)
+
+
+def predict_flow_with_features(model: FlowModel, img1: torch.Tensor,
+                               img2: torch.Tensor) -> tuple:
+    """``predict_flow`` of a model built with ``return_features=True``:
+    ((B, H, W, 2) flow, the dict of its NCHW taps by
+    ``get_feature_map_keys``), the capture of the analysis CLIs
+    (test_replace_features.py, test_patch_embeddings.py)."""
+    a = img1.permute(0, 3, 1, 2)
+    b = img2.permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        if model.is_raft:  # (flow_low, flow_up, feats) in test mode
+            _, flow, feats = model.module(a * 255.0, b * 255.0)
+        else:
+            flow, feats = model.module(a, b)
+    return flow.permute(0, 2, 3, 1), feats
 
 
 def predict_flow_differentiable(model: FlowModel, img1: torch.Tensor,

@@ -62,9 +62,12 @@ def make_train_step(model: torch.nn.Module, optimizer, scheduler,
         if is_raft:
             preds = model(img1 * 255.0, img2 * 255.0, test_mode=False)
         else:
-            preds = model(img1, img2)
-        # a single-prediction model returns one flow: list() of it would
-        # unpack the batch dimension (train_step.py:138-144)
+            # the per-level flows the multiscale losses weigh, as JAX's
+            # train=norm_train gives them (train_step.py:126-127); batch
+            # norm's mode is the module's own
+            preds = model(img1, img2, train=True)
+        # a single-prediction model (FlowNet2) returns one flow: list() of
+        # it would unpack the batch dimension (train_step.py:138-144)
         preds = list(preds) if isinstance(preds, (list, tuple)) else [preds]
         loss, metrics = loss_impl(
             [p.permute(0, 2, 3, 1) for p in preds], batch["flow"],
