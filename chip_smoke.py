@@ -228,6 +228,40 @@ files under the ignored build/):
 39. ``cli.train --adversarial`` on FlowNetCFlexLarger_k3_reps3 and PWC-Net,
    2 batches of batch 1 at 256x640 with 3 attack steps: the launches of
    every attack step and update.
+The remaining-configurations slice adds, after phase 39 (its files under
+the ignored build/):
+40. B1, B2, B3 and B5 at every radius 1..7 against their plain versions
+   (small RAFT's serving shape (8, 48, 160, 128) for B1, B3, B5, its train
+   shape (4, 36, 120, 128) for B2, and a ragged one for all four; f32 and
+   bf16; calibrated, wild, far (+-1e30) and integer centres) under the r =
+   4 phases' bounds; at small RAFT's r = 3 the tile-path shares of B1 and
+   B2 (both paths must run), each kernel's time, its plain version's and
+   its bound; B3 driven at r = 3 through ``alt_corr_features``' coordinate
+   gradient; r = 0 and 8 refused by the wrappers and, with their check
+   widened, by the kernels' entry points.
+41. Small RAFT (``fetch_model("RAFT", small=True)``, bf16, calibrated)
+   serving 3 requests of 8 pairs at 384x1280 on the alt path (12
+   ``alt_corr_fwd`` at r = 3 a request) and the volume path (12
+   ``corr_lookup_fwd``), and the spatial-correlation RAFT
+   (``compute_spatial=True``: one ``spatial_corr_fwd`` and no window
+   lookup a request): the flow against the plain lookup (the plain
+   correlation) within the 1 % bar, pairs/s, peak memory.
+42. Small RAFT, the spatial-correlation RAFT and
+   RAFT_FlowNetCEncoder_WoContext training, 2 + 3 steps at batch 4,
+   288x960 (the spatial mode at 320x960: its lookup needs H and W
+   multiples of 64): each step's launches (12 ``alt_corr_fwd`` and 12
+   ``alt_corr_bwd``, or one of each spatial kernel), the first step of the
+   f32 model with the kernels against the plain lookup (loss, parameter
+   gradients),
+   frames/s, peak memory.
+43. The CLIs: ``cli.train --synthetic 3`` with ``--small``,
+   ``--compute_spatial`` and ``--model RAFT_FlowNetCEncoder_WoContext``;
+   ``cli.evaluate --small`` on a written KITTI layout; ``cli.parity
+   --synthetic 2`` over a written zoo directory (RAFT and WoContext under
+   the JAX registry's file names).
+44. ``spatial_corr_fwd`` / ``spatial_corr_bwd`` at the spatial mode's train
+   shape (4, 256, 40, 120) f32 against their plain versions, with times of
+   kernel, plain version and bound.
 PWC-Net's serving phase (7) also counts its 5 ``spatial_corr_fwd``
 launches per request, holds the flow against the plain warp and the plain
 correlation together, and times pairs/s with the plain correlation too, in
@@ -241,7 +275,9 @@ step and the adversarial train batch's ms, and one the infer CLI's pairs/s,
 the PNG decode ms and the evaluate CLI's seconds per scene, and one the
 JPEG decode ms, the loader's samples/s and the train CLI's frames/s from
 files, and one the moving patch's seconds per location and idle share and
-the families' ms per train step.  The last three
+the families' ms per train step, and one the r = 4 and r = 3 kernel times
+and the new configurations' pairs/s and ms per train step.  The last
+three
 lines are the card's name and
 power limit, a JSON object per
 kernel (its launches on the main paths, its error against its plain
@@ -956,18 +992,18 @@ def warp_phase(gen) -> dict:
     return res
 
 
-def corr_block_grid_sample(pyramid, coords):
+def corr_block_grid_sample(pyramid, coords, radius: int = RADIUS):
     """The reference CorrBlock's sampling (models/raft/corr.py:72-96) as one
     ``F.grid_sample(align_corners=True, padding_mode="zeros")`` per level
-    over the (B*N, 1, Hl, Wl) level with a (B*N, 9, 9, 2) grid, for its
+    over the (B*N, 1, Hl, Wl) level with a (B*N, n, n, 2) grid, for its
     time: the grids (row s, column t sampling (x/2^l - r + s,
     y/2^l - r + t), so the output is s-major) are built outside the
     timing.  A bf16 level needs a bf16 grid, which rounds the
     coordinates."""
     F = torch.nn.functional
     b, h, w, _ = coords.shape
-    bn, n = b * h * w, 2 * RADIUS + 1
-    d = torch.arange(-RADIUS, RADIUS + 1, device=coords.device,
+    bn, n = b * h * w, 2 * radius + 1
+    d = torch.arange(-radius, radius + 1, device=coords.device,
                      dtype=torch.float32)
     calls = []
     for lvl, p in enumerate(pyramid):
@@ -986,18 +1022,18 @@ def corr_block_grid_sample(pyramid, coords):
     return run
 
 
-def needed_taps(pyramid, coords) -> int:
+def needed_taps(pyramid, coords, radius: int = RADIUS) -> int:
     """The volume taps this run's windows need: per query and level, the
     (2r+2)^2 integer taps around the centre that lie inside the level
     (windows that straddle or leave the level need fewer)."""
     b, h, w, _ = coords.shape
     c = coords.reshape(-1, 2).double()
     total = 0
-    offs = torch.arange(-RADIUS, RADIUS + 2, device=coords.device)
+    offs = torch.arange(-radius, radius + 2, device=coords.device)
     for lvl, p in enumerate(pyramid):
         hl, wl = p.shape[2:]
-        cx = (c[:, 0] / 2 ** lvl).clamp(-(RADIUS + 2.0), wl + RADIUS + 1.0)
-        cy = (c[:, 1] / 2 ** lvl).clamp(-(RADIUS + 2.0), hl + RADIUS + 1.0)
+        cx = (c[:, 0] / 2 ** lvl).clamp(-(radius + 2.0), wl + radius + 1.0)
+        cy = (c[:, 1] / 2 ** lvl).clamp(-(radius + 2.0), hl + radius + 1.0)
         xs = cx.floor().long()[:, None] + offs
         ys = cy.floor().long()[:, None] + offs
         nx = ((xs >= 0) & (xs < wl)).sum(1)
@@ -1600,11 +1636,12 @@ def flownet_phase(gen) -> dict:
     return res
 
 
-def train_batch(gen, b: int) -> dict:
-    return {"image1": torch.rand((b, TH, TW, 3), generator=gen, device="cuda"),
-            "image2": torch.rand((b, TH, TW, 3), generator=gen, device="cuda"),
-            "flow": torch.randn((b, TH, TW, 2), generator=gen, device="cuda"),
-            "valid": torch.ones((b, TH, TW), device="cuda")}
+def train_batch(gen, b: int, h: int = None, w: int = None) -> dict:
+    h, w = h or TH, w or TW
+    return {"image1": torch.rand((b, h, w, 3), generator=gen, device="cuda"),
+            "image2": torch.rand((b, h, w, 3), generator=gen, device="cuda"),
+            "flow": torch.randn((b, h, w, 2), generator=gen, device="cuda"),
+            "valid": torch.ones((b, h, w), device="cuda")}
 
 
 def train_phase(gen) -> dict:
@@ -4455,21 +4492,17 @@ WARP_TRAIN = {"spynet_train": ((6, 3, FTH, FTW), "spynet", torch.float32,
 TRAIN_SHAPES_SEED = 300
 
 
-def train_shapes_phase() -> dict:
-    """``spatial_corr_fwd`` / ``spatial_corr_bwd`` and ``warp_fwd`` at the
-    train steps' shapes (CORR_TRAIN, WARP_TRAIN) against their plain
-    versions at the bars of spatial_corr_phase and warp_phase, with the
-    times of kernel, plain version and bound; beside the warp kernel the
-    time of its gradient, the plain sampler's autograd (into the flow, and
-    into PWC-Net's features, which the train step differentiates too)."""
+def corr_rows(gen, shapes: dict) -> dict:
+    """``spatial_corr_fwd`` / ``spatial_corr_bwd`` at each of ``shapes``
+    ({name: ((B, C, H, W), patch, dilation, dtype)}) against the plain
+    version and its autograd at spatial_corr_phase's bars, with the times
+    of kernel, plain version and bound: {"corr/<name>": forward,
+    "corr/<name>/bwd": backward}."""
     from understanding_flow_robustness_tpu_torch import ops
     from understanding_flow_robustness_tpu_torch.ops import correlation as corr
 
-    print("== the train shapes: spatial_corr_fwd/bwd and warp_fwd vs plain "
-          "==", flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SHAPES_SEED)
     res = {}
-    for name, (shape, patch, dil, dtype) in CORR_TRAIN.items():
+    for name, (shape, patch, dil, dtype) in shapes.items():
         f1 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         f2 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         g = torch.randn((shape[0], patch ** 2) + shape[2:], generator=gen,
@@ -4508,6 +4541,22 @@ def train_shapes_phase() -> dict:
                   f"({m['bound_by']}; the kernel at "
                   f"{100 * m['bound_ms'] / m['ms']:.1f}% of it)", flush=True)
         del f1, f2, g, got, ref, dk, dp, out
+    return res
+
+
+def train_shapes_phase() -> dict:
+    """``spatial_corr_fwd`` / ``spatial_corr_bwd`` and ``warp_fwd`` at the
+    train steps' shapes (CORR_TRAIN, WARP_TRAIN) against their plain
+    versions at the bars of spatial_corr_phase and warp_phase, with the
+    times of kernel, plain version and bound; beside the warp kernel the
+    time of its gradient, the plain sampler's autograd (into the flow, and
+    into PWC-Net's features, which the train step differentiates too)."""
+    from understanding_flow_robustness_tpu_torch import ops
+
+    print("== the train shapes: spatial_corr_fwd/bwd and warp_fwd vs plain "
+          "==", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SHAPES_SEED)
+    res = corr_rows(gen, CORR_TRAIN)
     for name, ((b, c, h, w), mode, dtype, img_grad) in WARP_TRAIN.items():
         img = torch.rand((b, c, h, w), generator=gen, device="cuda").to(dtype)
         flow = warp_flow(gen, b, h, w, "smooth")
@@ -4544,6 +4593,631 @@ def train_shapes_phase() -> dict:
               f"autograd) {m['grad_plain_ms']:.4f} ms", flush=True)
         del img, flow, got, ref, i, f, out, gout
     return res
+
+
+# small RAFT (raft_model.py:762-770): radius 3 over 128-channel fmaps; its
+# feature shapes (B, H/8, W/8, C) when serving and training
+SMALL_RADIUS = 3
+SMALL_SERVE = (B, H // 8, W // 8, 128)
+SMALL_TRAIN = (TB, TH // 8, TW // 8, 128)
+# every radius the window kernels are instantiated for (csrc/radius.cuh)
+RADII = range(1, 8)
+
+
+def radius_centres(gen, b, h, w) -> dict:
+    """Centres of the radius phase: calibrated (2 px of noise), wild
+    (150 px), far (+-1e30 and hand-placed ones off the level among
+    calibrated ones) and exactly integer."""
+    from understanding_flow_robustness_tpu_torch.ops import coords_grid
+
+    grid = coords_grid(h, w, device="cuda")[None].expand(b, h, w, 2)
+    noise = torch.randn((b, h, w, 2), generator=gen, device="cuda")
+    far = grid + 2.0 * noise
+    far[0, 0, :6] = torch.tensor(
+        [[-1e30, 3.0], [3.0, 1e30], [1e30, -1e30], [-50.0, -50.0],
+         [500.0, 500.0], [-3.5, -3.5]], device="cuda")
+    return {"calibrated": grid + 2.0 * noise, "wild": grid + 150.0 * noise,
+            "far": far, "integer": grid.clone()}
+
+
+def radius_phase(gen) -> dict:
+    """B1, B2, B3 and B5 at every radius 1..7 against their plain versions,
+    at small RAFT's serving shape (B1, B3, B5), its train shape (B2) and a
+    ragged one (all four), f32 and bf16, for calibrated, wild, far and
+    integer centres, under the bounds of the r = 4 phases; r = 0 and 8
+    refused by the wrappers and by the kernels' entry points.  At small
+    RAFT's r = 3: each kernel's time, its plain version's and its bound at
+    the main shapes, and the tile-path shares of B1 and B2."""
+    from understanding_flow_robustness_tpu_torch import ops
+    from understanding_flow_robustness_tpu_torch.ops import correlation as corr
+
+    print("== the window kernels at every radius 1..7 vs plain (TF32 off) ==",
+          flush=True)
+    res = {"worst": {}}
+    shapes = (("serving", SMALL_SERVE), ("train", SMALL_TRAIN),
+              ("ragged", (2, 13, 21, 64)))
+    paths = {k: torch.zeros(2 * LEVELS, dtype=torch.int32, device="cuda")
+             for k in ("fwd", "bwd")}
+
+    def hold(kernel, tag, got, ref, tol):
+        """Each output of ``got`` against ``ref``'s within tol(max|ref|)."""
+        worst = 0.0
+        for k, r in zip(got, ref):
+            check(k.shape == r.shape and k.dtype == torch.float32
+                  and bool(torch.isfinite(k).all()),
+                  f"{kernel} {tag}: kernel output malformed")
+            err = (k - r).abs().max().item()
+            bar = tol(r.abs().max().item())
+            check(err <= bar, f"{kernel} {tag}: kernel disagrees with the "
+                              f"plain version ({err:.3e} > {bar:.3e})")
+            worst = max(worst, err)
+        res["worst"][kernel] = max(res["worst"].get(kernel, 0.0), worst)
+        return worst
+
+    def timed(name, kernel_fn, plain_fn, moved, flops, dtype, extra=None):
+        k_ms = cuda_ms(kernel_fn, reps=20)
+        p_ms = cuda_ms(plain_fn, reps=3, warmup=1)
+        res[name] = {"ms": k_ms, "plain_ms": p_ms, **bound(moved, flops, dtype),
+                     **(extra or {})}
+        m = res[name]
+        print(f"r={SMALL_RADIUS} {name:22s} kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.3f} ms, bound {m['bound_ms']:.4f} ms ({m['bound_by']}; "
+              f"the kernel at {100 * m['bound_ms'] / k_ms:.1f}% of it)"
+              + "".join(f", {k} {v:.4f}" for k, v in (extra or {}).items()
+                        if isinstance(v, float)), flush=True)
+
+    f32_tol = lambda scale: F32_TOL  # noqa: E731
+    for r in RADII:
+        n2 = (2 * r + 1) ** 2
+        for shape_name, (b, h, w, c) in shapes:
+            fm1 = torch.randn((b, h, w, c), generator=gen, device="cuda")
+            fm2 = torch.randn((b, h, w, c), generator=gen, device="cuda")
+            cases = radius_centres(gen, b, h, w)
+            g = torch.randn((b, h * w, LEVELS * n2), generator=gen,
+                            device="cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                dt = str(dtype).split(".")[-1]
+                f1, levels = corr.prepare_alt_corr(fm1, fm2, LEVELS, dtype)
+                pyr = (ops.volume_pyramid(fm1, fm2, LEVELS, dtype)
+                       if shape_name != "train" else None)
+                for case, coords in cases.items():
+                    tag = f"r={r}/{shape_name}/{case}/{dt}"
+                    cflat = coords.reshape(b, h * w, 2).contiguous()
+                    if shape_name != "train":  # B1, B3, B5
+                        cnt = torch.zeros_like(paths["fwd"])
+                        got = corr._alt_corr_lookup_cuda(f1, levels, cflat, r,
+                                                         path_counts=cnt)
+                        ref = corr.alt_corr_lookup_reference(f1, levels,
+                                                             cflat, r)
+                        hold("B1", tag, [got], [ref],
+                             f32_tol if dtype == torch.float32
+                             else lambda sc: BF16_REL_TOL * sc)
+                        if r == SMALL_RADIUS:
+                            paths["fwd"] += cnt
+                            res[f"B1/{shape_name}/{case}/{dt}/tile_share"] = (
+                                path_share(cnt)[0])
+                        got = corr._alt_corr_dcoords_cuda(f1, levels, cflat,
+                                                          g, r)
+                        ref = corr.alt_corr_coords_grad_reference(
+                            f1, levels, cflat, g, r)
+                        hold("B3", tag, [got], [ref],
+                             lambda sc: DCOORDS_REL_TOL * sc)
+                        got = ops.corr_lookup(pyr, coords.contiguous(), r)
+                        ref = ops.corr_lookup_reference(pyr, coords, r)
+                        hold("B5", tag, [got], [ref], lambda sc: VOL_TOL)
+                    if shape_name != "serving":  # B2
+                        cnt = torch.zeros_like(paths["bwd"])
+                        got = corr._alt_corr_bwd_cuda(f1, levels, cflat, g, r,
+                                                      path_counts=cnt)
+                        ref = corr.alt_corr_lookup_backward_reference(
+                            f1, levels, cflat, g, r)
+                        hold("B2", tag, [got[0], *got[1]],
+                             [ref[0], *ref[1]],
+                             lambda sc: BWD_REL_TOL * sc)
+                        if r == SMALL_RADIUS:
+                            paths["bwd"] += cnt
+                            res[f"B2/{shape_name}/{case}/{dt}/tile_share"] = (
+                                path_share(cnt)[0])
+                    del got, ref
+                    torch.cuda.synchronize()
+                if r != SMALL_RADIUS or dtype != torch.bfloat16 \
+                        or shape_name == "ragged":
+                    continue
+                # small RAFT's r = 3 at its main shapes: times and bounds
+                cflat = cases["calibrated"].reshape(b, h * w, 2).contiguous()
+                n = b * h * w * LEVELS
+                if shape_name == "serving":
+                    out = corr._alt_corr_lookup_cuda(f1, levels, cflat, r)
+                    timed("B1/serving",
+                          lambda: corr._alt_corr_lookup_cuda(f1, levels,
+                                                             cflat, r),
+                          lambda: corr.alt_corr_lookup_reference(
+                              f1, levels, cflat, r),
+                          nbytes(f1, *levels, cflat, out),
+                          2 * (2 * r + 2) ** 2 * c * n, dtype)
+                    dc = corr._alt_corr_dcoords_cuda(f1, levels, cflat, g, r)
+                    timed("B3/serving",
+                          lambda: corr._alt_corr_dcoords_cuda(f1, levels,
+                                                              cflat, g, r),
+                          lambda: corr.alt_corr_coords_grad_reference(
+                              f1, levels, cflat, g, r),
+                          nbytes(f1, *levels, cflat, g, dc),
+                          2 * (2 * r + 2) ** 2 * c * n, dtype)
+                    cc = cases["calibrated"].contiguous()
+                    vout = ops.corr_lookup(pyr, cc, r)
+                    lib = corr_block_grid_sample(pyr, cc, r)
+                    timed("B5/serving", lambda: ops.corr_lookup(pyr, cc, r),
+                          lambda: ops.corr_lookup_reference(pyr, cc, r),
+                          needed_taps(pyr, cc, r) * pyr[0].element_size()
+                          + nbytes(cc, vout), 7 * vout.numel(),
+                          torch.float32,
+                          {"library_ms": cuda_ms(lib, reps=20)})
+                    del out, dc, vout, lib
+                else:
+                    out = corr._alt_corr_lookup_cuda(f1, levels, cflat, r)
+                    timed("B1/train",
+                          lambda: corr._alt_corr_lookup_cuda(f1, levels,
+                                                             cflat, r),
+                          lambda: corr.alt_corr_lookup_reference(
+                              f1, levels, cflat, r),
+                          nbytes(f1, *levels, cflat, out),
+                          2 * (2 * r + 2) ** 2 * c * n, dtype)
+                    grads = corr._alt_corr_bwd_cuda(f1, levels, cflat, g, r)
+                    timed("B2/train",
+                          lambda: corr._alt_corr_bwd_cuda(f1, levels, cflat,
+                                                          g, r),
+                          lambda: corr.alt_corr_lookup_backward_reference(
+                              f1, levels, cflat, g, r),
+                          nbytes(f1, *levels, cflat, g, grads[0], *grads[1]),
+                          4 * (2 * r + 2) ** 2 * c * n, dtype)
+                    del out, grads
+            del fm1, fm2, g, f1, levels, pyr
+        print(f"r={r}: B1, B3, B5 ({SMALL_SERVE}, ragged) and B2 "
+              f"({SMALL_TRAIN}, ragged) agree with their plain versions, "
+              "f32 and bf16, calibrated, wild, far and integer centres; "
+              "worst abs errors so far " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in sorted(res["worst"].items())),
+              flush=True)
+    for k, cnt in paths.items():
+        share, per_level = path_share(cnt)
+        res[f"{k}/tile_share"] = share
+        print(f"r={SMALL_RADIUS} alt_corr_{k}: (tile, level) pairs on the tile "
+              f"path over its cases {100 * share:.1f}% ({per_level})",
+              flush=True)
+        check(cnt[:LEVELS].sum().item() > 0 and cnt[LEVELS:].sum().item() > 0,
+              f"alt_corr_{k} at r={SMALL_RADIUS}: the cases did not take both "
+              f"paths ({cnt.tolist()})")
+    print(f"r={SMALL_RADIUS} tile-path share, calibrated bf16: B1 serving "
+          f"{100 * res['B1/serving/calibrated/bfloat16/tile_share']:.1f}%, "
+          f"B2 train {100 * res['B2/train/calibrated/bfloat16/tile_share']:.1f}%",
+          flush=True)
+
+    # B3's op-level path at small RAFT's radius: the coordinate gradient of
+    # alt_corr_features at its serving shape, the only path that launches it
+    b, h, w, c = SMALL_SERVE
+    fm1 = torch.randn((b, h, w, c), generator=gen, device="cuda")
+    fm2 = torch.randn((b, h, w, c), generator=gen, device="cuda")
+    coords = radius_centres(gen, b, h, w)["calibrated"].requires_grad_()
+    g = torch.randn((b, h, w, LEVELS * (2 * SMALL_RADIUS + 1) ** 2),
+                    generator=gen, device="cuda")
+    ops.LAUNCH_COUNTS.clear()
+    out = ops.alt_corr_features(fm1, fm2, coords, LEVELS, SMALL_RADIUS,
+                                compute_dtype=torch.bfloat16)
+    out.backward(g)
+    torch.cuda.synchronize()
+    n = {k: ops.LAUNCH_COUNTS[k] for k in
+         ("alt_corr_fwd", "alt_corr_bwd", "alt_corr_dcoords")}
+    check(n == {"alt_corr_fwd": 1, "alt_corr_bwd": 0, "alt_corr_dcoords": 1},
+          f"coordinate gradient at r={SMALL_RADIUS}: launches {n}")
+    res["B3/launches"] = n["alt_corr_dcoords"]
+    f1b, lvb = corr.prepare_alt_corr(fm1, fm2, LEVELS, torch.bfloat16)
+    ref = corr.alt_corr_coords_grad_reference(
+        f1b, lvb, coords.detach().reshape(b, h * w, 2),
+        g.reshape(b, h * w, -1), SMALL_RADIUS)
+    err = (coords.grad.reshape(ref.shape) - ref).abs().max().item()
+    check(err <= DCOORDS_REL_TOL * ref.abs().max().item(),
+          f"coordinate gradient at r={SMALL_RADIUS} disagrees with the plain "
+          "version")
+    print(f"alt_corr_features(coords.requires_grad) at r={SMALL_RADIUS}, "
+          f"{SMALL_SERVE}: launches {n}; coords.grad vs plain max_abs_err="
+          f"{err:.3e}", flush=True)
+    del fm1, fm2, coords, g, out, ref
+
+    # r = 0 and 8: the wrappers raise, and so do the kernels' entry points
+    # when the wrappers' check is widened (corr._RADII)
+    b, h, w, c = 2, 13, 21, 64
+    fm = torch.randn((b, h, w, c), generator=gen, device="cuda")
+    f1, levels = corr.prepare_alt_corr(fm, fm, LEVELS, torch.bfloat16)
+    cflat = radius_centres(gen, b, h, w)["calibrated"].reshape(b, h * w, 2)
+    pyr = [p.reshape(b * h * w, *p.shape[2:]).contiguous()
+           for p in ops.volume_pyramid(fm, fm, LEVELS, torch.bfloat16)]
+    radii = corr._RADII
+    for bad in (0, 8):
+        g = torch.zeros((b, h * w, LEVELS * (2 * bad + 1) ** 2),
+                        device="cuda")
+        calls = {
+            "alt_corr_fwd": lambda: corr._alt_corr_lookup_cuda(
+                f1, levels, cflat, bad),
+            "alt_corr_bwd": lambda: corr._alt_corr_bwd_cuda(
+                f1, levels, cflat, g, bad),
+            "alt_corr_dcoords": lambda: corr._alt_corr_dcoords_cuda(
+                f1, levels, cflat, g, bad),
+            "corr_lookup_fwd": lambda: corr.corr_lookup_fwd(
+                pyr, cflat.reshape(-1, 2), bad)}
+        for name, call in calls.items():
+            for widened, want in ((False, ValueError), (True, RuntimeError)):
+                corr._RADII = range(0, 9) if widened else radii
+                try:
+                    call()
+                    raised = None
+                except (ValueError, RuntimeError) as e:
+                    raised = e
+                finally:
+                    corr._RADII = radii
+                check(type(raised) is want,
+                      f"{name} at r={bad} ({'entry point' if widened else 'wrapper'}):"
+                      f" {raised!r}, not {want.__name__}")
+    torch.cuda.synchronize()
+    print("r=0 and r=8: the four wrappers raise ValueError, and with their "
+          "check widened the kernels' entry points refuse the launch "
+          "(RuntimeError, cudaErrorInvalidValue)", flush=True)
+    return res
+
+
+# the spatial mode's train shape: its lookup upsamples each pyramid level
+# back to the 1/8 grid, so H and W must be multiples of 64 (TH = 288 is
+# not); the nearest such to the train step's 288x960
+SPATIAL_TH, SPATIAL_TW = 320, 960
+# relative L2 of the parameter gradients of the configurations' first f32
+# train step, kernels vs plain lookup (worst tensor, all parameters
+# together): as GRAD_F32_REL_L2, summation order only.  Measured on an
+# H100 over two runs: small RAFT 0.7-1.2e-3 worst, the spatial mode
+# 1.8-2.0e-3 (fnet.conv2.bias, a sum over the whole map of a difference of
+# the correlation's gradient, or a GRU gate's weight), WoContext 1.4-1.6e-4;
+# all parameters together at most 1.4e-5, 2.1e-5 and 1.2e-6.  A wrong or
+# missing gradient is off by O(1)
+CONFIG_GRAD_F32_REL_L2 = (5e-3, 5e-5)
+# small RAFT's calibrated operating point: its FlowHead scaled so that
+# the seeded model's flow lands near trained-checkpoint magnitudes (its
+# head is smaller than RAFT's, so it needs a larger scale than RAFT's 0.05)
+SMALL_CAL_SCALE = 0.3
+# the configurations of the remaining-configurations slice, by name:
+# (registry ID, model kwargs, FlowHead scale)
+CONFIGS = {"small": ("RAFT", {"small": True}, SMALL_CAL_SCALE),
+           "small_volume": ("RAFT", {"small": True, "corr_impl": "volume"},
+                            SMALL_CAL_SCALE),
+           "spatial": ("RAFT", {"compute_spatial": True}, 0.05),
+           "wocontext": ("RAFT_FlowNetCEncoder_WoContext", {}, 0.05)}
+# a forward's launches per kernel on each configuration's path
+CONFIG_LAUNCHES = {
+    "small": {"alt_corr_fwd": ITERS, "corr_lookup_fwd": 0,
+              "spatial_corr_fwd": 0},
+    "small_volume": {"alt_corr_fwd": 0, "corr_lookup_fwd": ITERS,
+                     "spatial_corr_fwd": 0},
+    "spatial": {"alt_corr_fwd": 0, "corr_lookup_fwd": 0,
+                "spatial_corr_fwd": 1},
+    "wocontext": {"alt_corr_fwd": ITERS, "corr_lookup_fwd": 0,
+                  "spatial_corr_fwd": 0}}
+# and a train step's (forward and backward)
+CONFIG_TRAIN_LAUNCHES = {
+    "small": {"alt_corr_fwd": ITERS, "alt_corr_bwd": ITERS,
+              "spatial_corr_fwd": 0, "spatial_corr_bwd": 0},
+    "spatial": {"alt_corr_fwd": 0, "alt_corr_bwd": 0,
+                "spatial_corr_fwd": 1, "spatial_corr_bwd": 1},
+    "wocontext": {"alt_corr_fwd": ITERS, "alt_corr_bwd": ITERS,
+                  "spatial_corr_fwd": 0, "spatial_corr_bwd": 0}}
+
+
+def config_model(config: str, **extra):
+    """The seeded, calibrated model of ``config`` (CONFIGS) on the card."""
+    from understanding_flow_robustness_tpu_torch.models import (
+        FlowModel,
+        fetch_model,
+        scale_flow_head,
+    )
+
+    name, kw, scale = CONFIGS[config]
+    m = fetch_model(name, device="cuda", seed=0, **kw, **extra)
+    return FlowModel(name, scale_flow_head(m.module, scale), m.device)
+
+
+def config_serve_phase(gen, config: str) -> dict:
+    """``config`` (mixed precision, calibrated) serving REQUESTS requests of
+    B pairs at HxW through ``predict_flow``: each forward's launches, the
+    flow against the same model with the plain lookup (the plain spatial
+    correlation in the spatial mode) within the 1 % bar, pairs/s and the
+    peak memory."""
+    from understanding_flow_robustness_tpu_torch.models import predict_flow
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    print(f"== {config} serving ({CONFIGS[config][:2]}), calibrated, batch "
+          f"{B} at {H}x{W} ==", flush=True)
+    model = config_model(config)
+    want = CONFIG_LAUNCHES[config]
+    requests = [(torch.rand((B, H, W, 3), generator=gen, device="cuda"),
+                 torch.rand((B, H, W, 3), generator=gen, device="cuda"))
+                for _ in range(REQUESTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCH_COUNTS.clear()
+    flows = []
+    for i, (a, b) in enumerate(requests):
+        before = dict(LAUNCH_COUNTS)
+        flow = predict_flow(model, a, b)
+        torch.cuda.synchronize()
+        n = {k: LAUNCH_COUNTS[k] - before.get(k, 0) for k in want}
+        check(tuple(flow.shape) == (B, H, W, 2)
+              and bool(torch.isfinite(flow).all()),
+              f"{config} request {i}: flow malformed")
+        check(n == want, f"{config} request {i}: launches {n}, not {want}")
+        flows.append(flow)
+    res = {f"launches/{k}": LAUNCH_COUNTS[k] for k in want}
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["mean_flow_px"] = torch.stack(
+        [torch.linalg.vector_norm(f, dim=-1).mean() for f in flows]
+    ).mean().item()
+    model.module.plain_lookup = True
+    plain = predict_flow(model, *requests[0])
+    model.module.plain_lookup = False
+    mx, rel = flow_stats(flows[0], plain)
+    res["rel_epe_vs_plain"] = rel
+    print(f"{config}: launches per request {want} over {REQUESTS} requests; "
+          f"mean |flow| {res['mean_flow_px']:.3f} px; kernels vs plain "
+          f"max|dflow|={mx:.3e} px, rel EPE={100 * rel:.4f}%; peak memory "
+          f"{res['peak_mem_gib']:.2f} GiB", flush=True)
+    check(CAL_SANITY[0] < res["mean_flow_px"] < CAL_SANITY[1],
+          f"{config}: calibrated mean |flow| {res['mean_flow_px']:.3f} px "
+          f"outside {CAL_SANITY}")
+    check(rel <= BF16_REL_EPE_TOL,
+          f"{config}: kernels vs plain beyond the 1% bar")
+    for a, b in requests[:2]:
+        predict_flow(model, a, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a, b in requests * 2:
+        predict_flow(model, a, b)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    res["pairs_per_s"] = B * 2 * REQUESTS / dt
+    print(f"{config}: {res['pairs_per_s']:.2f} pairs/s ({1e3 * dt / (2 * REQUESTS):.1f}"
+          f" ms per request of {B} pairs)", flush=True)
+    return res
+
+
+def config_train_phase(gen, config: str, steps=(2, 3)) -> dict:
+    """``config`` (mixed precision) taking steps[0] + steps[1] AdamW/OneCycle
+    steps at batch TB, THxTW (the spatial mode SPATIAL_THxSPATIAL_TW)
+    through ``make_train_step``: each step's launches, finite losses, moved
+    parameters, frames/s over the last steps[1]; before them, on the first
+    batch, one train-mode backward of the f32 model (TF32 off) with the
+    kernels against one with the plain lookup on a deep copy: the loss
+    within TRAIN_LOSS_REL and the parameter gradients within
+    CONFIG_GRAD_F32_REL_L2, both paths summing the same products in other
+    orders (in bf16 the convolutions round each difference, and the
+    spatial mode's worst tensor reads 0.12 of GRAD_BF16_REL_L2's 0.15)."""
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+    from understanding_flow_robustness_tpu_torch.training import (
+        fetch_optimizer,
+        make_train_step,
+        sequence_loss,
+    )
+
+    h, w = (SPATIAL_TH, SPATIAL_TW) if config == "spatial" else (TH, TW)
+    print(f"== {config} train step ({CONFIGS[config][:2]}), batch {TB} at "
+          f"{h}x{w}, bf16 ==", flush=True)
+    batches = [train_batch(gen, TB, h, w) for _ in range(2)]
+    want = CONFIG_TRAIN_LAUNCHES[config]
+
+    # the kernels against the plain lookup on the first batch, in f32
+    kernel = config_model(config, mixed_precision=False).module.train()
+    plain = copy.deepcopy(kernel)
+    plain.plain_lookup = True
+    losses = []
+    for m in (kernel, plain):
+        preds = m(batches[0]["image1"].permute(0, 3, 1, 2) * 255.0,
+                  batches[0]["image2"].permute(0, 3, 1, 2) * 255.0,
+                  test_mode=False)
+        loss, _ = sequence_loss([p.permute(0, 2, 3, 1) for p in preds],
+                                batches[0]["flow"], batches[0]["valid"])
+        loss.backward()
+        losses.append(loss.item())
+    grads = [{n: p.grad for n, p in m.named_parameters()
+              if p.grad is not None and not NORMED_BIAS.search(n)}
+             for m in (kernel, plain)]
+    rels = sorted((((grads[0][n] - q).norm() / q.norm()).item(), n)
+                  for n, q in grads[1].items() if q.norm() > 0)
+    total = math.sqrt(sum(((grads[0][n] - q) ** 2).sum().item()
+                          for n, q in grads[1].items())
+                      / sum((q ** 2).sum().item() for q in grads[1].values()))
+    loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    print(f"{config}: first step in f32, kernels vs plain: loss "
+          f"{losses[0]:.6f} vs {losses[1]:.6f}; parameter gradients rel L2 "
+          f"worst {rels[-1][0]:.3e} ({rels[-1][1]}), all {total:.3e} (bounds "
+          f"{CONFIG_GRAD_F32_REL_L2})", flush=True)
+    check(loss_rel <= TRAIN_LOSS_REL[torch.float32]
+          and rels[-1][0] <= CONFIG_GRAD_F32_REL_L2[0]
+          and total <= CONFIG_GRAD_F32_REL_L2[1],
+          f"{config}: the first step with the kernels beyond the plain "
+          "lookup's bounds")
+    del kernel, plain, grads
+
+    module = config_model(config).module.train()
+
+    params = list(module.parameters())
+    optimizer, scheduler = fetch_optimizer(params, lr=1e-4, num_steps=1000)
+    step = make_train_step(module, optimizer, scheduler, is_raft=True)
+    start = [p.detach().clone() for p in params]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCH_COUNTS.clear()
+    losses = []
+    for i in range(sum(steps)):
+        if i == steps[0]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        before = dict(LAUNCH_COUNTS)
+        losses.append(step(batches[i % 2])["loss"])
+        n = {k: LAUNCH_COUNTS[k] - before.get(k, 0) for k in want}
+        check(n == want, f"{config} train step {i}: launches {n}, not {want}")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(all(math.isfinite(x) for x in losses),
+          f"{config}: non-finite train loss {losses}")
+    moved = sum(not torch.equal(p, q) for p, q in zip(params, start))
+    check(moved == len(params),
+          f"{config}: only {moved} of {len(params)} parameter tensors moved")
+    res = {f"launches/{k}": LAUNCH_COUNTS[k] for k in want}
+    res.update(ms_per_step=1e3 * dt / steps[1],
+               frames_per_s=TB * steps[1] / dt,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               first_step_grad_rel_l2=total)
+    print(f"{config}: launches per step {want}; losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; {res['frames_per_s']:.2f} frames/s, {res['ms_per_step']:.1f} "
+          f"ms per step, peak memory {res['peak_mem_gib']:.2f} GiB",
+          flush=True)
+    return res
+
+
+CONFIG_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_configs"
+# the spatial mode's correlation at its train step's shape (its serving
+# shape, (B, 256, H/8, W/8) f32, is FlowNetC's, CORR_MAIN["flownetc"])
+CORR_RAFT_SPATIAL = {"raft_spatial_train": (
+    (TB, 256, SPATIAL_TH // 8, SPATIAL_TW // 8), 21, 2, torch.float32)}
+SPATIAL_SHAPES_SEED = 400
+
+
+def spatial_mode_shapes_phase() -> dict:
+    """``spatial_corr_fwd`` / ``spatial_corr_bwd`` at the spatial mode's
+    train shape against their plain versions, timed with their bounds."""
+    print("== the spatial mode's train shape: spatial_corr_fwd/bwd vs plain "
+          "==", flush=True)
+    return corr_rows(torch.Generator(device="cuda").manual_seed(
+        SPATIAL_SHAPES_SEED), CORR_RAFT_SPATIAL)
+
+
+def config_cli_phase(gen) -> dict:
+    """The CLIs on the new configurations: ``cli.train --synthetic 3``
+    (batch 2 at THxTW, the spatial mode at SPATIAL_THxSPATIAL_TW) with
+    ``--small``, ``--compute_spatial`` and
+    ``--model RAFT_FlowNetCEncoder_WoContext``; ``cli.evaluate --small``
+    (f32, EVAL_ITERS iterations) on a written KITTI 2015 layout, its EPE
+    and F1 equal to the phase's own from ``predict_flow``; ``cli.parity
+    --synthetic 2`` over a written zoo directory holding RAFT's and small
+    RAFT's calibrated weights under the JAX registry's file names."""
+    from understanding_flow_robustness_tpu_torch.cli import evaluate, parity
+    from understanding_flow_robustness_tpu_torch.cli import train as cli_train
+    from understanding_flow_robustness_tpu_torch.models import (
+        fetch_model,
+        registry,
+        scale_flow_head,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+    from understanding_flow_robustness_tpu_torch.training.checkpoint import (
+        save_weights,
+    )
+
+    print("== the CLIs on small RAFT, the spatial mode and WoContext ==",
+          flush=True)
+    shutil.rmtree(CONFIG_OUT, ignore_errors=True)
+    res = {}
+    runs = {"small": (["--small"], {"alt_corr_fwd": ITERS,
+                                    "alt_corr_bwd": ITERS}, (TH, TW)),
+            "spatial": (["--compute_spatial"], {"spatial_corr_fwd": 1,
+                                                "spatial_corr_bwd": 1},
+                        (SPATIAL_TH, SPATIAL_TW)),
+            "wocontext": (["--model", "RAFT_FlowNetCEncoder_WoContext"],
+                          {"alt_corr_fwd": ITERS, "alt_corr_bwd": ITERS},
+                          (TH, TW))}
+    for name, (flags, per_step, (h, w)) in runs.items():
+        LAUNCH_COUNTS.clear()
+        t0 = time.perf_counter()
+        out = cli_train.main(flags + [
+            "--synthetic", "3", "--num_steps", "2", "--batch_size", "2",
+            "--image_size", str(h), str(w), "--name", name,
+            "--checkpoint_dir", str(CONFIG_OUT / "train")])
+        torch.cuda.synchronize()
+        n = {k: LAUNCH_COUNTS[k] for k in per_step}
+        check(out["total_steps"] == 3 and len(out["history"]) == 3
+              and all(math.isfinite(m["loss"]) for m in out["history"]),
+              f"train CLI {flags}: {out['total_steps']} batches, losses "
+              f"{[m['loss'] for m in out['history']]}")
+        check(n == {k: 3 * v for k, v in per_step.items()},
+              f"train CLI {flags}: launches {n} over 3 steps")
+        check((CONFIG_OUT / "train" / name / f"{name}.pth").exists(),
+              f"train CLI {flags}: no weights written")
+        res[f"train/{name}"] = {**{f"launches/{k}": v for k, v in n.items()},
+                                "s": time.perf_counter() - t0}
+        print(f"train CLI {' '.join(flags)}: 3 batches, launches {n}, "
+              f"{res[f'train/{name}']['s']:.1f} s", flush=True)
+
+    # evaluate --small on a written KITTI layout
+    root = CONFIG_OUT / "kitti"
+    small = config_model("small", mixed_precision=False, iters=EVAL_ITERS)
+    pth = CONFIG_OUT / "raft_small.pth"
+    save_weights(str(pth), small.module)
+    write_kitti_layout(gen, root, small)
+    LAUNCH_COUNTS.clear()
+    got = evaluate.main(["--model", str(pth), "--dataset", "kitti",
+                         "--small", "--data_roots",
+                         json.dumps({"kitti": str(root)})])
+    n = LAUNCH_COUNTS["alt_corr_fwd"]
+    epe, f1, _ = kitti_scores(small, root)
+    check(n == EVAL_ITERS * KITTI_SCENES,
+          f"evaluate --small: {n} alt_corr_fwd launches")
+    # cuDNN's f32 convolutions are not bit-reproducible from call to call
+    check(abs(got["kitti-epe"] - epe) <= 1e-4 * epe
+          and abs(got["kitti-f1"] - f1) <= 0.1,
+          f"evaluate --small: {got}, not predict_flow's {epe!r}/{f1!r}")
+    res["evaluate_small"] = {"launches": n, "epe": epe, "f1": f1}
+    print(f"evaluate CLI --small: EPE {epe:.4f} F1 {f1:.3f} % on "
+          f"{KITTI_SCENES} scenes, equal to the phase's own; {n} "
+          "alt_corr_fwd launches", flush=True)
+
+    # parity over a written zoo
+    zoo = CONFIG_OUT / "zoo"
+    zoo.mkdir()
+    for rid in ("RAFT", "RAFT_FlowNetCEncoder_WoContext"):
+        m = fetch_model(rid, device="cuda", seed=1)
+        torch.save(scale_flow_head(m.module, 0.05).state_dict(),
+                   zoo / registry._SPECS[rid].checkpoint)
+    LAUNCH_COUNTS.clear()
+    rc = parity.main(["--models", "RAFT,RAFT_FlowNetCEncoder_WoContext",
+                      "--valsets", "kitti2015", "--synthetic", "2",
+                      "--img_height", str(AH), "--img_width", str(AW),
+                      "--attack_steps", "3", "--zoo", str(zoo),
+                      "--out", str(CONFIG_OUT / "parity")])
+    table = json.loads((CONFIG_OUT / "parity" / "parity.json").read_text())[
+        "table"]
+    check(rc == 0 and set(table) == {"RAFT", "RAFT_FlowNetCEncoder_WoContext"},
+          f"parity CLI: rc {rc}, table {table}")
+    for rid, rows in table.items():
+        row = rows["kitti2015"]
+        check(all(math.isfinite(v) for v in row.values())
+              and row["ifgsm_epe"] > row["epe"],
+              f"parity CLI {rid}: {row}")
+    res["parity"] = {"table": table,
+                     "launches/alt_corr_fwd": LAUNCH_COUNTS["alt_corr_fwd"],
+                     "launches/alt_corr_bwd": LAUNCH_COUNTS["alt_corr_bwd"]}
+    print(f"parity CLI over the zoo: {table}; launches alt_corr_fwd "
+          f"{LAUNCH_COUNTS['alt_corr_fwd']}, alt_corr_bwd "
+          f"{LAUNCH_COUNTS['alt_corr_bwd']}", flush=True)
+    shutil.rmtree(CONFIG_OUT, ignore_errors=True)
+    return res
+
+
+def radius_keys(rres: dict, kernel: str, shapes) -> dict:
+    """The kernel line's keys of small RAFT's r = 3 rows: time, plain
+    version's time, bound (and the library call's, B5) at each shape, and
+    the worst error over every radius 1..7."""
+    out = {"radii": f"{RADII[0]}..{RADII[-1]}",
+           "radii_max_abs_err": rres["worst"][kernel]}
+    for shape in shapes:
+        r = rres[f"{kernel}/{shape}"]
+        for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            if k in r:
+                out[f"r{SMALL_RADIUS}_{shape}_{k}"] = r[k]
+    return out
 
 
 def main() -> None:
@@ -4633,6 +5307,15 @@ def main() -> None:
     ftres = phase(family_train_phase)
     fvres = phase(family_adv_train_phase)
     t_analyses = time.perf_counter() - t_analyses
+    t_configs = time.perf_counter()
+    rres = phase(radius_phase, gen)
+    cfg_serve = {c: phase(config_serve_phase, gen, c)
+                 for c in ("small", "small_volume", "spatial")}
+    cfg_train = {c: phase(config_train_phase, gen, c)
+                 for c in ("small", "spatial", "wocontext")}
+    ccres = phase(config_cli_phase, gen)
+    spres = phase(spatial_mode_shapes_phase)
+    t_configs = time.perf_counter() - t_configs
     print(f"all phases, build included: {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(f"patch attack, FlowNetC, batch {PB} at {PH}x{PW} ({card}): "
@@ -4670,6 +5353,21 @@ def main() -> None:
               for name, _, _ in FAMILY_TRAIN)
           + f"; the six phases {t_analyses:.1f} s", flush=True)
 
+    print(f"the remaining RAFT configurations ({card}): at r=4 (RAFT's "
+          f"shapes) B1 {kres['main/calibrated/bfloat16/ms']:.4f} ms, B2 "
+          f"{bres['main/calibrated/bfloat16/ms']:.4f} ms, B5 "
+          f"{vkres['main/calibrated/bfloat16/main']['ms']:.4f} ms, B3 "
+          f"{dres['main/calibrated/bfloat16/ms']:.4f} ms; at r=3 (small "
+          "RAFT's shapes) " + ", ".join(
+              f"{k} {rres[k]['ms']:.4f} ms (bound {rres[k]['bound_ms']:.4f})"
+              for k in ("B1/serving", "B1/train", "B2/train", "B5/serving",
+                        "B3/serving"))
+          + "; pairs/s " + ", ".join(f"{c} {r['pairs_per_s']:.2f}"
+                                     for c, r in cfg_serve.items())
+          + "; train ms per step " + ", ".join(
+              f"{c} {r['ms_per_step']:.1f}" for c, r in cfg_train.items())
+          + f"; the phases {t_configs:.1f} s", flush=True)
+
     print(card)  # name, power limit: nvidia-smi's own line
 
     def shape_err(r, shape="patch"):  # the worst case at a path's shape
@@ -4692,7 +5390,15 @@ def main() -> None:
                      + inres["launches"] + evres["launches"]
                      + trfres["launches/alt_corr_fwd"]
                      + s64res["launches/alt_corr_fwd"]
-                     + mpres["launches/alt_corr_fwd"]),
+                     + mpres["launches/alt_corr_fwd"]
+                     + rres["B3/launches"]
+                     + cfg_serve["small"]["launches/alt_corr_fwd"]
+                     + sum(r["launches/alt_corr_fwd"]
+                           for r in cfg_train.values())
+                     + sum(ccres[f"train/{c}"].get("launches/alt_corr_fwd", 0)
+                           for c in ("small", "wocontext"))
+                     + ccres["evaluate_small"]["launches"]
+                     + ccres["parity"]["launches/alt_corr_fwd"]),
         "max_abs_err": kres[fwd],
         "ms": kres[f"{fwd}/ms"],
         "plain_ms": kres[f"{fwd}/plain_ms"],
@@ -4708,6 +5414,7 @@ def main() -> None:
         "patch_shape_plain_ms": plres["patch/calibrated/bfloat16/plain_ms"],
         "patch_shape_bound_ms":
             plres["patch/calibrated/bfloat16/bound"]["bound_ms"],
+        **radius_keys(rres, "B1", ("serving", "train")),
     }, {
         "name": "alt_corr_bwd",
         "route": "cuda",
@@ -4718,7 +5425,12 @@ def main() -> None:
                      + acres["launches/alt_corr_bwd"]
                      + prres["launches/alt_corr_bwd"]
                      + atres["launches/alt_corr_bwd"]
-                     + trfres["launches/alt_corr_bwd"]),
+                     + trfres["launches/alt_corr_bwd"]
+                     + sum(r["launches/alt_corr_bwd"]
+                           for r in cfg_train.values())
+                     + sum(ccres[f"train/{c}"].get("launches/alt_corr_bwd", 0)
+                           for c in ("small", "wocontext"))
+                     + ccres["parity"]["launches/alt_corr_bwd"]),
         "max_abs_err": bres[fwd],
         "ms": bres[f"{fwd}/ms"],
         "plain_ms": bres[f"{fwd}/plain_ms"],
@@ -4739,17 +5451,19 @@ def main() -> None:
             prres["update_rel_l2/calibrated/l2/bf16"],
         "raft_patch_update_rel_l2_f32":
             prres["update_rel_l2/calibrated/l2/f32"],
+        **radius_keys(rres, "B2", ("train",)),
     }, {
         "name": "alt_corr_dcoords",
         "route": "cuda",
         "source": "understanding_flow_robustness_tpu_torch/csrc/alt_corr_dcoords.cu",
         "replaces": "understanding_flow_robustness_tpu/ops/pallas/alt_corr.py:91",
-        "launches": dres["launches"],
+        "launches": dres["launches"] + rres["B3/launches"],
         "max_abs_err": dres[fwd],
         "ms": dres[f"{fwd}/ms"],
         "plain_ms": dres[f"{fwd}/plain_ms"],
         **dres[f"{fwd}/bound"],
         "library_ms": None,
+        **radius_keys(rres, "B3", ("serving",)),
     }, {
         "name": "warp_fwd",
         "route": "cuda",
@@ -4786,7 +5500,8 @@ def main() -> None:
         "source": "understanding_flow_robustness_tpu_torch/csrc/corr_lookup_fwd.cu",
         "replaces": "understanding_flow_robustness_tpu/ops/pallas/corr_lookup_fused.py:59",
         "launches": (vres["launches"] + fres["launches"]
-                     + s64res["launches/corr_lookup_fwd"]),
+                     + s64res["launches/corr_lookup_fwd"]
+                     + cfg_serve["small_volume"]["launches/corr_lookup_fwd"]),
         "max_abs_err": vol["max_abs_err"],
         "ms": vol["ms"],
         "plain_ms": vol["plain_ms"],
@@ -4794,6 +5509,7 @@ def main() -> None:
         "bound_by": vol["bound_by"],
         "library_ms": vol["library_ms"],
         "grid_sample_ms": vol["library_ms"],
+        **radius_keys(rres, "B5", ("serving",)),
     }, {
         "name": "spatial_corr_fwd",
         "route": "cuda",
@@ -4815,7 +5531,10 @@ def main() -> None:
                      + rfres["launches/spatial_corr_fwd"]
                      + emres["launches/spatial_corr_fwd"]
                      + ftres["launches/spatial_corr_fwd"]
-                     + fvres["launches/spatial_corr_fwd"]),
+                     + fvres["launches/spatial_corr_fwd"]
+                     + cfg_serve["spatial"]["launches/spatial_corr_fwd"]
+                     + cfg_train["spatial"]["launches/spatial_corr_fwd"]
+                     + ccres["train/spatial"]["launches/spatial_corr_fwd"]),
         "max_abs_err": scres["flownetc"]["fwd_err"],
         "ms": scres["flownetc"]["ms"],
         "plain_ms": scres["flownetc"]["plain_ms"],
@@ -4833,6 +5552,9 @@ def main() -> None:
         **{f"{name}_{k}": tsres[f"corr/{name}"][k]
            for name in CORR_TRAIN for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms")},
+        **{f"{name}_{k}": spres[f"corr/{name}"][k]
+           for name in CORR_RAFT_SPATIAL for k in ("max_abs_err", "ms",
+                                                   "plain_ms", "bound_ms")},
     }, {
         "name": "spatial_corr_bwd",
         "route": "cuda",
@@ -4849,7 +5571,9 @@ def main() -> None:
                      + dares["launches/spatial_corr_bwd"]
                      + pfres["launches/spatial_corr_bwd"]
                      + ftres["launches/spatial_corr_bwd"]
-                     + fvres["launches/spatial_corr_bwd"]),
+                     + fvres["launches/spatial_corr_bwd"]
+                     + cfg_train["spatial"]["launches/spatial_corr_bwd"]
+                     + ccres["train/spatial"]["launches/spatial_corr_bwd"]),
         "max_abs_err": scres["attack"]["bwd_err"],
         "ms": scres["attack/bwd"]["ms"],
         "plain_ms": scres["attack/bwd"]["plain_ms"],
@@ -4867,6 +5591,9 @@ def main() -> None:
         **{f"{name}_{k}": tsres[f"corr/{name}/bwd"][k]
            for name in CORR_TRAIN for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms")},
+        **{f"{name}_{k}": spres[f"corr/{name}/bwd"][k]
+           for name in CORR_RAFT_SPATIAL for k in ("max_abs_err", "ms",
+                                                   "plain_ms", "bound_ms")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

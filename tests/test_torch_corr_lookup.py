@@ -183,6 +183,28 @@ def test_corr_lookup_grad_matches_jax_vjp(shape):
     assert np.abs(dp_t[0] - np.asarray(ref_p[0])).max() > 100 * GRAD_ATOL
 
 
+# radii other than RAFT's 4 (small RAFT's 3 among them) up to the TPU
+# kernels' 7
+RADII = (1, 2, 3, 5, 7)
+
+
+@pytest.mark.parametrize("radius", RADII)
+def test_corr_lookup_any_radius_matches_jax(radius):
+    """The plain volume lookup at radius r against JAX's ``corr_lookup``
+    (gather) and its Pallas kernel in interpret mode on the same f32
+    pyramid: L * (2r+1)^2 channels, s-major."""
+    f1, f2, coords = _inputs(2, 13, 21, 16, seed=20 + radius)
+    pyr = _jax_pyramid(f1, f2)
+    ref_gather = np.asarray(jops.corr_lookup(pyr, jnp.asarray(coords), radius,
+                                             impl="gather"))
+    ref_kernel = np.asarray(corr_lookup_pallas(pyr, jnp.asarray(coords),
+                                               radius, interpret=True))
+    got = tops.corr_lookup([_t(p) for p in pyr], _t(coords), radius)
+    assert tuple(got.shape) == (2, 13, 21, 4 * (2 * radius + 1) ** 2)
+    np.testing.assert_allclose(got.numpy(), ref_gather, atol=F32_ATOL)
+    np.testing.assert_allclose(got.numpy(), ref_kernel, atol=F32_ATOL)
+
+
 def test_corr_lookup_dispatch_and_checks():
     """CPU tensors take the plain version; the kernel wrapper refuses them
     (it launches on CUDA tensors or raises) and any other device raises;
@@ -197,7 +219,10 @@ def test_corr_lookup_dispatch_and_checks():
     levels = [p.reshape(64, *p.shape[2:]) for p in pyr]
     with pytest.raises(ValueError, match="CUDA"):
         tops.corr_lookup_fwd(levels, c.reshape(64, 2))
-    with pytest.raises(ValueError, match="radius"):
+    for radius in (0, 8):  # the kernel is built for radius 1..7
+        with pytest.raises(ValueError, match="radius"):
+            tops.corr_lookup_fwd(levels, c.reshape(64, 2), radius=radius)
+    with pytest.raises(ValueError, match="CUDA"):  # past the radius check
         tops.corr_lookup_fwd(levels, c.reshape(64, 2), radius=3)
     with pytest.raises(TypeError):
         tops.corr_lookup_fwd([lv.double() for lv in levels], c.reshape(64, 2))

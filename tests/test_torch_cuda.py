@@ -6,7 +6,8 @@ wrappers' checks and launch counts, RAFT driving the lookup kernels in
 inference (both paths, with and without the feature taps), a short train
 step and a short attack, SpyNet and PWC-Net driving the warp kernel, the
 FlowNetC family and PWC-Net driving the correlation kernel, and one inner
-patch-attack iteration on FlowNetC through both correlation kernels.
+patch-attack iteration on FlowNetC through both correlation kernels; the
+window kernels at every radius 1..7, small RAFT and the spatial mode.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports only torch and the port, so it also runs where JAX is absent:
@@ -24,6 +25,7 @@ from understanding_flow_robustness_tpu_torch.models import (
     RAFT,
     fetch_model,
     predict_flow,
+    scale_flow_head,
 )
 from understanding_flow_robustness_tpu_torch.ops import correlation
 from understanding_flow_robustness_tpu_torch.training import (
@@ -85,7 +87,7 @@ def test_wrapper_counts_launches_and_rejects_bad_input(cuda):
     ops.alt_corr_lookup(f1, levels, coords, 4)
     assert ops.LAUNCH_COUNTS["alt_corr_fwd"] == before + 1
     with pytest.raises(ValueError):
-        ops.alt_corr_lookup(f1, levels, coords, 3)  # only RAFT's radius 4 is built
+        ops.alt_corr_lookup(f1, levels, coords, 8)  # radius 1..7 are built
     with pytest.raises(ValueError):
         ops.alt_corr_lookup(f1[:, :, :30], levels, coords, 4)  # non-contiguous
     with pytest.raises(ValueError):
@@ -634,7 +636,7 @@ def test_volume_lookup_wrapper_rejects_bad_input_and_takes_gradients(cuda):
     c = coords.reshape(64, 2)
     before = ops.LAUNCH_COUNTS["corr_lookup_fwd"]
     with pytest.raises(ValueError):
-        ops.corr_lookup_fwd(levels, c, 3)  # only RAFT's radius 4 is built
+        ops.corr_lookup_fwd(levels, c, 8)  # radius 1..7 are built
     with pytest.raises(ValueError):
         ops.corr_lookup_fwd([lv.transpose(1, 2) for lv in levels], c)
     with pytest.raises(ValueError):
@@ -829,8 +831,10 @@ def test_spatial_corr_wrappers_count_launches_and_reject_bad_input(cuda):
                                      dtype=torch.bfloat16), 9, 1)):
         with pytest.raises((TypeError, ValueError)):
             bad()
-    with pytest.raises(NotImplementedError):
-        ops.spatial_correlation(x, y, 9, padding=1)
+    # the general path (padding 1) is plain PyTorch on the card too
+    general = ops.spatial_correlation(x, y, 9, padding=1)
+    torch.testing.assert_close(general, ops.spatial_correlation_general(
+        x.cpu(), y.cpu(), 9, 1, 1, 1, 1, 1).cuda(), rtol=1e-5, atol=1e-5)
     assert launched("spatial_corr_fwd") == 3 and launched("spatial_corr_bwd") == 2
 
 
@@ -906,3 +910,66 @@ def test_flownetc_patch_iteration_launches_kernels_and_matches_plain(cuda):
     assert pupd.abs().max().item() > 0
     assert ((upd - pupd).norm() / pupd.norm()).item() <= 2e-3
     assert abs(loss.item() - ploss.item()) <= 1e-5 * abs(ploss.item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius", range(1, 8))
+def test_window_kernels_any_radius(cuda, radius, dtype):
+    """B1, B2, B3 and B5 at every radius they are instantiated for
+    (csrc/radius.cuh) against their plain versions on a ragged shape with
+    calibrated, wild and out-of-volume centres."""
+    for spread in (2.0, 40.0):
+        f1, levels, coords = _case(2, 13, 21, 64, dtype, spread, seed=radius)
+        g = torch.randn((2, 13 * 21, 4 * (2 * radius + 1) ** 2),
+                        generator=torch.Generator().manual_seed(radius)).cuda()
+        got = correlation._alt_corr_lookup_cuda(f1, levels, coords, radius)
+        ref = ops.alt_corr_lookup_reference(f1, levels, coords, radius)
+        tol = (F32_TOL if dtype == torch.float32
+               else BF16_REL_TOL * ref.abs().max().item())
+        assert (got - ref).abs().max().item() <= tol
+        df1, dlv = correlation._alt_corr_bwd_cuda(f1, levels, coords, g,
+                                                  radius)
+        rdf1, rdlv = ops.alt_corr_lookup_backward_reference(
+            f1, levels, coords, g, radius)
+        for k, r in zip((df1, *dlv), (rdf1, *rdlv)):
+            assert (k - r).abs().max().item() <= \
+                BWD_REL_TOL * r.abs().max().item()
+        dc = correlation._alt_corr_dcoords_cuda(f1, levels, coords, g, radius)
+        rdc = ops.alt_corr_coords_grad_reference(f1, levels, coords, g,
+                                                 radius)
+        assert (dc - rdc).abs().max().item() <= \
+            BWD_REL_TOL * rdc.abs().max().item()
+        fm = f1.float().reshape(2, 13, 21, 64)
+        pyr = ops.volume_pyramid(fm, fm, 4, dtype)
+        c = coords.reshape(2, 13, 21, 2)
+        vol = ops.corr_lookup(pyr, c, radius)
+        assert (vol - ops.corr_lookup_reference(pyr, c, radius)).abs().max() \
+            .item() <= F32_TOL
+    for bad in (0, 8):
+        with pytest.raises(ValueError, match="radius"):
+            correlation._alt_corr_lookup_cuda(f1, levels, coords, bad)
+
+
+@pytest.mark.parametrize("kw,launches", [
+    ({"small": True}, {"alt_corr_fwd": 12, "spatial_corr_fwd": 0}),
+    ({"small": True, "corr_impl": "volume"}, {"corr_lookup_fwd": 12}),
+    ({"compute_spatial": True}, {"alt_corr_fwd": 0, "spatial_corr_fwd": 1})],
+    ids=["small", "small_volume", "spatial"])
+def test_raft_configurations_launch_their_kernels(cuda, kw, launches):
+    """Small RAFT (both paths) and the spatial-correlation mode, f32 at the
+    calibrated operating point (chip_smoke.py's CONFIGS), launch their
+    kernels per forward, and the flow equals the plain lookup's within
+    1e-2 px (chip_smoke.py's F32_FLOW_TOL_PX)."""
+    model = fetch_model("RAFT", mixed_precision=False, iters=12, **kw)
+    model.module = scale_flow_head(model.module, 0.3 if kw.get("small")
+                                   else 0.05)
+    g = torch.Generator().manual_seed(3)
+    a, b = (torch.rand((1, 128, 256, 3), generator=g).cuda() for _ in range(2))
+    before = dict(ops.LAUNCH_COUNTS)
+    flow = predict_flow(model, a, b)
+    torch.cuda.synchronize()
+    assert {k: ops.LAUNCH_COUNTS[k] - before.get(k, 0)
+            for k in launches} == launches
+    model.module.plain_lookup = True
+    plain = predict_flow(model, a, b)
+    assert (flow - plain).abs().max().item() <= 1e-2

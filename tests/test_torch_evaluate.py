@@ -76,8 +76,9 @@ def setup(tmp_path_factory):
     return tmp, roots, pth
 
 
-def _run(cli, setup, argv, capsys, monkeypatch):
-    tmp, roots, pth = setup
+def _run(cli, setup, argv, capsys, monkeypatch, pth=None):
+    tmp, roots, default_pth = setup
+    pth = pth or default_pth
     monkeypatch.chdir(tmp)
     data = '{"kitti": "%s", "sintel": "%s", "chairs": "%s"}' % (
         roots["kitti"], roots["sintel"], os.path.join(roots["chairs"], "data"))
@@ -101,6 +102,35 @@ def test_validate_kitti(setup, capsys, monkeypatch):
     n_valid = sum(int((ds[i][3] >= 0.5).sum()) for i in range(len(ds)))
     assert abs(tf1 - jf1) / 100 * n_valid <= len(ds)
     assert 0 < tf1 < 100
+
+
+def test_validate_kitti_small(setup, capsys, monkeypatch):
+    """``--small`` (JAX cli/evaluate.py:40, 74-78): small RAFT from a
+    ``.pth`` of seeded, perturbed JAX small-RAFT variables, KITTI's EPE and
+    F1 against the JAX CLI's on the same file."""
+    tmp = setup[0]
+    rng = np.random.RandomState(1)
+    v = jax.jit(JRAFT(iters=2, small=True).init)(
+        jax.random.PRNGKey(1), jnp.zeros((1, 64, 64, 3)),
+        jnp.zeros((1, 64, 64, 3)))
+    v = jax.tree_util.tree_map(
+        lambda x: np.asarray(x) * rng.uniform(0.8, 1.2, np.shape(x)).astype(
+            np.float32) + 0.01 * rng.randn(*np.shape(x)).astype(np.float32),
+        jax.device_get(v))
+    pth = str(tmp / "raft_small.pth")
+    torch.save(raft_state_dict_from_jax(v), pth)
+    argv = ["--dataset", "kitti", "--small"]
+    jepe, jf1 = _run(jcli, setup, argv, capsys, monkeypatch, pth)
+    tepe, tf1 = _run(tcli, setup, argv, capsys, monkeypatch, pth)
+    assert abs(tepe - jepe) <= EPE_REL * jepe
+    from understanding_flow_robustness_tpu_torch.data import KITTI
+
+    ds = KITTI(root=setup[1]["kitti"])
+    n_valid = sum(int((ds[i][3] >= 0.5).sum()) for i in range(len(ds)))
+    assert abs(tf1 - jf1) / 100 * n_valid <= len(ds)
+    with pytest.raises(FileNotFoundError):  # as the JAX CLI's torch.load
+        tcli.main(["--model", str(tmp / "none.pth"), "--dataset", "kitti",
+                   "--small", "--device", "cpu"])
 
 
 def test_validate_sintel_and_chairs(setup, capsys, monkeypatch):
@@ -153,8 +183,8 @@ def test_forward_interpolate():
 
 def test_evaluate_refusals(setup):
     _, _, pth = setup
-    for argv, match in ((["--n_devices", "2"], "A13"),
-                        (["--small"], "A10")):
+    # --small is ported (test_validate_kitti_small)
+    for argv, match in ((["--n_devices", "2"], "A13"),):
         with pytest.raises(NotImplementedError, match=match):
             tcli.main(["--model", pth, "--dataset", "kitti"] + argv)
     with pytest.raises(NotImplementedError, match="JAX package"):

@@ -163,11 +163,20 @@ def test_spatial_correlation_grad_matches_jax_vjp(patch, dil, shape):
 
 
 def test_spatial_correlation_refuses_the_general_path():
-    x = torch.zeros(1, 2, 4, 4)
-    with pytest.raises(NotImplementedError, match="kernel_size 1"):
-        tops.spatial_correlation(x, x, 3, kernel_size=3)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tops.spatial_correlation(x, x, 3, stride=2)
+    """The general path (kernel size, stride or padding other than (1, 1,
+    0)) is ported as plain PyTorch on every device
+    (tests/test_torch_raft_spatial.py holds it against the JAX package's):
+    it launches no kernel, and it refuses a kernel window that does not
+    fit the padded input."""
+    x = torch.ones(1, 2, 4, 4)
+    before = dict(tops.LAUNCH_COUNTS)
+    out = tops.spatial_correlation(x, x, 3, kernel_size=3)
+    assert tuple(out.shape) == (1, 9, 2, 2) and float(out[0, 4, 0, 0]) == 18
+    assert tuple(tops.spatial_correlation(x, x, 3, stride=2).shape) == (
+        1, 9, 2, 2)
+    assert dict(tops.LAUNCH_COUNTS) == before
+    with pytest.raises(ValueError, match="does not fit"):
+        tops.spatial_correlation(x, x, 3, kernel_size=5)
 
 
 @pytest.mark.parametrize("patch,dil,fits", [

@@ -124,6 +124,32 @@ def test_alt_corr_features_matches_jax_bf16(shape):
     assert np.abs(got - ref).max() <= 2e-2 * np.abs(ref).max()
 
 
+# radii other than RAFT's 4 (small RAFT's 3 among them) up to the TPU
+# kernels' 7
+RADII = (1, 2, 3, 5, 7)
+
+
+@pytest.mark.parametrize("radius", RADII)
+def test_alt_corr_features_any_radius_matches_jax(radius):
+    """The plain lookup at radius r against the JAX Pallas kernel in
+    interpret mode: f32 within the f32 bar, and at small RAFT's r = 3 also
+    bf16 within the bf16 one (test_alt_corr_features_matches_jax_bf16)."""
+    f1, f2, coords = _inputs(2, 13, 21, 16, seed=40 + radius)
+    j1, j2, jc = jnp.asarray(f1), jnp.asarray(f2), jnp.asarray(coords)
+    ref = np.asarray(jops.alt_corr_features(j1, j2, jc, 4, radius,
+                                            interpret=True))
+    got = tops.alt_corr_features(_t(f1), _t(f2), _t(coords), 4, radius)
+    assert tuple(got.shape) == (2, 13, 21, 4 * (2 * radius + 1) ** 2)
+    np.testing.assert_allclose(got.numpy(), ref, atol=F32_ATOL)
+    if radius == 3:
+        ref = np.asarray(jops.alt_corr_features(
+            j1, j2, jc, 4, radius, compute_dtype=jnp.bfloat16,
+            interpret=True)).astype(np.float32)
+        got = tops.alt_corr_features(_t(f1), _t(f2), _t(coords), 4, radius,
+                                     compute_dtype=torch.bfloat16).numpy()
+        assert np.abs(got - ref).max() <= 2e-2 * np.abs(ref).max()
+
+
 def test_alt_corr_lookup_plain_path_is_forward_only_and_uncounted():
     """The CPU path launches no kernel, with or without a feature or a
     coordinate gradient (tests/test_torch_ops_grad.py and
@@ -202,6 +228,39 @@ def test_forward_kernel_query_grid_and_counter(monkeypatch, n, grid):
         assert call[6:12] == (2, *grid, 16, 4, 0)
         assert list(call[2]) == [13, 21, 6, 10] and call[3] == 2
         assert call[12] == pc
+
+
+@pytest.mark.parametrize("radius", [0, 1, 3, 7, 8])
+def test_kernel_wrappers_take_radius_1_to_7(monkeypatch, radius):
+    """csrc/alt_corr_{fwd,bwd,dcoords}.cu are instantiated for radius 1..7
+    (csrc/radius.cuh): their wrappers pass such a radius to the kernel
+    with outputs of L * (2r+1)^2 channels and raise before the kernel on
+    0 and 8, launching and counting nothing."""
+    from understanding_flow_robustness_tpu_torch.ops import correlation
+
+    calls = _fake_forward_launch(monkeypatch)
+    f1, levels = tops.prepare_alt_corr(torch.zeros(1, 8, 8, 16),
+                                       torch.zeros(1, 8, 8, 16), 2)
+    coords = torch.zeros(1, 64, 2)
+    g = torch.zeros(1, 64, 2 * (2 * radius + 1) ** 2)
+    wrappers = (
+        lambda: correlation._alt_corr_lookup_cuda(f1, levels, coords, radius),
+        lambda: correlation._alt_corr_bwd_cuda(f1, levels, coords, g, radius),
+        lambda: correlation._alt_corr_dcoords_cuda(f1, levels, coords, g,
+                                                   radius))
+    before = dict(tops.LAUNCH_COUNTS)
+    for launch in wrappers:
+        if 1 <= radius <= 7:
+            launch()
+        else:
+            with pytest.raises(ValueError, match="radius 1..7"):
+                launch()
+    if 1 <= radius <= 7:
+        # the radius is the argument after C in each entry point
+        assert len(calls) == 3
+        assert (calls[0][10], calls[1][12], calls[2][10]) == (radius,) * 3
+    else:
+        assert calls == [] and dict(tops.LAUNCH_COUNTS) == before
 
 
 def test_forward_kernel_failure_raises_uncounted(monkeypatch):

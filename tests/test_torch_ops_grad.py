@@ -61,10 +61,10 @@ def _inputs(B, H, W, C, seed):
     return f1, f2, coords.astype(np.float32), g
 
 
-def _port_grads(f1, f2, coords, g, compute_dtype=None):
+def _port_grads(f1, f2, coords, g, compute_dtype=None, radius=4):
     a = torch.from_numpy(f1).requires_grad_()
     b = torch.from_numpy(f2).requires_grad_()
-    out = tops.alt_corr_features(a, b, torch.from_numpy(coords), 4, 4,
+    out = tops.alt_corr_features(a, b, torch.from_numpy(coords), 4, radius,
                                  compute_dtype=compute_dtype)
     out.backward(torch.from_numpy(g))
     return a.grad, b.grad
@@ -89,6 +89,25 @@ def test_lookup_grad_matches_jax_vjp_and_pallas_backward(shape):
     gt = g.reshape(*g.shape[:3], 4, 9, 9).swapaxes(-1, -2).reshape(g.shape)
     _, db_t = _port_grads(f1, f2, coords, gt)
     assert np.abs(db_t.numpy() - np.asarray(ref_b)).max() > 100 * GRAD_ATOL
+
+
+@pytest.mark.parametrize("radius", [1, 2, 3, 5, 7])
+def test_lookup_grad_any_radius_matches_jax_vjp(radius):
+    """The backward at radius r (small RAFT's 3 among them; the kernels
+    take 1..7) against jax.vjp of the JAX package's lookup, with an
+    asymmetric cotangent of L * (2r+1)^2 channels, on ragged levels."""
+    f1, f2, coords, _ = _inputs(2, 13, 21, 16, seed=30 + radius)
+    n2 = (2 * radius + 1) ** 2
+    g = np.random.RandomState(radius).randn(2, 13, 21, 4 * n2).astype(
+        np.float32)
+    da, db = _port_grads(f1, f2, coords, g, radius=radius)
+    j1, j2, jc, jg = map(jnp.asarray, (f1, f2, coords, g))
+    _, vjp = jax.vjp(lambda a, b: _alt_corr_reference(a, b, jc, 4, radius),
+                     j1, j2)
+    for got, ref in zip((da, db), vjp(jg)):
+        assert np.abs(np.asarray(ref)).max() > 0
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                   atol=GRAD_ATOL)
 
 
 def test_ragged_pooling_transpose_reaches_only_pooled_rows():

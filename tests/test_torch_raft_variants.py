@@ -239,3 +239,46 @@ def test_wocontext_weight_bridge(kw):
     assert flat_b.keys() == flat_v.keys()
     for k in flat_v:
         np.testing.assert_array_equal(flat_b[k], flat_v[k])
+
+
+# RAFT's other architecture options (cli/train.py:254-290 of the JAX
+# package): the encoders' norms, the pyramid's levels, the lookup's radius
+OPTIONS = {"norms": {"fnorm": "group", "cnorm": "none"},
+           "levels_radius": {"corr_levels": 3, "corr_radius": 5}}
+
+
+@pytest.mark.parametrize("name", list(OPTIONS))
+def test_options_match_jax_f32(name):
+    """Group-normed fnet and unnormed cnet, and a 3-level pyramid looked up
+    at radius 5, against JAX in f32 (1e-3 px) on the alt and volume paths;
+    group norm's weight and bias perturbed through the bridge."""
+    kw = OPTIONS[name]
+    rng = np.random.RandomState(12)
+    imgs = [(rng.rand(1, 64, 64, 3) * 255).astype(np.float32)
+            for _ in range(2)]
+    v = _variables(6, **kw)
+    j_low, j_up = _run_jax(v, imgs, mixed_precision=False, **kw)
+    for impl in ("alt", "volume"):
+        model = _port(v, corr_impl=impl, **kw)
+        p_low, p_up = _run_port(model, imgs)
+        assert np.abs(_nhwc(p_low) - np.asarray(j_low)).max() < FLOW_ATOL_PX
+        assert np.abs(_nhwc(p_up) - np.asarray(j_up)).max() < FLOW_ATOL_PX
+    if name == "norms":
+        assert isinstance(model.fnet.norm1, torch.nn.GroupNorm)
+        assert model.fnet.norm1.num_groups == 64 // 8
+        assert isinstance(model.cnet.norm1, torch.nn.Identity)
+    else:
+        assert model.update_block.encoder.convc1.in_channels == 3 * 11 ** 2
+
+
+@pytest.mark.parametrize("kw", [
+    {"fnorm": "group", "cnorm": "none", "corr_levels": 3, "corr_radius": 5},
+    WOCONTEXT], ids=["options", "wocontext"])
+def test_train_step_matches_jax(kw):
+    """One train step's loss and gradients against jax.grad
+    (tests/test_torch_raft_small.py's ``train_step_matches_jax``): the
+    options together (group norm's weight and bias gradients, the
+    radius-5 lookup's backward) and RAFT_FlowNetCEncoder_WoContext."""
+    from test_torch_raft_small import train_step_matches_jax
+
+    train_step_matches_jax(kw, seed=13)

@@ -308,3 +308,125 @@ def test_universal_cli_dataset_branch_matches_jax(roots, tmp_path,
     # the valset sweep's averages, as printed (3 decimals)
     assert len(tm) == len(jm) == 4
     np.testing.assert_allclose(tm, jm, rtol=0, atol=1.5e-3)
+
+
+class _Built(Exception):
+    """Raised by a recording fetch_model once it has the CLI's kwargs."""
+
+
+def _fetch_kwargs(cli, monkeypatch, argv):
+    """(model ID, module kwargs) that ``cli.main(argv)`` builds its model
+    with (the JAX CLI's ``fetch_model`` kwargs, the port's without its
+    ``device`` and ``seed``)."""
+    got = {}
+
+    def fake(name, *a, **k):
+        for key in ("pretrained_path", "device", "seed"):
+            k.pop(key, None)
+        got.update(name=name, kwargs=k)
+        raise _Built
+
+    if cli is jcli_train:
+        monkeypatch.setattr(jmodels, "fetch_model", fake)
+        monkeypatch.setattr(jutils, "enable_compilation_cache", lambda: None)
+    else:
+        monkeypatch.setattr(tcli_train, "fetch_model", fake)
+        argv = argv + ["--device", "cpu"]
+    with pytest.raises(_Built):
+        cli.main(argv + ["--synthetic", "1"])
+    return got["name"], got["kwargs"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--small"], ["--fnorm", "group", "--cnorm", "none"],
+    ["--fnorm", "batch", "--cnorm", "instance"],
+    ["--corr_levels", "3", "--corr_radius", "5"],
+    ["--no_separate_context", "--flowNetCEnc"], ["--compute_spatial"],
+    ["--alternate_corr"], ["--model_kwargs", '{"iters": 5, "small": true}'],
+    ["--DEBUG"], ["--model", "RAFT_FlowNetCEncoder_WoContext"],
+    ["--mixed_precision", "--small"], ["--pwc", "--pwc_correlations", "1",
+                                       "0"]],
+    ids=lambda a: " ".join(a))
+def test_train_cli_raft_flags_build_the_jax_model(monkeypatch, argv):
+    """RAFT's architecture flags (JAX cli/train.py:254-290) give the model
+    ID and module kwargs the JAX CLI gives; ``--alternate_corr`` forces the
+    alt lookup, which the JAX CLI keeps to the TPU (its "auto" is the
+    volume path elsewhere)."""
+    jname, jkw = _fetch_kwargs(jcli_train, monkeypatch, list(argv))
+    tname, tkw = _fetch_kwargs(tcli_train, monkeypatch, list(argv))
+    assert tname == jname
+    if "--alternate_corr" in argv:
+        assert tkw.pop("corr_impl") == "alt" and "corr_impl" not in jkw
+    assert tkw == jkw
+
+
+DEAD = ["--flowNetCFlexible", "--larger_field2", "--relu_wo_out",
+        "--net_relu", "--no_residuals", "--no_sep_gru", "--iterative",
+        "--single", "--pinard", "--predict_bias", "--raft_leaky_relu",
+        "--raft_no_out_conv", "--corr_conv", "--first_conv_5", "--relu",
+        "--update_no_motion_downsampling", "--flowNetC_separateContext",
+        "--flowNetC_raftEncoder"]
+
+
+@pytest.mark.parametrize("argv", [[f] for f in DEAD] + [
+    ["--raft_kernel_size", "5"], ["--flowNetC_corrDepth", "2"],
+    ["--dropout", "0.5"], ["--pwcflex", "--pwc_correlations", "1"]],
+    ids=lambda a: " ".join(a))
+def test_train_cli_dead_flags_raise_as_in_jax(monkeypatch, tmp_path, argv):
+    """The flags the reference parses but never builds (JAX
+    cli/train.py:161-192, 205-230), a non-zero dropout and PWCNetFlex
+    raise NotImplementedError in both CLIs before a model is built."""
+    monkeypatch.setattr(jutils, "enable_compilation_cache", lambda: None)
+    base = ["--synthetic", "1", "--checkpoint_dir", str(tmp_path)]
+    with pytest.raises(NotImplementedError):
+        jcli_train.main(argv + base)
+    with pytest.raises(NotImplementedError):
+        tcli_train.main(argv + base + ["--device", "cpu"])
+
+
+def test_train_cli_small_debug_losses_match_jax(tmp_path, monkeypatch):
+    """``--small --DEBUG --synthetic 2``: small RAFT at the DEBUG's 3
+    iterations with one set of weights in both CLIs, 2 synthetic batches;
+    the losses agree at tests/test_torch_training.py's bound and --DEBUG
+    writes no checkpoint, as in JAX."""
+    rng = np.random.RandomState(7)
+    jm = JRAFT(iters=3, small=True, mixed_precision=False)
+    v = jax.jit(jm.init)(jax.random.PRNGKey(7), jnp.zeros((1, 64, 64, 3)),
+                         jnp.zeros((1, 64, 64, 3)))
+    v = {"params": _perturb(v["params"], rng)}
+    module = RAFT(iters=3, small=True, mixed_precision=False)
+    module.load_state_dict(raft_state_dict_from_jax(v), strict=True)
+    argv = ["--small", "--DEBUG", "--synthetic", "2", "--batch_size", "1",
+            "--num_steps", "1", "--image_size", "64", "64", "--lr", "1e-4",
+            "--seed", "4"]
+
+    jlosses, jkw = [], {}
+
+    def jfetch(name, **k):
+        jkw.update(k)
+        return JFlowModel("RAFT", jm, v, True, 8)
+    monkeypatch.setattr(jmodels, "fetch_model", jfetch)
+    monkeypatch.setattr(jutils, "enable_compilation_cache", lambda: None)
+    real = jcli_train.train
+
+    def jtrain(*a, **k):
+        k["logger"] = lambda step, m: jlosses.append(float(m["loss"]))
+        return real(*a, **k)
+    monkeypatch.setattr(jcli_train, "train", jtrain)
+    jcli_train.main(argv + ["--checkpoint_dir", str(tmp_path / "j")])
+
+    tkw = {}
+
+    def tfetch(name, **k):
+        tkw.update(k)
+        return FlowModel("RAFT", module.eval(), torch.device("cpu"))
+    monkeypatch.setattr(tcli_train, "fetch_model", tfetch)
+    out = tcli_train.main(argv + ["--checkpoint_dir", str(tmp_path / "t"),
+                                  "--device", "cpu"])
+    assert jkw["iters"] == tkw["iters"] == 3 and tkw["small"] is True
+    tlosses = [m["loss"] for m in out["history"]]
+    assert out["total_steps"] == 2 and len(tlosses) == len(jlosses) == 2
+    np.testing.assert_allclose(tlosses, jlosses, rtol=LOSS_TOL)
+    # --DEBUG: args.json only, no checkpoint or weights, as in JAX
+    assert sorted(os.listdir(tmp_path / "t" / "flow")) == sorted(
+        os.listdir(tmp_path / "j" / "flow")) == ["args.json"]

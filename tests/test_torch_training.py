@@ -383,9 +383,10 @@ def test_train_cli_synthetic(tmp_path):
     assert os.path.exists(tmp_path / "cli" / "cli.pth")
 
 
+# RAFT_FlowNetCEncoder_WoContext and --small train now
+# (tests/test_torch_train_clis.py, test_torch_raft_variants.py)
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "RAFT_FlowNetCEncoder_WoContext"], "A10"),
-    (["--small"], "A10"), (["--n_devices", "2"], "A13"), ([], "A11")])
+    (["--n_devices", "2"], "A13"), ([], "A11")])
 def test_train_cli_refuses_unported_paths(tmp_path, argv, item):
     if item == "A11":
         # the dataset stages are ported (tests/test_torch_train_clis.py):

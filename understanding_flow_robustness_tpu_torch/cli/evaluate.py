@@ -8,9 +8,9 @@ reference), or with ``--submission`` writes the Sintel or KITTI benchmark
 submission.  RAFT runs 24 iterations (32 on Sintel) in f32 unless
 ``--mixed_precision``.  ``--model`` is a reference ``.pth``/``.pth.tar``
 checkpoint or a weights file of the port's trainer (``save_weights``),
-loaded strictly.  ``--device`` is the card unless asked for ``cpu`` (no
-fallback).  Not ported: flax ``.msgpack`` checkpoints (the JAX package's
-format), ``--small`` (ROADMAP A10) and ``--n_devices`` (ROADMAP A13).
+loaded strictly; ``--small`` builds small RAFT for it.  ``--device`` is the
+card unless asked for ``cpu`` (no fallback).  Not ported: flax ``.msgpack``
+checkpoints (the JAX package's format) and ``--n_devices`` (ROADMAP A13).
 
 Example:
   python -m understanding_flow_robustness_tpu_torch.cli.evaluate \\
@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 
 from ..models import device_arg, fetch_model
 from ..training import evaluate as ev
@@ -38,8 +39,7 @@ def build_parser():
                    help="dataset for evaluation")
     p.add_argument("--arch", default="RAFT",
                    help="registry architecture ID (RAFT, as the reference)")
-    p.add_argument("--small", action="store_true",
-                   help="RAFT-small: not ported yet (ROADMAP A10)")
+    p.add_argument("--small", action="store_true", help="small RAFT")
     p.add_argument("--mixed_precision", action="store_true",
                    help="RAFT in mixed precision (bf16 compute); f32 "
                         "unless set, as in the reference")
@@ -79,12 +79,14 @@ def main(argv=None):
         raise NotImplementedError(
             "--n_devices: mesh-sharded KITTI validation is not ported yet "
             "(ROADMAP A13)")
-    if args.small:
-        raise NotImplementedError("--small: RAFT-small is not ported yet "
-                                  "(ROADMAP A10)")
+    if not os.path.isfile(args.model):
+        # the JAX CLI's torch.load of the file raises the same
+        raise FileNotFoundError(f"--model {args.model!r}: no such file")
 
     kwargs = {}
     if args.arch.startswith("RAFT"):
+        if args.small:
+            kwargs["small"] = True
         kwargs["mixed_precision"] = args.mixed_precision
         if args.alternate_corr:
             kwargs["corr_impl"] = "alt"

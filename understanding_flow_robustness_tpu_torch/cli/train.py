@@ -21,8 +21,14 @@ kitti2015|kitti2012`` (adversarial training's KITTI pairs) from
 ``--data_list_dir``'s path lists, batches from the threaded
 ``data.DataLoader``.  ``--validation kitti|sintel|chairs`` runs at every
 ``--val_freq`` on the default dataset roots, skipped when they are absent.
-RAFT_FlowNetCEncoder_WoContext, small RAFT and multi-device training raise
-with the ROADMAP item that ports them.
+RAFT trains in every configuration of the JAX CLI: ``--small``, ``--fnorm``,
+``--cnorm``, ``--corr_levels``, ``--corr_radius`` (1..7 on the card),
+``--no_separate_context``, ``--flowNetCEnc``, ``--compute_spatial``,
+``--alternate_corr`` (the on-demand lookup, ``corr_impl="alt"``),
+``--model_kwargs`` (a JSON dict of module keyword arguments) and ``--DEBUG``
+(3 iterations, no checkpoints), and RAFT_FlowNetCEncoder_WoContext by its
+ID.  The flags the reference parses but never builds raise, as in the JAX
+CLI.  Multi-device training raises with the ROADMAP item that ports it.
 
     python -m understanding_flow_robustness_tpu_torch.cli.train --model RAFT \\
         --stage kitti --num_steps 100 --batch_size 4 \\
@@ -43,16 +49,22 @@ import os
 import numpy as np
 
 from ..attacks.global_attacks import PerturbConfig
-from ..models import NOT_PORTED, fetch_model
+from ..models import fetch_model
 from ..training import TrainConfig, train
 from ..training.checkpoint import load_weights
 
-# model IDs the port cannot train yet, by the ROADMAP item that ports them:
-# the unbuilt ones, and RAFT's FlowNetC-encoder variant, which serves but
-# does not train
-_NOT_TRAINED = {**NOT_PORTED, "RAFT_FlowNetCEncoder_WoContext": "A10"}
 # flags of the JAX CLI that belong to paths not ported yet
-_NOT_PORTED_FLAGS = {"small": "A10", "n_devices": "A13"}
+_NOT_PORTED_FLAGS = {"n_devices": "A13"}
+# flags the reference parses but whose model construction is commented out
+# (training/train.py:66-84), never read, or crashes upstream
+# (--update_no_motion_downsampling, models/raft/update.py:110-119): the
+# JAX CLI accepts them and raises when one is set (cli/train.py:161-192)
+_DEAD_FLAGS = ("--flowNetCFlexible", "--larger_field2", "--relu_wo_out",
+               "--net_relu", "--no_residuals", "--no_sep_gru", "--iterative",
+               "--single", "--pinard", "--predict_bias", "--raft_leaky_relu",
+               "--raft_no_out_conv", "--corr_conv", "--first_conv_5",
+               "--relu", "--update_no_motion_downsampling",
+               "--flowNetC_separateContext", "--flowNetC_raftEncoder")
 
 
 def build_parser():
@@ -148,8 +160,46 @@ def build_parser():
     p.add_argument("--pwcflex", action="store_true",
                    help="PWCNetFlex (train.py:89): missing from the "
                         "reference itself; raises")
+    p.add_argument("--pwc_correlations", nargs="+", default=None,
+                   help="PWCNetFlex's per-level correlation switches "
+                        "(train.py:534; only meaningful with --pwcflex)")
+    # RAFT's architecture flags (train.py:395-436; cli/train.py:135-150)
     p.add_argument("--small", "--raft_small", dest="small",
-                   action="store_true", help="not ported yet; raises")
+                   action="store_true", help="small RAFT (train.py:424)")
+    p.add_argument("--fnorm", default="instance",
+                   choices=["none", "batch", "group", "instance"],
+                   help="RAFT feature-encoder norm (train.py:401)")
+    p.add_argument("--cnorm", default="batch",
+                   choices=["none", "batch", "group", "instance"],
+                   help="RAFT context-encoder norm (train.py:407)")
+    p.add_argument("--no_separate_context", action="store_true",
+                   help="RAFT's conv_redir context variant")
+    p.add_argument("--flowNetCEnc", action="store_true",
+                   help="RAFT's FlowNetC encoder variant")
+    p.add_argument("--compute_spatial", action="store_true",
+                   help="RAFT's spatial-correlation mode")
+    p.add_argument("--corr_levels", type=int, default=4)
+    p.add_argument("--corr_radius", type=int, default=4)
+    p.add_argument("--alternate_corr", action="store_true",
+                   help="RAFT's on-demand correlation (train.py:436): the "
+                        "alt lookup (corr_impl='alt'), the default already; "
+                        "this forces it")
+    p.add_argument("--model_kwargs", default=None,
+                   help="JSON dict of extra module keyword arguments")
+    p.add_argument("--DEBUG", action="store_true",
+                   help="iters=3, no checkpoint writes "
+                        "(train.py:140-141,235,286-289)")
+    for flag in _DEAD_FLAGS:
+        p.add_argument(flag, action="store_true",
+                       dest=f"dead_{flag.lstrip('-')}",
+                       help="dead in the reference (train.py:66-84); raises")
+    p.add_argument("--raft_kernel_size", type=int, default=3,
+                   help="dead in the reference; raises if != 3")
+    p.add_argument("--flowNetC_corrDepth", type=int, default=None,
+                   help="dead in the reference; raises if set")
+    p.add_argument("--dropout", type=float, default=0.0,
+                   help="encoder dropout (train.py:398; the reference's "
+                        "default 0); > 0 raises")
     p.add_argument("--validation", nargs="+", default=None,
                    choices=["chairs", "sintel", "kitti"],
                    help="validation sets run at every val_freq "
@@ -294,26 +344,59 @@ def _model_kwargs(args) -> dict:
     elif args.pwc:
         args.model = "PWCNet"
     if args.model.startswith("RAFT"):
-        kwargs["iters"] = args.iters
+        kwargs["iters"] = 3 if args.DEBUG else args.iters  # train.py:235
+        for flag, key, default in (
+                ("small", "small", False), ("fnorm", "fnorm", "instance"),
+                ("cnorm", "cnorm", "batch"),
+                ("no_separate_context", "no_separate_context", False),
+                ("flowNetCEnc", "flownetc_encoder", False),
+                ("compute_spatial", "compute_spatial", False),
+                ("corr_levels", "corr_levels", 4),
+                ("corr_radius", "corr_radius", 4)):
+            if getattr(args, flag) != default:
+                kwargs[key] = getattr(args, flag)
+        if args.alternate_corr:
+            kwargs["corr_impl"] = "alt"
     if args.mixed_precision:
         kwargs["mixed_precision"] = True
+    if args.model_kwargs:
+        kwargs.update(json.loads(args.model_kwargs))
     return kwargs
+
+
+def _refuse_dead_flags(args) -> None:
+    """The JAX CLI's refusals (cli/train.py:205-230): --dropout > 0, and
+    the flags that are dead in the reference itself."""
+    if args.dropout > 0:
+        raise NotImplementedError(
+            "--dropout > 0 is not supported (the reference default is 0; "
+            "no released checkpoint trains with it)")
+    dead = [k for k, v in vars(args).items() if k.startswith("dead_") and v]
+    if args.raft_kernel_size != 3:
+        dead.append("raft_kernel_size")
+    if args.flowNetC_corrDepth is not None:
+        dead.append("flowNetC_corrDepth")
+    if dead:
+        raise NotImplementedError(
+            f"{sorted(dead)}: dead in the reference itself -- the model "
+            "construction for these flags is commented out "
+            "(training/train.py:66-84), the modules never read them, or "
+            "the live read crashes upstream "
+            "(--update_no_motion_downsampling, models/raft/update.py:"
+            "110-119 channel mismatch)")
 
 
 def main(argv=None) -> dict:
     """Run the CLI; returns {"total_steps": batches taken, "history":
     metrics of each batch of this run}."""
     args = build_parser().parse_args(argv)
+    _refuse_dead_flags(args)
     other = [f for f in _NOT_PORTED_FLAGS if getattr(args, f)]
     if other:
         raise NotImplementedError(
             f"--{other[0]} is not ported yet (ROADMAP "
             f"{_NOT_PORTED_FLAGS[other[0]]})")
     kwargs = _model_kwargs(args)
-    if args.model in _NOT_TRAINED:
-        raise NotImplementedError(
-            f"training --model {args.model} is not ported yet (ROADMAP "
-            f"{_NOT_TRAINED[args.model]})")
     if args.val_freq is None:  # train.py:143-148
         args.val_freq = (1000 if args.adversarial
                          else 100 if args.finetune else 5000)
@@ -348,7 +431,8 @@ def main(argv=None) -> dict:
             probability_diverse_input=args.probability_diverse_input,
             targeted=args.arbitrary_gt),  # train.py:183
         seed=args.seed, add_noise=args.add_noise,
-        arbitrary_gt=args.arbitrary_gt, not_excluding=args.no_excluding)
+        arbitrary_gt=args.arbitrary_gt, not_excluding=args.no_excluding,
+        save_checkpoints=not args.DEBUG)
     h, w = args.image_size
     history = []
 

@@ -42,8 +42,8 @@
 //      the level is dead.  Warp reductions give each tile row's range of
 //      live window origins, and their union the tile's box, clipped to the
 //      level.
-//   2. The block folds every live query's 81 cotangents into its 100
-//      weights U in shared memory (a thread per query column), while the
+//   2. The block folds every live query's n^2 cotangents into its (n+1)^2
+//      weights U (81 into 100 at r = 4) in shared memory (a thread per query column), while the
 //      box's f2 chunk, if it fits in kBoxBytes (1024 points bf16, 512 f32),
 //      streams into shared memory by cp.async.
 //   3. Tile path (the box fits): df1 by gather -- each thread sums U * f2
@@ -53,7 +53,7 @@
 //      skipping the tile rows whose origins rule them out, then adds each
 //      sum into df2 with one float4 atomic (boxes of neighbouring tiles
 //      overlap).  On a smooth field that is ~|box| atomics per tile
-//      instead of 64 x 100, and each f2 row is read once per tile instead
+//      instead of 64 x (n+1)^2, and each f2 row is read once per tile instead
 //      of once per query.  The tile path is bound by instruction issue in
 //      its two gathers (shared-memory loads, FMAs, covering tests), not by
 //      its atomics.
@@ -70,20 +70,23 @@
 // changes from run to run (atomics).  The JAX TPU backward rounds g and U
 // to bf16 (ops/correlation.py:740, alt_corr.py:633-638); this kernel keeps
 // them f32, so its gradient is closer to the f32 one.
+//
+// Radius: a template over r, instantiated for 1..7 (csrc/radius.cuh); the
+// (n+1)^2 weights U, their shared memory and the fold follow from it.  The
+// tile shape, kBand and kBoxBytes were tuned at r = 4 and are kept.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
+#include "radius.cuh"
+
 namespace {
 
+using ufr::Window;
+
 constexpr int kMaxLevels = 8;
-constexpr int kRadius = 4;                  // RAFT's lookup radius
-constexpr int kN1 = 2 * kRadius + 1;        // window side
-constexpr int kD = kN1 + 1;                 // integer grid side
-constexpr int kDD = kD * kD;                // integer grid points
-constexpr int kNn = kN1 * kN1;              // cotangents per level
 constexpr int kTileW = 8;                   // a tile of the query grid
 constexpr int kTileQ = kTileW * kTileW;
 constexpr int kChunk = 32;                  // channels of a block
@@ -163,11 +166,11 @@ __device__ __forceinline__ void fma4(float (&acc)[4], float u,
   for (int e = 0; e < 4; ++e) acc[e] = fmaf(u, v[e], acc[e]);
 }
 
-template <typename T>
+template <typename T, int R>
 struct Smem {
   // box points of f2 that fit in kBoxBytes: 1024 bf16, 512 f32
   static constexpr int kBoxCap = kBoxBytes / (kChunk * (int)sizeof(T));
-  float u[kTileQ * kDD];        // every query's weights U[i][j]
+  float u[kTileQ * Window<R>::kDD];  // every query's weights U[i][j]
   float f1[kTileQ * kChunk];    // the tile's f1 chunk, f32
   int2 org[kTileQ];             // window origins (x0, y0); kDead if dead
   float2 frac[kTileQ];          // the centres' fractions (ax, ay)
@@ -177,10 +180,10 @@ struct Smem {
   alignas(16) T box[kBoxCap * kChunk];  // the box's f2 chunk, point-major
 };
 
-// Grid (tiles, chunks, batch), block kThreads, dynamic shared memory
-// sizeof(Smem<T>).  path_counts (optional): [l] += 1 per (tile, level) on
+// R: the lookup radius.  Grid (tiles, chunks, batch), block kThreads,
+// dynamic shared memory sizeof(Smem<T, R>).  path_counts (optional): [l] += 1 per (tile, level) on
 // the tile path, [num_levels + l] per-query path, counted by chunk 0.
-template <typename T>
+template <typename T, int R>
 __global__ void __launch_bounds__(kThreads, 2)
 alt_corr_bwd_kernel(const T* __restrict__ f1, Levels lv, int num_levels,
                     const float* __restrict__ coords,
@@ -188,9 +191,13 @@ alt_corr_bwd_kernel(const T* __restrict__ f1, Levels lv, int num_levels,
                     GradLevels dlv, int H1, int W1, int C, int tiles_x,
                     int* __restrict__ path_counts) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<T>& s = *reinterpret_cast<Smem<T>*>(smem_raw);
-  constexpr int kR = kRadius;
-  constexpr int kCap = Smem<T>::kBoxCap;
+  Smem<T, R>& s = *reinterpret_cast<Smem<T, R>*>(smem_raw);
+  constexpr int kR = R;
+  constexpr int kN1 = Window<R>::kN1;
+  constexpr int kD = Window<R>::kD;
+  constexpr int kDD = Window<R>::kDD;
+  constexpr int kNn = Window<R>::kNn;
+  constexpr int kCap = Smem<T, R>::kBoxCap;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -304,7 +311,7 @@ alt_corr_bwd_kernel(const T* __restrict__ f1, Levels lv, int num_levels,
     }
     if (any) {
       // U, one column j of one query per item: G's columns j and j-1 are
-      // 9 consecutive cotangents each (g is s-major: G[t][s] = g[s*n + t])
+      // n consecutive cotangents each (g is s-major: G[t][s] = g[s*n + t])
       for (int e = tid; e < kTileQ * kD; e += kThreads) {
         const int qq = e / kD;
         const int j = e - qq * kD;
@@ -462,20 +469,20 @@ alt_corr_bwd_kernel(const T* __restrict__ f1, Levels lv, int num_levels,
   }
 }
 
-template <typename T>
+template <typename T, int R>
 cudaError_t launch(const void* f1, const Levels& lv, int L,
                    const float* coords, const float* g, float* df1,
                    const GradLevels& dlv, int B, int H1, int W1, int C,
                    int* path_counts, cudaStream_t stream) {
-  const int smem = (int)sizeof(Smem<T>);
+  const int smem = (int)sizeof(Smem<T, R>);
   cudaError_t err = cudaFuncSetAttribute(
-      alt_corr_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      alt_corr_bwd_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   const int tiles_x = (W1 + kTileW - 1) / kTileW;
   const int tiles_y = (H1 + kTileW - 1) / kTileW;
   const dim3 grid(tiles_x * tiles_y, (C + kChunk - 1) / kChunk, B);
-  alt_corr_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  alt_corr_bwd_kernel<T, R><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(f1), lv, L, coords, g, df1, dlv, H1, W1, C,
       tiles_x, path_counts);
   return cudaGetLastError();
@@ -485,7 +492,7 @@ cudaError_t launch(const void* f1, const Levels& lv, int L,
 
 // C interface, bound with ctypes by ops/correlation.py::_alt_corr_bwd_cuda,
 // which validates every argument first (dtype, shapes, contiguity,
-// alignment, C a multiple of the vector width, radius 4, 1..8 levels).
+// alignment, C a multiple of the vector width, radius 1..7, 1..8 levels).
 // f1: (B, N, C) with N = H1 * W1 queries, row-major on an H1 x W1 grid (the
 // grid only groups queries into tiles; any H1 x W1 = N is right);
 // levels[l]: (B, h, w, C), with hw = {h0, w0, h1, w1, ...}; coords: (B, N,
@@ -500,8 +507,8 @@ extern "C" int ufr_alt_corr_bwd(const void* f1, const void* const* levels,
                                 void* const* dlevels, int B, int H1, int W1,
                                 int C, int radius, int is_bf16,
                                 void* path_counts, void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || radius != kRadius ||
-      B < 1 || B > 65535 || H1 < 1 || W1 < 1 || C < 1 ||
+  if (num_levels < 1 || num_levels > kMaxLevels || radius < 1 ||
+      radius > ufr::kMaxRadius || B < 1 || B > 65535 || H1 < 1 || W1 < 1 || C < 1 ||
       C % (16 / (is_bf16 ? 2 : 4)) || (long long)H1 * W1 > INT_MAX ||
       (C + kChunk - 1) / kChunk > 65535) {
     return (int)cudaErrorInvalidValue;
@@ -519,12 +526,13 @@ extern "C" int ufr_alt_corr_bwd(const void* f1, const void* const* levels,
   float* d1 = static_cast<float*>(df1);
   int* pc = static_cast<int*>(path_counts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(f1, lv, num_levels, c, gg, d1, dlv, B,
-                                      H1, W1, C, pc, s)
-              : launch<float>(f1, lv, num_levels, c, gg, d1, dlv, B, H1, W1,
-                              C, pc, s);
-  return (int)err;
+  return (int)ufr::with_radius(radius, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return is_bf16 ? launch<__nv_bfloat16, R>(f1, lv, num_levels, c, gg, d1,
+                                              dlv, B, H1, W1, C, pc, s)
+                   : launch<float, R>(f1, lv, num_levels, c, gg, d1, dlv, B,
+                                      H1, W1, C, pc, s);
+  });
 }
 
 extern "C" const char* ufr_cuda_error_string(int err) {

@@ -29,13 +29,14 @@
 // NOT what B3 computes; this kernel follows B3.
 //
 // Design: alt_corr_fwd.cu's one warp per query.  The warp keeps f1[q] in
-// registers, forms each level's 10x10 dots once (16-byte vector loads of the
+// registers, forms each level's (2r+2)^2 dots once (16-byte vector loads of the
 // f2 rows by neighbouring lanes, warp-shuffle sums) into shared memory, then
-// each lane takes some of the 81 window positions, forms both derivatives
+// each lane takes some of the (2r+1)^2 window positions, forms both derivatives
 // and contracts them with g; two warp sums give (dcx, dcy).  The level's
 // pointer and size are selected with constant indices: indexing the
 // parameter struct with a runtime level would copy it to local memory in
-// every thread.  Inputs f32 or bf16; sums, g and dcoords f32.
+// every thread.  Inputs f32 or bf16; sums, g and dcoords f32.  A template
+// over the radius, instantiated for 1..7 (csrc/radius.cuh).
 //
 // Bound at RAFT's serving geometry (B=8, 48x160 queries, C=256, L=4, bf16):
 // bytes, ~0.046 ms (f1 31.5 MB, levels 41.8 MB, g 79.6 MB read once).  Like
@@ -46,11 +47,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "radius.cuh"
+
 namespace {
 
 constexpr int kMaxLevels = 8;
 constexpr int kWarps = 4;   // queries per block
-constexpr int kRadius = 4;  // RAFT's lookup radius
 
 struct Levels {
   const void* ptr[kMaxLevels];
@@ -94,18 +96,18 @@ __device__ __forceinline__ float warp_sum(float s) {
 }
 
 // kCpl: 16-byte chunks of a feature row per lane (C / (32 * Vec::kN),
-// rounded up).
-template <typename T, int kCpl>
+// rounded up); R: the lookup radius.
+template <typename T, int kCpl, int R>
 __global__ void __launch_bounds__(kWarps * 32)
 alt_corr_dcoords_kernel(const T* __restrict__ f1, Levels lv, int num_levels,
                         const float* __restrict__ coords,
                         const float* __restrict__ g,
                         float* __restrict__ dcoords, int BN, int N, int C) {
   constexpr int kV = Vec<T>::kN;
-  constexpr int kR = kRadius;
-  constexpr int kN1 = 2 * kR + 1;  // window side
-  constexpr int kD = kN1 + 1;      // integer grid side
-  constexpr int kNn = kN1 * kN1;
+  constexpr int kR = R;
+  constexpr int kN1 = ufr::Window<R>::kN1;  // window side
+  constexpr int kD = ufr::Window<R>::kD;    // integer grid side
+  constexpr int kNn = ufr::Window<R>::kNn;
   __shared__ float dots_s[kWarps][kD * kD];
 
   const int warp = threadIdx.x >> 5;
@@ -218,7 +220,7 @@ alt_corr_dcoords_kernel(const T* __restrict__ f1, Levels lv, int num_levels,
   }
 }
 
-template <typename T>
+template <typename T, int R>
 cudaError_t launch(const void* f1, const Levels& lv, int L,
                    const float* coords, const float* g, float* dcoords, int B,
                    int N, int C, cudaStream_t stream) {
@@ -227,10 +229,10 @@ cudaError_t launch(const void* f1, const Levels& lv, int L,
   const dim3 block(kWarps * 32);
   const T* f = static_cast<const T*>(f1);
   if (C / Vec<T>::kN <= 32) {
-    alt_corr_dcoords_kernel<T, 1><<<grid, block, 0, stream>>>(
+    alt_corr_dcoords_kernel<T, 1, R><<<grid, block, 0, stream>>>(
         f, lv, L, coords, g, dcoords, BN, N, C);
   } else {
-    alt_corr_dcoords_kernel<T, 2><<<grid, block, 0, stream>>>(
+    alt_corr_dcoords_kernel<T, 2, R><<<grid, block, 0, stream>>>(
         f, lv, L, coords, g, dcoords, BN, N, C);
   }
   return cudaGetLastError();
@@ -240,8 +242,8 @@ cudaError_t launch(const void* f1, const Levels& lv, int L,
 
 // C interface, bound with ctypes by ops/correlation.py::_alt_corr_dcoords_cuda,
 // which validates every argument first (dtype, shapes, contiguity,
-// alignment, C a multiple of the vector width up to 64 chunks, radius 4,
-// 1..8 levels).  f1: (B, N, C); levels[l]: (B, h, w, C), with
+// alignment, C a multiple of the vector width up to 64 chunks, radius
+// 1..7, 1..8 levels).  f1: (B, N, C); levels[l]: (B, h, w, C), with
 // hw = {h0, w0, h1, w1, ...}; coords: (B, N, 2) f32; g: (B, N, L*n*n) f32;
 // dcoords: (B, N, 2) f32, written whole.  Launches on `stream` without
 // synchronising and returns cudaGetLastError().
@@ -250,8 +252,8 @@ extern "C" int ufr_alt_corr_dcoords(const void* f1, const void* const* levels,
                                     const void* coords, const void* g,
                                     void* dcoords, int B, int N, int C,
                                     int radius, int is_bf16, void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || radius != kRadius ||
-      C % (16 / (is_bf16 ? 2 : 4)) || C / (16 / (is_bf16 ? 2 : 4)) > 64) {
+  if (num_levels < 1 || num_levels > kMaxLevels || radius < 1 ||
+      radius > ufr::kMaxRadius || C % (16 / (is_bf16 ? 2 : 4)) || C / (16 / (is_bf16 ? 2 : 4)) > 64) {
     return (int)cudaErrorInvalidValue;
   }
   Levels lv;
@@ -264,10 +266,13 @@ extern "C" int ufr_alt_corr_dcoords(const void* f1, const void* const* levels,
   const float* gg = static_cast<const float*>(g);
   float* d = static_cast<float*>(dcoords);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(f1, lv, num_levels, c, gg, d, B, N, C, s)
-              : launch<float>(f1, lv, num_levels, c, gg, d, B, N, C, s);
-  return (int)err;
+  return (int)ufr::with_radius(radius, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return is_bf16
+               ? launch<__nv_bfloat16, R>(f1, lv, num_levels, c, gg, d, B, N, C,
+                                          s)
+               : launch<float, R>(f1, lv, num_levels, c, gg, d, B, N, C, s);
+  });
 }
 
 extern "C" const char* ufr_cuda_error_string(int err) {

@@ -14,6 +14,11 @@
 // (models/raft/corr.py:72-96, the alt_cuda_corr of models/raft/corr.py:
 // 109-137).  The all-pairs volume is never built.
 //
+// Radius: the kernel is a template over r, instantiated for 1..7 (the TPU
+// kernel's range, csrc/radius.cuh); every size below follows from it (the
+// (2r+2)^2 integer grid, the dots' shared memory, the blend).  kBoxCap
+// and the tile shape were tuned at r = 4 and are kept for every r.
+//
 // Bound.  At RAFT's KITTI geometry (B=8, 48x160 queries, C=256, r=4, L=4,
 // bf16) a call reads f1, the levels and the coords and writes the f32
 // output, ~0.046 ms of bytes at 3.35 TB/s.  Its 4 x 100 integer-grid dots
@@ -46,8 +51,9 @@
 //   warp-shuffle sums into one row of dots per warp (f32 blocks stay small,
 //   leaving L1 to the f2 rows the warps read).  Plain TF32 would miss the
 //   f32 bar (1e-4), so f32 inputs stay here, on f32 FMAs.
-// Both paths end in the same blend, the 81 bilinear outputs of a query's
-// dots written s-major as 324 contiguous bytes by consecutive threads:
+// Both paths end in the same blend, the (2r+1)^2 bilinear outputs of a
+// query's dots (81 at r = 4) written s-major as contiguous bytes by
+// consecutive threads:
 // block-wide after the tile path, per query on the per-query path.  An
 // optional counter records the path of each (tile, level) with a live
 // window.  The level's pointer and size are selected with constant
@@ -55,8 +61,9 @@
 // local memory in every thread (a 128-byte stack frame).
 //
 // kBoxCap: the tile path does 64 x |box| x C multiply-adds on the tensor
-// cores, the per-query path 64 x 100 x C on the CUDA cores at ~1/15-1/30
-// of the rate.  Timed on an H100 at the serving shape, caps of 768 and
+// cores, the per-query path 64 x (2r+2)^2 x C on the CUDA cores at
+// ~1/15-1/30 of the rate.  Timed on an H100 at the serving shape (r = 4),
+// caps of 768 and
 // 1024 points tie, 512 sends calibrated level-0 boxes to the slower
 // per-query path and 2048 makes wild boxes slower on the tensor cores than
 // per query.  Whole coarse levels (12x40 = 480 and 6x20 = 120 points)
@@ -73,14 +80,13 @@
 
 #include <type_traits>
 
+#include "radius.cuh"
+
 namespace {
 
+using ufr::Window;
+
 constexpr int kMaxLevels = 8;
-constexpr int kRadius = 4;                 // RAFT's lookup radius
-constexpr int kN1 = 2 * kRadius + 1;       // window side
-constexpr int kD = kN1 + 1;                // integer grid side
-constexpr int kDD = kD * kD;               // integer grid points
-constexpr int kNn = kN1 * kN1;             // outputs per level
 constexpr int kTileW = 8;                  // a tile of the query grid
 constexpr int kTileH = 8;
 constexpr int kTileQ = kTileW * kTileH;
@@ -171,10 +177,10 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // The block's shared memory; the tile path's slab ring follows it.  kRows
-// rows of dots: every query's on the tile path (bf16), one per warp on the
-// per-query path alone (f32, where a smaller block leaves L1 to the f2 rows
-// the warps read).
-template <int kRows>
+// rows of kDD dots: every query's on the tile path (bf16), one per warp on
+// the per-query path alone (f32, where a smaller block leaves L1 to the f2
+// rows the warps read).
+template <int kRows, int kDD>
 struct Head {
   float dots[kRows * kDD];  // integer-grid dots, [y][x]
   int2 org[kTileQ];         // window origins (x0, y0); kDead if dead
@@ -183,10 +189,9 @@ struct Head {
   // max y0
   int4 red[kRedWarps];
 };
-static_assert(sizeof(Head<kTileQ>) % 16 == 0, "the slab ring is 16-byte aligned");
-
-template <typename T>
-using HeadOf = Head<std::is_same<T, __nv_bfloat16>::value ? kTileQ : kWarps>;
+template <typename T, int R>
+using HeadOf = Head<std::is_same<T, __nv_bfloat16>::value ? kTileQ : kWarps,
+                    Window<R>::kDD>;
 
 // bf16 elements of a slab row: C rounded up to 16, plus 8 of padding, so
 // that the 8 rows an ldmatrix reads start in 8 different 16-byte bank groups
@@ -214,11 +219,14 @@ __device__ __forceinline__ const T* query_row(const T* f1, int m,
 
 // Tile path: the dots of the tile's queries with the box's points, on
 // the tensor cores, scattered into s.dots, which it zeroes first.
-__device__ void tile_dots(Head<kTileQ>& s, __nv_bfloat16* ring,
+template <int R>
+__device__ void tile_dots(Head<kTileQ, Window<R>::kDD>& s, __nv_bfloat16* ring,
                           const __nv_bfloat16* __restrict__ f1,
                           const __nv_bfloat16* __restrict__ f2, int W, int C,
                           long long qbase, int W1, int H1, int ty, int tx,
                           int bx0, int by0, int bw, int npts) {
+  constexpr int kD = Window<R>::kD;
+  constexpr int kDD = Window<R>::kDD;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -337,12 +345,15 @@ __device__ void tile_dots(Head<kTileQ>& s, __nv_bfloat16* ring,
 
 // Per-query path: each warp takes the tile's queries in turn, computes a
 // query's dots into its own row `dots` and writes the query's outputs.
-template <typename T, int kCpl>
+template <typename T, int kCpl, int R>
 __device__ void query_path(const int2* org, const float2* frac, float* dots,
                            const T* __restrict__ f1, const T* __restrict__ f2,
                            float* __restrict__ out, int H, int W, int C,
                            long long qbase, int H1, int W1, int ty, int tx,
                            int stride, int l) {
+  constexpr int kN1 = Window<R>::kN1;
+  constexpr int kD = Window<R>::kD;
+  constexpr int kNn = Window<R>::kNn;
   constexpr int kV = Vec<T>::kN;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -414,19 +425,24 @@ __device__ void query_path(const int2* org, const float2* frac, float* dots,
 }
 
 // kCpl: 16-byte chunks of a feature row per lane on the per-query path
-// (C / (32 * Vec::kN), rounded up).  Grid (tiles, levels, batch), block
-// kThreads, dynamic shared memory smem_bytes<T>(C).  path_counts
+// (C / (32 * Vec::kN), rounded up); R: the lookup radius.  Grid (tiles,
+// levels, batch), block kThreads, dynamic shared memory smem_bytes<T,
+// R>(C).  path_counts
 // (optional): [l] += 1 per (tile, level) with a live window on the tile
 // path, [num_levels + l] on the per-query path.
-template <typename T, int kCpl>
+template <typename T, int kCpl, int R>
 __global__ void __launch_bounds__(kThreads, 3)
 alt_corr_fwd_kernel(const T* __restrict__ f1, Levels lv, int num_levels,
                     const float* __restrict__ coords, float* __restrict__ out,
                     int H1, int W1, int C, int tiles_x,
                     int* __restrict__ path_counts) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  HeadOf<T>& s = *reinterpret_cast<HeadOf<T>*>(smem_raw);
-  constexpr int kR = kRadius;
+  HeadOf<T, R>& s = *reinterpret_cast<HeadOf<T, R>*>(smem_raw);
+  constexpr int kR = R;
+  constexpr int kN1 = Window<R>::kN1;
+  constexpr int kD = Window<R>::kD;
+  constexpr int kDD = Window<R>::kDD;
+  constexpr int kNn = Window<R>::kNn;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -510,7 +526,7 @@ alt_corr_fwd_kernel(const T* __restrict__ f1, Levels lv, int num_levels,
 
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (tile) {
-      tile_dots(s, reinterpret_cast<__nv_bfloat16*>(smem_raw + sizeof(s)), f1,
+      tile_dots<R>(s, reinterpret_cast<__nv_bfloat16*>(smem_raw + sizeof(s)), f1,
                 f2, W, C, qbase, W1, H1, ty, tx, bx0, by0, bw, npts);
       __syncthreads();
       // the blend: consecutive threads write consecutive outputs of a query
@@ -532,55 +548,58 @@ alt_corr_fwd_kernel(const T* __restrict__ f1, Levels lv, int num_levels,
       return;
     }
   }
-  query_path<T, kCpl>(s.org, s.frac, s.dots + warp * kDD, f1, f2, out, H, W,
+  query_path<T, kCpl, R>(s.org, s.frac, s.dots + warp * kDD, f1, f2, out, H, W,
                       C, qbase, H1, W1, ty, tx, stride, l);
 }
 
-template <typename T>
+template <typename T, int R>
 int smem_bytes(int C) {
-  int bytes = (int)sizeof(HeadOf<T>);
+  // (n+1)^2 = 4 (r+1)^2 floats a row of dots
+  static_assert(sizeof(HeadOf<T, R>) % 16 == 0,
+                "the slab ring is 16-byte aligned");
+  int bytes = (int)sizeof(HeadOf<T, R>);
   if (std::is_same<T, __nv_bfloat16>::value && C <= kTileMaxC) {
     bytes += kStages * kSlab * slab_stride(C) * (int)sizeof(__nv_bfloat16);
   }
   return bytes;
 }
 
-template <typename T, int kCpl>
+template <typename T, int kCpl, int R>
 cudaError_t launch_cpl(const T* f1, const Levels& lv, int L,
                        const float* coords, float* out, int B, int H1, int W1,
                        int C, int* path_counts, cudaStream_t stream) {
-  const int smem = smem_bytes<T>(C);
+  const int smem = smem_bytes<T, R>(C);
   cudaError_t err = cudaFuncSetAttribute(
-      alt_corr_fwd_kernel<T, kCpl>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      alt_corr_fwd_kernel<T, kCpl, R>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int tiles_x = (W1 + kTileW - 1) / kTileW;
   const int tiles_y = (H1 + kTileH - 1) / kTileH;
   const dim3 grid(tiles_x * tiles_y, L, B);
-  alt_corr_fwd_kernel<T, kCpl><<<grid, kThreads, smem, stream>>>(
+  alt_corr_fwd_kernel<T, kCpl, R><<<grid, kThreads, smem, stream>>>(
       f1, lv, L, coords, out, H1, W1, C, tiles_x, path_counts);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int R>
 cudaError_t launch(const void* f1, const Levels& lv, int L,
                    const float* coords, float* out, int B, int H1, int W1,
                    int C, int* path_counts, cudaStream_t stream) {
   const T* f = static_cast<const T*>(f1);
   if (C / Vec<T>::kN <= 32) {
-    return launch_cpl<T, 1>(f, lv, L, coords, out, B, H1, W1, C, path_counts,
-                            stream);
+    return launch_cpl<T, 1, R>(f, lv, L, coords, out, B, H1, W1, C,
+                               path_counts, stream);
   }
-  return launch_cpl<T, 2>(f, lv, L, coords, out, B, H1, W1, C, path_counts,
-                          stream);
+  return launch_cpl<T, 2, R>(f, lv, L, coords, out, B, H1, W1, C,
+                             path_counts, stream);
 }
 
 }  // namespace
 
 // C interface, bound with ctypes by ops/correlation.py::_alt_corr_lookup_cuda,
 // which validates every argument first (dtype, shapes, contiguity,
-// alignment, C a multiple of the vector width up to 64 chunks, radius 4,
-// 1..8 levels).  f1: (B, N, C) with N = H1 * W1 queries, row-major on an
+// alignment, C a multiple of the vector width up to 64 chunks, radius
+// 1..7, 1..8 levels).  f1: (B, N, C) with N = H1 * W1 queries, row-major on an
 // H1 x W1 grid (the grid only groups queries into tiles; any H1 x W1 = N
 // gives the same output); levels[l]: (B, h, w, C), with hw = {h0, w0, h1,
 // w1, ...}; coords: (B, N, 2) f32; out: (B, N, L*n*n) f32; path_counts:
@@ -592,8 +611,8 @@ extern "C" int ufr_alt_corr_fwd(const void* f1, const void* const* levels,
                                 int W1, int C, int radius, int is_bf16,
                                 void* path_counts, void* stream) {
   const int vec = 16 / (is_bf16 ? 2 : 4);
-  if (num_levels < 1 || num_levels > kMaxLevels || radius != kRadius ||
-      B < 1 || B > 65535 || H1 < 1 || W1 < 1 || C < 1 || C % vec ||
+  if (num_levels < 1 || num_levels > kMaxLevels || radius < 1 ||
+      radius > ufr::kMaxRadius || B < 1 || B > 65535 || H1 < 1 || W1 < 1 || C < 1 || C % vec ||
       C / vec > 64 || (long long)H1 * W1 > INT_MAX) {
     return (int)cudaErrorInvalidValue;
   }
@@ -607,11 +626,13 @@ extern "C" int ufr_alt_corr_fwd(const void* f1, const void* const* levels,
   float* o = static_cast<float*>(out);
   int* pc = static_cast<int*>(path_counts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(f1, lv, num_levels, c, o, B, H1, W1, C,
-                                      pc, s)
-              : launch<float>(f1, lv, num_levels, c, o, B, H1, W1, C, pc, s);
-  return (int)err;
+  return (int)ufr::with_radius(radius, [&](auto r) {
+    constexpr int R = decltype(r)::value;
+    return is_bf16 ? launch<__nv_bfloat16, R>(f1, lv, num_levels, c, o, B, H1,
+                                              W1, C, pc, s)
+                   : launch<float, R>(f1, lv, num_levels, c, o, B, H1, W1, C,
+                                      pc, s);
+  });
 }
 
 extern "C" const char* ufr_cuda_error_string(int err) {

@@ -20,13 +20,14 @@
 //
 // Design: one warp per query, across all levels.  The warp loads the
 // coords once, computes every level's window origin and issues all of the
-// query's tap loads (the 10x10 integer taps of each level, 4 per lane and
-// level, zeros outside the level) before it uses the first: a query's
+// query's tap loads (the (2r+2)^2 integer taps of each level, 4 per lane
+// and level at r = 4, zeros outside the level) before it uses the first: a query's
 // L x 100 scattered 2-byte reads are latency-bound, so the design keeps
 // them in flight together.  The taps go to the warp's shared memory and are
 // blended into the L x 81 outputs, stored as float4s where the output row
-// is 16-byte aligned (L a multiple of 4, RAFT's 4 levels: 81 float4 per
-// query).  The blend takes the plain version's products and sums in its
+// is 16-byte aligned (L * n^2 a multiple of 4: RAFT's 4 levels give 81
+// float4 per query at r = 4, 49 at small RAFT's r = 3).  A template over
+// the radius, instantiated for 1..7 (csrc/radius.cuh).  The blend takes the plain version's products and sums in its
 // order, rounded one by one (no FMA), so outputs equal
 // ops/correlation.py::corr_lookup_reference bit for bit on the same inputs;
 // bf16 taps are widened to f32 first.  Each level's pointer and size are
@@ -44,16 +45,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "radius.cuh"
+
 namespace {
 
+using ufr::Window;
+
 constexpr int kMaxLevels = 8;
-constexpr int kWarps = 8;   // queries per block
-constexpr int kRadius = 4;  // RAFT's lookup radius
-constexpr int kN = 2 * kRadius + 1;  // window side
-constexpr int kD = 2 * kRadius + 2;  // integer tap grid side
-constexpr int kDD = kD * kD;
-constexpr int kNn = kN * kN;
-constexpr int kRounds = (kDD + 31) / 32;  // tap loads per lane and level
+
+// Queries per block at radius R: 8, or 4 where 8 warps' taps of every level
+// would pass the 48 KB of static shared memory (r >= 6: 8 x 8 x 196 x 4
+// bytes at r = 6).
+template <int R>
+__host__ __device__ constexpr int warps_of() {
+  return 8 * kMaxLevels * Window<R>::kDD * 4 <= 48 * 1024 ? 8 : 4;
+}
 
 struct Levels {
   const void* ptr[kMaxLevels];
@@ -66,10 +72,15 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// output e of a query (level e / 81, s-major within it) from its taps and
+// output e of a query (level e / n^2, s-major within it) from its taps and
 // its levels' weights, in the plain version's order
+template <int R>
 __device__ __forceinline__ float blend(const float* taps, const float4* wts,
                                        int e) {
+  constexpr int kN = Window<R>::kN1;
+  constexpr int kD = Window<R>::kD;
+  constexpr int kDD = Window<R>::kDD;
+  constexpr int kNn = Window<R>::kNn;
   const int l = e / kNn;
   const int c = e - l * kNn;
   const int s = c / kN;      // x offset (major)
@@ -83,12 +94,17 @@ __device__ __forceinline__ float blend(const float* taps, const float4* wts,
   return v;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+template <typename T, int R>
+__global__ void __launch_bounds__(warps_of<R>() * 32)
 corr_lookup_fwd_kernel(Levels lv, int num_levels,
                        const float* __restrict__ coords,
                        float* __restrict__ out, long long BN) {
-  constexpr int kR = kRadius;
+  constexpr int kR = R;
+  constexpr int kWarps = warps_of<R>();
+  constexpr int kD = Window<R>::kD;
+  constexpr int kDD = Window<R>::kDD;
+  constexpr int kNn = Window<R>::kNn;
+  constexpr int kRounds = (kDD + 31) / 32;  // tap loads per lane and level
   __shared__ float taps_s[kWarps][kMaxLevels * kDD];
   __shared__ float4 wts_s[kWarps][kMaxLevels];  // w00, w01, w10, w11
 
@@ -154,20 +170,37 @@ corr_lookup_fwd_kernel(Levels lv, int num_levels,
   if (nout % 4 == 0) {  // the row is 16-byte aligned
     for (int e = lane; e < nout / 4; e += 32) {
       reinterpret_cast<float4*>(o)[e] = make_float4(
-          blend(taps, wts_s[warp], 4 * e), blend(taps, wts_s[warp], 4 * e + 1),
-          blend(taps, wts_s[warp], 4 * e + 2),
-          blend(taps, wts_s[warp], 4 * e + 3));
+          blend<R>(taps, wts_s[warp], 4 * e),
+          blend<R>(taps, wts_s[warp], 4 * e + 1),
+          blend<R>(taps, wts_s[warp], 4 * e + 2),
+          blend<R>(taps, wts_s[warp], 4 * e + 3));
     }
   } else {
-    for (int e = lane; e < nout; e += 32) o[e] = blend(taps, wts_s[warp], e);
+    for (int e = lane; e < nout; e += 32) o[e] = blend<R>(taps, wts_s[warp], e);
   }
+}
+
+template <int R>
+cudaError_t launch(const Levels& lv, int L, const float* coords, float* out,
+                   long long BN, int is_bf16, cudaStream_t s) {
+  constexpr int kWarps = warps_of<R>();
+  const dim3 grid((unsigned)((BN + kWarps - 1) / kWarps));
+  const dim3 block(kWarps * 32);
+  if (is_bf16) {
+    corr_lookup_fwd_kernel<__nv_bfloat16, R>
+        <<<grid, block, 0, s>>>(lv, L, coords, out, BN);
+  } else {
+    corr_lookup_fwd_kernel<float, R><<<grid, block, 0, s>>>(lv, L, coords,
+                                                           out, BN);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // C interface, bound with ctypes by ops/correlation.py::corr_lookup_fwd,
 // which validates every argument first (dtype, shapes, contiguity, one
-// device, radius 4, 1..8 levels).  levels[l]: (BN, h, w) f32 or bf16, with
+// device, radius 1..7, 1..8 levels).  levels[l]: (BN, h, w) f32 or bf16, with
 // hw = {h0, w0, h1, w1, ...}; coords: (BN, 2) level-0 (x, y) f32; out:
 // (BN, L*n*n) f32.  Launches on `stream` without synchronising and returns
 // cudaGetLastError().
@@ -175,8 +208,8 @@ extern "C" int ufr_corr_lookup_fwd(const void* const* levels, const int* hw,
                                    int num_levels, const void* coords,
                                    void* out, long long BN, int radius,
                                    int is_bf16, void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || radius != kRadius ||
-      BN < 0) {
+  if (num_levels < 1 || num_levels > kMaxLevels || radius < 1 ||
+      radius > ufr::kMaxRadius || BN < 0) {
     return (int)cudaErrorInvalidValue;
   }
   Levels lv;
@@ -185,18 +218,12 @@ extern "C" int ufr_corr_lookup_fwd(const void* const* levels, const int* hw,
     lv.h[l] = l < num_levels ? hw[2 * l] : 0;
     lv.w[l] = l < num_levels ? hw[2 * l + 1] : 0;
   }
-  const dim3 grid((unsigned)((BN + kWarps - 1) / kWarps));
-  const dim3 block(kWarps * 32);
   const float* c = static_cast<const float*>(coords);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    corr_lookup_fwd_kernel<__nv_bfloat16>
-        <<<grid, block, 0, s>>>(lv, num_levels, c, o, BN);
-  } else {
-    corr_lookup_fwd_kernel<float><<<grid, block, 0, s>>>(lv, num_levels, c, o, BN);
-  }
-  return (int)cudaGetLastError();
+  return (int)ufr::with_radius(radius, [&](auto r) {
+    return launch<decltype(r)::value>(lv, num_levels, c, o, BN, is_bf16, s);
+  });
 }
 
 extern "C" const char* ufr_cuda_error_string(int err) {

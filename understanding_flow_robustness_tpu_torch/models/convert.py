@@ -67,17 +67,24 @@ def raft_state_dict_from_jax(variables) -> dict:
     """Flax RAFT variables (nested dicts of arrays) -> reference/port
     state dict of f32 tensors; the inverse of ``convert_raft``.
 
-    HWIO kernels go back to OIHW; batch-norm scale/bias/mean/var to
-    weight/bias/running_mean/running_var; ``layerX_Y`` to ``layerX.Y``,
-    ``mask_0``/``mask_2`` to ``mask.0``/``mask.2``, the residual
-    ``downsample`` conv to ``downsample.0`` and its ``norm3`` to both
-    ``norm3`` and ``downsample.1`` (convert.py:309-313, 328).  A
-    FlowNetCEncoder (an encoder with a ``conv3``) maps ``conv{i}`` to its
-    Sequential's ``conv{i}.0`` (convert.py:314-317); the WoContext variant's
-    top-level ``conv_redir`` keeps its name."""
+    HWIO kernels go back to OIHW; batch- and group-norm scale/bias (and
+    mean/var) to weight/bias (running_mean/running_var); ``layerX_Y`` to
+    ``layerX.Y``, ``mask_0``/``mask_2`` to ``mask.0``/``mask.2``, the
+    ``downsample`` conv to ``downsample.0`` and the norm after it to both
+    its own name and ``downsample.1``: ``norm3`` in a residual block,
+    ``norm4`` in the small encoder's bottleneck block (a block with a
+    ``conv3``).  The JAX package's ``convert_raft`` maps every
+    ``downsample.1`` to ``norm3`` (convert.py:309-313), harmless there only
+    because the small encoders' norms carry no parameters.  A
+    FlowNetCEncoder (an encoder with a ``conv3`` of its own) maps
+    ``conv{i}`` to its Sequential's ``conv{i}.0`` (convert.py:314-317); the
+    WoContext variant's top-level ``conv_redir`` keeps its name."""
     params = variables["params"]
     flownetc = {net for net in ("fnet", "cnet")
                 if "conv3" in params.get(net, {})}
+    # the blocks with a conv3 (bottlenecks): their downsample norm is norm4
+    bottlenecks = {".".join(path[1:-2]) for path in _flatten(variables)
+                   if path[-2] == "conv3" and path[1] not in flownetc}
     sd = {}
     for path, val in _flatten(variables).items():
         coll, *names, leaf = path
@@ -94,8 +101,10 @@ def raft_state_dict_from_jax(variables) -> dict:
             mod += ".0"
         attr = _LEAF[(coll, leaf)]
         sd[f"{mod}.{attr}"] = torch.from_numpy(arr)
-        if mod.endswith(".norm3"):
-            sd[f"{mod[:-len('norm3')]}downsample.1.{attr}"] = torch.from_numpy(arr)
+        block, _, leaf_mod = mod.rpartition(".")
+        if leaf_mod == ("norm4" if ".".join(names[:-1]) in bottlenecks
+                        else "norm3"):
+            sd[f"{block}.downsample.1.{attr}"] = torch.from_numpy(arr)
     return sd
 
 

@@ -7,7 +7,8 @@ The JAX package reimplements PyTorch's layers; here they are PyTorch's own:
 ``leaky_relu`` is ``nn.LeakyReLU(0.1)``, ``ConvBlock`` and ``DeconvBlock``
 are ``conv_block`` and ``deconv_block`` (``nn.Sequential``s, as the
 reference names them),
-``InstanceNorm2d`` is ``nn.InstanceNorm2d(affine=False, eps=1e-5)`` and
+``InstanceNorm2d`` is ``nn.InstanceNorm2d(affine=False, eps=1e-5)``,
+``TorchGroupNorm`` is ``nn.GroupNorm(eps=1e-5)`` and
 ``TorchBatchNorm`` is ``nn.BatchNorm2d(eps=1e-5, momentum=0.1)``.  In eval
 mode it normalises with the running statistics; in train mode with the
 batch statistics, and it updates the running mean and the unbiased running
@@ -76,13 +77,20 @@ def crop_like(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def norm(norm_fn: str, channels: int) -> nn.Module:
+    """RAFT's encoder norms (raft_model.py:_norm): ``"group"`` is
+    ``nn.GroupNorm(channels // 8, channels)`` with eps 1e-5 and an affine
+    weight and bias (``TorchGroupNorm``, layers.py:363-380), ``"none"`` the
+    identity."""
     if norm_fn == "instance":
         return nn.InstanceNorm2d(channels, affine=False, eps=1e-5)
     if norm_fn == "batch":
         return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
-    raise NotImplementedError(
-        f"norm_fn={norm_fn!r}: only RAFT's instance/batch norms are ported "
-        "(ROADMAP queue A)")
+    if norm_fn == "group":
+        return nn.GroupNorm(channels // 8, channels, eps=1e-5)
+    if norm_fn == "none":
+        return nn.Identity()
+    raise ValueError(f"norm_fn must be 'instance', 'batch', 'group' or "
+                     f"'none', got {norm_fn!r}")
 
 
 def freeze_bn(module: nn.Module) -> nn.Module:

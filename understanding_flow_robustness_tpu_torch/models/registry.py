@@ -28,6 +28,10 @@ from .spynet import SpyNet
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     build: Callable[..., nn.Module]
+    # the file name of the model's checkpoint in a zoo directory
+    # (setup/download_weights.sh's layout, registry.py:55-125); SpyNet's is
+    # the directory of its per-level files
+    checkpoint: Optional[str] = None
     is_raft: bool = False
     # the input's H and W must be multiples of this (registry.py:54)
     size_multiple: int = 64
@@ -35,44 +39,54 @@ class ModelSpec:
 
 _SPECS: dict = {
     # registry.py:58-91: the FlowNet family, f32
-    "FlowNetS": ModelSpec(lambda **kw: FlowNetS2(**kw)),
-    "FlowNetC": ModelSpec(lambda **kw: FlowNetC(**{"div_flow": 20.0, **kw})),
+    "FlowNetS": ModelSpec(lambda **kw: FlowNetS2(**kw),
+                          "FlowNet2-S_checkpoint.pth.tar"),
+    "FlowNetC": ModelSpec(lambda **kw: FlowNetC(**{"div_flow": 20.0, **kw}),
+                          "FlowNet2-C_checkpoint.pth.tar"),
     "FlowNetCFlexLarger_k3_reps3": ModelSpec(
         lambda **kw: FlowNetCFlex(**{"kernel_size": 3, "number_of_reps": 3,
-                                     **kw})),
+                                     **kw}), "RobustFlowNetC.pth"),
     "FlowNetCFlexLarger_k3_reps3_adv_ifgsm_l2_002": ModelSpec(
         lambda **kw: FlowNetCFlex(**{"kernel_size": 3, "number_of_reps": 3,
-                                     **kw})),
+                                     **kw}),
+        "adv_kitti2012_robustFlow_ifgsm_l2_0.02.pth"),
     "FlowNetCFlexLarger_k5_reps0": ModelSpec(
         lambda **kw: FlowNetCFlex(**{"kernel_size": 5, "number_of_reps": 0,
-                                     "stage_names": "flat", **kw})),
+                                     "stage_names": "flat", **kw}),
+        "larger_field_3x3_x0_l2.pth"),
     # training's --larger_field variant, under its own checkpoint names
+    # (no zoo file)
     "FlowNetC_larger_field": ModelSpec(
         lambda **kw: FlowNetCFlex(**{"kernel_size": 5, "number_of_reps": 1,
                                      "stage_names": "larger_field", **kw})),
     # registry.py:66-68: the 5-net cascade, f32 (bf16 drifts 3.57 %)
-    "FlowNet2": ModelSpec(lambda **kw: FlowNet2(**kw)),
+    "FlowNet2": ModelSpec(lambda **kw: FlowNet2(**kw),
+                          "FlowNet2_checkpoint.pth.tar"),
     # registry.py:92-95
     "SpyNet": ModelSpec(lambda **kw: SpyNet(**{"nlevels": 6, **kw}),
-                        size_multiple=32),
+                        "spynet_models", size_multiple=32),
     # registry.py:96-106: bf16 compute, f32 flow heads
     "PWCNet": ModelSpec(
-        lambda **kw: PWCNet(**{"mixed_precision": True, **kw})),
+        lambda **kw: PWCNet(**{"mixed_precision": True, **kw}),
+        "pwc_net_chairs.pth.tar"),
     "PWCNet_adv_ifgsm_l2_002": ModelSpec(
-        lambda **kw: PWCNet(**{"mixed_precision": True, **kw})),
+        lambda **kw: PWCNet(**{"mixed_precision": True, **kw}),
+        "adv_kitti2012_pwcnet_ifgsm_l2_0.02.pth"),
     # registry.py:107-110: the bench's headline configuration
     "RAFT": ModelSpec(lambda **kw: RAFT(**{"mixed_precision": True, **kw}),
-                      is_raft=True, size_multiple=8),
+                      "raft-things.pth", is_raft=True, size_multiple=8),
     # registry.py:111-118
     "RAFT_FlowNetCEncoder_WoContext": ModelSpec(
         lambda **kw: RAFT(**{"flownetc_encoder": True,
                              "no_separate_context": True,
                              "mixed_precision": True, **kw}),
-        is_raft=True, size_multiple=8),
+        "raft_flowNetCEnc_noSeparateContext.pth", is_raft=True,
+        size_multiple=8),
     # registry.py:119-125
     "RAFT_adv_kitti2012_ifgsm_l2_002": ModelSpec(
         lambda **kw: RAFT(**{"mixed_precision": False, **kw}),
-        is_raft=True, size_multiple=8),
+        "adv_kitti2012_raft_ifgsm_l2_0.02.pth", is_raft=True,
+        size_multiple=8),
 }
 
 # model IDs of the JAX registry that the port does not build yet, by the
@@ -211,22 +225,36 @@ def device_arg(name: str) -> str:
 
 def checkpoint_arg(path: Optional[str], name: str) -> Optional[str]:
     """A CLI's ``--pretrained_path`` for ``fetch_model`` (the JAX package's
-    ``checkpoint_arg``): a checkpoint file (or SpyNet's weight directory)
-    passes through; a missing path means seeded random weights, with a
-    warning unless it is the default.  The JAX package's zoo directory with
-    per-model file names is not ported: pass the file itself."""
-    if path and os.path.isfile(path):
+    ``checkpoint_arg``, registry.py:299-312): a checkpoint file, SpyNet's
+    weight directory, or a zoo directory holding ``name``'s checkpoint
+    under its file name (``ModelSpec.checkpoint``) resolves to the file to
+    load; anything else means seeded random weights, with a warning unless
+    it is the default ``pretrained_models``."""
+    found = _resolve_checkpoint(name, path) if path else None
+    if found is None and path and path != "pretrained_models":
+        print(f"WARNING: pretrained path '{path}' holds no checkpoint of "
+              f"{name}; using random init", file=sys.stderr)
+    return found
+
+
+def _resolve_checkpoint(name: str, path: str) -> Optional[str]:
+    """The checkpoint of ``name`` that ``path`` names, or None: a file
+    itself; for SpyNet a directory of its per-level files; else a zoo
+    directory's file of the JAX registry's name (registry.py:228-232)."""
+    if os.path.isfile(path):
         return path
-    if path and os.path.isdir(path):
-        if name == "SpyNet":
-            return path
-        raise NotImplementedError(
-            f"--pretrained_path {path!r} is a directory: pass the "
-            f"checkpoint file of {name} itself")
-    if path and path != "pretrained_models":
-        print(f"WARNING: pretrained path '{path}' not found; using random "
-              "init", file=sys.stderr)
-    return None
+    if not os.path.isdir(path):
+        return None
+    spec = _SPECS.get(name)
+    zoo_file = (os.path.join(path, spec.checkpoint)
+                if spec is not None and spec.checkpoint else None)
+    if name == "SpyNet":
+        # the per-level directory itself, or the zoo's spynet_models/
+        for d in filter(None, (path, zoo_file)):
+            if os.path.isfile(os.path.join(d, "modelL1_F-1-weight.pth.tar")):
+                return d
+        return None
+    return zoo_file if zoo_file and os.path.isfile(zoo_file) else None
 
 
 def _pretrained_state_dict(name: str, path: str) -> dict:
@@ -241,7 +269,10 @@ def fetch_model(name: str, pretrained_path: Optional[str] = None,
     the CPU) with seeded random weights (``torch.Generator`` seeded with
     ``seed``, the JAX package's init distribution), or load reference
     weights strictly when ``pretrained_path`` is given: a checkpoint file,
-    or for SpyNet the directory of its per-level weight files.
+    for SpyNet the directory of its per-level weight files, or a zoo
+    directory, in which the model's file (``ModelSpec.checkpoint``, the
+    JAX registry's names) is loaded when it is there; a zoo without it
+    leaves the seeded weights, with a warning.
     ``model_kwargs`` go to the model, e.g. ``iters``, ``mixed_precision``,
     and for RAFT ``corr_impl`` and ``return_features``."""
     if name not in _SPECS:
@@ -254,8 +285,14 @@ def fetch_model(name: str, pretrained_path: Optional[str] = None,
     module = spec.build(**model_kwargs)
     init_like_flax(module, torch.Generator().manual_seed(seed))
     if pretrained_path is not None:
-        module.load_state_dict(_pretrained_state_dict(name, pretrained_path),
-                               strict=True)
+        path = _resolve_checkpoint(name, pretrained_path)
+        if path is None:
+            print(f"WARNING: {pretrained_path!r} holds no checkpoint of "
+                  f"{name} ({spec.checkpoint}); using random init",
+                  file=sys.stderr)
+        else:
+            module.load_state_dict(_pretrained_state_dict(name, path),
+                                   strict=True)
     device = torch.device(device)
     return FlowModel(name=name, module=module.to(device).eval(),
                      device=device, is_raft=spec.is_raft,

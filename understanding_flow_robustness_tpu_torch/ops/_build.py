@@ -22,9 +22,12 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+# --split-compile=0: nvcc optimises a source's kernels in parallel on every
+# core, so the window kernels' seven radii (csrc/radius.cuh) do not add
+# their compile times up
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
 )
 
 # Every kernel source under csrc/, by the name its library and its launch

@@ -40,11 +40,12 @@ from ._build import LAUNCH_COUNTS, kernel_fn
 
 # Argument limits of csrc/alt_corr_fwd.cu, csrc/alt_corr_bwd.cu,
 # csrc/alt_corr_dcoords.cu and (the first two) csrc/corr_lookup_fwd.cu:
-# their kMaxLevels, their kRadius and the forward's bound of two 16-byte
-# chunks of a feature row per lane (the backward, which takes any C, is
-# held to what the forward takes).
+# their kMaxLevels, the radii they are instantiated for (csrc/radius.cuh:
+# 1..7, the TPU kernels' r <= 7, ops/pallas/alt_corr.py:321-322) and the
+# forward's bound of two 16-byte chunks of a feature row per lane (the
+# backward, which takes any C, is held to what the forward takes).
 _MAX_LEVELS = 8
-_RADIUS = 4
+_RADII = range(1, 8)
 _MAX_CHUNKS = 2 * 32
 # the shared memory a block of csrc/spatial_corr_{fwd,bwd}.cu may use (the
 # H100's per-block limit)
@@ -302,20 +303,62 @@ def spatial_correlation(f1: torch.Tensor, f2: torch.Tensor,
     in f1's dtype, du-major, zero outside, not divided by C (callers divide
     by C); ``spatial_correlation_reference`` says what it computes.
 
-    The CUDA kernel ``csrc/spatial_corr_fwd.cu`` for CUDA tensors, the
+    Kernel 1, stride 1, padding 0 (every reference model's configuration):
+    the CUDA kernel ``csrc/spatial_corr_fwd.cu`` for CUDA tensors, the
     plain version for CPU tensors; any other device raises.  Differentiable
     in f1 and f2 through ``_SpatialCorrelation`` (the backward kernel
-    ``csrc/spatial_corr_bwd.cu`` on the card).  Only kernel 1, stride 1,
-    padding 0 (every reference model's configuration) is ported; the
-    general path (correlation.py:203-255) raises."""
+    ``csrc/spatial_corr_bwd.cu`` on the card).  Any other kernel size,
+    stride or padding takes ``spatial_correlation_general``, plain PyTorch
+    on every device, as the JAX package computes it in XLA
+    (correlation.py:203-255); no reference model uses it."""
     if (kernel_size, stride, padding) != (1, 1, 0):
-        raise NotImplementedError(
-            "spatial_correlation: only kernel_size 1, stride 1, padding 0 "
-            f"are ported (got {kernel_size}, {stride}, {padding}; ROADMAP "
-            "A7)")
+        return spatial_correlation_general(f1, f2, patch_size, kernel_size,
+                                           stride, padding, dilation,
+                                           dilation_patch)
     if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
         return _SpatialCorrelation.apply(f1, f2, patch_size, dilation_patch)
     return _spatial_corr(f1, f2, patch_size, dilation_patch)
+
+
+def spatial_correlation_general(f1: torch.Tensor, f2: torch.Tensor,
+                                patch_size: int, kernel_size: int,
+                                stride: int, padding: int, dilation: int,
+                                dilation_patch: int) -> torch.Tensor:
+    """The spatial correlation with any kernel size, stride, padding and
+    dilation (the JAX package's ``_spatial_correlation_general``,
+    correlation.py:203-255; correlation.cpp:75-124), NCHW: f1, f2 (B, C,
+    H, W) -> (B, P*P, oH, oW), oH = (H + 2 padding - ((k-1) dilation + 1))
+    // stride + 1.  Per displacement (du-major), the channel sum of f1 times
+    f2 shifted by ((pu-r) d, (pv-r) d), zero outside, then summed over the
+    k x k (dilated) kernel window of the zero-padded product map with the
+    output stride.  Products and sums in f32, cast back to f1's dtype;
+    differentiable through autograd.  Plain PyTorch on every device."""
+    B, C, H, W = f1.shape
+    rad = (patch_size - 1) // 2
+    dil_k = (kernel_size - 1) * dilation + 1
+    oH = (H + 2 * padding - dil_k) // stride + 1
+    oW = (W + 2 * padding - dil_k) // stride + 1
+    if oH < 1 or oW < 1:
+        raise ValueError(f"spatial_correlation: a {kernel_size}x"
+                         f"{kernel_size} kernel at dilation {dilation} does "
+                         f"not fit ({H}x{W} padded by {padding})")
+    reach = rad * dilation_patch
+    a = f1.float()
+    b = torch.nn.functional.pad(f2.float(), (reach,) * 4)
+    outs = []
+    for pu in range(patch_size):
+        for pv in range(patch_size):
+            y0, x0 = pu * dilation_patch, pv * dilation_patch
+            prod = (a * b[:, :, y0:y0 + H, x0:x0 + W]).sum(1)  # (B, H, W)
+            prod = torch.nn.functional.pad(prod, (padding,) * 4)
+            acc = 0
+            for ki in range(kernel_size):
+                for kj in range(kernel_size):
+                    i0, j0 = ki * dilation, kj * dilation
+                    acc = acc + prod[:, i0:i0 + (oH - 1) * stride + 1:stride,
+                                     j0:j0 + (oW - 1) * stride + 1:stride]
+            outs.append(acc)
+    return torch.stack(outs, dim=1).to(f1.dtype)
 
 
 def channel_norm(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
@@ -780,9 +823,10 @@ def _check_kernel_args(name, f1, levels, coords, radius):
     if coords.dtype != torch.float32 or tuple(coords.shape) != (B, N, 2):
         raise ValueError(f"coords must be f32 (B, N, 2) = ({B}, {N}, 2), got "
                          f"{coords.dtype} {tuple(coords.shape)}")
-    if not 1 <= L <= _MAX_LEVELS or radius != _RADIUS:
+    if not 1 <= L <= _MAX_LEVELS or radius not in _RADII:
         raise ValueError(f"{name} takes 1..{_MAX_LEVELS} levels and "
-                         f"radius {_RADIUS}, got {L} and {radius}")
+                         f"radius {_RADII[0]}..{_RADII[-1]}, got {L} and "
+                         f"{radius}")
     if C % vec or C // vec > _MAX_CHUNKS:
         raise ValueError(f"{name} takes C a multiple of {vec} up to "
                          f"{vec * _MAX_CHUNKS} for {f1.dtype}, got {C}")
@@ -957,9 +1001,10 @@ def _check_lookup_args(levels, coords, radius):
     """Raise on what csrc/corr_lookup_fwd.cu does not take.  levels[l]:
     (BN, Hl, Wl); coords: (BN, 2)."""
     L = len(levels)
-    if not 1 <= L <= _MAX_LEVELS or radius != _RADIUS:
+    if not 1 <= L <= _MAX_LEVELS or radius not in _RADII:
         raise ValueError(f"corr_lookup_fwd takes 1..{_MAX_LEVELS} levels and "
-                         f"radius {_RADIUS}, got {L} and {radius}")
+                         f"radius {_RADII[0]}..{_RADII[-1]}, got {L} and "
+                         f"{radius}")
     dtype, device = levels[0].dtype, levels[0].device
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"corr_lookup_fwd takes an f32 or bf16 pyramid, got "
