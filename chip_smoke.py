@@ -262,6 +262,25 @@ the ignored build/):
 44. ``spatial_corr_fwd`` / ``spatial_corr_bwd`` at the spatial mode's train
    shape (4, 256, 40, 120) f32 against their plain versions, with times of
    kernel, plain version and bound.
+The cv2 / PIL host-path slice adds, after phase 44 (its files under the
+ignored build/):
+45. The host library's OpenCV and Pillow operations (JPEG encoding at six
+   qualities and odd sizes, RGB<->HSV, BOX / NEAREST, the circle rings at
+   n = 40, 96, 153 and 400, the disk kernels, warpAffine, INTER_CUBIC of
+   float64 and uint8, the spatter chain) on seeded inputs: each output's
+   SHA-256 against ``data/fixtures/cv_digests.json``, which cv2 and PIL
+   wrote; a mismatch fails.
+46. The attack CLI's corruption sweep on FlowNetC for the 8 corruptions
+   the JAX copy takes from cv2 or PIL, severities 1-5 on 2 synthetic
+   pairs at 384x1280 (30 ``spatial_corr_fwd`` launches each, results0.txt
+   in every folder), then one I-FGSM run with ``--write_out
+   --show_evolve``, whose PNGs and GIFs the port's readers read back.
+47. ``test_patch --self_correlated_patch circle --patch_size 153`` on
+   RAFT-12 over 2 synthetic scenes at 384x1280 with the viz panels on:
+   ``alt_corr_fwd`` launches, the CSVs, the ``viz###.jpg`` panels decoded
+   by ``native.decode_jpeg``.
+48. The host seconds per severity of each of the 19 corruptions on one
+   384x1280 frame.
 PWC-Net's serving phase (7) also counts its 5 ``spatial_corr_fwd``
 launches per request, holds the flow against the plain warp and the plain
 correlation together, and times pairs/s with the plain correlation too, in
@@ -276,7 +295,8 @@ the PNG decode ms and the evaluate CLI's seconds per scene, and one the
 JPEG decode ms, the loader's samples/s and the train CLI's frames/s from
 files, and one the moving patch's seconds per location and idle share and
 the families' ms per train step, and one the r = 4 and r = 3 kernel times
-and the new configurations' pairs/s and ms per train step.  The last
+and the new configurations' pairs/s and ms per train step, and one the
+host-op digests and the corruptions' seconds.  The last
 three
 lines are the card's name and
 power limit, a JSON object per
@@ -5220,6 +5240,205 @@ def radius_keys(rres: dict, kernel: str, shapes) -> dict:
     return out
 
 
+HOST_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_host"
+# the corruptions the JAX copy takes from cv2 (and PIL: pixelate)
+HOST_CORRUPTIONS = ("defocus_blur", "frost", "brightness", "saturate",
+                    "elastic_transform", "jpeg_compression", "spatter",
+                    "pixelate")
+HOST_H, HOST_W = 384, 1280
+CIRCLE_PATCH = 153
+
+
+def cv_digest_phase() -> dict:
+    """The host library's OpenCV / Pillow operations on the seeded cases of
+    ``native/cv_cases.py``: the SHA-256 digest of every output against
+    ``data/fixtures/cv_digests.json``, which cv2 and PIL wrote on a
+    machine that has them; a mismatch fails."""
+    from understanding_flow_robustness_tpu_torch import native
+    from understanding_flow_robustness_tpu_torch.native import cv_cases
+
+    print("== host ops: digests of the cv2 / PIL ports against the "
+          "fixture ==", flush=True)
+    native.load()
+    t = time.perf_counter()
+    got = cv_cases.port_digests()
+    dt = time.perf_counter() - t
+    want = cv_cases.load_fixture()
+    bad = sorted(k for k in want if got.get(k) != want[k])
+    check(sorted(got) == sorted(want) and not bad,
+          f"host ops: the digests of {bad or sorted(set(got) ^ set(want))} "
+          "differ from data/fixtures/cv_digests.json")
+    kinds = sorted({k.split("/")[0] for k in want})
+    print(f"host ops: {len(want)} digests equal cv2's and PIL's ("
+          + ", ".join(kinds) + f") in {dt:.2f} s", flush=True)
+    return {"cases": len(want), "s": dt}
+
+
+def host_corruption_phase() -> dict:
+    """The attack CLI's corruption sweep on its default FlowNetC for each
+    corruption the JAX copy takes from cv2 or PIL: severities 1-5 on 2
+    synthetic pairs at 384x1280, one ``spatial_corr_fwd`` a forward, a
+    results0.txt in each folder; then one I-FGSM run with --write_out and
+    --show_evolve whose PNGs and GIFs the port's own readers read back."""
+    from understanding_flow_robustness_tpu_torch.cli import run_perturb_model
+    from understanding_flow_robustness_tpu_torch.flowviz.gif import (
+        decode_gif,
+    )
+    from understanding_flow_robustness_tpu_torch.flowviz.png import (
+        decode_png,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    print(f"== host corruptions: {len(HOST_CORRUPTIONS)} sweeps on FlowNetC "
+          f"at {HOST_H}x{HOST_W}, --synthetic 2; I-FGSM with --write_out "
+          "--show_evolve ==", flush=True)
+    out = HOST_OUT / "perturb"
+    shutil.rmtree(out, ignore_errors=True)
+    size = ["--n_height", str(HOST_H), "--n_width", str(HOST_W)]
+    run = run_perturb_model.run
+    res = {"launches/spatial_corr_fwd": 0, "launches/spatial_corr_bwd": 0,
+           "s_per_severity": {}}
+    for name in HOST_CORRUPTIONS:
+        seen = []
+
+        def timed_run(predict, samples, cfg):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = run(predict, samples, cfg)
+            torch.cuda.synchronize()
+            seen.append((cfg.output_path, r, time.perf_counter() - t))
+            return r
+
+        LAUNCH_COUNTS.clear()
+        run_perturb_model.run = timed_run
+        try:
+            run_perturb_model.main(["--perturb_method", name, "--synthetic",
+                                    "2", "--output_path", str(out)] + size)
+        finally:
+            run_perturb_model.run = run
+        expect = {"spatial_corr_fwd": 5 * 2 * 3, "spatial_corr_bwd": 0}
+        n = {k: LAUNCH_COUNTS[k] for k in expect}
+        check(n == expect, f"{name} sweep: launches {n}, not {expect}")
+        res["launches/spatial_corr_fwd"] += n["spatial_corr_fwd"]
+        base = out / "kitti2015" / "FlowNetC" / "both" / name
+        check([Path(p) for p, _, _ in seen] == [base / str(s)
+                                                 for s in range(1, 6)],
+              f"{name} sweep: folders {[p for p, _, _ in seen]}")
+        for p, r, _ in seen:
+            check((Path(p) / "results0.txt").exists()
+                  and all(math.isfinite(v[0]) for v in r.values())
+                  and r["noise0_l1pix"][0] > 0,
+                  f"{name} sweep: {p} has no results0.txt, a non-finite "
+                  "metric or no change to the frames")
+        secs = [t for _, _, t in seen]
+        res["s_per_severity"][name] = secs
+        print(f"{name}: launches {n}; results0.txt in 5 folders; mean "
+              "|noise| by severity " + ", ".join(
+                  f"{r['noise0_l1pix'][0]:.4f}" for _, r, _ in seen)
+              + "; seconds per severity (2 pairs) "
+              + ", ".join(f"{t:.2f}" for t in secs), flush=True)
+
+    LAUNCH_COUNTS.clear()
+    run_perturb_model.main(["--perturb_method", "ifgsm", "--synthetic", "1",
+                            "--n_step", "3", "--write_out", "--show_evolve",
+                            "--output_path", str(out)] + size)
+    for k in ("spatial_corr_fwd", "spatial_corr_bwd"):
+        res[f"launches/{k}"] += LAUNCH_COUNTS[k]
+    pngs = sorted(out.rglob("*.png"))
+    gifs = sorted(out.rglob("*.gif"))
+    check(len(pngs) >= 7 and len(gifs) == 2,
+          f"--write_out / --show_evolve: {len(pngs)} PNGs, {len(gifs)} GIFs")
+    for f in pngs:
+        px = decode_png(f.read_bytes())
+        check(px.dtype == np.uint8 and px.shape == (HOST_H, HOST_W, 3)
+              and px.std() > 0, f"{f.name}: {px.dtype} {px.shape} read back")
+    for f in gifs:
+        g = decode_gif(f.read_bytes())
+        check(len(g["frames"]) == 3 and g["loop"] == 0
+              and all(fr.shape == (HOST_H, HOST_W, 3) and fr.std() > 0
+                      for fr in g["frames"]),
+              f"{f.name}: {len(g['frames'])} frames, loop {g['loop']}")
+    print(f"I-FGSM --write_out --show_evolve: {len(pngs)} PNGs and "
+          f"{len(gifs)} GIFs of 3 frames at {HOST_H}x{HOST_W}, read back by "
+          "flowviz.png / flowviz.gif; launches "
+          f"spatial_corr_fwd {LAUNCH_COUNTS['spatial_corr_fwd']}, "
+          f"spatial_corr_bwd {LAUNCH_COUNTS['spatial_corr_bwd']}",
+          flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    return res
+
+
+def circle_patch_phase() -> dict:
+    """``test_patch --self_correlated_patch circle --patch_size 153`` on
+    RAFT-12 (mixed precision) over 2 synthetic scenes at 384x1280 with the
+    viz panels on: B1's launches, the CSVs, and the ``viz###.jpg`` panels
+    read back by the port's JPEG decoder."""
+    from understanding_flow_robustness_tpu_torch import native
+    from understanding_flow_robustness_tpu_torch.cli import test_patch
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    print(f"== test_patch: RAFT, circle patch {CIRCLE_PATCH}, --synthetic 2 "
+          f"at {HOST_H}x{HOST_W}, viz on ==", flush=True)
+    out = HOST_OUT / "circle"
+    shutil.rmtree(out, ignore_errors=True)
+    LAUNCH_COUNTS.clear()
+    t = time.perf_counter()
+    avg = test_patch.main([
+        "--flownet", "RAFT", "--self_correlated_patch", "circle",
+        "--patch_size", str(CIRCLE_PATCH), "--synthetic", "2",
+        "--synthetic-size", str(HOST_H), str(HOST_W), "--output", str(out)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    n = {k: LAUNCH_COUNTS[k] for k in ("alt_corr_fwd", "alt_corr_bwd")}
+    d = out / "test_patch"
+    rows = (d / "test_result_scenes.csv").read_text().splitlines()
+    check(n["alt_corr_fwd"] > 0 and n["alt_corr_fwd"] % ITERS == 0
+          and n["alt_corr_bwd"] == 0 and len(rows) == 3 and len(avg) == 4
+          and all(math.isfinite(v) for v in avg),
+          f"circle test_patch: launches {n}, {len(rows)} CSV rows, "
+          f"averages {avg}")
+    viz = sorted((d / "images_test").glob("viz*.jpg"))
+    check(len(viz) == 2, f"circle test_patch: {len(viz)} viz panels")
+    for f in viz:
+        px = native.decode_jpeg(f.read_bytes())
+        check(px.dtype == np.uint8 and px.ndim == 3 and px.shape[2] == 3
+              and px.std() > 0, f"{f.name}: {px.dtype} {px.shape}")
+    print(f"circle test_patch: launches {n} ({ITERS} alt_corr_fwd a "
+          f"forward); epe {avg[0]:.3f} adv_epe {avg[1]:.3f}; viz000.jpg, "
+          f"viz001.jpg {px.shape} decoded; {dt:.1f} s", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    return {f"launches/{k}": v for k, v in n.items()}
+
+
+def host_time_phase() -> dict:
+    """Host seconds per severity of each of the 19 corruptions on one
+    384x1280 frame (frost's first severity builds its procedural
+    texture)."""
+    from understanding_flow_robustness_tpu_torch.attacks.corruptions import (
+        corrupt,
+        get_corruption_names,
+    )
+    from understanding_flow_robustness_tpu_torch.native import cv_cases
+
+    print(f"== host time of the corruptions at {HOST_H}x{HOST_W} ==",
+          flush=True)
+    img = cv_cases._image(HOST_H, HOST_W, seed=1)
+    res = {}
+    for name in get_corruption_names("all"):
+        rng = np.random.RandomState(0)
+        secs = []
+        for severity in range(1, 6):
+            t = time.perf_counter()
+            out = corrupt(img, name, severity, rng=rng)
+            secs.append(time.perf_counter() - t)
+            check(out.shape == img.shape and out.dtype == np.uint8,
+                  f"{name} {severity}: {out.dtype} {out.shape}")
+        res[name] = secs
+        print(f"host s per severity, {name}: "
+              + " ".join(f"{v:.4f}" for v in secs), flush=True)
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device: torch.cuda.is_available() is False")
@@ -5316,6 +5535,12 @@ def main() -> None:
     ccres = phase(config_cli_phase, gen)
     spres = phase(spatial_mode_shapes_phase)
     t_configs = time.perf_counter() - t_configs
+    t_host = time.perf_counter()
+    dgres = phase(cv_digest_phase)
+    hcres = phase(host_corruption_phase)
+    cpres = phase(circle_patch_phase)
+    htres = phase(host_time_phase)
+    t_host = time.perf_counter() - t_host
     print(f"all phases, build included: {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(f"patch attack, FlowNetC, batch {PB} at {PH}x{PW} ({card}): "
@@ -5368,6 +5593,15 @@ def main() -> None:
               f"{c} {r['ms_per_step']:.1f}" for c, r in cfg_train.items())
           + f"; the phases {t_configs:.1f} s", flush=True)
 
+    print(f"cv2 / PIL host paths ({card}): {dgres['cases']} host-op "
+          "digests equal; seconds per severity on FlowNetC, 2 pairs at "
+          f"{HOST_H}x{HOST_W}, host corruption included: " + ", ".join(
+              f"{k} {np.mean(v):.2f}"
+              for k, v in hcres["s_per_severity"].items())
+          + "; host s per severity of one frame: " + ", ".join(
+              f"{k} {np.mean(v):.4f}" for k, v in htres.items())
+          + f"; the phases {t_host:.1f} s", flush=True)
+
     print(card)  # name, power limit: nvidia-smi's own line
 
     def shape_err(r, shape="patch"):  # the worst case at a path's shape
@@ -5398,7 +5632,8 @@ def main() -> None:
                      + sum(ccres[f"train/{c}"].get("launches/alt_corr_fwd", 0)
                            for c in ("small", "wocontext"))
                      + ccres["evaluate_small"]["launches"]
-                     + ccres["parity"]["launches/alt_corr_fwd"]),
+                     + ccres["parity"]["launches/alt_corr_fwd"]
+                     + cpres["launches/alt_corr_fwd"]),
         "max_abs_err": kres[fwd],
         "ms": kres[f"{fwd}/ms"],
         "plain_ms": kres[f"{fwd}/plain_ms"],
@@ -5534,7 +5769,8 @@ def main() -> None:
                      + fvres["launches/spatial_corr_fwd"]
                      + cfg_serve["spatial"]["launches/spatial_corr_fwd"]
                      + cfg_train["spatial"]["launches/spatial_corr_fwd"]
-                     + ccres["train/spatial"]["launches/spatial_corr_fwd"]),
+                     + ccres["train/spatial"]["launches/spatial_corr_fwd"]
+                     + hcres["launches/spatial_corr_fwd"]),
         "max_abs_err": scres["flownetc"]["fwd_err"],
         "ms": scres["flownetc"]["ms"],
         "plain_ms": scres["flownetc"]["plain_ms"],
@@ -5573,7 +5809,8 @@ def main() -> None:
                      + ftres["launches/spatial_corr_bwd"]
                      + fvres["launches/spatial_corr_bwd"]
                      + cfg_train["spatial"]["launches/spatial_corr_bwd"]
-                     + ccres["train/spatial"]["launches/spatial_corr_bwd"]),
+                     + ccres["train/spatial"]["launches/spatial_corr_bwd"]
+                     + hcres["launches/spatial_corr_bwd"]),
         "max_abs_err": scres["attack"]["bwd_err"],
         "ms": scres["attack/bwd"]["ms"],
         "plain_ms": scres["attack/bwd"]["plain_ms"],

@@ -5,11 +5,11 @@ state, the port from the ``np.random.RandomState`` it is given), a sweep
 of all of them in one seeded sequence, ``frost`` on its procedural texture
 and on a texture directory the test writes, ``corrupt_pair``, the runner's
 corruption branch against the JAX runner on FlowNetS, the attack CLI's
-severity sweep, and the ``cv2`` corruptions without ``cv2``.
+severity sweep, and the cv2 / PIL corruptions with cv2 and PIL blocked.
 
-With ``cv2`` installed both packages run the same ``cv2`` calls.  Without
-it only the numpy/scipy corruptions run, and a ``cv2`` one raises an
-ImportError that names ``cv2``.
+The JAX copy calls cv2 and PIL; the port calls its host library
+(``native/cv.py``), so every comparison here is between two
+implementations, cv2 at its defaults.
 """
 
 import os
@@ -172,17 +172,84 @@ def test_corrupt_pair_matches_jax(name, mode):
         assert not np.array_equal(g, x)
 
 
-@pytest.mark.parametrize("name", CV2)
-def test_cv2_corruption_without_cv2_names_it(monkeypatch, name):
-    """With cv2 unimportable a cv2 corruption raises an ImportError that
-    names cv2; the numpy/scipy ones still run."""
+@pytest.mark.parametrize("name", CV2 + ("pixelate",))
+def test_corruption_without_cv2_or_pil_matches_jax(monkeypatch, name):
+    """With cv2 and PIL unimportable, each corruption the JAX copy takes
+    from them runs at severities 1-5 and equals the JAX copy's output from
+    cv2 / PIL bit for bit."""
+    img = _img(48, 80, seed=len(name) + 2)
+    np.random.seed(len(name) + 3)
+    ref = [J.corrupt(img, name, s) for s in range(1, 6)]
     monkeypatch.setitem(sys.modules, "cv2", None)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
     T._FROST_CACHE.clear()
-    with pytest.raises(ImportError, match="cv2"):
-        T.corrupt(_img(), name, 1, rng=np.random.RandomState(0))
-    out = T.corrupt(_img(), "gaussian_noise", 2,
-                    rng=np.random.RandomState(0))
-    assert out.dtype == np.uint8
+    with pytest.raises(ImportError):
+        import cv2  # noqa: F401
+    rng = np.random.RandomState(len(name) + 3)
+    got = [T.corrupt(img, name, s, rng=rng) for s in range(1, 6)]
+    for s, (g, r) in enumerate(zip(got, ref), start=1):
+        assert g.dtype == np.uint8 and g.shape == r.shape
+        np.testing.assert_array_equal(g, r, err_msg=f"{name} severity {s}")
+
+
+def _natural_image(h=384, w=1280, seed=0):
+    """A photo-like u8 frame: 1/f noise with a colour tint, hard-edged
+    objects, sensor noise and a sky that clips at 255."""
+    rng = np.random.RandomState(seed)
+    fy, fx = np.fft.fftfreq(h)[:, None], np.fft.rfftfreq(w)[None, :]
+    amp = 1.0 / np.maximum(np.hypot(fy, fx), 1.0 / max(h, w))
+    base = np.fft.irfft2(amp * np.exp(2j * np.pi * rng.rand(h, w // 2 + 1)),
+                         s=(h, w))
+    base = (base - base.mean()) / base.std()
+    img = (110 + 45 * base[..., None] * rng.uniform(0.7, 1.3, 3)
+           + rng.normal(0, 4, (h, w, 3)))
+    for _ in range(12):
+        y0, x0 = rng.randint(0, h), rng.randint(0, w)
+        hh, ww = rng.randint(10, h // 3), rng.randint(10, w // 5)
+        patch = img[y0:y0 + hh, x0:x0 + ww]
+        patch[:] = rng.uniform(0, 255, 3) + rng.normal(0, 6, patch.shape)
+    yy = np.arange(h // 5)[:, None, None]
+    img[: h // 5] += 120 * (1 - yy / (h / 5))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _flat_saturated_image(h=384, w=1280, seed=1):
+    """Flat regions of exactly 0, 255 and 128, a saturated magenta block
+    and a field of 0/255 speckle: where a sum that lands on an integer
+    decides the uint8 truncation."""
+    img = np.full((h, w, 3), 128, np.uint8)
+    img[:, : w // 4] = 0
+    img[:, w // 4 : w // 2] = 255
+    img[h // 2 :, w // 2 : 3 * w // 4] = (255, 0, 255)
+    img[: h // 2, 3 * w // 4 :] = np.random.RandomState(seed).choice(
+        [0, 255], (h // 2, w - 3 * w // 4, 3))
+    return img
+
+
+@pytest.mark.parametrize("image", ["natural", "flat_saturated"])
+@pytest.mark.parametrize("name", CV2 + ("pixelate", "frost_dir"))
+def test_corruption_full_size_matches_jax(tmp_path, name, image):
+    """The 8 ported corruptions at 384x1280, the sweep's and chip_smoke's
+    size, severities 1-5, bit for bit with the JAX copy on cv2 / PIL: on a
+    photo-like frame and on one of flat and saturated regions.
+    ``frost_dir``: frost blending photo textures (written here, 512x768,
+    so the uint8 INTER_CUBIC upscales them 1.83x)."""
+    img = (_natural_image() if image == "natural"
+           else _flat_saturated_image())
+    kwargs = {}
+    if name == "frost_dir":
+        import cv2
+
+        name, kwargs = "frost", {"frost_dir": str(tmp_path)}
+        for i, f in enumerate(["frost1.png", "frost2.png", "frost3.png",
+                               "frost4.jpg", "frost5.jpg", "frost6.jpg"]):
+            cv2.imwrite(str(tmp_path / f),
+                        _natural_image(512, 768, seed=10 + i)[..., ::-1])
+    got, ref = _both(name, seed=len(name) + 4, img=img, **kwargs)
+    for s, (g, r) in enumerate(zip(got, ref), start=1):
+        assert g.dtype == np.uint8 and g.shape == r.shape == img.shape
+        np.testing.assert_array_equal(g, r, err_msg=f"{name} severity {s}")
 
 
 @pytest.mark.parametrize("severity", [0, 6, 2.5])

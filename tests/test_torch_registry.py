@@ -223,3 +223,53 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_port_imports_no_cv2_or_pil():
+    """No module of the port imports cv2 or PIL, at the top or inside a
+    function: the machine with the card has neither.  Scans the syntax
+    tree of every source file."""
+    import ast
+
+    root = os.path.join(REPO, "understanding_flow_robustness_tpu_torch")
+    found, files = [], 0
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            files += 1
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for node in ast.walk(tree):
+                mods = []
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    mods = [node.module]
+                elif isinstance(node, ast.Call) and getattr(
+                        node.func, "attr", getattr(node.func, "id", "")) in (
+                        "import_module", "__import__") and node.args and \
+                        isinstance(node.args[0], ast.Constant):
+                    mods = [str(node.args[0].value)]
+                found += [(os.path.relpath(path, REPO), node.lineno, m)
+                          for m in mods if m.split(".")[0] in ("cv2", "PIL")]
+    assert files >= 60
+    assert not found, found
+
+
+@pytest.mark.parametrize("first", [1, 101, 201, 301])
+def test_correlated_circle_patch_matches_jax(first):
+    """create_correlated_patch("circle", n) against the JAX package's (its
+    cv2.circle rings), n = first .. first + 99: every size the CLIs'
+    --patch_size can give up to 400, 100 (test_patch's default) and 153
+    included."""
+    from understanding_flow_robustness_tpu.attacks import patch as jpatch
+    from understanding_flow_robustness_tpu_torch.attacks import patch as tpatch
+
+    for n in range(first, first + 100):
+        got = tpatch.create_correlated_patch("circle", n)
+        want = jpatch.create_correlated_patch("circle", n)
+        assert got.dtype == want.dtype and got.shape == want.shape == (
+            1, n, n, 3)
+        np.testing.assert_array_equal(got, want, err_msg=f"n = {n}")

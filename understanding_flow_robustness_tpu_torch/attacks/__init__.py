@@ -4,8 +4,8 @@ MI-FGSM, Gaussian and uniform noise, the diverse-input transform, their
 losses, the evaluation runner and its logs; the universal patch attack
 (patch construction and placement, ``patch3d``'s true-motion projection,
 the patch training and validation loops), the universal perturbation
-trainer and the image corruptions (``corruptions``, numpy, scipy and cv2
-on the host)."""
+trainer and the image corruptions (``corruptions``, numpy, scipy and the
+host library on the host)."""
 
 from . import corruptions, eval_utils, log_utils
 from .global_attacks import (

@@ -1,5 +1,6 @@
-"""Image corruptions on the host (numpy, scipy and cv2), severity 1-5: the
-port's own copy of ``understanding_flow_robustness_tpu/attacks/corruptions.py``
+"""Image corruptions on the host (numpy, scipy and the host library),
+severity 1-5: the port's own copy of
+``understanding_flow_robustness_tpu/attacks/corruptions.py``
 (reference: PerturbationsModel.__image_corruptions, perturb_model.py:384-418,
 the ``imagecorruptions`` 1.1.2 package and its deterministic-frost fork,
 global_attacks/imagecorruptions_frost/corruption.py:9-190).
@@ -16,15 +17,21 @@ draws from numpy's global state, as the JAX copy does.  So
 ``np.random.seed(s)`` before the JAX copy and ``RandomState(s)`` here give
 bit-equal images.
 
-``cv2`` is imported inside the corruptions that need it (defocus_blur,
-frost, brightness, saturate, elastic_transform, jpeg_compression,
-spatter); ``pixelate`` needs PIL.  The noise corruptions, gaussian_blur,
-glass_blur, motion_blur, zoom_blur, snow, fog and contrast need only numpy
-and scipy and run without ``cv2``; a ``cv2`` one raises an ``ImportError``
-that names it.
+The JAX copy calls cv2 in defocus_blur, frost, brightness, saturate,
+elastic_transform, jpeg_compression and spatter, and PIL in pixelate.
+Here those calls go to the port's host library (``native/cv.py``, the
+JPEG encoder ``flowviz/jpeg.py``), which computes what the library calls
+compute, so every corruption runs with neither cv2 nor PIL installed.
 
 API: ``corrupt(image_uint8_hwc, corruption_name, severity, rng=None)``,
 ``corrupt_pair`` and ``get_corruption_names()``, as in the pip package.
+
+The chains of cv2 / PIL calls are helpers that take the operations as
+``ops`` (``native/cv.py`` by default): ``disk``, ``hsv_edit``,
+``affine_jitter``, ``pixelate_steps``, ``water_stages``, ``fit_texture``.
+The corruptions always run them on the host library; ``native/cv_cases.py``
+also runs them on cv2 and PIL (``tests/cv_digests.py``) for the digest
+fixture that the machine with the card is checked against.
 """
 
 from __future__ import annotations
@@ -33,16 +40,8 @@ import os
 
 import numpy as np
 
-
-def _cv2():
-    """cv2, or an ImportError that names it."""
-    try:
-        import cv2
-    except ImportError as err:
-        raise ImportError(
-            "this corruption needs cv2 (OpenCV), which cannot be imported; "
-            "the numpy/scipy corruptions run without it") from err
-    return cv2
+from ..flowviz.jpeg import decode_jpeg, encode_jpeg
+from ..native import cv
 
 
 def _state(rng):
@@ -70,19 +69,17 @@ def get_corruption_names(subset: str = "common") -> list[str]:
 # ---------------------------------------------------------------------------
 
 
-def disk(radius, alias_blur=0.1, dtype=np.float32):
-    cv2 = _cv2()
-
+def disk(radius, alias_blur=0.1, dtype=np.float32, ops=cv):
     if radius <= 8:
         L = np.arange(-8, 8 + 1)
-        ksize = (3, 3)
+        ksize = 3
     else:
         L = np.arange(-radius, radius + 1)
-        ksize = (5, 5)
+        ksize = 5
     X, Y = np.meshgrid(L, L)
     aliased = np.array((X ** 2 + Y ** 2) <= radius ** 2, dtype=dtype)
     aliased /= np.sum(aliased)
-    return cv2.GaussianBlur(aliased, ksize=ksize, sigmaX=alias_blur)
+    return ops.gaussian_blur(aliased, ksize, alias_blur)
 
 
 def plasma_fractal(mapsize=256, wibbledecay=3, rng=None):
@@ -270,14 +267,12 @@ def glass_blur(x, severity=1, rng=None):
 
 
 def defocus_blur(x, severity=1, rng=None):
-    cv2 = _cv2()
-
     radius, alias = [(3, 0.1), (4, 0.5), (6, 0.5), (8, 0.5), (10, 0.5)][
         severity - 1
     ]
     x = np.asarray(x, np.float64) / 255.0
     kernel = disk(radius=radius, alias_blur=alias)
-    channels = [cv2.filter2D(x[:, :, d], -1, kernel) for d in range(3)]
+    channels = [cv.filter2d(x[:, :, d], kernel) for d in range(3)]
     return np.clip(np.stack(channels, -1), 0, 1) * 255
 
 
@@ -331,8 +326,6 @@ def _frost_texture(idx: int, frost_dir: str | None):
     """Frost photo from ``frost_dir`` if available (upstream package
     assets), else a cached procedural icy texture (plasma fractal with
     directional streaks)."""
-    cv2 = _cv2()
-
     key = (idx, frost_dir)
     if key in _FROST_CACHE:
         return _FROST_CACHE[key]
@@ -345,13 +338,13 @@ def _frost_texture(idx: int, frost_dir: str | None):
             # keep the raw uint8 BGR image: the fork resizes in uint8
             # (quantized) and only reorders channels after the crop
             # (corruption.py:149-186)
-            tex = cv2.imread(path)
+            tex = cv.imread_bgr(path)
     if tex is None:
         rng = np.random.RandomState(1234 + idx)
         base = plasma_fractal(mapsize=512, wibbledecay=2.2, rng=rng)
         streaks = plasma_fractal(mapsize=512, wibbledecay=4, rng=rng)
         tex = np.clip(0.6 * base + 0.6 * streaks ** 2, 0, 1)
-        tex = cv2.resize(tex, (640, 512), interpolation=cv2.INTER_CUBIC)
+        tex = cv.resize_cubic(tex, (640, 512))
         tex = (np.stack([tex, tex, np.minimum(tex * 1.1, 1)], -1) * 255)
     _FROST_CACHE[key] = tex
     return tex
@@ -365,21 +358,13 @@ def frost(x, severity=1, idx=None, frost_dir=None, rng=None):
     treats idx=0 as falsy -- a 0 is redrawn, and the redraw can only reach
     textures 0-4.  The same holds here so trajectories match."""
     rng = _state(rng)
-    cv2 = _cv2()
-
     c = [(1, 0.4), (0.8, 0.6), (0.7, 0.7), (0.65, 0.7), (0.6, 0.75)][
         severity - 1
     ]
     idx = idx if idx else int(rng.randint(5))
-    tex = _frost_texture(idx, frost_dir)
     x = np.asarray(x, np.float64)
     xh, xw = x.shape[:2]
-    th, tw = tex.shape[:2]
-    # the fork's scaling-factor cases collapse to max(ratios, 1) * 1.1
-    # (corruption.py:151-170)
-    scale = max(xh / th, xw / tw, 1.0) * 1.1
-    tex = cv2.resize(tex, (int(np.ceil(tw * scale)), int(np.ceil(th * scale))),
-                     interpolation=cv2.INTER_CUBIC)
+    tex = fit_texture(_frost_texture(idx, frost_dir), (xh, xw))
     # exclusive-high randint exactly like the fork (corruption.py:176-179):
     # the bottom/right-most crop start is unreachable
     ys = rng.randint(0, tex.shape[0] - xh)
@@ -388,6 +373,16 @@ def frost(x, severity=1, idx=None, frost_dir=None, rng=None):
     if tex.dtype == np.uint8:  # photo texture: BGR -> RGB after the crop
         tex = tex[..., [2, 1, 0]].astype(np.float64)
     return np.clip(c[0] * x + c[1] * tex, 0, 255)
+
+
+def fit_texture(tex, shape, ops=cv):
+    """frost's texture scaled (INTER_CUBIC) to cover an (H, W) frame: the
+    fork's scaling-factor cases collapse to max(ratios, 1) * 1.1
+    (corruption.py:151-170)."""
+    th, tw = tex.shape[:2]
+    scale = max(shape[0] / th, shape[1] / tw, 1.0) * 1.1
+    return ops.resize_cubic(tex, (int(np.ceil(tw * scale)),
+                                  int(np.ceil(th * scale))))
 
 
 def snow(x, severity=1, rng=None):
@@ -429,24 +424,27 @@ def snow(x, severity=1, rng=None):
     return np.clip(x + layer + np.rot90(layer, k=2), 0, 1) * 255
 
 
-def brightness(x, severity=1, rng=None):
-    cv2 = _cv2()
+def hsv_edit(x, channel, scale, shift, ops=cv):
+    """cv2's float32 HSV of an RGB image in [0, 1], then its channel
+    (1: S, 2: V) set to clip(channel * scale + shift, 0, 1) and back to
+    RGB: (hsv, rgb)."""
+    hsv = ops.rgb2hsv(np.float32(x))
+    edited = hsv.copy()
+    edited[:, :, channel] = np.clip(edited[:, :, channel] * scale + shift,
+                                    0, 1)
+    return hsv, ops.hsv2rgb(edited)
 
+
+def brightness(x, severity=1, rng=None):
     c = [0.1, 0.2, 0.3, 0.4, 0.5][severity - 1]
     x = np.asarray(x, np.float64) / 255.0
-    hsv = cv2.cvtColor(np.float32(x), cv2.COLOR_RGB2HSV)
-    hsv[:, :, 2] = np.clip(hsv[:, :, 2] + c, 0, 1)
-    return np.clip(cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB), 0, 1) * 255
+    return np.clip(hsv_edit(x, 2, 1, c)[1], 0, 1) * 255
 
 
 def saturate(x, severity=1, rng=None):
-    cv2 = _cv2()
-
     c = [(0.3, 0), (0.1, 0), (2, 0), (5, 0.1), (20, 0.2)][severity - 1]
     x = np.asarray(x, np.float64) / 255.0
-    hsv = cv2.cvtColor(np.float32(x), cv2.COLOR_RGB2HSV)
-    hsv[:, :, 1] = np.clip(hsv[:, :, 1] * c[0] + c[1], 0, 1)
-    return np.clip(cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB), 0, 1) * 255
+    return np.clip(hsv_edit(x, 1, c[0], c[1])[1], 0, 1) * 255
 
 
 def contrast(x, severity=1, rng=None):
@@ -458,7 +456,6 @@ def contrast(x, severity=1, rng=None):
 
 def elastic_transform(x, severity=1, rng=None):
     rng = _state(rng)
-    cv2 = _cv2()
     from scipy.ndimage import gaussian_filter, map_coordinates
 
     x = np.asarray(x, np.float64) / 255.0
@@ -471,18 +468,7 @@ def elastic_transform(x, severity=1, rng=None):
         (shape[0] * 0.12, shape[0] * 0.01, shape[0] * 0.02),
     ][severity - 1]
 
-    center = np.float32(shape[:2]) // 2
-    sq_size = min(shape[:2]) // 3
-    pts1 = np.float32([
-        center + sq_size,
-        [center[0] + sq_size, center[1] - sq_size],
-        center - sq_size,
-    ])
-    pts2 = pts1 + rng.uniform(-c[2], c[2], size=pts1.shape).astype(
-        np.float32
-    )
-    M = cv2.getAffineTransform(pts1, pts2)
-    x = cv2.warpAffine(x, M, shape[1::-1], borderMode=cv2.BORDER_REFLECT_101)
+    x = affine_jitter(x, c[2], rng)
 
     dx = (gaussian_filter(rng.uniform(-1, 1, size=shape[:2]), c[1],
                           mode="reflect", truncate=3) * c[0]).astype(np.float32)
@@ -497,34 +483,52 @@ def elastic_transform(x, severity=1, rng=None):
     return np.clip(out, 0, 1) * 255
 
 
+def affine_jitter(x, jitter, rng, ops=cv):
+    """elastic_transform's affine step: the square around the centre, its
+    corners moved by uniform(-jitter, jitter), warpAffine (INTER_LINEAR,
+    BORDER_REFLECT_101) of the float64 (H, W, C) image."""
+    shape = x.shape
+    center = np.float32(shape[:2]) // 2
+    sq_size = min(shape[:2]) // 3
+    pts1 = np.float32([
+        center + sq_size,
+        [center[0] + sq_size, center[1] - sq_size],
+        center - sq_size,
+    ])
+    pts2 = pts1 + rng.uniform(-jitter, jitter, size=pts1.shape).astype(
+        np.float32
+    )
+    M = ops.get_affine_transform(pts1, pts2)
+    return ops.warp_affine(x, M, shape[1::-1])
+
+
+def pixelate_steps(img, c, ops=cv):
+    """pixelate's two PIL resizes of a uint8 image: BOX down by ``c``,
+    NEAREST back up: (small, pixelated)."""
+    h, w = img.shape[:2]
+    small = ops.pil_resize(img, (int(w * c), int(h * c)), "box")
+    return small, ops.pil_resize(small, (w, h), "nearest")
+
+
 def pixelate(x, severity=1, rng=None):
     # pip 1.1.2 uses PIL Image.BOX down + Image.NEAREST up; cv2's
     # INTER_NEAREST maps dst->src indices differently (shifts the
     # pixelation grid by whole blocks -- measured 92% of pixels differing
-    # at severity 5), so PIL is required for value parity
-    from PIL import Image
-
+    # at severity 5), so these are PIL's resamplers
     c = [0.6, 0.5, 0.4, 0.3, 0.25][severity - 1]
-    img = Image.fromarray(np.asarray(x, np.uint8))
-    w, h = img.size
-    img = img.resize((int(w * c), int(h * c)), Image.BOX)
-    img = img.resize((w, h), Image.NEAREST)
-    return np.asarray(img).astype(np.float64)
+    return pixelate_steps(np.asarray(x, np.uint8), c)[1].astype(np.float64)
 
 
 def jpeg_compression(x, severity=1, rng=None):
-    cv2 = _cv2()
-
+    # the JAX copy's cv2.imencode of the BGR image then imdecode: the same
+    # libjpeg-turbo stream and samples in RGB order
     c = [25, 18, 15, 10, 7][severity - 1]
     x = np.asarray(x, np.uint8)
-    _, enc = cv2.imencode(".jpg", x[..., ::-1],
-                          [int(cv2.IMWRITE_JPEG_QUALITY), c])
-    return cv2.imdecode(enc, cv2.IMREAD_COLOR)[..., ::-1].astype(np.float64)
+    return decode_jpeg(encode_jpeg(x, c)).astype(np.float64)
 
 
 def spatter(x, severity=1, rng=None):
     rng = _state(rng)
-    cv2 = _cv2()
     from scipy.ndimage import gaussian_filter
 
     c = [
@@ -533,30 +537,20 @@ def spatter(x, severity=1, rng=None):
         (0.67, 0.4, 1, 0.65, 1.5, 1),
     ][severity - 1]
     x = np.asarray(x, np.float64) / 255.0
-    liquid = rng.normal(size=x.shape[:2], loc=c[0], scale=c[1])
-    liquid = gaussian_filter(liquid, sigma=c[2], mode="nearest")
-    liquid[liquid < c[3]] = 0
+    liquid = liquid_layer(x.shape[:2], c, rng)
     if c[5] == 0:  # water
         liquid = (liquid * 255).astype(np.uint8)
-        dist = 255 - cv2.Canny(liquid, 50, 150)
-        dist = cv2.distanceTransform(dist, cv2.DIST_L2, 5)
-        _, dist = cv2.threshold(dist, 20, 20, cv2.THRESH_TRUNC)
-        dist = cv2.blur(dist, (3, 3)).astype(np.uint8)
-        dist = cv2.equalizeHist(dist)
-        ker = np.array([[-2, -1, 0], [-1, 1, 1], [0, 1, 2]])
-        dist = cv2.filter2D(dist, cv2.CV_8U, ker)
-        dist = cv2.blur(dist, (3, 3)).astype(np.float32)
-        m = cv2.cvtColor(liquid * dist, cv2.COLOR_GRAY2RGBA)
+        dist = water_stages(liquid)[-1].astype(np.float32)
+        m = _gray_to_rgba(liquid * dist)
         m /= np.max(m, axis=(0, 1)) + 1e-8
         m *= c[4]
         color = np.concatenate(
             (175 / 255.0 * np.ones_like(m[..., :1]),
              238 / 255.0 * np.ones_like(m[..., :1]),
              238 / 255.0 * np.ones_like(m[..., :1])), axis=2)
-        color = cv2.cvtColor(color.astype(np.float32), cv2.COLOR_RGB2RGBA)
-        xa = cv2.cvtColor(np.float32(x), cv2.COLOR_RGB2RGBA)
-        out = cv2.cvtColor(np.clip(xa + m * color, 0, 1),
-                           cv2.COLOR_RGBA2RGB) * 255
+        color = _rgb_to_rgba(color.astype(np.float32))
+        xa = _rgb_to_rgba(np.float32(x))
+        out = np.clip(xa + m * color, 0, 1)[..., :3] * 255
         return out
     # mud
     m = np.where(liquid > c[3], 1, 0).astype(np.float32)
@@ -567,6 +561,43 @@ def spatter(x, severity=1, rng=None):
                       20 / 255.0 * np.ones_like(x[..., 0])], -1) * m[..., None]
     x *= (1 - m[..., None])
     return np.clip(x + color, 0, 1) * 255
+
+
+def liquid_layer(shape, c, rng):
+    """spatter's liquid: normal(c[0], c[1]) noise, Gaussian-smoothed with
+    sigma c[2] (nearest borders), zero below c[3]."""
+    from scipy.ndimage import gaussian_filter
+
+    liquid = rng.normal(size=shape, loc=c[0], scale=c[1])
+    liquid = gaussian_filter(liquid, sigma=c[2], mode="nearest")
+    liquid[liquid < c[3]] = 0
+    return liquid
+
+
+def water_stages(liquid, ops=cv):
+    """spatter's water branch from the uint8 liquid layer: Canny's edges,
+    the L2 distance to them, truncated at 20, box-blurred (float32),
+    equalised, embossed (filter2D, CV_8U) and box-blurred again (uint8):
+    the list of the seven stages."""
+    edges = ops.canny(liquid, 50, 150)
+    dist = ops.distance_transform_l2_5(255 - edges)
+    trunc = ops.threshold_trunc(dist, 20)
+    blurred = ops.blur3(trunc)
+    eq = ops.equalize_hist(blurred.astype(np.uint8))
+    ker = np.array([[-2, -1, 0], [-1, 1, 1], [0, 1, 2]])
+    embossed = ops.filter2d_u8_3x3(eq, ker)
+    return [edges, dist, trunc, blurred, eq, embossed, ops.blur3(embossed)]
+
+
+def _gray_to_rgba(g):
+    """cv2.cvtColor(g, COLOR_GRAY2RGBA) of a float32 plane: the plane
+    thrice, alpha 1."""
+    return np.stack([g, g, g, np.ones_like(g)], -1)
+
+
+def _rgb_to_rgba(x):
+    """cv2.cvtColor(x, COLOR_RGB2RGBA) of a float32 image: alpha 1."""
+    return np.concatenate([x, np.ones_like(x[..., :1])], -1)
 
 
 _CORRUPTIONS = {

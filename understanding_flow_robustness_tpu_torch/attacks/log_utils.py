@@ -6,7 +6,7 @@ sample dumps (:78-199), file and console log (:202-223), and ``validate``,
 which writes the mean and std of the noise, EPE, cosine and L1 metrics to
 results{seed}.txt (:226-528).  Flows are NHWC numpy arrays; the GT carries
 (u, v, valid).  ``validate`` computes its flow metrics with the port's
-losses on CPU tensors.  PIL is imported only by the PNG dumps.
+losses on CPU tensors.  The PNG dumps use the port's own encoder.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..flowviz import flow_to_image
+from ..flowviz.png import encode_png
 from . import eval_utils
 from .losses import compute_cossim, compute_epe, compute_l1
 
@@ -57,13 +58,13 @@ def write_out_sample(
 ):
     """log_utils.py:78-199: PNG (and optionally NPY) dumps of the
     adversarial images, the min-max normalised noises and the flows'
-    color-wheel renderings; numpy arrays in."""
-    from PIL import Image
+    color-wheel renderings; numpy arrays in (PNG through the port's own
+    encoder)."""
 
     def save_img(arr01, folder):
         im = np.uint8(np.clip(arr01, 0, 1) * 255.0)
-        Image.fromarray(im).save(
-            os.path.join(paths[folder], f"{idx:05d}.png"))
+        with open(os.path.join(paths[folder], f"{idx:05d}.png"), "wb") as f:
+            f.write(encode_png(im))
         if save_npy:
             np.save(os.path.join(paths[folder], f"{idx:05d}.npy"), arr01)
 

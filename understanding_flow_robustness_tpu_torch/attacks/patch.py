@@ -20,6 +20,8 @@ import re
 import numpy as np
 from scipy.ndimage import rotate, zoom
 
+from ..native import cv
+
 
 def create_circular_mask(h: int, w: int, center=None, radius=None) -> np.ndarray:
     """utils_patch.py:760-766 (default radius leaves a 2px rim)."""
@@ -105,6 +107,17 @@ def get_self_correlated_patches() -> list[str]:
     ]
 
 
+def circle_rings(n, ops=cv):
+    """The reference's self-correlated circle patch before scaling: black
+    concentric rings of thickness max(n // 48, 1) on a white (n, n, 3)
+    float64 canvas of 255s (cv2.circle, drawn by ``ops``)."""
+    patch = np.ones((n, n, 3)) * 255
+    t = max(n // 48, 1)
+    for radius in range(0, n // 2, 2 * t):
+        ops.circle(patch, (n // 2, n // 2), radius, (0, 0, 0), t)
+    return patch
+
+
 def create_correlated_patch(patch_type: str, patch_size: int) -> np.ndarray:
     """Handcrafted self-correlated patches (utils_patch.py:77-233): stripe
     families (incl. rotated / parameterized thickness / colored), checkers,
@@ -184,14 +197,7 @@ def create_correlated_patch(patch_type: str, patch_size: int) -> np.ndarray:
                 patch[y + strip : y + strip + t, i, 2] = 1
                 patch[y + strip : y + strip + t, i, 0] = 0
     elif patch_type == "circle":
-        import cv2
-
-        patch = np.ones((n, n, 3)) * 255
-        t = max(n // 48, 1)
-        for radius in range(0, n // 2, 2 * t):
-            cv2.circle(patch, center=(n // 2, n // 2), radius=radius,
-                       color=(0, 0, 0), thickness=t)
-        patch = patch / 255
+        patch = circle_rings(n) / 255
     else:
         raise ValueError(f"self-correlation type not implemented: {patch_type}")
     return patch[None]

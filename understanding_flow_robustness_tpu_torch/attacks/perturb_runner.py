@@ -23,6 +23,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from ..flowviz.gif import encode_gif, luminance
 from ..utils import on_device
 from . import log_utils
 from .corruptions import check_severity, corrupt_pair, get_corruption_names
@@ -42,9 +43,9 @@ CORRUPTIONS = tuple(get_corruption_names("all"))
 def _write_evolution_gifs(path: str, tr0: np.ndarray, tr1: np.ndarray):
     """Perturbation-evolution GIFs (perturb_model.py:582-614): each step's
     noise is min-max normalised to uint8; files are named viz{ctr}_0.gif /
-    viz{ctr}_1.gif with the first unused ctr, total duration ~20 ms."""
-    from PIL import Image
-
+    viz{ctr}_1.gif with the first unused ctr, total duration ~20 ms.  The
+    frames are the noise's luminance under a grey palette (the JAX copy's
+    PIL quantises the RGB noise to an adaptive 256-colour palette)."""
     os.makedirs(path, exist_ok=True)
     ctr = 0
     while os.path.isfile(os.path.join(path, f"viz{ctr}_0.gif")):
@@ -54,16 +55,14 @@ def _write_evolution_gifs(path: str, tr0: np.ndarray, tr1: np.ndarray):
         for step in range(tr.shape[0]):
             n = tr[step, 0]
             lo, hi = n.min(), n.max()
-            frames.append(Image.fromarray(
-                np.uint8((n - lo) / (hi - lo + 1e-12) * 255.0)))
-        frames[0].save(
-            os.path.join(path, f"viz{ctr}_{suffix}.gif"), save_all=True,
-            append_images=frames[1:],
-            # reference: imageio duration=20/n_step SECONDS per frame
-            # (perturb_model.py:610-614); PIL's duration is milliseconds
-            duration=max(int(20.0 / max(tr.shape[0], 1) * 1000.0), 1),
-            loop=0,
-        )
+            frames.append(luminance(np.uint8((n - lo) / (hi - lo + 1e-12)
+                                             * 255.0)))
+        # reference: imageio duration=20/n_step SECONDS per frame
+        # (perturb_model.py:610-614); the JAX copy passes PIL milliseconds
+        data = encode_gif(frames, max(int(20.0 / max(tr.shape[0], 1)
+                                          * 1000.0), 1), loop=0)
+        with open(os.path.join(path, f"viz{ctr}_{suffix}.gif"), "wb") as f:
+            f.write(data)
 
 
 @dataclasses.dataclass

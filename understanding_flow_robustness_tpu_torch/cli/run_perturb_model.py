@@ -12,7 +12,7 @@ the KITTI pairs listed under ``--data_list_dir`` or on ``--synthetic N``
 random pairs.  ``--disparity`` raises (unimplemented upstream too).
 ``--device`` defaults to ``cuda``, with no fallback; ``--device cpu`` runs
 on the CPU.  ``--flownet`` takes every registry ID, FlowNetC by default.
-The corruptions run on the host; those that need ``cv2`` raise without it.
+The corruptions run on the host, all 19 with neither cv2 nor PIL.
 
 Example:
   python -m understanding_flow_robustness_tpu_torch.cli.run_perturb_model \\

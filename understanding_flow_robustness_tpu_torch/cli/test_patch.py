@@ -17,8 +17,8 @@ The same flags as the JAX CLI, plus ``--device``: the card unless asked
 for ``cpu`` (no fallback; ``gpu`` means ``cuda``).  Runs on the KITTI /
 Sintel evaluation sets (``get_evaluation_set`` at 384x1280, KITTI raw
 calib/poses with --true_motion) or on ``--synthetic N`` frames (synthetic
-calib/poses with --true_motion).  The viz panels are written with PIL, so
-``--no_viz`` runs without it.
+calib/poses with --true_motion).  The viz panels ``viz###.jpg`` are JPEG
+at PIL's default quality (75), through the port's own encoder.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from ..attacks.patch import (
 )
 from ..attacks.patch3d import project_patch_3d_scene
 from ..flowviz import flow_to_image
+from ..flowviz.jpeg import encode_jpeg
 from ..ops.interp import resize_bilinear
 from ..utils import AverageMeter, CsvLogger, on_device
 
@@ -396,13 +397,11 @@ def main(argv=None):
         scene_csv.write([i] + [round(v, 4) for v in vals])
 
         if not args.no_viz:
-            from PIL import Image
-
+            # the JAX CLI's PIL save: JPEG at PIL's default quality, 75
             panel = _viz_panel(adv_tgt, adv_fut, flow.cpu().numpy(),
                                adv_flow.cpu().numpy(), gt_adv[0])
-            Image.fromarray(panel).save(
-                os.path.join(vis_dir, f"viz{i:03d}.jpg")
-            )
+            with open(os.path.join(vis_dir, f"viz{i:03d}.jpg"), "wb") as f:
+                f.write(encode_jpeg(panel, 75))
 
         if args.homogeneous:
             break

@@ -1,5 +1,5 @@
-"""ctypes bindings of the port's host library ``native/src/ufr_native.cpp``
-and ``native/src/ufr_jpeg.cpp``
+"""ctypes bindings of the port's host library ``native/src/ufr_native.cpp``,
+``ufr_jpeg.cpp``, ``ufr_jpeg_enc.cpp`` and ``ufr_cv.cpp``
 (counterpart of ``understanding_flow_robustness_tpu/native/__init__.py``).
 
 The library is standard C++ with OpenMP, built with ``g++`` at first use
@@ -15,7 +15,11 @@ and ``decode_jpeg`` are the port's own: PNG row reconstruction, PIL's
 ``BILINEAR`` resize, cv2's ``INTER_LINEAR`` resize to a size and by
 factors, PIL's colour enhancements and a baseline JPEG decoder, so that
 the machine with the card reads, augments and resizes frames with neither
-PIL nor cv2.
+PIL nor cv2.  ``jpeg_encode`` (wrapped by ``flowviz/jpeg.py``) is
+libjpeg-turbo's baseline encoder at its defaults; the OpenCV and Pillow
+operations of the corruptions, the self-correlated circle patch and the
+GIF codec are bound here and wrapped, shaped like the calls they replace,
+in ``native/cv.py``.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ from pathlib import Path
 import numpy as np
 
 SRCS = tuple(Path(__file__).resolve().parent / "src" / name
-             for name in ("ufr_native.cpp", "ufr_jpeg.cpp"))
+             for name in ("ufr_native.cpp", "ufr_jpeg.cpp",
+                          "ufr_jpeg_enc.cpp", "ufr_cv.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host_native"
 # portable code (no -march=native); no contraction into FMAs, so that the
 # resizes round as the libraries they match do on every host
@@ -86,6 +91,7 @@ def load() -> ctypes.CDLL:
                 ("resize_bilinear_u8", [u8p, u8p] + [i64] * 5),
                 ("decode_kitti_flow_u16", [u16p, i64, i64, f32p, f32p]),
                 ("resize_pil_bilinear_u8", [u8p, u8p] + [i64] * 5),
+                ("resize_pil_box_u8", [u8p, u8p] + [i64] * 5),
                 ("resize_cv2_linear_f32", [u8p, f32p] + [i64] * 5),
                 ("resize_cv2_linear_u8", [u8p, u8p] + [i64] * 5 + [f64] * 2),
                 ("resize_cv2_linear_f32_by",
@@ -105,6 +111,33 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
+        i32 = ctypes.c_int
+        for name, args, res in (
+                ("cv_rgb2hsv_f32", [f32p, f32p, i64, i64], None),
+                ("cv_hsv2rgb_f32", [f32p, f32p, i64, i64], None),
+                ("cv_sep_filter_f32", [f32p, f32p, i64, i64, f32p, i32], i32),
+                ("cv_filter2d_f64", [f64p, f64p, i64, i64, f32p, i64, i64],
+                 None),
+                ("cv_affine_transform", [f32p, f32p, f64p], i32),
+                ("cv_warp_affine_f64", [f64p, f64p, i64, i64, i64, f64p],
+                 None),
+                ("cv_resize_cubic_f64", [f64p, f64p] + [i64] * 5, None),
+                ("cv_resize_cubic_u8", [u8p, u8p] + [i64] * 5, None),
+                ("cv_canny_u8", [u8p, u8p, i64, i64, i32, i32], None),
+                ("cv_distance_l2_5", [u8p, f32p, i64, i64], None),
+                ("cv_box3_f32", [f32p, f32p, i64, i64], None),
+                ("cv_box3_u8", [u8p, u8p, i64, i64], None),
+                ("cv_equalize_hist", [u8p, u8p, i64], None),
+                ("cv_filter2d_u8_3x3", [u8p, u8p, i64, i64, i32p], None),
+                ("cv_circle_mask", [u8p, i64, i64, i64, i64, i64, i32],
+                 None),
+                ("pil_resize_nearest_u8", [u8p, u8p] + [i64] * 5, None),
+                ("gif_lzw", [u8p, i64, u8p, i64], i64),
+                ("gif_unlzw", [u8p, i64, i32, u8p, i64], i64),
+                ("jpeg_encode", [u8p, i64, i64, i32, u8p, i64], i64)):
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = res
         lib.png_unfilter.argtypes = [u8p, u8p, i64, i64, i64]
         lib.png_unfilter.restype = i64
         lib.ufr_native_version.restype = ctypes.c_int
@@ -309,3 +342,4 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     if lib.jpeg_decode(data, len(data), out, h, w, c, err, len(err)):
         raise ValueError(err.value.decode())
     return out[..., 0] if c == 1 else out
+

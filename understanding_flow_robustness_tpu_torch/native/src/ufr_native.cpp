@@ -10,7 +10,8 @@
 //   batch_u8_to_float01_pad, batch_f32_pad, resize_sparse_flow,
 //   resize_bilinear_u8, decode_kitti_flow_u16: the JAX package's five.
 //   png_unfilter:           PNG row filters 0-4 undone, any bytes per pixel.
-//   resize_pil_bilinear_u8: PIL's Image.resize(BILINEAR) on u8.
+//   resize_pil_bilinear_u8, resize_pil_box_u8: PIL's Image.resize(BILINEAR /
+//                           BOX) on u8.
 //   resize_cv2_linear_f32:  cv2.resize(INTER_LINEAR) of a float32 image
 //                           (read here from u8 samples).
 //   resize_cv2_linear_u8, resize_cv2_linear_f{32,64}_by: cv2.resize(
@@ -205,21 +206,30 @@ int64_t png_unfilter(const uint8_t* in, uint8_t* out, int64_t h,
   return 0;
 }
 
-// PIL's two-pass separable resampling with the BILINEAR (triangle) filter
-// on 8-bit samples (Pillow, src/libImaging/Resample.c): the support widens
-// by the scale on a downscale, coefficients are normalised in double and
-// rounded to 22-bit fixed point, and each pass rounds its sums to u8.
+// PIL's two-pass separable resampling on 8-bit samples (Pillow,
+// src/libImaging/Resample.c) with the BILINEAR (triangle, support 1) or
+// the BOX (support 1/2) filter: the support widens by the scale on a
+// downscale, coefficients are normalised in double and rounded to 22-bit
+// fixed point, and each pass rounds its sums to u8.
 namespace {
 
 constexpr int kPrecisionBits = 32 - 8 - 2;
 
+double pil_triangle(double t) {
+  if (t < 0.0) t = -t;
+  return t < 1.0 ? 1.0 - t : 0.0;
+}
+
+double pil_box(double t) { return (t > -0.5 && t <= 0.5) ? 1.0 : 0.0; }
+
 // Per output sample: the first source index, the count of taps, and
 // ksize fixed-point coefficients.
-int pil_coeffs(int64_t in_size, int64_t out_size, std::vector<int>* bounds,
+int pil_coeffs(int64_t in_size, int64_t out_size, double support0,
+               double (*filter)(double), std::vector<int>* bounds,
                std::vector<int32_t>* kk) {
   const double scale = (double)((float)in_size - 0.0f) / out_size;
   const double filterscale = scale < 1.0 ? 1.0 : scale;
-  const double support = 1.0 * filterscale;
+  const double support = support0 * filterscale;
   const int ksize = (int)std::ceil(support) * 2 + 1;
   std::vector<double> pre((size_t)out_size * ksize, 0.0);
   bounds->assign((size_t)out_size * 2, 0);
@@ -234,9 +244,7 @@ int pil_coeffs(int64_t in_size, int64_t out_size, std::vector<int>* bounds,
     double* k = &pre[(size_t)xx * ksize];
     double ww = 0.0;
     for (int x = 0; x < xmax; ++x) {
-      double t = (x + xmin - center + 0.5) * ss;
-      if (t < 0.0) t = -t;
-      const double wgt = t < 1.0 ? 1.0 - t : 0.0;
+      const double wgt = filter((x + xmin - center + 0.5) * ss);
       k[x] = wgt;
       ww += wgt;
     }
@@ -259,20 +267,18 @@ inline uint8_t pil_clip8(int32_t ss) {
   return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
-}  // namespace
-
-// PIL Image.resize((ow, oh), BILINEAR) of a u8 (h, w, c) image, c = 1
-// ("L") or 3 ("RGB").
-void resize_pil_bilinear_u8(const uint8_t* in, uint8_t* out, int64_t h,
-                            int64_t w, int64_t c, int64_t oh, int64_t ow) {
+// Image.resize((ow, oh), filter) of a u8 (h, w, c) image
+void pil_resample(const uint8_t* in, uint8_t* out, int64_t h, int64_t w,
+                  int64_t c, int64_t oh, int64_t ow, double support,
+                  double (*filter)(double)) {
   if (h == oh && w == ow) {
     std::memcpy(out, in, (size_t)h * w * c);
     return;
   }
   std::vector<int> bx, by;
   std::vector<int32_t> kx, ky;
-  const int ksx = pil_coeffs(w, ow, &bx, &kx);
-  const int ksy = pil_coeffs(h, oh, &by, &ky);
+  const int ksx = pil_coeffs(w, ow, support, filter, &bx, &kx);
+  const int ksy = pil_coeffs(h, oh, support, filter, &by, &ky);
   const bool horizontal = w != ow, vertical = h != oh;
   // the horizontal pass covers only the source rows the vertical pass reads
   const int64_t y_first = vertical ? by[0] : 0;
@@ -316,6 +322,21 @@ void resize_pil_bilinear_u8(const uint8_t* in, uint8_t* out, int64_t h,
       out[yy * ow * c + xx] = pil_clip8(ss);
     }
   }
+}
+
+}  // namespace
+
+// PIL Image.resize((ow, oh), BILINEAR) of a u8 (h, w, c) image, c = 1
+// ("L") or 3 ("RGB").
+void resize_pil_bilinear_u8(const uint8_t* in, uint8_t* out, int64_t h,
+                            int64_t w, int64_t c, int64_t oh, int64_t ow) {
+  pil_resample(in, out, h, w, c, oh, ow, 1.0, pil_triangle);
+}
+
+// PIL Image.resize((ow, oh), BOX), the same shapes
+void resize_pil_box_u8(const uint8_t* in, uint8_t* out, int64_t h, int64_t w,
+                       int64_t c, int64_t oh, int64_t ow) {
+  pil_resample(in, out, h, w, c, oh, ow, 0.5, pil_box);
 }
 
 // cv2.resize(img_f32, (ow, oh), interpolation=INTER_LINEAR) of an image
