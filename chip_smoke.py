@@ -281,6 +281,29 @@ ignored build/):
    by ``native.decode_jpeg``.
 48. The host seconds per severity of each of the 19 corruptions on one
    384x1280 frame.
+The checkpoint, analysis-helper and KITTI-raw slice adds, after phase 48
+(its files under the ignored build/):
+49. Seeded RAFT-12 (calibrated), PWC-Net and FlowNet2 saved as ``.pth``,
+   converted to the JAX package's flax ``.msgpack`` by ``cli.convert``,
+   loaded by ``fetch_model(pretrained_path=x.msgpack)`` and by the
+   ``.pth`` on the card: the same weights, one request of 8 pairs at
+   384x1280 each with the flows bit-equal (cuDNN deterministic) and the
+   kernels' launches of a request (12 ``alt_corr_fwd``; 4 ``warp_fwd`` and
+   5 / 1 ``spatial_corr_fwd``); host seconds to read and decode each file
+   and of each ``fetch_model``.
+50. ``cli.infer --pretrained x.msgpack`` (8 pairs at 375x1242, every .flo
+   the .pth run's bytes), ``cli.evaluate --model x.msgpack`` on a written
+   KITTI layout (EPE and F1 the .pth run's) and ``cli.train
+   --restore_ckpt`` from a params-only ``.msgpack`` (2 RAFT steps, 12
+   ``alt_corr_bwd`` launches each, the restored weights the file's).
+51. ``cli.prepare_train_data`` on a written KITTI raw tree (2 drives of 8
+   frames at 375x1242 with static frames): scenes, kept frames,
+   ``cam.txt``, split; host ms per frame of reading, resizing and
+   encoding; then the patch CLI (FlowNetC) for 2 batches on a 384x1280
+   dump of the tree through ``SequenceFolder``: both correlation kernels'
+   launches.
+52. One RAFT-12 request inside ``utils.profile_trace``: the Chrome trace
+   names ``alt_corr_fwd``; the device's idle share.
 PWC-Net's serving phase (7) also counts its 5 ``spatial_corr_fwd``
 launches per request, holds the flow against the plain warp and the plain
 correlation together, and times pairs/s with the plain correlation too, in
@@ -296,7 +319,8 @@ JPEG decode ms, the loader's samples/s and the train CLI's frames/s from
 files, and one the moving patch's seconds per location and idle share and
 the families' ms per train step, and one the r = 4 and r = 3 kernel times
 and the new configurations' pairs/s and ms per train step, and one the
-host-op digests and the corruptions' seconds.  The last
+host-op digests and the corruptions' seconds, and one the ``.msgpack`` and
+``.pth`` load seconds and the preparation's ms per frame.  The last
 three
 lines are the card's name and
 power limit, a JSON object per
@@ -5439,6 +5463,403 @@ def host_time_phase() -> dict:
     return res
 
 
+MSGPACK_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_msgpack"
+# model -> the kernels' launches of one request of B pairs (phases 6, 7, 20)
+MSGPACK_MODELS = {"RAFT": {"alt_corr_fwd": ITERS},
+                  "PWCNet": {"warp_fwd": 4, "spatial_corr_fwd": 5},
+                  "FlowNet2": {"warp_fwd": 4, "spatial_corr_fwd": 1}}
+MSGPACK_TRAIN_STEPS = 2
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic convolutions, for bit-for-bit comparisons of
+    two models (its default f32 algorithms differ from call to call)."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def msgpack_serve_phase(gen) -> dict:
+    """The JAX package's ``.msgpack`` on the card.  Seeded RAFT-12
+    (calibrated), PWC-Net and FlowNet2 saved as ``.pth`` and converted by
+    the port's ``cli.convert``; ``fetch_model(pretrained_path=x.msgpack)``
+    and ``fetch_model(pretrained_path=x.pth)`` on the card each serve one
+    request of B pairs at HxW: the same weights, the flows bit-equal
+    (cuDNN deterministic), the kernels' launches of a request as phases 6,
+    7 and 20 count them on the .msgpack model.  Host seconds to read and
+    decode each file, and of each ``fetch_model``."""
+    from understanding_flow_robustness_tpu_torch.cli import convert
+    from understanding_flow_robustness_tpu_torch.models import (
+        fetch_model,
+        predict_flow,
+        scale_flow_head,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+    from understanding_flow_robustness_tpu_torch.training.checkpoint import (
+        save_weights,
+    )
+    from understanding_flow_robustness_tpu_torch.utils import msgpack
+
+    shutil.rmtree(MSGPACK_OUT, ignore_errors=True)
+    MSGPACK_OUT.mkdir(parents=True)
+    res = {"launches": {}}
+    with cudnn_deterministic():
+        for name, expect in MSGPACK_MODELS.items():
+            print(f"== {name} from a .msgpack: cli.convert, fetch_model, "
+                  f"{B} pairs at {H}x{W} ==", flush=True)
+            src = fetch_model(name, seed=0)
+            if name == "RAFT":  # the serving phase's calibrated point
+                scale_flow_head(src.module, 0.05)
+            pth, mp = MSGPACK_OUT / f"{name}.pth", MSGPACK_OUT / f"{name}.msgpack"
+            save_weights(str(pth), src.module)
+            del src
+            t = time.perf_counter()
+            convert.main(["--flownet", name, "--src", str(pth),
+                          "--dst", str(mp)])
+            r = {"convert_s": time.perf_counter() - t,
+                 "msgpack_mb": mp.stat().st_size / 1e6}
+            t = time.perf_counter()
+            tree = msgpack.unpackb(mp.read_bytes())
+            r["msgpack_decode_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            sd = torch.load(pth, map_location="cpu", weights_only=True)
+            r["pth_decode_s"] = time.perf_counter() - t
+            del tree, sd
+            models = {}
+            for kind, path in (("msgpack", mp), ("pth", pth)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                models[kind] = fetch_model(name, pretrained_path=str(path),
+                                           seed=1)
+                torch.cuda.synchronize()
+                r[f"{kind}_fetch_s"] = time.perf_counter() - t
+            want = models["pth"].module.state_dict()
+            for k, v in models["msgpack"].module.state_dict().items():
+                # PWC-Net's dead deconv2 is not in a .msgpack: seeded init
+                if not (name == "PWCNet" and k.startswith("deconv2.")):
+                    check(torch.equal(v, want[k]),
+                          f"{name}: {k} from the .msgpack is not the .pth's")
+            a, b = (torch.rand((B, H, W, 3), generator=gen, device="cuda")
+                    for _ in range(2))
+            LAUNCH_COUNTS.clear()
+            flow = predict_flow(models["msgpack"], a, b)
+            torch.cuda.synchronize()
+            n = {k: LAUNCH_COUNTS[k] for k in expect}
+            check(n == expect, f"{name} from the .msgpack: launches {n}, "
+                               f"not {expect}")
+            ref = predict_flow(models["pth"], a, b)
+            check(tuple(flow.shape) == (B, H, W, 2)
+                  and bool(torch.isfinite(flow).all()),
+                  f"{name} from the .msgpack: flow malformed")
+            check(torch.equal(flow, ref),
+                  f"{name}: the .msgpack's flow is not the .pth's, max "
+                  f"|dflow| {(flow - ref).abs().max().item():.3e}")
+            for k, v in n.items():
+                res["launches"][k] = res["launches"].get(k, 0) + v
+            res[name] = r
+            print(f"{name}: {r['msgpack_mb']:.1f} MB .msgpack (cli.convert "
+                  f"{r['convert_s']:.2f} s); host s to read and decode: "
+                  f".msgpack {r['msgpack_decode_s']:.3f}, .pth (torch.load) "
+                  f"{r['pth_decode_s']:.3f}; fetch_model on the card: "
+                  f".msgpack {r['msgpack_fetch_s']:.3f}, .pth "
+                  f"{r['pth_fetch_s']:.3f}; the same weights, the flows "
+                  f"bit-equal; launches a request {n}", flush=True)
+            del models, flow, ref
+            torch.cuda.empty_cache()
+    return res
+
+
+def msgpack_cli_phase(gen) -> dict:
+    """The CLIs on RAFT's ``.msgpack`` of ``msgpack_serve_phase``:
+    ``cli.infer --pretrained`` over 8 pairs at 375x1242 (every .flo the
+    same bytes as from the ``.pth``, 12 ``alt_corr_fwd`` launches);
+    ``cli.evaluate --model`` on a written KITTI layout (EPE and F1 those of
+    the ``.pth``, EVAL_ITERS launches a scene); ``cli.train
+    --restore_ckpt`` from a params-only ``.msgpack`` (the JAX trainer's
+    export): its weights restored, 2 steps, 12 ``alt_corr_fwd`` and 12
+    ``alt_corr_bwd`` launches each.  The layout stays for
+    ``prepare_phase``."""
+    from understanding_flow_robustness_tpu_torch.cli import evaluate, infer
+    from understanding_flow_robustness_tpu_torch.cli import train as cli_train
+    from understanding_flow_robustness_tpu_torch.models import fetch_model
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+    from understanding_flow_robustness_tpu_torch.training.checkpoint import (
+        save_weights_msgpack,
+    )
+
+    pth, mp = MSGPACK_OUT / "RAFT.pth", MSGPACK_OUT / "RAFT.msgpack"
+    res = {"launches": {"alt_corr_fwd": 0, "alt_corr_bwd": 0}}
+    h, w = KITTI_SIZES[0]
+    print(f"== infer CLI from the .msgpack: RAFT-12, 8 pairs at {h}x{w} ==",
+          flush=True)
+    pairs = MSGPACK_OUT / "pairs"
+    pairs.mkdir()
+    for i in range(8):
+        for f in ("10", "11"):
+            (pairs / f"{i:06d}_{f}.png").write_bytes(
+                encode_png_filtered(kitti_frame(gen, h, w)))
+    with cudnn_deterministic():
+        for kind, path in (("msgpack", mp), ("pth", pth)):
+            LAUNCH_COUNTS.clear()
+            out = infer.main(["--flownet", "RAFT", "--pretrained", str(path),
+                              "--dir", str(pairs), "--batch_size", "8",
+                              "--output_dir", str(MSGPACK_OUT / kind)])
+            n = LAUNCH_COUNTS["alt_corr_fwd"]
+            check(out["pairs"] == 8 and n == ITERS,
+                  f"infer CLI from the {kind}: {out['pairs']} pairs, {n} "
+                  "alt_corr_fwd launches")
+            if kind == "msgpack":
+                res["launches"]["alt_corr_fwd"] += n
+        for i in range(8):
+            f = f"{i:06d}.flo"
+            check((MSGPACK_OUT / "msgpack" / f).read_bytes()
+                  == (MSGPACK_OUT / "pth" / f).read_bytes(),
+                  f"infer CLI: {f} from the .msgpack is not the .pth's")
+        print(f"infer CLI: 8 .flo from the .msgpack equal the .pth's, byte "
+              f"for byte; {ITERS} alt_corr_fwd launches", flush=True)
+
+        print(f"== evaluate CLI from the .msgpack: RAFT f32, {EVAL_ITERS} "
+              f"iterations, {KITTI_SCENES} KITTI scenes ==", flush=True)
+        root = MSGPACK_OUT / "kitti"
+        model = fetch_model("RAFT", pretrained_path=str(pth),
+                            mixed_precision=False, iters=EVAL_ITERS)
+        write_kitti_layout(gen, root, model)
+        del model
+        scores = {}
+        for kind, path in (("msgpack", mp), ("pth", pth)):
+            LAUNCH_COUNTS.clear()
+            scores[kind] = evaluate.main([
+                "--model", str(path), "--dataset", "kitti", "--data_roots",
+                json.dumps({"kitti": str(root)})])
+            n = LAUNCH_COUNTS["alt_corr_fwd"]
+            check(n == EVAL_ITERS * KITTI_SCENES,
+                  f"evaluate CLI from the {kind}: {n} alt_corr_fwd launches")
+            if kind == "msgpack":
+                res["launches"]["alt_corr_fwd"] += n
+        check(scores["msgpack"] == scores["pth"] and all(
+            math.isfinite(v) for v in scores["msgpack"].values()),
+            f"evaluate CLI: {scores['msgpack']} from the .msgpack, "
+            f"{scores['pth']} from the .pth")
+        res["evaluate"] = scores["msgpack"]
+        print(f"evaluate CLI: {scores['msgpack']} from the .msgpack, equal "
+              "to the .pth's", flush=True)
+
+    print(f"== train CLI --restore_ckpt params-only .msgpack: RAFT, "
+          f"{MSGPACK_TRAIN_STEPS} steps at batch 2, {TH}x{TW} ==", flush=True)
+    params = MSGPACK_OUT / "RAFT_params.msgpack"
+    src = fetch_model("RAFT", pretrained_path=str(pth), device="cpu")
+    save_weights_msgpack(str(params), src.module)
+    restored = []
+    load = cli_train.load_variables
+
+    def snapshot(path, module):
+        out = load(path, module)
+        restored.append({k: v.detach().cpu().clone()
+                         for k, v in module.state_dict().items()})
+        return out
+
+    ckpt = MSGPACK_OUT / "ckpt"
+    cli_train.load_variables = snapshot
+    try:
+        LAUNCH_COUNTS.clear()
+        out = cli_train.main([
+            "--restore_ckpt", str(params), "--synthetic", "3",
+            "--num_steps", str(MSGPACK_TRAIN_STEPS - 1), "--batch_size", "2",
+            "--image_size", str(TH), str(TW), "--mixed_precision",
+            "--name", "msgpack", "--checkpoint_dir", str(ckpt)])
+    finally:
+        cli_train.load_variables = load
+    n = {k: LAUNCH_COUNTS[k] for k in TRAIN_KERNELS}
+    expect = {k: ITERS * MSGPACK_TRAIN_STEPS for k in TRAIN_KERNELS}
+    check(n == expect and len(out["history"]) == MSGPACK_TRAIN_STEPS
+          and all(math.isfinite(m["loss"]) for m in out["history"]),
+          f"train CLI from the .msgpack: launches {n}, history "
+          f"{out['history']}")
+    want = src.module.state_dict()
+    check(len(restored) == 1 and all(
+        torch.equal(v, want[k]) for k, v in restored[0].items()),
+        "train CLI: the weights restored are not the .msgpack's")
+    for k in TRAIN_KERNELS:
+        res["launches"][k] += n[k]
+    print(f"train CLI: {MSGPACK_TRAIN_STEPS} steps from the params-only "
+          f".msgpack (its weights restored, batch norm at init), losses "
+          + ", ".join(f"{m['loss']:.4f}" for m in out["history"])
+          + f"; launches {n}", flush=True)
+    return res
+
+
+PREP_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_prepare"
+# drive -> its frames' OXTS speeds (m/s): 2 and 3 static frames
+PREP_DRIVES = {"2011_09_26_drive_0001_sync": [5.0, 0.3, 6.0, 7.0, 0.5, 8.0,
+                                              8.5, 9.0],
+               "2011_09_26_drive_0002_sync": [0.1, 3.0, 3.5, 0.2, 4.0, 4.5,
+                                              0.8, 5.0]}
+PREP_P2 = np.array([[721.5377, 0.0, 609.5593, 44.85728],
+                    [0.0, 721.5377, 172.854, 0.2163791],
+                    [0.0, 0.0, 1.0, 0.002745884]])
+
+
+def write_raw_tree(gen, root: Path) -> None:
+    """A KITTI raw date: calib_cam_to_cam.txt and the PREP_DRIVES, each
+    with image_02/data/*.png frames at KITTI's 375x1242 and
+    oxts/data/*.txt packets (30 fields; vf, vl, vu at 8-10)."""
+    from understanding_flow_robustness_tpu_torch.flowviz import io as fio
+
+    date = root / "2011_09_26"
+    date.mkdir(parents=True)
+    (date / "calib_cam_to_cam.txt").write_text(
+        "calib_time: 09-Jan-2012 13:57:47\nP_rect_02: "
+        + " ".join(f"{v:e}" for v in PREP_P2.ravel()) + "\n")
+    rng = np.random.RandomState(PATCH_SEED)
+    h, w = KITTI_SIZES[0]
+    for drive, speeds in PREP_DRIVES.items():
+        imgs, oxts = date / drive / "image_02" / "data", date / drive / "oxts" / "data"
+        imgs.mkdir(parents=True)
+        oxts.mkdir(parents=True)
+        for i, v in enumerate(speeds):
+            fio.write_image(str(imgs / f"{i:010d}.png"), kitti_frame(gen, h, w))
+            vals = rng.randn(30)
+            vals[8:11] = np.array([0.8, 0.36, 0.48]) * v
+            np.savetxt(oxts / f"{i:010d}.txt", vals[None], fmt="%.6f")
+
+
+def prepare_phase(gen) -> dict:
+    """KITTI raw preparation on the card's machine, then patch training on
+    its dump.  ``cli.prepare_train_data`` at its defaults (128x416) on two
+    written drives of 8 frames at 375x1242 with static frames: the scenes,
+    the kept frames, each JPEG's size, ``cam.txt`` (P_rect_02 scaled) and
+    the split; host ms per frame of reading, resizing, encoding and in
+    all.  Then a 384x1280 dump of the same tree, on which the patch CLI
+    (FlowNetC) trains 2 batches through ``SequenceFolder`` and validates
+    on one scene of ``msgpack_cli_phase``'s KITTI layout: both correlation
+    kernels' launches."""
+    from understanding_flow_robustness_tpu_torch.cli import (
+        patch_attack as cli_patch,
+    )
+    from understanding_flow_robustness_tpu_torch.cli import (
+        prepare_train_data,
+    )
+    from understanding_flow_robustness_tpu_torch.native import decode_jpeg
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+
+    print("== prepare_train_data: 2 KITTI raw drives of 8 frames at "
+          f"{KITTI_SIZES[0]}, static frames ==", flush=True)
+    shutil.rmtree(PREP_OUT, ignore_errors=True)
+    write_raw_tree(gen, PREP_OUT / "raw")
+    kept = {d: sum(v >= 1.0 for v in s) for d, s in PREP_DRIVES.items()}
+    dump = PREP_OUT / "dump"
+    t = time.perf_counter()
+    out = prepare_train_data.main(["--dataset_dir", str(PREP_OUT / "raw"),
+                                   "--dump_root", str(dump)])
+    wall = time.perf_counter() - t
+    frames = sum(kept.values())
+    check(out["scenes"] == sorted(PREP_DRIVES) and out["frames"] == frames,
+          f"prepare: scenes {out['scenes']}, {out['frames']} frames, not "
+          f"{sorted(PREP_DRIVES)} and {frames}")
+    for drive, n in kept.items():
+        jpgs = sorted((dump / drive).glob("*.jpg"))
+        check(len(jpgs) == n and all(
+            decode_jpeg(p.read_bytes()).shape == (128, 416, 3) for p in jpgs),
+            f"prepare: {drive} holds {len(jpgs)} frames, not {n} of 128x416")
+        k = np.genfromtxt(dump / drive / "cam.txt", delimiter=",")
+        h, w = KITTI_SIZES[0]
+        want = PREP_P2[:, :3] * np.array([[416 / w], [128 / h], [1]])
+        check(np.allclose(k, want, rtol=1e-6), f"prepare: cam.txt {k}")
+    check((dump / "train.txt").read_text() == sorted(PREP_DRIVES)[1] + "\n"
+          and (dump / "val.txt").read_text() == sorted(PREP_DRIVES)[0] + "\n",
+          "prepare: train.txt / val.txt split")
+    res = {f"{k}_ms": 1e3 * v / frames for k, v in out["seconds"].items()}
+    res["total_ms"] = 1e3 * wall / frames
+    print(f"prepare: {frames} frames of {sum(map(len, PREP_DRIVES.values()))}"
+          f" kept in 2 scenes; host ms per frame: read {res['read_ms']:.2f}, "
+          f"resize {res['resize_ms']:.2f}, encode {res['encode_ms']:.2f} "
+          f"(summed over the threads), wall {res['total_ms']:.2f} over the "
+          "8-thread pool", flush=True)
+
+    print("== patch CLI on the prepared dump: FlowNetC, 2 batches through "
+          "SequenceFolder ==", flush=True)
+    full = PREP_OUT / "dump_384"
+    prepare_train_data.main(["--dataset_dir", str(PREP_OUT / "raw"),
+                             "--dump_root", str(full), "--height", "384",
+                             "--width", "1280"])
+    LAUNCH_COUNTS.clear()
+    with recording(cli_patch, "make_patch_attack_step", True) as steps, \
+            recording(cli_patch, "validate_patch") as metrics, \
+            valset_cut_to(1):
+        patch, mask = cli_patch.main([
+            "--flownet", "FlowNetC", "--data", str(full), "--kitti-data",
+            str(MSGPACK_OUT / "kitti"), "--epochs", "1", "--epoch-size",
+            "2", "--patch-size", "0.3", "--output", str(PREP_OUT / "attack"),
+            "--name", "prepared"])
+    counts = [r[4] for r, _ in steps]
+    expect = {"spatial_corr_fwd": len(counts) + sum(counts) + 2,
+              "spatial_corr_bwd": sum(counts)}
+    n = {k: LAUNCH_COUNTS[k] for k in expect}
+    check(len(counts) == 2 and n == expect and len(metrics) == 1
+          and all(math.isfinite(v) for v in metrics[0].values()),
+          f"patch CLI on the dump: {len(counts)} batches of {counts} "
+          f"iterations, launches {n}, not {expect}; metrics {metrics}")
+    res.update({f"launches/{k}": v for k, v in n.items()})
+    print(f"patch CLI on the dump: 2 batches of {counts} inner iterations, "
+          f"launches {n}; epe {metrics[0]['epe']:.3f} adv_epe "
+          f"{metrics[0]['adv_epe']:.3f}", flush=True)
+    shutil.rmtree(PREP_OUT, ignore_errors=True)
+    shutil.rmtree(MSGPACK_OUT, ignore_errors=True)
+    return res
+
+
+def profile_phase(gen) -> dict:
+    """One RAFT-12 request (8 pairs at HxW, calibrated seeded weights)
+    inside ``utils.profile_trace``: the Chrome trace is written and names
+    the ``alt_corr_fwd`` kernel; 12 launches; the device's idle share over
+    the request."""
+    from understanding_flow_robustness_tpu_torch.models import (
+        fetch_model,
+        predict_flow,
+        scale_flow_head,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+    from understanding_flow_robustness_tpu_torch.utils import profile_trace
+
+    print(f"== profile_trace of one RAFT-12 request, {B} pairs at {H}x{W} ==",
+          flush=True)
+    log = Path(__file__).resolve().parent / "build" / "chip_smoke_trace"
+    shutil.rmtree(log, ignore_errors=True)
+    model = fetch_model("RAFT")
+    scale_flow_head(model.module, 0.05)
+    a, b = (torch.rand((B, H, W, 3), generator=gen, device="cuda")
+            for _ in range(2))
+    predict_flow(model, a, b)  # warm-up
+    torch.cuda.synchronize()
+    LAUNCH_COUNTS.clear()
+    with profile_trace(str(log)) as prof:
+        flow = predict_flow(model, a, b)
+        torch.cuda.synchronize()
+    n = LAUNCH_COUNTS["alt_corr_fwd"]
+    files = sorted(log.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"profile_trace wrote {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "alt_corr_fwd" in e.get("name", "")]
+    check(n == ITERS and len(kernels) == ITERS
+          and bool(torch.isfinite(flow).all()),
+          f"profile_trace: {n} launches, {len(kernels)} alt_corr_fwd kernel "
+          "events in the trace")
+    busy, span = device_activity(prof)
+    res = {"launches": n, "trace_mb": files[0].stat().st_size / 1e6,
+           "idle_share": 1 - busy / span}
+    print(f"profile_trace: {files[0].name} ({res['trace_mb']:.1f} MB) names "
+          f"alt_corr_fwd in {len(kernels)} kernel events "
+          f"({kernels[0]['name'][:60]}...); device idle "
+          f"{100 * res['idle_share']:.1f} % of the request", flush=True)
+    shutil.rmtree(log, ignore_errors=True)
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device: torch.cuda.is_available() is False")
@@ -5541,6 +5962,12 @@ def main() -> None:
     cpres = phase(circle_patch_phase)
     htres = phase(host_time_phase)
     t_host = time.perf_counter() - t_host
+    t_ckpt = time.perf_counter()
+    msres = phase(msgpack_serve_phase, gen)
+    mcres = phase(msgpack_cli_phase, gen)
+    prepres = phase(prepare_phase, gen)
+    profres = phase(profile_phase, gen)
+    t_ckpt = time.perf_counter() - t_ckpt
     print(f"all phases, build included: {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(f"patch attack, FlowNetC, batch {PB} at {PH}x{PW} ({card}): "
@@ -5602,6 +6029,19 @@ def main() -> None:
               f"{k} {np.mean(v):.4f}" for k, v in htres.items())
           + f"; the phases {t_host:.1f} s", flush=True)
 
+    print(f".msgpack checkpoints, KITTI raw preparation ({card}): host s "
+          "to read and decode / fetch_model on the card, .msgpack vs .pth: "
+          + ", ".join(f"{m} {msres[m]['msgpack_decode_s']:.3f} / "
+                      f"{msres[m]['msgpack_fetch_s']:.3f} vs "
+                      f"{msres[m]['pth_decode_s']:.3f} / "
+                      f"{msres[m]['pth_fetch_s']:.3f} "
+                      f"({msres[m]['msgpack_mb']:.1f} MB)"
+                      for m in MSGPACK_MODELS)
+          + f"; prepare ms per 375x1242 frame: read {prepres['read_ms']:.2f},"
+          f" resize {prepres['resize_ms']:.2f}, encode "
+          f"{prepres['encode_ms']:.2f}, wall {prepres['total_ms']:.2f}; "
+          f"the phases {t_ckpt:.1f} s", flush=True)
+
     print(card)  # name, power limit: nvidia-smi's own line
 
     def shape_err(r, shape="patch"):  # the worst case at a path's shape
@@ -5633,7 +6073,10 @@ def main() -> None:
                            for c in ("small", "wocontext"))
                      + ccres["evaluate_small"]["launches"]
                      + ccres["parity"]["launches/alt_corr_fwd"]
-                     + cpres["launches/alt_corr_fwd"]),
+                     + cpres["launches/alt_corr_fwd"]
+                     + msres["launches"]["alt_corr_fwd"]
+                     + mcres["launches"]["alt_corr_fwd"]
+                     + profres["launches"]),
         "max_abs_err": kres[fwd],
         "ms": kres[f"{fwd}/ms"],
         "plain_ms": kres[f"{fwd}/plain_ms"],
@@ -5665,7 +6108,8 @@ def main() -> None:
                            for r in cfg_train.values())
                      + sum(ccres[f"train/{c}"].get("launches/alt_corr_bwd", 0)
                            for c in ("small", "wocontext"))
-                     + ccres["parity"]["launches/alt_corr_bwd"]),
+                     + ccres["parity"]["launches/alt_corr_bwd"]
+                     + mcres["launches"]["alt_corr_bwd"]),
         "max_abs_err": bres[fwd],
         "ms": bres[f"{fwd}/ms"],
         "plain_ms": bres[f"{fwd}/plain_ms"],
@@ -5711,7 +6155,8 @@ def main() -> None:
                      + f2ares["cli_launches/warp_fwd"]
                      + emres["launches/warp_fwd"]
                      + ftres["launches/warp_fwd"]
-                     + fvres["launches/warp_fwd"]),
+                     + fvres["launches/warp_fwd"]
+                     + msres["launches"]["warp_fwd"]),
         "max_abs_err": warp["max_abs_err"],
         "ms": warp["ms"],
         "plain_ms": warp["plain_ms"],
@@ -5770,7 +6215,9 @@ def main() -> None:
                      + cfg_serve["spatial"]["launches/spatial_corr_fwd"]
                      + cfg_train["spatial"]["launches/spatial_corr_fwd"]
                      + ccres["train/spatial"]["launches/spatial_corr_fwd"]
-                     + hcres["launches/spatial_corr_fwd"]),
+                     + hcres["launches/spatial_corr_fwd"]
+                     + msres["launches"]["spatial_corr_fwd"]
+                     + prepres["launches/spatial_corr_fwd"]),
         "max_abs_err": scres["flownetc"]["fwd_err"],
         "ms": scres["flownetc"]["ms"],
         "plain_ms": scres["flownetc"]["plain_ms"],
@@ -5810,7 +6257,8 @@ def main() -> None:
                      + fvres["launches/spatial_corr_bwd"]
                      + cfg_train["spatial"]["launches/spatial_corr_bwd"]
                      + ccres["train/spatial"]["launches/spatial_corr_bwd"]
-                     + hcres["launches/spatial_corr_bwd"]),
+                     + hcres["launches/spatial_corr_bwd"]
+                     + prepres["launches/spatial_corr_bwd"]),
         "max_abs_err": scres["attack"]["bwd_err"],
         "ms": scres["attack/bwd"]["ms"],
         "plain_ms": scres["attack/bwd"]["plain_ms"],

@@ -187,7 +187,9 @@ def test_evaluate_refusals(setup):
     for argv, match in ((["--n_devices", "2"], "A13"),):
         with pytest.raises(NotImplementedError, match=match):
             tcli.main(["--model", pth, "--dataset", "kitti"] + argv)
-    with pytest.raises(NotImplementedError, match="JAX package"):
+    # a .msgpack is read (tests/test_torch_checkpoint_msgpack.py); a
+    # missing one is refused as a missing .pth is
+    with pytest.raises(FileNotFoundError, match="x.msgpack"):
         tcli.main(["--model", "x.msgpack", "--dataset", "kitti"])
     with pytest.raises(NotImplementedError, match="A13"):
         tev.validate_kitti(None, [], mesh=object())

@@ -29,8 +29,12 @@ their 3-D true-motion placement and the universal perturbation
 the readers and datasets (``flowviz.io`` on the port's own PNG codec,
 ``data``, the host library ``native`` built with g++), evaluation
 (``training.evaluate``, ``cli.evaluate``) and batch inference over files
-(``cli.infer``).  Entry points run on the card unless the caller asks for
-the CPU.
+(``cli.infer``); the JAX package's flax ``.msgpack`` checkpoints
+(``utils.msgpack``, ``training.checkpoint.load_variables``,
+``cli.convert``), the analysis helpers (``flowviz.flowlib``,
+``utils.viz``, ``utils.profiling``) and KITTI raw preparation
+(``cli.prepare_train_data``).  Entry points run on the card unless the
+caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

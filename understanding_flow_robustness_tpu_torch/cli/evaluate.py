@@ -7,10 +7,12 @@ ported registry architecture (``--arch``, RAFT by default, like the
 reference), or with ``--submission`` writes the Sintel or KITTI benchmark
 submission.  RAFT runs 24 iterations (32 on Sintel) in f32 unless
 ``--mixed_precision``.  ``--model`` is a reference ``.pth``/``.pth.tar``
-checkpoint or a weights file of the port's trainer (``save_weights``),
-loaded strictly; ``--small`` builds small RAFT for it.  ``--device`` is the
-card unless asked for ``cpu`` (no fallback).  Not ported: flax ``.msgpack``
-checkpoints (the JAX package's format) and ``--n_devices`` (ROADMAP A13).
+checkpoint, a weights file of the port's trainer (``save_weights``) or a
+flax ``.msgpack`` of the JAX package (``ufr-convert``'s full variables or
+its trainer's params-only export; ``cli.convert`` writes one), loaded
+strictly; ``--small`` builds small RAFT for it.  ``--device`` is the card
+unless asked for ``cpu`` (no fallback).  Not ported: ``--n_devices``
+(ROADMAP A13).
 
 Example:
   python -m understanding_flow_robustness_tpu_torch.cli.evaluate \\
@@ -32,8 +34,9 @@ def build_parser():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--model", required=True,
-                   help="checkpoint: a reference .pth/.pth.tar or a "
-                        "weights file of the port's trainer")
+                   help="checkpoint: a reference .pth/.pth.tar, a "
+                        "weights file of the port's trainer, or a flax "
+                        ".msgpack (full variables or params only)")
     p.add_argument("--dataset", required=True,
                    choices=["chairs", "sintel", "kitti"],
                    help="dataset for evaluation")
@@ -70,11 +73,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.model.endswith(".msgpack"):
-        raise NotImplementedError(
-            "flax .msgpack checkpoints are the JAX package's format "
-            "(understanding_flow_robustness_tpu.cli.evaluate); pass a "
-            ".pth file")
     if args.n_devices:
         raise NotImplementedError(
             "--n_devices: mesh-sharded KITTI validation is not ported yet "

@@ -45,7 +45,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flownet", default="RAFT",
                    help="model ID (models.fetch_model)")
     p.add_argument("--pretrained", default=None,
-                   help="checkpoint file (.pth/.pth.tar); seeded random "
+                   help="checkpoint file (.pth/.pth.tar or a flax "
+                        ".msgpack); seeded random "
                         "weights when omitted")
     p.add_argument("--pairs", default=None,
                    help="text file: two image paths per line")

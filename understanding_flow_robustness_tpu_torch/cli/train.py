@@ -28,7 +28,10 @@ RAFT trains in every configuration of the JAX CLI: ``--small``, ``--fnorm``,
 ``--model_kwargs`` (a JSON dict of module keyword arguments) and ``--DEBUG``
 (3 iterations, no checkpoints), and RAFT_FlowNetCEncoder_WoContext by its
 ID.  The flags the reference parses but never builds raise, as in the JAX
-CLI.  Multi-device training raises with the ROADMAP item that ports it.
+CLI.  ``--restore_ckpt`` starts from a weights-only ``.pth`` or a flax
+``.msgpack`` (the JAX trainer's params-only export, or ``ufr-convert``'s
+full variables).  Multi-device training raises with the ROADMAP item that
+ports it.
 
     python -m understanding_flow_robustness_tpu_torch.cli.train --model RAFT \\
         --stage kitti --num_steps 100 --batch_size 4 \\
@@ -51,7 +54,7 @@ import numpy as np
 from ..attacks.global_attacks import PerturbConfig
 from ..models import fetch_model
 from ..training import TrainConfig, train
-from ..training.checkpoint import load_weights
+from ..training.checkpoint import load_variables, load_weights
 
 # flags of the JAX CLI that belong to paths not ported yet
 _NOT_PORTED_FLAGS = {"n_devices": "A13"}
@@ -80,7 +83,9 @@ def build_parser():
                    help="training stage; RAFT's batch norm is frozen for "
                         "every stage but chairs (train.py:130-137)")
     p.add_argument("--restore_ckpt", default=None,
-                   help="weights-only .pth to start from")
+                   help="weights to start from: a weights-only .pth, or a "
+                        "flax .msgpack (params only, the JAX trainer's "
+                        "export, or full variables)")
     # the reference's defaults (training/train.py:370-373)
     p.add_argument("--lr", type=float, default=0.000125)
     p.add_argument("--num_steps", type=int, default=100000)
@@ -405,7 +410,9 @@ def main(argv=None) -> dict:
                         **kwargs)
     n_params = sum(p.numel() for p in model.module.parameters())
     print(f"Parameter Count: {n_params}")  # training/train.py:102
-    if args.restore_ckpt:
+    if args.restore_ckpt and args.restore_ckpt.endswith(".msgpack"):
+        load_variables(args.restore_ckpt, model.module)  # train.py:297-302
+    elif args.restore_ckpt:
         load_weights(args.restore_ckpt, model.module)
 
     cfg = TrainConfig(

@@ -1,8 +1,12 @@
-"""Flow -> RGB rendering (reference: flowutils/flowlib.py), copied from the
-JAX package's ``flowviz/flowlib.py``: the Middlebury color wheel
-(flowlib.py:513-567), ``compute_color`` (:469-510) and ``flow_to_image``
-(:269-307).  Host-side numpy; the attack logs render their flow PNGs with
-it.
+"""Flow -> RGB rendering and the flow analysis helpers (reference:
+flowutils/flowlib.py), copied from the JAX package's ``flowviz/flowlib.py``:
+the Middlebury color wheel (flowlib.py:513-567), ``compute_color``
+(:469-510) and ``flow_to_image`` (:269-307), with which the attack logs
+render their flow PNGs; ``flow_error`` / ``evaluate_flow`` (mean EPE over
+known, nonzero-GT pixels), ``interp_gt_flow`` (sparse GT densified by
+scipy's ``griddata``), ``segment_flow`` (direction octants),
+``disp_to_flowfile`` and ``scale_image``, with the float32 round trips the
+JAX package keeps.  Host-side numpy and scipy.
 """
 
 from __future__ import annotations
@@ -88,3 +92,96 @@ def flow_to_image(flow: np.ndarray, maxr: float = -1) -> np.ndarray:
     img = compute_color(u, v)
     img[np.repeat(unknown[:, :, None], 3, axis=2)] = 0
     return np.uint8(img)
+
+
+def flow_error(tu, tv, u, v) -> float:
+    """Mean EPE over known, nonzero-GT pixels (flowlib.py:192-245)."""
+    tu = np.array(tu, copy=True)
+    tv = np.array(tv, copy=True)
+    u = np.array(u, copy=True)
+    v = np.array(v, copy=True)
+    unknown = (np.abs(tu) > UNKNOWN_FLOW_THRESH) | (np.abs(tv) > UNKNOWN_FLOW_THRESH)
+    for a in (tu, tv, u, v):
+        a[unknown] = 0
+    keep = (np.abs(tu) > 0) | (np.abs(tv) > 0)
+    epe = np.sqrt((tu - u) ** 2 + (tv - v) ** 2)
+    return float(np.mean(epe[keep]))
+
+
+def evaluate_flow(gt_flow: np.ndarray, pred_flow: np.ndarray) -> float:
+    """flowlib.py:326-341."""
+    return flow_error(
+        gt_flow[:, :, 0], gt_flow[:, :, 1],
+        pred_flow[:, :, 0], pred_flow[:, :, 1],
+    )
+
+
+def interp_gt_flow(mat: np.ndarray, mask: np.ndarray | None = None) -> np.ndarray:
+    """Sparse-GT densification via griddata (flowlib.py:247-266)."""
+    from scipy import interpolate
+
+    mat = np.array(mat, dtype=np.float64, copy=True)
+    if mask is not None:
+        mat[mask == 0] = np.nan
+    x = np.arange(mat.shape[1])
+    y = np.arange(mat.shape[0])
+    xx, yy = np.meshgrid(x, y)
+    valid = ~np.isnan(mat[:, :, 0])
+    pts = (xx[valid], yy[valid])
+    vals = mat[valid].reshape(-1, 2)
+    return interpolate.griddata(pts, vals, (xx, yy), method="linear",
+                                fill_value=1e8)
+
+
+SMALLFLOW = 0.0
+LARGEFLOW = 1e8
+
+
+def segment_flow(flow: np.ndarray) -> np.ndarray:
+    """Octant segmentation of a flow field (flowlib.py:155-189): label each
+    pixel 0-8 by the direction octant of (u, v); 0 = zero flow.  Mutates a
+    copy (the reference mutates its input's u channel in place)."""
+    u = np.array(flow[:, :, 0], dtype=np.float64, copy=True)
+    v = np.array(flow[:, :, 1], dtype=np.float64, copy=True)
+
+    large = (np.abs(u) > LARGEFLOW) | (np.abs(v) > LARGEFLOW)
+    zero = (v == 0) & (u == 0)
+    u[np.abs(u) == SMALLFLOW] = 0.00001
+    tan_value = v / u
+
+    seg = np.zeros(u.shape)
+    seg[(tan_value < 1) & (tan_value >= 0) & (u > 0) & (v >= 0)] = 1
+    seg[(tan_value >= 1) & (u >= 0) & (v >= 0)] = 2
+    seg[(tan_value < -1) & (u <= 0) & (v >= 0)] = 3
+    seg[(tan_value < 0) & (tan_value >= -1) & (u < 0) & (v >= 0)] = 4
+    seg[(tan_value >= 0) & (tan_value < 1) & (u < 0) & (v <= 0)] = 5
+    seg[(tan_value >= 1) & (u <= 0) & (v <= 0)] = 6
+    seg[(tan_value < -1) & (u >= 0) & (v <= 0)] = 7
+    seg[(tan_value >= -1) & (tan_value < 0) & (u > 0) & (v <= 0)] = 8
+    seg[zero] = 0
+    seg[large] = 0
+    return seg
+
+
+def disp_to_flowfile(disp: np.ndarray, filename: str) -> None:
+    """Write a disparity map as a .flo file with v == 0
+    (flowlib.py:362-379)."""
+    with open(filename, "wb") as f:
+        np.array([202021.25], np.float32).tofile(f)
+        h, w = disp.shape[:2]
+        np.array([w], np.int32).tofile(f)
+        np.array([h], np.int32).tofile(f)
+        np.dstack([disp, np.zeros((h, w), np.float32)]).astype(
+            np.float32
+        ).tofile(f)
+
+
+def scale_image(image: np.ndarray, new_range) -> np.ndarray:
+    """Linear rescale into [min(new_range), max(new_range)] as uint8
+    (flowlib.py:452-466)."""
+    # min/max round through float32 like the reference (flowlib.py:459-460)
+    lo = np.min(image).astype(np.float32)
+    hi = np.max(image).astype(np.float32)
+    lo_n = np.array(min(new_range), np.float32)
+    hi_n = np.array(max(new_range), np.float32)
+    return ((image - lo) / (hi - lo) * (hi_n - lo_n) + lo_n).astype(np.uint8)

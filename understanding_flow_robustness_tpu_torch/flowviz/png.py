@@ -46,6 +46,14 @@ def _chunks(data: bytes):
         pos += 12 + length
 
 
+def png_size(data: bytes) -> tuple:
+    """(width, height) from a PNG file's leading IHDR chunk (its first 24
+    bytes suffice), as ``Image.open(path).size`` gives it."""
+    if data[:8] != SIGNATURE or data[12:16] != b"IHDR":
+        raise ValueError("not a PNG file")
+    return struct.unpack(">II", data[16:24])
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """PNG file bytes -> (H, W) or (H, W, C) uint8 / uint16 samples."""
     if data[:8] != SIGNATURE:

@@ -3,6 +3,7 @@ PWC-Net, the FlowNet family, FlowNet2 and its partial stacks), NCHW
 ``nn.Module``s."""
 
 from .convert import (
+    flax_variables,
     flownet_c_flex_state_dict_from_jax,
     flownet2_state_dict_from_jax,
     flownet_c_state_dict_from_jax,
@@ -12,6 +13,7 @@ from .convert import (
     pwcnet_state_dict_from_jax,
     raft_state_dict_from_jax,
     spynet_state_dict_from_jax,
+    state_dict_from_flax,
 )
 from .flownet2 import (
     FlowNet2,
@@ -61,6 +63,7 @@ __all__ = [
     "checkpoint_arg",
     "device_arg",
     "fetch_model",
+    "flax_variables",
     "flownet2_state_dict_from_jax",
     "flownet_c_flex_state_dict_from_jax",
     "flownet_c_state_dict_from_jax",
@@ -75,5 +78,6 @@ __all__ = [
     "raft_state_dict_from_jax",
     "scale_flow_head",
     "spynet_state_dict_from_jax",
+    "state_dict_from_flax",
     "upsample_flow_convex",
 ]

@@ -5,14 +5,17 @@ variables and the port (counterpart of
 Port modules carry the reference's parameter names, so a reference
 checkpoint is a port ``state_dict`` once its wrappers are removed
 (``load_reference_state_dict``; SPyNet's per-level files:
-``load_spynet_dir``), and the JAX package's ``convert_raft`` /
-``convert_pwcnet`` / ``convert_flownet_c`` / ``convert_flownet_c_flex`` /
+``load_spynet_dir``).  ``convert_raft`` / ``convert_pwcnet`` /
+``convert_flownet_c`` / ``convert_flownet_c_flex`` /
 ``convert_flownet_c_larger`` / ``convert_flownet_s`` / ``convert_flownet2``
-map a port ``state_dict`` to flax variables.  ``raft_state_dict_from_jax``,
+are the port's copy of the JAX package's rules from a state dict to flax
+variables, and ``convert_spynet`` lays SpyNet out as the JAX package's
+``convert_spynet_dir`` does; ``flax_variables(module)`` picks the rules by
+the module's type.  ``raft_state_dict_from_jax``,
 ``pwcnet_state_dict_from_jax``, ``spynet_state_dict_from_jax``,
 ``flownet_c_state_dict_from_jax``, ``flownet_c_flex_state_dict_from_jax``,
 ``flownet_s_state_dict_from_jax`` and ``flownet2_state_dict_from_jax`` go
-the other way.
+the other way (``state_dict_from_flax(module, variables)``).
 """
 
 from __future__ import annotations
@@ -108,19 +111,26 @@ def raft_state_dict_from_jax(variables) -> dict:
     return sd
 
 
+def _f32_tensor(x) -> torch.Tensor:
+    """``x`` as an f32 CPU tensor sharing its memory where it can (a
+    read-only array, e.g. a JAX array's, is copied first)."""
+    a = np.asarray(x, np.float32)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
 def _oihw(kernel) -> torch.Tensor:
     """A flax HWIO conv kernel as a torch Conv2d weight (O, I, kh, kw): the
-    inverse of the JAX package's ``_conv_w``."""
-    return torch.from_numpy(np.ascontiguousarray(
-        np.array(kernel, np.float32).transpose(3, 2, 0, 1)))
+    inverse of the JAX package's ``_conv_w``; a new tensor (torch's
+    parallel copy: numpy's strided one takes 4x as long on FlowNet2)."""
+    return _f32_tensor(kernel).permute(3, 2, 0, 1).contiguous()
 
 
 def _iohw(kernel) -> torch.Tensor:
     """A flax (kh, kw, I, O) transposed-conv kernel as a torch
     ConvTranspose2d weight (I, O, kh, kw): the inverse of the JAX
-    package's ``_convT_w`` (convert.py:30-31), not of ``_conv_w``."""
-    return torch.from_numpy(np.ascontiguousarray(
-        np.array(kernel, np.float32).transpose(2, 3, 0, 1)))
+    package's ``_convT_w`` (convert.py:30-31), not of ``_conv_w``; a new
+    tensor."""
+    return _f32_tensor(kernel).permute(2, 3, 0, 1).contiguous()
 
 
 def _bias(b) -> torch.Tensor:
@@ -267,3 +277,356 @@ def load_spynet_dir(weights_dir: str, nlevels: int = 6,
                     f"{stem}-{attr}.pth.tar", map_location="cpu",
                     weights_only=True).float()
     return sd
+
+
+# ---------------------------------------------------------------------------
+# Port state dict -> flax variables: the port's copy of the JAX package's
+# convert_<model> rules (models/convert.py:26-384), in numpy
+# ---------------------------------------------------------------------------
+
+def _conv_w(x):
+    return np.ascontiguousarray(np.transpose(x, (2, 3, 1, 0)))
+
+
+def _convT_w(x):
+    return np.ascontiguousarray(np.transpose(x, (2, 3, 0, 1)))
+
+
+def _ident(x):
+    return np.asarray(x)
+
+
+def _set(tree: dict, path: tuple, value) -> None:
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def to_numpy_state_dict(sd) -> dict:
+    """A state dict (of tensors or arrays) as f32-or-native numpy arrays,
+    without the ``module.`` prefix and ``num_batches_tracked`` entries
+    (the JAX package's ``to_numpy_state_dict``)."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if k.endswith("num_batches_tracked"):
+            continue
+        out[k] = np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach")
+                            else v)
+    return out
+
+
+# a leaf's transform applied to its shape (flax_shapes)
+_SHAPE_OF = {_conv_w: lambda s: (s[2], s[3], s[1], s[0]),
+             _convT_w: lambda s: (s[2], s[3], s[0], s[1]),
+             _ident: lambda s: s}
+
+
+def _apply_rules(sd: dict, rules: list) -> dict:
+    """Each key goes to the first rule whose pattern matches it in full;
+    a rule returning None drops the key, and a key no rule matches
+    raises (strict loading).  A value that is a shape tuple gives the
+    converted leaf's shape."""
+    params: dict = {}
+    batch_stats: dict = {}
+    for key, val in sd.items():
+        for pattern, fn in rules:
+            m = re.fullmatch(pattern, key)
+            if m is None:
+                continue
+            res = fn(m)
+            if res is None:
+                break
+            coll, path, xform = res
+            _set(params if coll == "params" else batch_stats, path,
+                 _SHAPE_OF[xform](val) if isinstance(val, tuple)
+                 else xform(val))
+            break
+        else:
+            raise KeyError(f"unmapped checkpoint key: {key}")
+    out = {"params": params}
+    if batch_stats:
+        out["batch_stats"] = batch_stats
+    return out
+
+
+def _bn_leaf(attr: str):
+    return {
+        "weight": ("params", "scale", _ident),
+        "bias": ("params", "bias", _ident),
+        "running_mean": ("batch_stats", "mean", _ident),
+        "running_var": ("batch_stats", "var", _ident),
+    }[attr]
+
+
+def _seq_block_rule(prefix_map, name_pattern: str, deconv: bool = False):
+    """The reference's Sequential conv()/deconv() blocks: ``<name>.0.*``
+    the conv, ``<name>.1.*`` its batch norm."""
+    sub = "deconv" if deconv else "conv"
+    w_xform = _convT_w if deconv else _conv_w
+
+    def fn(m):
+        base = prefix_map(m.group(1))
+        attr = m.group("attr")
+        if m.group("idx") == "0":
+            if attr == "weight":
+                return ("params", base + (sub, "kernel"), w_xform)
+            return ("params", base + (sub, "bias"), _ident)
+        coll, leaf, xform = _bn_leaf(attr)
+        return (coll, base + ("bn", leaf), xform)
+
+    return (rf"({name_pattern})\.(?P<idx>[01])\."
+            rf"(?P<attr>weight|bias|running_mean|running_var)", fn)
+
+
+def _plain_conv_rule(name_pattern: str, prefix_map, deconv: bool = False):
+    w_xform = _convT_w if deconv else _conv_w
+
+    def fn(m):
+        base = prefix_map(m.group(1))
+        if m.group("attr") == "weight":
+            return ("params", base + ("kernel",), w_xform)
+        return ("params", base + ("bias",), _ident)
+
+    return (rf"({name_pattern})\.(?P<attr>weight|bias)", fn)
+
+
+_FLOWNET_DECODER_CONVT = r"upsampled_flow\d_to_\d"
+
+
+def _flownet_rules(prefix: tuple = ()) -> list:
+    def p(name):
+        return prefix + (name,)
+    return [
+        _seq_block_rule(p, r"conv\d(?:_\d)?|conv_redir|conv0|inter_conv\d"),
+        _seq_block_rule(p, r"deconv\d", deconv=True),
+        _plain_conv_rule(r"predict_flow\d", p),
+        _plain_conv_rule(_FLOWNET_DECODER_CONVT, p, deconv=True),
+    ]
+
+
+def convert_flownet_s(sd: dict) -> dict:
+    """The registry's FlowNetS (FlowNet2-S): its layers under ``net``."""
+    return _apply_rules(sd, _flownet_rules(("net",)))
+
+
+def convert_flownet_c(sd: dict) -> dict:
+    return _apply_rules(sd, _flownet_rules())
+
+
+def convert_flownet_c_flex(sd: dict) -> dict:
+    """FlowNetC_flexible_larger_field: ``convs1.0.0.weight`` ->
+    ``convs1_0``; the flat names (``conv1``) take the base rules."""
+
+    def flex_fn(m):
+        base = (f"convs{m.group('stage')}_{m.group('rep')}",)
+        if m.group("idx") == "0":
+            if m.group("attr") == "weight":
+                return ("params", base + ("conv", "kernel"), _conv_w)
+            return ("params", base + ("conv", "bias"), _ident)
+        coll, leaf, xform = _bn_leaf(m.group("attr"))
+        return (coll, base + ("bn", leaf), xform)
+
+    rules = [(r"convs(?P<stage>[123])\.(?P<rep>\d)\.(?P<idx>[01])\."
+              r"(?P<attr>weight|bias|running_mean|running_var)", flex_fn)]
+    return _apply_rules(sd, rules + _flownet_rules())
+
+
+def convert_flownet_c_larger(sd: dict) -> dict:
+    """FlowNetC_larger_field: ``conv1``/``conv11``/... renamed into the
+    flexible layout."""
+    stage_map = {"conv1": "convs1.0", "conv11": "convs1.1",
+                 "conv2": "convs2.0", "conv21": "convs2.1",
+                 "conv3": "convs3.0", "conv31": "convs3.1"}
+    renamed = {}
+    for k, v in sd.items():
+        head, _, rest = k.partition(".")
+        renamed[f"{stage_map[head]}.{rest}" if head in stage_map else k] = v
+    return convert_flownet_c_flex(renamed)
+
+
+def convert_flownet2(sd: dict) -> dict:
+    """The FlowNet2 cascade: each sub-network's FlowNet-family keys under
+    its prefix."""
+    def fn_for(deconv: bool, seq: bool):
+        w = _convT_w if deconv else _conv_w
+
+        def fn(m):
+            base = (m.group("sub"), m.group("name"))
+            attr = m.group("attr")
+            if seq:
+                if m.group("idx") == "0":
+                    leaf = "deconv" if deconv else "conv"
+                    if attr == "weight":
+                        return ("params", base + (leaf, "kernel"), w)
+                    return ("params", base + (leaf, "bias"), _ident)
+                coll, leaf, xform = _bn_leaf(attr)
+                return (coll, base + ("bn", leaf), xform)
+            if attr == "weight":
+                return ("params", base + ("kernel",), w)
+            return ("params", base + ("bias",), _ident)
+
+        return fn
+
+    subs = r"(?P<sub>flownetc|flownets_1|flownets_2|flownets_d|flownetfusion)"
+    bn_attr = r"(?P<attr>weight|bias|running_mean|running_var)"
+    rules = [
+        (rf"{subs}\.(?P<name>conv\d(?:_\d)?|conv_redir|conv0|inter_conv\d)"
+         rf"\.(?P<idx>[01])\.{bn_attr}", fn_for(False, True)),
+        (rf"{subs}\.(?P<name>deconv\d)\.(?P<idx>[01])\.{bn_attr}",
+         fn_for(True, True)),
+        (rf"{subs}\.(?P<name>predict_flow\d)\.(?P<attr>weight|bias)",
+         fn_for(False, False)),
+        (rf"{subs}\.(?P<name>{_FLOWNET_DECODER_CONVT})"
+         rf"\.(?P<attr>weight|bias)", fn_for(True, False)),
+    ]
+    return _apply_rules(sd, rules)
+
+
+def convert_pwcnet(sd: dict) -> dict:
+    """PWC-Net; the reference's dead ``deconv2`` (PWCNet.py:143) is
+    dropped: the flax module has no counterpart."""
+    sd = {k: v for k, v in sd.items() if not k.startswith("deconv2.")}
+
+    def seq_conv_fn(m):
+        base = (m.group(1),)
+        if m.group("attr") == "weight":
+            return ("params", base + ("kernel",), _conv_w)
+        return ("params", base + ("bias",), _ident)
+
+    def p(name):
+        return (name,)
+
+    return _apply_rules(sd, [
+        (r"(conv\d(?:aa|a|b)?|conv\d_\d|dc_conv[1-6])\.0\."
+         r"(?P<attr>weight|bias)", seq_conv_fn),
+        _plain_conv_rule(r"predict_flow\d|dc_conv7", p),
+        _plain_conv_rule(r"deconv\d|upfeat\d", p, deconv=True),
+    ])
+
+
+def convert_raft(sd: dict) -> dict:
+    """RAFT: ``layerX.Y`` -> ``layerX_Y``, ``mask.0`` -> ``mask_0``, the
+    ``downsample`` conv, and every ``downsample.1`` -> ``norm3``, as the
+    JAX package maps it (convert.py:309-313; the reading side's
+    ``raft_state_dict_from_jax`` bridges the small encoder's ``norm4``)."""
+
+    def enc_fn(m):
+        net, rest, attr = m.group("net"), m.group("rest"), m.group("attr")
+        lm = re.fullmatch(r"layer(\d)\.(\d)\.(.*)", rest)
+        if lm:
+            base: tuple = (net, f"layer{lm.group(1)}_{lm.group(2)}")
+            rest = lm.group(3)
+        else:
+            base = (net,)
+        if rest == "downsample.0":
+            rest = "downsample"
+        elif rest == "downsample.1":
+            rest = "norm3"
+        elif rest.endswith(".0"):  # FlowNetCEncoder's Sequential blocks
+            rest = rest[:-2]
+        if rest.startswith("norm"):
+            coll, leaf, xform = _bn_leaf(attr)
+            return (coll, base + (rest, leaf), xform)
+        if attr == "weight":
+            return ("params", base + (rest, "kernel"), _conv_w)
+        return ("params", base + (rest, "bias"), _ident)
+
+    def upd_fn(m):
+        name = m.group("name").replace("mask.0", "mask_0").replace(
+            "mask.2", "mask_2")
+        base = ("update_block",) + tuple(name.split("."))
+        if m.group("attr") == "weight":
+            return ("params", base + ("kernel",), _conv_w)
+        return ("params", base + ("bias",), _ident)
+
+    return _apply_rules(sd, [
+        (r"(?P<net>fnet|cnet)\.(?P<rest>.+?)\."
+         r"(?P<attr>weight|bias|running_mean|running_var)", enc_fn),
+        (r"update_block\.(?P<name>.+?)\.(?P<attr>weight|bias)", upd_fn),
+        _plain_conv_rule(r"conv_redir", lambda n: (n,)),
+    ])
+
+
+def convert_spynet(sd: dict) -> dict:
+    """SpyNet: ``moduleBasic.{L}.moduleBasic.{2k}`` -> ``basic{L}/conv{k}``
+    (the layout of the JAX package's ``convert_spynet_dir``, which reads
+    the same weights from the per-level files)."""
+    def fn(m):
+        base = (f"basic{m.group('level')}", f"conv{int(m.group('idx')) // 2}")
+        if m.group("attr") == "weight":
+            return ("params", base + ("kernel",), _conv_w)
+        return ("params", base + ("bias",), _ident)
+
+    return _apply_rules(sd, [
+        (r"moduleBasic\.(?P<level>\d+)\.moduleBasic\.(?P<idx>[02468])\."
+         r"(?P<attr>weight|bias)", fn)])
+
+
+def _family(module) -> str:
+    """The converter family of a port module (the JAX registry's
+    ``ModelSpec.converter``)."""
+    from .flownet2 import FlowNet2, FlowNetS2
+    from .flownet_family import FlowNetC, FlowNetCFlex
+    from .pwcnet import PWCNet
+    from .raft_model import RAFT
+    from .spynet import SpyNet
+
+    for cls, family in ((FlowNet2, "flownet2"), (FlowNetS2, "flownet_s"),
+                        (FlowNetCFlex, "flownet_c_flex"),
+                        (FlowNetC, "flownet_c"), (PWCNet, "pwcnet"),
+                        (SpyNet, "spynet"), (RAFT, "raft")):
+        if type(module) is cls:
+            if family == "flownet_c_flex" and \
+                    module.stage_names == "larger_field":
+                return "flownet_c_larger"
+            return family
+    raise TypeError(f"no flax layout for {type(module).__name__}")
+
+
+CONVERTERS = {
+    "flownet_s": convert_flownet_s,
+    "flownet_c": convert_flownet_c,
+    "flownet_c_flex": convert_flownet_c_flex,
+    "flownet_c_larger": convert_flownet_c_larger,
+    "flownet2": convert_flownet2,
+    "pwcnet": convert_pwcnet,
+    "raft": convert_raft,
+    "spynet": convert_spynet,
+}
+
+
+def flax_variables(module) -> dict:
+    """A port module's weights as the JAX package's flax variables
+    (``{"params": ..., "batch_stats": ...}`` where it has batch norm):
+    the tree ``ufr-convert`` writes for the same weights."""
+    return CONVERTERS[_family(module)](to_numpy_state_dict(
+        module.state_dict()))
+
+
+def flax_shapes(module) -> dict:
+    """The tree of ``flax_variables(module)`` with each leaf's shape in
+    place of its array (no weight is copied)."""
+    return CONVERTERS[_family(module)]({
+        k: tuple(v.shape) for k, v in module.state_dict().items()
+        if not k.endswith("num_batches_tracked")})
+
+
+def state_dict_from_flax(module, variables) -> dict:
+    """Flax variables of ``module``'s family -> its state dict, through the
+    family's inverse bridge; PWC-Net's dead ``deconv2`` keeps ``module``'s
+    own weights."""
+    family = _family(module)
+    if family == "pwcnet":
+        return pwcnet_state_dict_from_jax(variables,
+                                          module.deconv2.state_dict())
+    if family in ("flownet_c_flex", "flownet_c_larger"):
+        return flownet_c_flex_state_dict_from_jax(variables,
+                                                  module.stage_names)
+    return {"raft": raft_state_dict_from_jax,
+            "spynet": spynet_state_dict_from_jax,
+            "flownet2": flownet2_state_dict_from_jax,
+            "flownet_s": flownet_s_state_dict_from_jax,
+            "flownet_c": flownet_c_state_dict_from_jax}[family](variables)

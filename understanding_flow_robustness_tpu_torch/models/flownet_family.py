@@ -274,6 +274,7 @@ class FlowNetCFlex(_FlowNetCBase):
         super().__init__(div_flow, return_features, plain_corr)
         if stage_names not in ("convs", "flat", "larger_field"):
             raise ValueError(f"unknown stage_names {stage_names!r}")
+        self.stage_names = stage_names
         self._stage_paths = []
         cin = 3
         for idx, (cout, entry_k) in enumerate(

@@ -268,7 +268,10 @@ def fetch_model(name: str, pretrained_path: Optional[str] = None,
     """Build ``name`` on ``device`` (the card unless the caller asks for
     the CPU) with seeded random weights (``torch.Generator`` seeded with
     ``seed``, the JAX package's init distribution), or load reference
-    weights strictly when ``pretrained_path`` is given: a checkpoint file,
+    weights strictly when ``pretrained_path`` is given: a checkpoint file
+    (a reference ``.pth``/``.pth.tar``, or the JAX package's flax
+    ``.msgpack``, full variables or params only, through
+    ``training.checkpoint.load_variables``),
     for SpyNet the directory of its per-level weight files, or a zoo
     directory, in which the model's file (``ModelSpec.checkpoint``, the
     JAX registry's names) is loaded when it is there; a zoo without it
@@ -290,6 +293,12 @@ def fetch_model(name: str, pretrained_path: Optional[str] = None,
             print(f"WARNING: {pretrained_path!r} holds no checkpoint of "
                   f"{name} ({spec.checkpoint}); using random init",
                   file=sys.stderr)
+        elif path.endswith(".msgpack"):
+            # flax variables: ufr-convert's output or a params-only export
+            # (JAX registry.py:218-225)
+            from ..training.checkpoint import load_variables
+
+            load_variables(path, module)
         else:
             module.load_state_dict(_pretrained_state_dict(name, path),
                                    strict=True)

@@ -9,10 +9,11 @@ no fallback: when the library cannot be built or loaded, the call raises.
 Nothing is built at import time.  ctypes releases the GIL for each call,
 so decoder threads overlap in these functions.
 
-``png_unfilter``, ``resize_pil_bilinear_u8``, ``resize_cv2_linear_f32``,
+``png_unfilter``, ``resize_pil_bilinear_u8``, ``resize_pil_lanczos_u8``,
+``resize_cv2_linear_f32``,
 ``resize_cv2_linear_u8``, ``resize_cv2_linear_f32_by``, ``pil_color_op``
 and ``decode_jpeg`` are the port's own: PNG row reconstruction, PIL's
-``BILINEAR`` resize, cv2's ``INTER_LINEAR`` resize to a size and by
+``BILINEAR`` and ``LANCZOS`` resizes, cv2's ``INTER_LINEAR`` resize to a size and by
 factors, PIL's colour enhancements and a baseline JPEG decoder, so that
 the machine with the card reads, augments and resizes frames with neither
 PIL nor cv2.  ``jpeg_encode`` (wrapped by ``flowviz/jpeg.py``) is
@@ -92,6 +93,7 @@ def load() -> ctypes.CDLL:
                 ("decode_kitti_flow_u16", [u16p, i64, i64, f32p, f32p]),
                 ("resize_pil_bilinear_u8", [u8p, u8p] + [i64] * 5),
                 ("resize_pil_box_u8", [u8p, u8p] + [i64] * 5),
+                ("resize_pil_lanczos_u8", [u8p, u8p] + [i64] * 5),
                 ("resize_cv2_linear_f32", [u8p, f32p] + [i64] * 5),
                 ("resize_cv2_linear_u8", [u8p, u8p] + [i64] * 5 + [f64] * 2),
                 ("resize_cv2_linear_f32_by",
@@ -207,17 +209,30 @@ def resize_bilinear_u8(img: np.ndarray, oh: int, ow: int) -> np.ndarray:
     return out.reshape((oh, ow) + img.shape[2:])
 
 
+def _resize_pil(fn_name: str, img: np.ndarray, oh: int, ow: int):
+    img, x = _hwc_u8(img)
+    if x.shape[2] not in (1, 3) or (img.ndim == 3 and x.shape[2] == 1):
+        raise ValueError(f"PIL's resize is ported for (H, W) and (H, W, 3) "
+                         f"images, not {img.shape}")
+    if oh <= 0 or ow <= 0:
+        raise ValueError(f"output size must be positive, got {(oh, ow)}")
+    out = np.empty((oh, ow, x.shape[2]), np.uint8)
+    getattr(load(), fn_name)(x, out, *x.shape, oh, ow)
+    return out.reshape((oh, ow) + img.shape[2:])
+
+
 def resize_pil_bilinear_u8(img: np.ndarray, oh: int, ow: int) -> np.ndarray:
     """PIL ``Image.fromarray(img).resize((ow, oh), Image.BILINEAR)`` of a
     u8 (H, W) or (H, W, 3) image, bit for bit.  PIL resizes RGBA
     premultiplied, which is not ported: 4 channels raise."""
-    img, x = _hwc_u8(img)
-    if x.shape[2] not in (1, 3) or (img.ndim == 3 and x.shape[2] == 1):
-        raise ValueError(f"PIL's bilinear resize is ported for (H, W) and "
-                         f"(H, W, 3) images, not {img.shape}")
-    out = np.empty((oh, ow, x.shape[2]), np.uint8)
-    load().resize_pil_bilinear_u8(x, out, *x.shape, oh, ow)
-    return out.reshape((oh, ow) + img.shape[2:])
+    return _resize_pil("resize_pil_bilinear_u8", img, oh, ow)
+
+
+def resize_pil_lanczos_u8(img: np.ndarray, oh: int, ow: int) -> np.ndarray:
+    """PIL ``Image.fromarray(img).resize((ow, oh), Image.LANCZOS)`` of a
+    u8 (H, W) ("L") or (H, W, 3) ("RGB") image, bit for bit: KITTI raw's
+    frames resized for patch training (setup/prepare_train_data.py)."""
+    return _resize_pil("resize_pil_lanczos_u8", img, oh, ow)
 
 
 def resize_cv2_linear_f32(img: np.ndarray, oh: int, ow: int) -> np.ndarray:

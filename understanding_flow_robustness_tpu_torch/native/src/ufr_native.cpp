@@ -10,8 +10,9 @@
 //   batch_u8_to_float01_pad, batch_f32_pad, resize_sparse_flow,
 //   resize_bilinear_u8, decode_kitti_flow_u16: the JAX package's five.
 //   png_unfilter:           PNG row filters 0-4 undone, any bytes per pixel.
-//   resize_pil_bilinear_u8, resize_pil_box_u8: PIL's Image.resize(BILINEAR /
-//                           BOX) on u8.
+//   resize_pil_bilinear_u8, resize_pil_box_u8, resize_pil_lanczos_u8:
+//                           PIL's Image.resize(BILINEAR / BOX / LANCZOS) on
+//                           u8.
 //   resize_cv2_linear_f32:  cv2.resize(INTER_LINEAR) of a float32 image
 //                           (read here from u8 samples).
 //   resize_cv2_linear_u8, resize_cv2_linear_f{32,64}_by: cv2.resize(
@@ -207,8 +208,8 @@ int64_t png_unfilter(const uint8_t* in, uint8_t* out, int64_t h,
 }
 
 // PIL's two-pass separable resampling on 8-bit samples (Pillow,
-// src/libImaging/Resample.c) with the BILINEAR (triangle, support 1) or
-// the BOX (support 1/2) filter: the support widens by the scale on a
+// src/libImaging/Resample.c) with the BILINEAR (triangle, support 1), the
+// BOX (support 1/2) or the LANCZOS (sinc(x) sinc(x/3), support 3) filter: the support widens by the scale on a
 // downscale, coefficients are normalised in double and rounded to 22-bit
 // fixed point, and each pass rounds its sums to u8.
 namespace {
@@ -221,6 +222,18 @@ double pil_triangle(double t) {
 }
 
 double pil_box(double t) { return (t > -0.5 && t <= 0.5) ? 1.0 : 0.0; }
+
+double pil_sinc(double x) {
+  if (x == 0.0) return 1.0;
+  x = x * M_PI;
+  return std::sin(x) / x;
+}
+
+// Resample.c lanczos_filter: the sinc truncated at 3 lobes
+double pil_lanczos(double x) {
+  if (-3.0 <= x && x < 3.0) return pil_sinc(x) * pil_sinc(x / 3);
+  return 0.0;
+}
 
 // Per output sample: the first source index, the count of taps, and
 // ksize fixed-point coefficients.
@@ -337,6 +350,13 @@ void resize_pil_bilinear_u8(const uint8_t* in, uint8_t* out, int64_t h,
 void resize_pil_box_u8(const uint8_t* in, uint8_t* out, int64_t h, int64_t w,
                        int64_t c, int64_t oh, int64_t ow) {
   pil_resample(in, out, h, w, c, oh, ow, 0.5, pil_box);
+}
+
+// PIL Image.resize((ow, oh), LANCZOS), the same shapes: the negative
+// lobes make sums below 0 and above 255, which each pass clips
+void resize_pil_lanczos_u8(const uint8_t* in, uint8_t* out, int64_t h,
+                           int64_t w, int64_t c, int64_t oh, int64_t ow) {
+  pil_resample(in, out, h, w, c, oh, ow, 3.0, pil_lanczos);
 }
 
 // cv2.resize(img_f32, (ow, oh), interpolation=INTER_LINEAR) of an image
