@@ -25,8 +25,10 @@
    through ``alt_corr_features`` at the serving shape, which launches the
    coordinate-gradient kernel ``alt_corr_dcoords`` (no model path does);
    holds the kernel against its plain version in f32 and bf16 for
-   calibrated, wild, far-out (+-1e30) and exactly integer centres; times
-   both.
+   calibrated, wild, far-out (+-1e30) and exactly integer centres, two
+   launches bit-equal, and its (tile, level) path counts equal to
+   ``alt_corr_fwd``'s on the same inputs (the tile stage they share);
+   prints its tile-path share; times both.
 5. Holds the warp kernel ``warp_fwd`` against its plain version in its
    three modes, f32 and bf16, at SPyNet's and PWC-Net's largest warp
    shapes and a ragged one, for smooth, wild and +-1e30 flows; times it,
@@ -116,7 +118,10 @@ The patch slice adds, after the train CLI:
    shape, the validation metrics; then ``test_patch`` on its patch in the
    default, ``--true_motion`` (``patch3d``) and ``--different_pos`` modes.
 18. The patch CLI on RAFT (mixed precision): 12 launches of each lookup
-   kernel per inner iteration, none of ``alt_corr_dcoords``.
+   kernel per inner iteration, none of ``alt_corr_dcoords``; then one
+   inner iteration's update with the kernels against the plain lookup's,
+   bf16 and f32, and both f32 updates' distance to the update in f64 with
+   the plain lookup.
 19. The universal-perturbation CLI on FlowNetC (256x640, 2 batches of 3
    steps): one ``spatial_corr_bwd`` per step, the eps-ball, the snapshot;
    then ``run_perturb_model --universal_evaluation`` on that snapshot.
@@ -234,8 +239,9 @@ the ignored build/):
    (small RAFT's serving shape (8, 48, 160, 128) for B1, B3, B5, its train
    shape (4, 36, 120, 128) for B2, and a ragged one for all four; f32 and
    bf16; calibrated, wild, far (+-1e30) and integer centres) under the r =
-   4 phases' bounds; at small RAFT's r = 3 the tile-path shares of B1 and
-   B2 (both paths must run), each kernel's time, its plain version's and
+   4 phases' bounds; B3 bit-equal over two launches and on B1's (tile,
+   level) paths; at small RAFT's r = 3 the tile-path shares of B1, B2 and
+   B3 (both paths must run), each kernel's time, its plain version's and
    its bound; B3 driven at r = 3 through ``alt_corr_features``' coordinate
    gradient; r = 0 and 8 refused by the wrappers and, with their check
    widened, by the kernels' entry points.
@@ -781,9 +787,15 @@ def dcoords_phase(gen) -> dict:
         f1, levels = corr.prepare_alt_corr(fm1, fm2, LEVELS, dtype)
         for name, cc in cases.items():
             cflat = cc.reshape(b, h * w, 2).contiguous()
-            got = corr._alt_corr_dcoords_cuda(f1, levels, cflat, g, RADIUS)
+            counts = torch.zeros(2 * LEVELS, dtype=torch.int32, device="cuda")
+            got = corr._alt_corr_dcoords_cuda(f1, levels, cflat, g, RADIUS,
+                                              path_counts=counts)
+            again = corr._alt_corr_dcoords_cuda(f1, levels, cflat, g, RADIUS)
             ref = corr.alt_corr_coords_grad_reference(f1, levels, cflat, g,
                                                       RADIUS)
+            b1 = torch.zeros_like(counts)
+            corr._alt_corr_lookup_cuda(f1, levels, cflat, RADIUS,
+                                       path_counts=b1)
             torch.cuda.synchronize()
             tag = f"main/{name}/{str(dtype).split('.')[-1]}"
             check(got.shape == ref.shape and got.dtype == torch.float32
@@ -792,9 +804,18 @@ def dcoords_phase(gen) -> dict:
             err = (got - ref).abs().max().item()
             scale = ref.abs().max().item()
             tol = DCOORDS_REL_TOL * scale
+            share, per_level = path_share(counts)
             print(f"{tag:32s} max_abs_err={err:.3e} tol={tol:.3e} "
-                  f"max|dcoords|={scale:.3f}", flush=True)
+                  f"max|dcoords|={scale:.3f}; tile path {100 * share:.1f}% "
+                  f"({per_level}), alt_corr_fwd's "
+                  f"{100 * path_share(b1)[0]:.1f}%", flush=True)
             check(err <= tol, f"{tag}: kernel disagrees with plain version")
+            check(torch.equal(got, again),
+                  f"{tag}: two launches are not bit-equal")
+            check(torch.equal(counts, b1),
+                  f"{tag}: (tile, level) paths {counts.tolist()}, "
+                  f"alt_corr_fwd's {b1.tolist()}")
+            res[f"{tag}/tile_share"] = share
             if name == "far":
                 check(got[0, :5].abs().max().item() == 0,
                       f"{tag}: windows wholly outside got a gradient")
@@ -811,11 +832,12 @@ def dcoords_phase(gen) -> dict:
                 flops = 2 * (2 * RADIUS + 2) ** 2 * c * b * h * w * LEVELS
                 res[f"{tag}/bound"] = bound(
                     nbytes(f1, *levels, cflat, g, got), flops, dtype)
-                print(f"{tag:32s} kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-                      f"bound {res[f'{tag}/bound']['bound_ms']:.4f} ms "
-                      f"({res[f'{tag}/bound']['bound_by']}) per coordinate "
-                      "gradient (4 levels)", flush=True)
-            del got, ref
+                m = res[f"{tag}/bound"]
+                print(f"{tag:32s} kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+                      f"bound {m['bound_ms']:.4f} ms ({m['bound_by']}; the "
+                      f"kernel at {100 * m['bound_ms'] / k_ms:.1f}% of it) "
+                      "per coordinate gradient (4 levels)", flush=True)
+            del got, again, ref
     return res
 
 
@@ -2393,7 +2415,8 @@ def patch_cli_raft_phase() -> dict:
     """The patch CLI on RAFT (mixed precision): 12 launches of each lookup
     kernel per inner iteration, none of the coordinate gradient's; then one
     inner iteration's update with the kernels against the plain lookup's
-    at phase 16's geometry, bf16 and f32."""
+    at phase 16's geometry, bf16 and f32, and the f64 witness: both f32
+    updates' distance to the update in f64 with the plain lookup."""
     from understanding_flow_robustness_tpu_torch.attacks import (
         PatchAttackConfig,
         make_patch_attack_step,
@@ -2453,7 +2476,11 @@ def patch_cli_raft_phase() -> dict:
     # and bf16.  Printed: the CLI's cossim loss, which starts at its
     # stationary point (the target is -flow), so its update is the small
     # flow change the patch makes and carries each path's rounding; and
-    # each bf16 update's distance to the f32 plain one
+    # each bf16 update's distance to the f32 plain one.  The witness: the
+    # same update in f64 with the plain lookup (the module, images, patch
+    # and target in f64), and both f32 updates' distance to it; a kernels'
+    # update more than 2x farther from it than the plain one's would be a
+    # fault of the window kernels, not chaotic growth
     gen = torch.Generator(device="cuda").manual_seed(PATCH_SEED)
     a = torch.rand((PB, PH, PW, 3), generator=gen, device="cuda")
     b = torch.rand((PB, PH, PW, 3), generator=gen, device="cuda")
@@ -2476,6 +2503,9 @@ def patch_cli_raft_phase() -> dict:
             models[prec, "plain"] = FlowModel("RAFT", copy.deepcopy(module),
                                               base.device)
             models[prec, "plain"].module.plain_lookup = True
+        exact_model = FlowModel(
+            "RAFT", copy.deepcopy(models["f32", "plain"].module).double(),
+            bases["f32"].device)
         target = -1.0 * predict_flow(models["bf16", "kernels"], a, b)
         for loss in ("l2", "cossim"):
             cfg = PatchAttackConfig(max_count=1, loss_threshold=0.0,
@@ -2490,6 +2520,14 @@ def patch_cli_raft_phase() -> dict:
                       and u[key].abs().max().item() > 0,
                       f"RAFT patch update ({kind}, {loss}, {key}): not "
                       "finite or zero")
+            step = make_patch_attack_step(
+                lambda x, y: predict_flow_differentiable(exact_model, x, y),
+                cfg)
+            d = [x.double() for x in (a, b, patch, mask, target)]
+            exact = step(d[0], d[1], d[2], d[3], d[2], d[4])[2] - d[2]
+            to64 = (rel(u["f32", "kernels"], exact),
+                    rel(u["f32", "plain"], exact))
+            del d, exact
             r16 = rel(u["bf16", "kernels"], u["bf16", "plain"])
             r32 = rel(u["f32", "kernels"], u["f32", "plain"])
             ref = u["f32", "plain"]
@@ -2499,13 +2537,16 @@ def patch_cli_raft_phase() -> dict:
             res[f"update_rel_l2/{tag}/bf16"] = r16
             res[f"update_rel_l2/{tag}/f32"] = r32
             res[f"update_to_f32/{tag}"] = w
+            res[f"update_to_f64/{tag}"] = to64
             print(f"RAFT patch update ({kind}, {loss}), kernels vs plain "
                   f"lookup: bf16 rel L2 {r16:.3e} (bound "
                   f"{GRAD_BF16_REL_L2[0]:g}), f32 {r32:.3e} (bound "
                   f"{GRAD_F32_REL_L2[0]:g}){'' if held else ', not held'}; "
                   f"bf16 to the f32 plain update: kernels {w[0]:.3e}, "
                   f"plain {w[1]:.3e}; share at the +-2 clamp "
-                  f"{(ref.abs() >= 2.0).float().mean().item():.2e}",
+                  f"{(ref.abs() >= 2.0).float().mean().item():.2e}; f32 to "
+                  f"the f64 plain update: kernels {to64[0]:.3e}, plain "
+                  f"{to64[1]:.3e} (ratio {to64[0] / to64[1]:.3f})",
                   flush=True)
             if held:
                 check(r16 <= GRAD_BF16_REL_L2[0]
@@ -2513,7 +2554,7 @@ def patch_cli_raft_phase() -> dict:
                       "RAFT patch update with the kernels beyond bound of "
                       "the plain lookup's")
             del u
-        del models
+        del models, exact_model
     return res
 
 
@@ -4669,9 +4710,11 @@ def radius_phase(gen) -> dict:
     at small RAFT's serving shape (B1, B3, B5), its train shape (B2) and a
     ragged one (all four), f32 and bf16, for calibrated, wild, far and
     integer centres, under the bounds of the r = 4 phases; r = 0 and 8
-    refused by the wrappers and by the kernels' entry points.  At small
-    RAFT's r = 3: each kernel's time, its plain version's and its bound at
-    the main shapes, and the tile-path shares of B1 and B2."""
+    refused by the wrappers and by the kernels' entry points.  B3 also
+    launches twice for bit-equal results and counts the same (tile, level)
+    paths as B1 on the same inputs.  At small RAFT's r = 3: each kernel's
+    time, its plain version's and its bound at the main shapes, and the
+    tile-path shares of B1, B2 and B3."""
     from understanding_flow_robustness_tpu_torch import ops
     from understanding_flow_robustness_tpu_torch.ops import correlation as corr
 
@@ -4681,7 +4724,7 @@ def radius_phase(gen) -> dict:
     shapes = (("serving", SMALL_SERVE), ("train", SMALL_TRAIN),
               ("ragged", (2, 13, 21, 64)))
     paths = {k: torch.zeros(2 * LEVELS, dtype=torch.int32, device="cuda")
-             for k in ("fwd", "bwd")}
+             for k in ("fwd", "bwd", "dcoords")}
 
     def hold(kernel, tag, got, ref, tol):
         """Each output of ``got`` against ``ref``'s within tol(max|ref|)."""
@@ -4740,12 +4783,27 @@ def radius_phase(gen) -> dict:
                             paths["fwd"] += cnt
                             res[f"B1/{shape_name}/{case}/{dt}/tile_share"] = (
                                 path_share(cnt)[0])
+                        b1 = cnt
+                        cnt = torch.zeros_like(paths["dcoords"])
                         got = corr._alt_corr_dcoords_cuda(f1, levels, cflat,
-                                                          g, r)
+                                                          g, r,
+                                                          path_counts=cnt)
+                        again = corr._alt_corr_dcoords_cuda(f1, levels,
+                                                            cflat, g, r)
                         ref = corr.alt_corr_coords_grad_reference(
                             f1, levels, cflat, g, r)
                         hold("B3", tag, [got], [ref],
                              lambda sc: DCOORDS_REL_TOL * sc)
+                        check(torch.equal(got, again),
+                              f"B3 {tag}: two launches are not bit-equal")
+                        check(torch.equal(cnt, b1),
+                              f"B3 {tag}: (tile, level) paths {cnt.tolist()},"
+                              f" B1's {b1.tolist()}")
+                        if r == SMALL_RADIUS:
+                            paths["dcoords"] += cnt
+                            res[f"B3/{shape_name}/{case}/{dt}/tile_share"] = (
+                                path_share(cnt)[0])
+                        del again
                         got = ops.corr_lookup(pyr, coords.contiguous(), r)
                         ref = ops.corr_lookup_reference(pyr, coords, r)
                         hold("B5", tag, [got], [ref], lambda sc: VOL_TOL)
@@ -4833,7 +4891,9 @@ def radius_phase(gen) -> dict:
               f"paths ({cnt.tolist()})")
     print(f"r={SMALL_RADIUS} tile-path share, calibrated bf16: B1 serving "
           f"{100 * res['B1/serving/calibrated/bfloat16/tile_share']:.1f}%, "
-          f"B2 train {100 * res['B2/train/calibrated/bfloat16/tile_share']:.1f}%",
+          f"B2 train {100 * res['B2/train/calibrated/bfloat16/tile_share']:.1f}%"
+          f", B3 serving "
+          f"{100 * res['B3/serving/calibrated/bfloat16/tile_share']:.1f}%",
           flush=True)
 
     # B3's op-level path at small RAFT's radius: the coordinate gradient of
@@ -6130,6 +6190,10 @@ def main() -> None:
             prres["update_rel_l2/calibrated/l2/bf16"],
         "raft_patch_update_rel_l2_f32":
             prres["update_rel_l2/calibrated/l2/f32"],
+        "raft_patch_update_f32_to_f64": {
+            tag: prres[f"update_to_f64/{tag}"] for tag in (
+                "cli_weights/l2", "cli_weights/cossim", "calibrated/l2",
+                "calibrated/cossim")},
         **radius_keys(rres, "B2", ("train",)),
     }, {
         "name": "alt_corr_dcoords",
@@ -6142,6 +6206,14 @@ def main() -> None:
         "plain_ms": dres[f"{fwd}/plain_ms"],
         **dres[f"{fwd}/bound"],
         "library_ms": None,
+        "tile_share": dres[f"{fwd}/tile_share"],
+        "wild_tile_share": dres["main/wild/bfloat16/tile_share"],
+        "f32_ms": dres["main/calibrated/float32/ms"],
+        "f32_plain_ms": dres["main/calibrated/float32/plain_ms"],
+        "f32_bound_ms":
+            dres["main/calibrated/float32/bound"]["bound_ms"],
+        "r3_serving_tile_share":
+            rres["B3/serving/calibrated/bfloat16/tile_share"],
         **radius_keys(rres, "B3", ("serving",)),
     }, {
         "name": "warp_fwd",

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's lookup kernels (B1 ``csrc/alt_corr_fwd.cu``, its
-backward B2 ``csrc/alt_corr_bwd.cu``, the volume lookup B5
+backward B2 ``csrc/alt_corr_bwd.cu``, its coordinate gradient B3
+``csrc/alt_corr_dcoords.cu``, the volume lookup B5
 ``csrc/corr_lookup_fwd.cu``), its warp kernel (B4, ``csrc/warp_fwd.cu``)
 and its spatial-correlation kernels (``csrc/spatial_corr_fwd.cu``,
 ``csrc/spatial_corr_bwd.cu``) of one checkout, for an A/B of two commits
@@ -27,15 +28,19 @@ through ``correlation._alt_corr_bwd_cuda`` (the wrapper, with its zeroed
 df2 levels) at RAFT's train shape (B=4, 36x120, C=256) and the attack
 shape (B=1, 32x80, C=256), bf16, for per-query jittered ("calibrated":
 grid + 2 px noise) and smooth (grid + a x4 bilinear upsample of 3 px
-noise) centres; B4 through ``ops.warp_backward`` at SPyNet's finest warp
+noise) centres; B3 through ``correlation._alt_corr_dcoords_cuda`` at
+RAFT's serving shape (r = 4) and small RAFT's (r = 3, C=128), bf16 and
+f32, for calibrated and wild centres, with its tile-path share where its
+wrapper counts paths; B4 through ``ops.warp_backward`` at SPyNet's finest warp
 (B=8, 3x384x1280, f32, "spynet") and PWC-Net's level 2 (B=8, 32x96x320,
 bf16, "zeros_mask") on a smooth flow, beside ``F.grid_sample`` on the same
 grid.  Times are CUDA-event means of back-to-back calls; B4's and
 ``grid_sample``'s are replayed from a CUDA graph (device time; a warp of
 PWC-Net's is as short as the host's cost of one call), beside B4 launched
 from Python ("launched_ms").  The bound is the bytes each input and output
-moves once over 3.35 TB/s (for B1 the larger of that and its dots over the
-inputs' peak rate; for B5 only the window taps inside the levels count).
+moves once over 3.35 TB/s (for B1 and B3 the larger of that and their dots over
+the inputs' peak rate; for B5 only the window taps inside the levels
+count).
 ``--e2e`` adds what the kernels move end to end: RAFT-12 serving pairs/s
 (batch 8 at 384x1280, 2 + 6 requests of ``predict_flow``) on the alt path
 at the calibrated and the wild operating point, on the volume path
@@ -79,6 +84,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 RADIUS, LEVELS = 4, 4
 LOOKUP_SHAPE = (8, 48, 160, 256)  # RAFT serving: batch 8 at 384x1280
 B2_SHAPES = {"train": (4, 36, 120, 256), "attack": (1, 32, 80, 256)}
+# B3's shapes: RAFT serving at r = 4, small RAFT serving at r = 3
+B3_SHAPES = {"r4": ((8, 48, 160, 256), 4), "r3": ((8, 48, 160, 128), 3)}
 B4_SHAPES = {"spynet": ((8, 3, 384, 1280), torch.float32),
              "zeros_mask": ((8, 32, 96, 320), torch.bfloat16)}
 # the spatial correlation kernels' main shapes: (B, C, H, W), patch,
@@ -268,6 +275,45 @@ def time_b2(ops, corr, reps: int) -> dict:
             moved = nbytes(f1, *levels, cflat, g, out[0], *out[1])
             res[f"{shape_name}/{kind}"] = {
                 "ms": ms, "bound_ms": 1e3 * moved / HBM_BYTES_PER_S}
+    return res
+
+
+def time_b3(ops, corr, reps: int) -> dict:
+    import inspect
+
+    counted = "path_counts" in inspect.signature(
+        corr._alt_corr_dcoords_cuda).parameters
+    res = {}
+    for name, ((b, h, w, c), r) in B3_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        fm1 = torch.randn((b, h, w, c), generator=gen, device="cuda")
+        fm2 = torch.randn((b, h, w, c), generator=gen, device="cuda")
+        g = torch.randn((b, h * w, LEVELS * (2 * r + 1) ** 2), generator=gen,
+                        device="cuda")
+        grid = ops.coords_grid(h, w, device="cuda")[None]
+        kinds = {kind: (grid + spread * torch.randn(
+            (b, h, w, 2), generator=gen, device="cuda")).reshape(
+                b, h * w, 2).contiguous()
+            for kind, spread in (("calibrated", 2.0), ("wild", 150.0))}
+        for dtype in (torch.bfloat16, torch.float32):
+            f1, levels = corr.prepare_alt_corr(fm1, fm2, LEVELS, dtype)
+            for kind, cflat in kinds.items():
+                out = corr._alt_corr_dcoords_cuda(f1, levels, cflat, g, r)
+                ms = cuda_ms(lambda: corr._alt_corr_dcoords_cuda(
+                    f1, levels, cflat, g, r), reps)
+                flops = 2 * (2 * r + 2) ** 2 * c * b * h * w * LEVELS
+                entry = {"ms": ms, "bound_ms": 1e3 * max(
+                    nbytes(f1, *levels, cflat, g, out) / HBM_BYTES_PER_S,
+                    flops / PEAK_FLOPS[dtype])}
+                if counted:
+                    counts = torch.zeros(2 * LEVELS, dtype=torch.int32,
+                                         device="cuda")
+                    corr._alt_corr_dcoords_cuda(f1, levels, cflat, g, r,
+                                                path_counts=counts)
+                    tile = counts[:LEVELS].sum()
+                    entry["tile_share"] = (tile / counts.sum()).item()
+                res[f"{name}/{str(dtype).split('.')[-1]}/{kind}"] = entry
+                del out
     return res
 
 
@@ -532,7 +578,8 @@ def main(argv=None) -> dict:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     res = {"root": args.root, **time_b1_b5(ops, corr, args.reps),
-           "b2": time_b2(ops, corr, args.reps), "b4": time_b4(ops, args.reps),
+           "b2": time_b2(ops, corr, args.reps),
+           "b3": time_b3(ops, corr, args.reps), "b4": time_b4(ops, args.reps),
            "spatial": time_spatial(corr, args.reps)}
     if args.e2e:
         res["e2e"] = {**time_serving(), **time_e2e(),

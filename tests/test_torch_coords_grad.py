@@ -172,3 +172,67 @@ def test_raft_requests_no_coordinate_gradient(monkeypatch):
     up.square().sum().backward()
     assert calls == {"dcoords": 0, "dfeat": 2}
     assert bool(torch.isfinite(a.grad).all()) and a.grad.abs().max() > 0
+
+
+# The geometries the CUDA kernel's tile stage (csrc/alt_corr_tile.cuh) makes
+# special: a ragged query grid (13x21 is no multiple of the 8x8 tile and its
+# pooled levels are 6x10, 3x5 and 1x2, smaller than a tile), every radius
+# class the kernel is instantiated for (r = 1, 4 and 7, whose (2r+2)^2
+# dots fill the TPU kernel's 16-wide tile), f32 and bf16 features.
+RAGGED = (1, 13, 21, 16)
+
+
+def _ragged_inputs(radius, kind, seed):
+    """Seeded fmaps, (1, 13, 21, 2) coords and a cotangent for ``radius``.
+    kind: "calibrated" (the grid plus 2 px of noise), "wild" (20 px: many
+    windows part or wholly outside the coarse levels), "far" (calibrated
+    plus out-of-level, edge and +-1e30 centres in the first row) or
+    "integer" (exactly the grid)."""
+    B, H, W, C = RAGGED
+    rng = np.random.RandomState(seed)
+    f1 = rng.randn(B, H, W, C).astype(np.float32)
+    f2 = rng.randn(B, H, W, C).astype(np.float32)
+    coords = np.repeat(np.asarray(jops.coords_grid(H, W))[None], B, 0)
+    noise = rng.randn(B, H, W, 2).astype(np.float32)
+    if kind != "integer":
+        coords = coords + noise * (20.0 if kind == "wild" else 2.0)
+    if kind == "far":
+        coords[0, 0, :6] = [[-1e30, 3.0], [3.0, 1e30], [1e30, -1e30],
+                            [-50.0, -50.0], [500.0, 500.0], [-3.5, -3.5]]
+    g = rng.randn(B, H, W, 4 * (2 * radius + 1) ** 2).astype(np.float32)
+    return f1, f2, coords.astype(np.float32), g
+
+
+@pytest.mark.parametrize("kind", ["calibrated", "wild", "far", "integer"])
+@pytest.mark.parametrize("radius", [1, 4, 7])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dcoords_match_b3_interpret_ragged(dtype, radius, kind):
+    """``alt_corr_coords_grad_reference`` (the port's CPU path and the
+    kernel's oracle) against the JAX package's B3 in interpret mode, on the
+    ragged grid with levels down to 1x2, under the file's bars (f32
+    GRAD_ATOL; bf16 BF16_REL x max|dcoords|, the JAX kernel rounding its
+    rows, hats and window images to bf16)."""
+    seed = 100 * radius + ["calibrated", "wild", "far", "integer"].index(kind)
+    f1, f2, coords, g = _ragged_inputs(radius, kind, seed)
+    tdt = None if dtype == "float32" else torch.bfloat16
+    jdt = None if dtype == "float32" else jnp.bfloat16
+    c = torch.from_numpy(coords).requires_grad_()
+    out = tops.alt_corr_features(torch.from_numpy(f1), torch.from_numpy(f2),
+                                 c, 4, radius, compute_dtype=tdt)
+    out.backward(torch.from_numpy(g))
+    got = c.grad.numpy()
+    _, _, ref = _alt_corr_bwd_pallas(
+        *map(jnp.asarray, (f1, f2, coords, g)), 4, radius, jdt, False,
+        interpret=True)
+    ref = np.asarray(ref).astype(np.float32)
+    assert got.dtype == np.float32 and got.shape == coords.shape
+    assert np.isfinite(got).all() and np.abs(ref).max() > 0.1
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, atol=GRAD_ATOL)
+    else:
+        assert np.abs(got - ref).max() <= BF16_REL * np.abs(ref).max()
+    if kind == "far":  # windows wholly outside every level: exactly 0
+        assert np.abs(got[0, 0, [0, 1, 2, 4]]).max() == 0
+    if kind == "integer":  # x, y multiples of 8 sit on every level's grid
+        assert np.abs(got[0, :, ::8, 0]).max() == 0
+        assert np.abs(got[0, ::8, :, 1]).max() == 0

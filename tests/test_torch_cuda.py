@@ -405,6 +405,86 @@ def test_dcoords_wrapper_rejects_bad_input(cuda):
     assert ops.LAUNCH_COUNTS["alt_corr_dcoords"] == before
 
 
+
+def _dcoords_centres(b, h, w, kind, seed):
+    """(b, h, w, 2) centres: the grid plus 2 px ("calibrated") or 150 px
+    ("wild") of per-query noise, exactly the grid ("integer"), or
+    calibrated with +-1e30, out-of-level and edge centres in the first row
+    ("far"; the first three and the fifth are outside every level at every
+    radius)."""
+    g = torch.Generator().manual_seed(seed)
+    grid = ops.coords_grid(h, w)[None].expand(b, h, w, 2)
+    noise = torch.randn((b, h, w, 2), generator=g)
+    if kind == "integer":
+        return grid.clone()
+    coords = grid + (150.0 if kind == "wild" else 2.0) * noise
+    if kind == "far":
+        coords[0, 0, :6] = torch.tensor(
+            [[-1e30, 3.0], [3.0, 1e30], [1e30, -1e30], [-50.0, -50.0],
+             [500.0, 500.0], [-3.5, -3.5]])
+    return coords
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius", range(1, 8))
+@pytest.mark.parametrize("shape", [(2, 13, 21, 64), (1, 24, 40, 256)])
+def test_dcoords_kernel_tile_stage(cuda, shape, radius, dtype):
+    """B3 on the lookup's tile stage at every radius: against
+    ``alt_corr_coords_grad_reference`` at 1e-5 x max|dcoords| for
+    calibrated, wild, far and integer centres, on a ragged grid (levels
+    down to 1x2) and at RAFT's width; two launches bit-equal (no atomics);
+    windows wholly outside exactly 0; its (tile, level) path counts equal
+    B1's on the same inputs (bf16: the tile path; f32: the per-query
+    path)."""
+    b, h, w, c = shape
+    n2 = (2 * radius + 1) ** 2
+    gen = torch.Generator().manual_seed(radius)
+    fm1 = torch.randn((b, h, w, c), generator=gen).cuda()
+    fm2 = torch.randn((b, h, w, c), generator=gen).cuda()
+    g = torch.randn((b, h * w, 4 * n2), generator=gen).cuda()
+    f1, levels = ops.prepare_alt_corr(fm1, fm2, 4, dtype)
+    for i, kind in enumerate(("calibrated", "wild", "far", "integer")):
+        coords = _dcoords_centres(b, h, w, kind, 10 * radius + i).cuda()
+        cflat = coords.reshape(b, h * w, 2).contiguous()
+        counts = torch.zeros(8, dtype=torch.int32, device="cuda")
+        got = correlation._alt_corr_dcoords_cuda(f1, levels, cflat, g, radius,
+                                                 counts)
+        again = correlation._alt_corr_dcoords_cuda(f1, levels, cflat, g,
+                                                   radius)
+        ref = ops.alt_corr_coords_grad_reference(f1, levels, cflat, g, radius)
+        b1 = torch.zeros(8, dtype=torch.int32, device="cuda")
+        correlation._alt_corr_lookup_cuda(f1, levels, cflat, radius, b1)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+        assert ref.abs().max().item() > 0
+        assert (got - ref).abs().max().item() <= \
+            BWD_REL_TOL * ref.abs().max().item()
+        assert torch.equal(got, again)
+        assert torch.equal(counts, b1)
+        if dtype == torch.float32:
+            assert counts[:4].sum().item() == 0
+        elif kind != "wild":  # every box fits
+            assert counts[4:].sum().item() == 0
+        if kind == "far":
+            assert got[0, [0, 1, 2, 4]].abs().max().item() == 0
+
+
+def test_dcoords_wrapper_rejects_bad_path_counts(cuda):
+    f1, levels, coords = _case(1, 8, 8, 32, torch.bfloat16, 1.0)
+    g = torch.ones((1, 64, 324), device="cuda")
+    before = ops.LAUNCH_COUNTS["alt_corr_dcoords"]
+    for bad in (torch.zeros(8, dtype=torch.int64, device="cuda"),
+                torch.zeros(6, dtype=torch.int32, device="cuda"),
+                torch.zeros(8, dtype=torch.int32),
+                torch.zeros(16, dtype=torch.int32, device="cuda")[::2]):
+        with pytest.raises(ValueError):
+            correlation._alt_corr_dcoords_cuda(f1, levels, coords, g, 4, bad)
+    assert ops.LAUNCH_COUNTS["alt_corr_dcoords"] == before
+    counts = torch.zeros(8, dtype=torch.int32, device="cuda")
+    correlation._alt_corr_dcoords_cuda(f1, levels, coords, g, 4, counts)
+    assert ops.LAUNCH_COUNTS["alt_corr_dcoords"] == before + 1
+    assert counts[:4].tolist() == [1] * 4 and counts[4:].tolist() == [0] * 4
+
 def test_attack_step_launches_kernels_and_matches_plain(cuda):
     """Two I-FGSM steps on RAFT (f32, 3 iterations): each step is one
     forward and one backward through B1 and B2 and never B3; the image

@@ -230,6 +230,34 @@ def test_forward_kernel_query_grid_and_counter(monkeypatch, n, grid):
         assert call[12] == pc
 
 
+@pytest.mark.parametrize("n,grid", [(13 * 21, (13, 21)), (100, (1, 100))])
+def test_dcoords_kernel_query_grid_and_counter(monkeypatch, n, grid):
+    """csrc/alt_corr_dcoords.cu gets the (H1, W1) grid it cuts into 8x8
+    tiles, as csrc/alt_corr_fwd.cu does (so both count the same (tile,
+    level) paths), a scratch of per-level partials, and the path counter's
+    pointer or null; a launch is counted only when the call returns 0."""
+    from understanding_flow_robustness_tpu_torch.ops import correlation
+
+    calls = _fake_forward_launch(monkeypatch)
+    f1 = torch.zeros((2, n, 16))
+    levels = [torch.zeros((2, 13, 21, 16)), torch.zeros((2, 6, 10, 16))]
+    coords = torch.zeros((2, n, 2))
+    g = torch.zeros((2, n, 2 * 81))
+    counts = torch.zeros(4, dtype=torch.int32)
+    before = tops.LAUNCH_COUNTS["alt_corr_dcoords"]
+    out = correlation._alt_corr_dcoords_cuda(f1, levels, coords, g, 4, counts)
+    correlation._alt_corr_dcoords_cuda(f1, levels, coords, g, 4)
+    assert tuple(out.shape) == (2, n, 2) and out.dtype == torch.float32
+    assert tops.LAUNCH_COUNTS["alt_corr_dcoords"] == before + 2
+    # (f1, levels, hw, L, coords, g, partial, dcoords, B, H1, W1, C,
+    #  radius, is_bf16, path_counts, stream)
+    assert calls[0][7] == out.data_ptr()
+    for call, pc in zip(calls, (counts.data_ptr(), None)):
+        assert call[8:14] == (2, *grid, 16, 4, 0)
+        assert call[6] not in (call[5], call[7])  # the partials' own buffer
+        assert list(call[2]) == [13, 21, 6, 10] and call[3] == 2
+        assert call[14] == pc
+
 @pytest.mark.parametrize("radius", [0, 1, 3, 7, 8])
 def test_kernel_wrappers_take_radius_1_to_7(monkeypatch, radius):
     """csrc/alt_corr_{fwd,bwd,dcoords}.cu are instantiated for radius 1..7
@@ -258,7 +286,7 @@ def test_kernel_wrappers_take_radius_1_to_7(monkeypatch, radius):
     if 1 <= radius <= 7:
         # the radius is the argument after C in each entry point
         assert len(calls) == 3
-        assert (calls[0][10], calls[1][12], calls[2][10]) == (radius,) * 3
+        assert (calls[0][10], calls[1][12], calls[2][12]) == (radius,) * 3
     else:
         assert calls == [] and dict(tops.LAUNCH_COUNTS) == before
 

@@ -123,6 +123,21 @@ def test_raft_f32_matches_jax(setup, head_scale):
     assert np.abs(p_up - j_up).max() < FLOW_ATOL_PX
 
 
+
+def test_raft_f64_stays_f64_and_matches_jax(setup):
+    """The module in f64 (as chip_smoke.py's f64 witness of the patch
+    update runs it) keeps f64 from the images to the flow: the fmaps,
+    context, coordinates and upsampling are not cut to f32.  Its flow is
+    the JAX f32 flow within the f32 bar."""
+    jm, v, imgs = setup
+    _, j_up = _run_jax(jm, v, imgs)
+    model = _port(v).double()
+    a, b = (torch.from_numpy(x).double().permute(0, 3, 1, 2) for x in imgs)
+    with torch.inference_mode():
+        low, up = model(a, b)
+    assert low.dtype == up.dtype == torch.float64
+    assert np.abs(up.permute(0, 2, 3, 1).numpy() - j_up).max() < FLOW_ATOL_PX
+
 def test_raft_bf16_autocast_drift_against_jax_f32(setup):
     jm, v, imgs = setup
     _, j_up = _run_jax(jm, v, imgs)

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.correlation import (
+    _widen,
     alt_corr_kernel_inputs,
     alt_corr_lookup,
     alt_corr_lookup_reference,
@@ -302,21 +303,22 @@ class BasicUpdateBlock(nn.Module):
 
 
 def upsample_flow_convex(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Convex 8x upsampling (models/raft/raft.py:111-122), in f32.
-    flow: (B, 2, H, W); mask: (B, 64*9, H, W) -> (B, 2, 8H, 8W)."""
+    """Convex 8x upsampling (models/raft/raft.py:111-122), in f32 (f64 for
+    f64 inputs).  flow: (B, 2, H, W); mask: (B, 64*9, H, W) -> (B, 2, 8H,
+    8W)."""
     B, _, H, W = flow.shape
-    mask = torch.softmax(mask.float().view(B, 1, 9, 8, 8, H, W), dim=2)
-    up = F.unfold(8.0 * flow.float(), [3, 3], padding=1).view(B, 2, 9, 1, 1, H, W)
+    mask = torch.softmax(_widen(mask).view(B, 1, 9, 8, 8, H, W), dim=2)
+    up = F.unfold(8.0 * _widen(flow), [3, 3], padding=1).view(B, 2, 9, 1, 1, H, W)
     up = torch.sum(mask * up, dim=2)  # (B, 2, 8, 8, H, W)
     return up.permute(0, 1, 4, 2, 5, 3).reshape(B, 2, 8 * H, 8 * W)
 
 
 def upflow8(flow: torch.Tensor) -> torch.Tensor:
     """models/raft/utils/utils.py:85-87 (raft_model.py:678-681): 8 x the
-    bilinear (align_corners=True) 8x upsample, in f32.  (B, 2, H, W) ->
-    (B, 2, 8H, 8W)."""
+    bilinear (align_corners=True) 8x upsample, in f32 (f64 for f64
+    inputs).  (B, 2, H, W) -> (B, 2, 8H, 8W)."""
     H, W = flow.shape[2:]
-    return 8.0 * F.interpolate(flow.float(), size=(8 * H, 8 * W),
+    return 8.0 * F.interpolate(_widen(flow), size=(8 * H, 8 * W),
                                mode="bilinear", align_corners=True)
 
 
@@ -525,7 +527,7 @@ class RAFT(nn.Module):
 
         with self._autocast(x1.device):
             fmaps = self.fnet(torch.cat([x1, x2], dim=0))
-        fmap1, fmap2 = fmaps.float().split(B, dim=0)
+        fmap1, fmap2 = _widen(fmaps).split(B, dim=0)
         feats = ({"fmap1": fmap1, "fmap2": fmap2} if self.return_features
                  else None)
         lookup = self._make_lookup(fmap1, fmap2, feats)
@@ -535,14 +537,15 @@ class RAFT(nn.Module):
                 cnet = self.conv_redir(fmap1)
             else:
                 cnet = self.cnet(x1)
-        net, inp = cnet.float().split([self.hidden_dim, self.context_dim], dim=1)
+        net, inp = _widen(cnet).split([self.hidden_dim, self.context_dim], dim=1)
         net = torch.tanh(net)
         inp = torch.relu(inp)
         if feats is not None:
             feats.update(net=net, inp=inp)
 
         H8, W8 = fmap1.shape[2], fmap1.shape[3]
-        coords0 = coords_grid(H8, W8, device=x1.device).permute(2, 0, 1)
+        coords0 = coords_grid(H8, W8, device=x1.device,
+                              dtype=fmap1.dtype).permute(2, 0, 1)
         coords0 = coords0[None].expand(B, 2, H8, W8)
         coords1 = coords0.clone()
         if flow_init is not None:
@@ -555,7 +558,7 @@ class RAFT(nn.Module):
             with self._autocast(x1.device):
                 net, up_mask, delta_flow, taps = self.update_block(
                     net, inp, corr, flow)
-            coords1 = coords1 + delta_flow.float()
+            coords1 = coords1 + _widen(delta_flow)
             if not test_mode or feats is not None:
                 flow_up = self._upsample(coords1 - coords0, up_mask)
             if not test_mode:

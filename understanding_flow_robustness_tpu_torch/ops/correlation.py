@@ -857,7 +857,8 @@ def _level_args(levels):
 
 
 def _check_path_counts(path_counts, L, device):
-    """Raise on a path counter csrc/alt_corr_{fwd,bwd}.cu do not take."""
+    """Raise on a path counter csrc/alt_corr_{fwd,bwd,dcoords}.cu do not
+    take."""
     if path_counts is not None and (
             path_counts.dtype != torch.int32 or path_counts.numel() != 2 * L
             or path_counts.device != device
@@ -916,10 +917,11 @@ def _check_cotangent(f1, levels, g, radius):
 
 
 def _query_grid(levels, n: int):
-    """The (H1, W1) grid of the n queries per image that csrc/alt_corr_fwd.cu
-    and csrc/alt_corr_bwd.cu cut into 8x8 tiles: level 0's, where f1 and
-    fmap2 share it (every model path); else one row of n.  Any grid gives
-    the same result; a 2-D one keeps a tile's windows together."""
+    """The (H1, W1) grid of the n queries per image that csrc/alt_corr_fwd.cu,
+    alt_corr_bwd.cu and alt_corr_dcoords.cu cut into 8x8 tiles: level 0's,
+    where f1 and fmap2 share it (every model path); else one row of n.  Any
+    grid gives the same result; a 2-D one keeps a tile's windows
+    together."""
     h, w = levels[0].shape[1], levels[0].shape[2]
     return (h, w) if h * w == n else (1, n)
 
@@ -965,31 +967,42 @@ def _alt_corr_bwd_cuda(f1, levels, coords, g, radius, path_counts=None):
     return df1, dlevels
 
 
-def _alt_corr_dcoords_cuda(f1, levels, coords, g, radius):
+def _alt_corr_dcoords_cuda(f1, levels, coords, g, radius, path_counts=None):
     """Launch csrc/alt_corr_dcoords.cu: dcoords (B, N, 2) f32, the
     coordinate gradient of the lookup for the output cotangent g (B, N,
     L*(2r+1)^2) f32, as ``alt_corr_coords_grad_reference`` computes it.
-    One launch covers every level; dcoords is written whole."""
+    One call covers every level: the kernel writes each (query, level)'s
+    share into a scratch of per-level partials, which a second kernel sums
+    in level order into dcoords (no atomics: the same bits every call).
+    ``path_counts``: None, or a zeroed int32 CUDA tensor of 2*L that the
+    kernel adds to as ``_alt_corr_lookup_cuda``'s does: [l] the (8x8 tile,
+    level) pairs with a live window that took the tensor-core tile path,
+    [L + l] those that took the per-query path."""
     import ctypes
 
     _check_kernel_args("alt_corr_dcoords", f1, levels, coords, radius)
     _check_cotangent(f1, levels, g, radius)
     B, N, C = f1.shape
     L = len(levels)
+    _check_path_counts(path_counts, L, f1.device)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     fn, lib = kernel_fn("alt_corr_dcoords", "ufr_alt_corr_dcoords", [
-        vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp, vp, vp, i32,
-        i32, i32, i32, i32, vp])
+        vp, ctypes.POINTER(vp), ctypes.POINTER(i32), i32, vp, vp, vp, vp,
+        i32, i32, i32, i32, i32, i32, vp, vp])
 
     dcoords = torch.empty((B, N, 2), device=f1.device, dtype=torch.float32)
     if B * N == 0:
         return dcoords
+    partial = torch.empty((B, N, L, 2), device=f1.device, dtype=torch.float32)
+    H1, W1 = _query_grid(levels, N)
     ptrs, hw = _level_args(levels)
     with torch.cuda.device(f1.device):
         stream = torch.cuda.current_stream(f1.device).cuda_stream
         err = fn(f1.data_ptr(), ptrs, hw, L, coords.data_ptr(), g.data_ptr(),
-                 dcoords.data_ptr(), B, N, C, radius,
-                 int(f1.dtype == torch.bfloat16), stream)
+                 partial.data_ptr(), dcoords.data_ptr(), B, H1, W1, C, radius,
+                 int(f1.dtype == torch.bfloat16),
+                 None if path_counts is None else path_counts.data_ptr(),
+                 stream)
     if err:
         raise RuntimeError("alt_corr_dcoords launch failed: "
                            + lib.ufr_cuda_error_string(err).decode())
