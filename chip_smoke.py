@@ -310,6 +310,20 @@ The checkpoint, analysis-helper and KITTI-raw slice adds, after phase 48
    launches.
 52. One RAFT-12 request inside ``utils.profile_trace``: the Chrome trace
    names ``alt_corr_fwd``; the device's idle share.
+The data-parallel slice adds, last (``parallel.launch``: one process a
+rank, each building nothing, loading the kernels built above):
+53. (a) RAFT-12's train step (batch 4 at 288x960, mixed precision, B1 and
+   B2) at world 1 over NCCL against the plain step on the same batch, and
+   both timed in turns; (b) the step at world 2 over gloo with both ranks
+   on cuda:0 against the plain step on the full batch (gradients before
+   the optimizer, loss, batch-norm running statistics); (c) the explicit
+   step with bf16 gradient transport against the explicit f32 one; (d)
+   sharded KITTI validation at world 2 against one rank's; (e)
+   ``make_sharded_attack`` (I-FGSM, one step with cuDNN and three without
+   it, gaussian) at world 2 against the unsharded attack; with two cards, (b) over NCCL across them.  Its B1 and
+   B2 launches join the totals; its last line gives the world-1 step's ms
+   against the plain step's, the bytes all-reduced a step in f32 and bf16,
+   and the world-2 one-card ms (not a scaling number).
 PWC-Net's serving phase (7) also counts its 5 ``spatial_corr_fwd``
 launches per request, holds the flow against the plain warp and the plain
 correlation together, and times pairs/s with the plain correlation too, in
@@ -2144,7 +2158,8 @@ def cli_phase() -> dict:
     shutil.rmtree(ckpt, ignore_errors=True)
     argv = ["--synthetic", "3", "--num_steps", "2", "--batch_size", "2",
             "--image_size", str(TH), str(TW), "--mixed_precision",
-            "--name", "smoke", "--checkpoint_dir", str(ckpt)]
+            "--name", "smoke", "--checkpoint_dir", str(ckpt),
+            "--n_devices", "1"]
     out = cli_train.main(argv)
     check(out["total_steps"] == 3 and len(out["history"]) == 3,
           f"CLI took {out['total_steps']} batches, not 3")
@@ -2941,7 +2956,7 @@ def adv_train_phase() -> dict:
             str(ADV_TRAIN_BATCHES - 1), "--batch_size", str(AB),
             "--image_size", str(AH), str(AW), "--perturb_n_step",
             str(ADV_TRAIN_STEPS), "--name", "adv", "--checkpoint_dir",
-            str(ckpt)]
+            str(ckpt), "--n_devices", "1"]
     LAUNCH_COUNTS.clear()
     trainer.make_train_step = spy_step
     try:
@@ -3675,7 +3690,8 @@ def train_files_phase(tres) -> dict:
         try:
             with contextlib.chdir(FILES_OUT):
                 out = cli_train.main(argv + [
-                    "--checkpoint_dir", str(ckpt), "--name", name])
+                    "--checkpoint_dir", str(ckpt), "--name", name,
+                    "--n_devices", "1"])
         finally:
             trainer.make_train_step = make_step
             ev.validate_kitti = validate
@@ -4456,7 +4472,8 @@ def family_train_phase() -> dict:
                     "--model", name, "--synthetic", str(FAMILY_BATCHES),
                     "--num_steps", str(FAMILY_BATCHES - 1), "--batch_size",
                     str(batch), "--image_size", str(FTH), str(FTW),
-                    "--name", "fam", "--checkpoint_dir", str(ckpt)])
+                    "--name", "fam", "--checkpoint_dir", str(ckpt),
+                    "--n_devices", "1"])
         finally:
             cli_train.fetch_model = fetch
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -4538,7 +4555,7 @@ def family_adv_train_phase() -> dict:
                 str(ADV_TRAIN_BATCHES - 1), "--batch_size", str(AB),
                 "--image_size", str(AH), str(AW), "--perturb_n_step",
                 str(ADV_TRAIN_STEPS), "--name", "adv", "--checkpoint_dir",
-                str(ckpt)])
+                str(ckpt), "--n_devices", "1"])
             seconds = time.perf_counter() - t0
         passes = ADV_TRAIN_BATCHES * (ADV_TRAIN_STEPS + ADV_INNER)
         expect = {"spatial_corr_fwd": passes * corrs,
@@ -5239,7 +5256,8 @@ def config_cli_phase(gen) -> dict:
         out = cli_train.main(flags + [
             "--synthetic", "3", "--num_steps", "2", "--batch_size", "2",
             "--image_size", str(h), str(w), "--name", name,
-            "--checkpoint_dir", str(CONFIG_OUT / "train")])
+            "--checkpoint_dir", str(CONFIG_OUT / "train"),
+            "--n_devices", "1"])
         torch.cuda.synchronize()
         n = {k: LAUNCH_COUNTS[k] for k in per_step}
         check(out["total_steps"] == 3 and len(out["history"]) == 3
@@ -5730,7 +5748,8 @@ def msgpack_cli_phase(gen) -> dict:
             "--restore_ckpt", str(params), "--synthetic", "3",
             "--num_steps", str(MSGPACK_TRAIN_STEPS - 1), "--batch_size", "2",
             "--image_size", str(TH), str(TW), "--mixed_precision",
-            "--name", "msgpack", "--checkpoint_dir", str(ckpt)])
+            "--name", "msgpack", "--checkpoint_dir", str(ckpt),
+            "--n_devices", "1"])
     finally:
         cli_train.load_variables = load
     n = {k: LAUNCH_COUNTS[k] for k in TRAIN_KERNELS}
@@ -5920,6 +5939,406 @@ def profile_phase(gen) -> dict:
     return res
 
 
+# the data-parallel phase: one process per rank (parallel.launch); its
+# KITTI tree and inputs from a generator of its own, after every other
+# phase, so that theirs stay as they were
+DP_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_dp"
+DP_SEED = 500
+DP_TIMED = 5             # timed steps of each world-1 step, in turns
+DP_ATTACK_STEPS = 1      # the compared I-FGSM (batch 2): one sign step,
+DP_NO_CUDNN_STEPS = 3    # and three with cuDNN off
+# world 1 (NCCL) against the plain step, world 2 (gloo, one card) against
+# the plain step on the full batch, at the calibrated point (the flow head
+# x 0.05, as phase 9): two runs of the same step already part (B2's
+# atomics land in another order each run) and the sharded one sums in
+# other orders.  The loss and the running statistics within
+# TRAIN_LOSS_REL's bars.  The gradients: all parameters within phase 9's
+# bars (GRAD_BF16_REL_L2, GRAD_F32_REL_L2), the worst tensor within twice
+# what the first chip run of this phase measured (H100 80GB HBM3, 700 W):
+# 0.152 bf16 (a cnet batch norm's bias) and 2.95e-3 f32 (a batch norm's
+# weight), where two runs of the same bf16 step part by 5.5e-3 (fnet).
+# The worst tensors are the batch norms' own parameters, whose gradients
+# are sums of cancelling terms that the shards and the all-reduce
+# reorder; a wrong gradient is off by O(1) in all parameters together
+DP_LOSS_REL = {"bf16": 1e-3, "f32": 1e-5}
+DP_STATS_REL = {"bf16": 1e-3, "f32": 1e-5}
+DP_GRAD_BARS = {"bf16": (0.3, GRAD_BF16_REL_L2[1]),
+                "f32": (1e-2, GRAD_F32_REL_L2[1])}
+# explicit bf16 transport against explicit f32: the gradients rounded to
+# bf16 (half an ulp, 2^-9 relative) on top of the run-to-run noise above
+# (measured 5.6e-3 worst, 2.3e-3 all)
+DP_BF16_GRAD_REL_L2 = 1e-2
+DP_LOSS_REL["transport"] = DP_LOSS_REL["bf16"]
+DP_STATS_REL["transport"] = DP_STATS_REL["bf16"]
+DP_GRAD_BARS["transport"] = (DP_BF16_GRAD_REL_L2, DP_BF16_GRAD_REL_L2)
+# sharded validation (f32, 24 iterations) at world 2 against one rank: the
+# same per-sample work on the same card; f32 cuDNN convolutions are not
+# bit-reproducible from call to call (~1e-5 px)
+DP_EPE_REL = 1e-5
+# the sharded I-FGSM against the unsharded one (f32 RAFT, 24 iterations):
+# elements apart by more than 1e-6 at most this share, none by more than
+# 2 lr a step (a near-zero image gradient whose sign the two batch sizes'
+# sums flip moves a pixel by 2 lr).  With cuDNN, whose convolutions sum in
+# another order at batch 1 than at batch 2, one step: 1.0e-6 of the
+# elements measured; later steps amplify such flips as they amplify a
+# one-ulp nudge of the input (scripts/torch_dp_attack_cause.py).  With
+# cuDNN off the unsharded attack on each half alone equals the whole
+# batch's over 3 steps (the same script), so three steps are compared
+DP_ATTACK_SHARE = 1e-3
+
+
+def dp_attacks() -> dict:
+    """(e)'s attacks: {name: (configuration, cuDNN on)}."""
+    from understanding_flow_robustness_tpu_torch.attacks import PerturbConfig
+
+    def ifgsm(steps):
+        return PerturbConfig(perturb_method="ifgsm", flow_loss="l2",
+                             output_norm=ATTACK_EPS, n_step=steps)
+
+    return {"ifgsm": (ifgsm(DP_ATTACK_STEPS), True),
+            "ifgsm_no_cudnn": (ifgsm(DP_NO_CUDNN_STEPS), False),
+            "gaussian": (PerturbConfig(perturb_method="gaussian",
+                                       output_norm=ATTACK_EPS), True)}
+
+
+@contextlib.contextmanager
+def cudnn_enabled(on: bool):
+    old = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = old
+
+
+def _dp_flags() -> None:
+    """A rank starts with PyTorch's defaults: TF32 off, as in main()."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def dp_step(mesh, state: dict, batch: dict, mode: str = "pjit",
+            steps: int = 1, precision: str = "bf16") -> dict:
+    """``steps`` steps of RAFT-12 (``precision``: mixed, or f32; ``state``)
+    through
+    ``make_train_step`` on this rank's slice of ``batch`` (CPU tensors), in
+    ``mode``; ``mesh=None`` is the plain one-device step.  Returns the
+    first step's loss, the gradients it gave the optimizer (before the
+    clip; on the host), the running statistics after it, the bytes it
+    all-reduced, the B1/B2 launches of all steps and the ms per step of
+    the steps after the first."""
+    from understanding_flow_robustness_tpu_torch.models import fetch_model
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+    from understanding_flow_robustness_tpu_torch.parallel import shard_batch
+    from understanding_flow_robustness_tpu_torch.training import (
+        fetch_optimizer,
+        make_train_step,
+    )
+
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    module = fetch_model("RAFT", device=dev, seed=0,
+                         mixed_precision=precision == "bf16").module
+    module.load_state_dict(state)
+    optimizer, scheduler = fetch_optimizer(list(module.parameters()),
+                                           lr=1e-4, num_steps=1000)
+    step = make_train_step(module, optimizer, scheduler, is_raft=True,
+                           mesh=mesh, explicit=mode != "pjit",
+                           grad_transport="bf16" if mode == "bf16" else "f32")
+    local = {k: v.to(dev) for k, v in shard_batch(mesh, batch).items()}
+    grads = {}
+    real_clip = torch.nn.utils.clip_grad_norm_
+
+    def record(params, clip):
+        if not grads:
+            grads.update({n: p.grad.detach().float().cpu()
+                          for n, p in module.named_parameters()
+                          if p.grad is not None})
+        return real_clip(params, clip)
+
+    torch.nn.utils.clip_grad_norm_ = record
+    LAUNCH_COUNTS.clear()
+    try:
+        metrics = step(local)
+        stats = {k: v.detach().cpu().clone()
+                 for k, v in module.state_dict().items() if "running" in k}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps - 1):
+            step(local)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / max(steps - 1, 1)
+    finally:
+        torch.nn.utils.clip_grad_norm_ = real_clip
+    return {"loss": metrics["loss"], "grads": grads, "stats": stats,
+            "sent": step.sent_bytes, "ms": ms,
+            "launches": {k: LAUNCH_COUNTS[k] for k in TRAIN_KERNELS}}
+
+
+def dp_world1_rank(mesh, state: dict, batch: dict) -> dict:
+    """(a): the plain step and the NCCL world-1 step from the same weights
+    on the same batch, then both timed in turns (plain, mesh, mesh, plain,
+    plain, mesh)."""
+    _dp_flags()
+    out = {"plain": dp_step(None, state, batch),
+           "mesh": dp_step(mesh, state, batch)}
+    times = {"plain": [], "mesh": []}
+    out["launches"] = dict(out["mesh"]["launches"])
+    for kind in ("plain", "mesh", "mesh", "plain", "plain", "mesh"):
+        r = dp_step(mesh if kind == "mesh" else None, state, batch,
+                    steps=DP_TIMED + 1)
+        times[kind].append(r["ms"])
+        if kind == "mesh":
+            for k, n in r["launches"].items():
+                out["launches"][k] += n
+    out["ms"] = {k: float(np.mean(v)) for k, v in times.items()}
+    out["ms_turns"] = times
+    return out
+
+
+def dp_world2_rank(mesh, state: dict, batch: dict, job: dict) -> dict:
+    """(b)-(e) on this rank: the three step modes (the pjit one also timed),
+    sharded KITTI validation, the sharded attacks.  Rank 0 returns its own
+    results and every rank's launches."""
+    from understanding_flow_robustness_tpu_torch.attacks import (
+        make_sharded_attack,
+    )
+    from understanding_flow_robustness_tpu_torch.data import KITTI
+    from understanding_flow_robustness_tpu_torch.models import (
+        fetch_model,
+        predict_flow_differentiable,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+    from understanding_flow_robustness_tpu_torch.parallel import (
+        all_gather,
+        gather_objects,
+        shard_batch,
+    )
+    from understanding_flow_robustness_tpu_torch.training import evaluate
+
+    _dp_flags()
+    out = {mode: dp_step(mesh, state, batch, mode,
+                         steps=DP_TIMED + 1 if mode == "pjit" else 1)
+           for mode in ("pjit", "explicit", "bf16")}
+    out["pjit_f32"] = dp_step(mesh, state, batch, precision="f32")
+    launches = {f"{k}/{mode}": v for mode in out
+                for k, v in out[mode]["launches"].items()}
+    if job is None:
+        return out
+    model = fetch_model("RAFT", mixed_precision=False, iters=EVAL_ITERS,
+                        device=mesh.device)
+    model.module.load_state_dict(job["eval_state"])
+    LAUNCH_COUNTS.clear()
+    out["validate"] = evaluate.validate_kitti(
+        model, KITTI(root=job["kitti"]), mesh=mesh)
+    launches["alt_corr_fwd/validate"] = LAUNCH_COUNTS["alt_corr_fwd"]
+    attacks = {}
+    for name, (cfg, cudnn) in dp_attacks().items():
+        gen = torch.Generator(device=mesh.device).manual_seed(DP_SEED)
+        run = make_sharded_attack(
+            lambda a, b: predict_flow_differentiable(model, a, b), cfg, mesh)
+        LAUNCH_COUNTS.clear()
+        with cudnn_enabled(cudnn):
+            res = run(*(x.to(mesh.device) for x in shard_batch(
+                mesh, job["attack"])), gen)
+            torch.cuda.synchronize()
+        for k in TRAIN_KERNELS:
+            launches[f"{k}/{name}"] = LAUNCH_COUNTS[k]
+        attacks[name] = [all_gather(mesh, x).cpu() for x in res]
+    out["attacks"] = attacks
+    out["launches"] = gather_objects(mesh, launches)
+    return out
+
+
+def dp_phase(gen) -> dict:
+    """Data parallelism, one process per rank (``parallel.launch``):
+    (a) RAFT-12's train step (batch TB at THxTW, mixed precision, B1 and
+    B2) at world 1 over NCCL against the plain one-device step from the
+    same weights on the same batch, and both timed in turns; (b) the step
+    at world 2 over gloo with both ranks on cuda:0 against the plain step
+    on the full batch (the gradients before the optimizer, the loss, the
+    batch-norm running statistics); (c) the explicit step with bf16
+    gradient transport against the explicit f32 one; (d) sharded KITTI
+    validation (f32, 24 iterations) at world 2 on a KITTI tree of the
+    evaluate phase's layout against one rank's; (e) ``make_sharded_attack``
+    (I-FGSM on f32 RAFT, one step with cuDNN and three without it; gaussian
+    noise) at world 2 against the unsharded attack.  With two cards, (b) over NCCL on two cards too.  Every mesh
+    step, validation sample and attack step counts its B1/B2 launches."""
+    from understanding_flow_robustness_tpu_torch.attacks import make_attack
+    from understanding_flow_robustness_tpu_torch.data import KITTI
+    from understanding_flow_robustness_tpu_torch.models import (
+        fetch_model,
+        predict_flow_differentiable,
+        scale_flow_head,
+    )
+    from understanding_flow_robustness_tpu_torch.parallel import (
+        launch,
+        make_mesh,
+    )
+    from understanding_flow_robustness_tpu_torch.training import evaluate
+
+    print(f"== data parallelism: RAFT-12 train step, batch {TB} at "
+          f"{TH}x{TW}, bf16; world 1 over NCCL, world 2 over gloo on one "
+          "card; sharded validation and attack ==", flush=True)
+    dgen = torch.Generator(device="cuda").manual_seed(DP_SEED)
+    state = {k: v.cpu() for k, v in scale_flow_head(fetch_model(
+        "RAFT", device="cuda", seed=0).module, 0.05).state_dict().items()}
+    batch = {k: v.cpu() for k, v in train_batch(dgen, TB).items()}
+    ref = {"bf16": dp_step(None, state, batch),
+           "f32": dp_step(None, state, batch, precision="f32")}
+    shutil.rmtree(DP_OUT, ignore_errors=True)
+    eval_model = fetch_model("RAFT", mixed_precision=False, iters=EVAL_ITERS)
+    eval_model.module = scale_flow_head(eval_model.module, 0.05)
+    write_kitti_layout(dgen, DP_OUT / "kitti", eval_model)
+    attack_in = [torch.rand((2, AH, AW, 3), generator=dgen, device="cuda"),
+                 torch.rand((2, AH, AW, 3), generator=dgen, device="cuda"),
+                 torch.cat([3 * torch.randn((2, AH, AW, 2), generator=dgen,
+                                            device="cuda"),
+                            torch.ones((2, AH, AW, 1), device="cuda")], -1)]
+    job = {"eval_state": {k: v.cpu() for k, v in
+                          eval_model.module.state_dict().items()},
+           "kitti": str(DP_OUT / "kitti"),
+           "attack": [x.cpu() for x in attack_in]}
+    res = {}
+
+    def compare(name, got, want, precision):
+        loss_rel, stats_rel = DP_LOSS_REL[precision], DP_STATS_REL[precision]
+        grad_bars = DP_GRAD_BARS[precision]
+        dl = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        ds = max(float((got["stats"][k] - v).norm() / v.norm())
+                 for k, v in want["stats"].items())
+        rels = sorted((float((got["grads"][n] - g).norm() / g.norm()), n)
+                      for n, g in want["grads"].items()
+                      if not NORMED_BIAS.search(n))
+        total = math.sqrt(sum(float(((got["grads"][n] - g) ** 2).sum())
+                              for n, g in want["grads"].items()
+                              if not NORMED_BIAS.search(n))
+                          / sum(float((g ** 2).sum())
+                                for n, g in want["grads"].items()
+                                if not NORMED_BIAS.search(n)))
+        res[name] = {"loss_rel": dl, "stats_rel": ds,
+                     "grad_worst_rel_l2": rels[-1][0],
+                     "grad_total_rel_l2": total}
+        print(f"{name}: loss {got['loss']:.6f} vs {want['loss']:.6f} (rel "
+              f"{dl:.2e}, bar {loss_rel:g}); running statistics rel L2 "
+              f"worst {ds:.2e} (bar {stats_rel:g}); gradients rel L2 worst "
+              f"{rels[-1][0]:.2e} ({rels[-1][1]}), all {total:.2e} (bars "
+              f"{grad_bars})", flush=True)
+        check(dl <= loss_rel and ds <= stats_rel and rels[-1][0]
+              <= grad_bars[0] and total <= grad_bars[1],
+              f"{name}: beyond its bars")
+
+    # (a) world 1 over NCCL
+    w1 = launch(dp_world1_rank, 1, state, batch, device="cuda")
+    n_params = sum(g.numel() for g in ref["f32"]["grads"].values())
+    check(w1["mesh"]["sent"] == 4 * n_params,
+          f"world 1: {w1['mesh']['sent']} bytes all-reduced")
+    compare("(a) world 1 NCCL vs plain step, bf16", w1["mesh"], w1["plain"],
+            "bf16")
+    launches = dict(w1["launches"])
+    for k in TRAIN_KERNELS:  # the compared step, then three timed runs
+        check(launches[k] == ITERS * (1 + 3 * (DP_TIMED + 1)),
+              f"(a): {k} launched {launches[k]} times")
+
+    # (b)-(e) world 2 over gloo, both ranks on cuda:0
+    w2 = launch(dp_world2_rank, 2, state, batch, job, device="cuda",
+                backend="gloo", devices=[0, 0])
+    for precision, mode in (("bf16", "pjit"), ("f32", "pjit_f32")):
+        compare(f"(b) world 2 gloo one card vs plain step, full batch, "
+                f"{precision}", w2[mode], ref[precision], precision)
+    compare("(c) explicit bf16 transport vs explicit f32", w2["bf16"],
+            w2["explicit"], "transport")
+    check(w2["pjit"]["sent"] == 4 * n_params
+          and w2["bf16"]["sent"] == 2 * n_params,
+          f"world 2: {w2['pjit']['sent']} / {w2['bf16']['sent']} bytes")
+    for rank, counts in enumerate(w2["launches"]):
+        for mode in ("pjit", "explicit", "bf16", "pjit_f32"):
+            steps = DP_TIMED + 1 if mode == "pjit" else 1
+            for k in TRAIN_KERNELS:
+                n = counts[f"{k}/{mode}"]
+                check(n == ITERS * steps, f"rank {rank} {mode}: {k} "
+                                          f"launched {n} times")
+        n = counts["alt_corr_fwd/validate"]
+        check(n == EVAL_ITERS * (KITTI_SCENES // 2),
+              f"rank {rank}: validation launched alt_corr_fwd {n} times")
+        for name in ("ifgsm", "ifgsm_no_cudnn"):
+            steps = dp_attacks()[name][0].n_step
+            for k in TRAIN_KERNELS:  # a forward and a backward a step
+                n = counts[f"{k}/{name}"]
+                check(n == EVAL_ITERS * steps,
+                      f"rank {rank}: the sharded {name} launched {k} {n} "
+                      "times")
+        for k in TRAIN_KERNELS:
+            launches[k] += sum(v for key, v in counts.items()
+                               if key.startswith(k + "/"))
+
+    # (d) against one rank's sharded validation
+    one = evaluate.validate_kitti(eval_model, KITTI(root=job["kitti"]),
+                                  mesh=make_mesh(1))
+    d_epe = abs(w2["validate"]["kitti-epe"] - one["kitti-epe"]) \
+        / one["kitti-epe"]
+    ds = KITTI(root=job["kitti"])
+    n_valid = sum(int((ds[i][3] >= 0.5).sum()) for i in range(len(ds)))
+    d_out = abs(w2["validate"]["kitti-f1"] - one["kitti-f1"]) / 100 * n_valid
+    print(f"(d) sharded KITTI validation, world 2 vs one rank: EPE "
+          f"{w2['validate']['kitti-epe']:.6f} vs {one['kitti-epe']:.6f} (rel "
+          f"{d_epe:.2e}, bar {DP_EPE_REL:g}), F1 "
+          f"{w2['validate']['kitti-f1']:.4f} vs {one['kitti-f1']:.4f} % "
+          f"({d_out:.1f} outlier pixels apart over {len(ds)} frames)",
+          flush=True)
+    check(d_epe <= DP_EPE_REL and d_out <= len(ds),
+          "(d) sharded validation beyond its bars")
+    res["validate"] = {"epe_rel": d_epe, "outliers_apart": d_out}
+
+    # (e) against the unsharded attacks
+    for name, (cfg, cudnn) in dp_attacks().items():
+        gen1 = torch.Generator(device="cuda").manual_seed(DP_SEED)
+        with cudnn_enabled(cudnn):
+            want = make_attack(lambda a, b: predict_flow_differentiable(
+                eval_model, a, b), cfg)(*attack_in, gen1)
+        diffs = [(g - w.cpu()).abs() for g, w in zip(w2["attacks"][name],
+                                                      want)]
+        share = max(float((d > 1e-6).float().mean()) for d in diffs)
+        worst = max(float(d.max()) for d in diffs)
+        print(f"(e) sharded {name} vs unsharded: max |d| {worst:.2e}, share "
+              f"of elements apart {share:.2e}", flush=True)
+        if name == "gaussian":
+            check(worst == 0.0, "(e) gaussian noise not the unsharded draw")
+        else:
+            check(share <= DP_ATTACK_SHARE
+                  and worst <= 2 * cfg.n_step * cfg.learning_rate + 1e-6,
+                  f"(e) sharded {name} beyond its bars")
+        res[f"attack/{name}"] = {"max_abs": worst, "share": share}
+
+    if torch.cuda.device_count() >= 2:
+        w2n = launch(dp_world2_rank, 2, state, batch, None, device="cuda")
+        for precision, mode in (("bf16", "pjit"), ("f32", "pjit_f32")):
+            compare(f"(b) world 2 NCCL two cards vs plain step, full batch, "
+                    f"{precision}", w2n[mode], ref[precision], precision)
+    else:
+        print("(b) over NCCL across two cards: not run (this machine has "
+              f"{torch.cuda.device_count()} card)", flush=True)
+    res.update({f"launches/{k}": v for k, v in launches.items()})
+    res.update({"world1_plain_ms": w1["ms"]["plain"],
+                "world1_nccl_ms": w1["ms"]["mesh"],
+                "world2_one_card_ms": w2["pjit"]["ms"],
+                "f32_bytes": w2["pjit"]["sent"],
+                "bf16_bytes": w2["bf16"]["sent"]})
+    print(f"data parallelism ({gpu_line()}): world-1 step over NCCL "
+          f"{res['world1_nccl_ms']:.1f} ms against the plain step's "
+          f"{res['world1_plain_ms']:.1f} ms ({3 * DP_TIMED} steps each, in "
+          "turns of " + ", ".join(
+              f"{k} " + " / ".join(f"{t:.1f}" for t in v)
+              for k, v in w1["ms_turns"].items())
+          + f" ms); gradient all-reduce {res['f32_bytes'] / 1e6:.2f} MB a "
+          f"step in f32, {res['bf16_bytes'] / 1e6:.2f} MB in bf16; world 2 "
+          f"on one card over gloo {res['world2_one_card_ms']:.1f} ms a step "
+          "of each rank (two ranks share one card: not a scaling number); "
+          f"B1 {launches['alt_corr_fwd']}, B2 {launches['alt_corr_bwd']} "
+          "launches", flush=True)
+    shutil.rmtree(DP_OUT, ignore_errors=True)
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device: torch.cuda.is_available() is False")
@@ -6028,6 +6447,7 @@ def main() -> None:
     prepres = phase(prepare_phase, gen)
     profres = phase(profile_phase, gen)
     t_ckpt = time.perf_counter() - t_ckpt
+    dpres = phase(dp_phase, gen)
     print(f"all phases, build included: {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(f"patch attack, FlowNetC, batch {PB} at {PH}x{PW} ({card}): "
@@ -6136,7 +6556,8 @@ def main() -> None:
                      + cpres["launches/alt_corr_fwd"]
                      + msres["launches"]["alt_corr_fwd"]
                      + mcres["launches"]["alt_corr_fwd"]
-                     + profres["launches"]),
+                     + profres["launches"]
+                     + dpres["launches/alt_corr_fwd"]),
         "max_abs_err": kres[fwd],
         "ms": kres[f"{fwd}/ms"],
         "plain_ms": kres[f"{fwd}/plain_ms"],
@@ -6169,7 +6590,8 @@ def main() -> None:
                      + sum(ccres[f"train/{c}"].get("launches/alt_corr_bwd", 0)
                            for c in ("small", "wocontext"))
                      + ccres["parity"]["launches/alt_corr_bwd"]
-                     + mcres["launches"]["alt_corr_bwd"]),
+                     + mcres["launches"]["alt_corr_bwd"]
+                     + dpres["launches/alt_corr_bwd"]),
         "max_abs_err": bres[fwd],
         "ms": bres[f"{fwd}/ms"],
         "plain_ms": bres[f"{fwd}/plain_ms"],

@@ -181,18 +181,33 @@ def test_forward_interpolate():
                           jev.forward_interpolate(flow))
 
 
-def test_evaluate_refusals(setup):
+def test_evaluate_refusals(setup, capsys, monkeypatch):
+    """What the evaluate CLI still refuses, and the sharded KITTI
+    validation it once refused (ROADMAP A13): ``--n_devices 1`` runs
+    ``validate_kitti(mesh=)`` on a one-device mesh (one common padded
+    geometry) and matches the JAX CLI's ``--n_devices 1`` at
+    test_validate_kitti's bars; world 2: tests/test_torch_parallel.py."""
     _, _, pth = setup
-    # --small is ported (test_validate_kitti_small)
-    for argv, match in ((["--n_devices", "2"], "A13"),):
-        with pytest.raises(NotImplementedError, match=match):
-            tcli.main(["--model", pth, "--dataset", "kitti"] + argv)
+    # --small is ported (test_validate_kitti_small); more CUDA ranks than
+    # cards raise (no card here), sharding is KITTI validation's only
+    with pytest.raises(ValueError, match="2 CUDA ranks"):
+        tcli.main(["--model", pth, "--dataset", "kitti", "--n_devices", "2"])
+    with pytest.raises(ValueError, match="KITTI validation only"):
+        tcli.main(["--model", pth, "--dataset", "chairs", "--n_devices",
+                   "2", "--device", "cpu"])
     # a .msgpack is read (tests/test_torch_checkpoint_msgpack.py); a
     # missing one is refused as a missing .pth is
     with pytest.raises(FileNotFoundError, match="x.msgpack"):
         tcli.main(["--model", "x.msgpack", "--dataset", "kitti"])
-    with pytest.raises(NotImplementedError, match="A13"):
-        tev.validate_kitti(None, [], mesh=object())
+    argv = ["--dataset", "kitti", "--n_devices", "1"]
+    jepe, jf1 = _run(jcli, setup, argv, capsys, monkeypatch)
+    tepe, tf1 = _run(tcli, setup, argv, capsys, monkeypatch)
+    assert abs(tepe - jepe) <= EPE_REL * jepe
+    from understanding_flow_robustness_tpu_torch.data import KITTI
+
+    ds = KITTI(root=setup[1]["kitti"])
+    n_valid = sum(int((ds[i][3] >= 0.5).sum()) for i in range(len(ds)))
+    assert abs(tf1 - jf1) / 100 * n_valid <= len(ds)
 
 
 def test_infer_writes_predict_flow(tmp_path):
@@ -200,7 +215,8 @@ def test_infer_writes_predict_flow(tmp_path):
     .flo equals predict_flow on the same decoded, padded batch, unpadded;
     the ragged batch's flow equals the full batch's within 1e-4 px; every
     _flow.png decodes to round(64 flow) / 64 within 1/64, every _viz.png to
-    the colour wheel."""
+    the colour wheel.  With ``--devices 2`` (two CPU ranks) the same .flo
+    files within 1e-5 relative."""
     rng = np.random.RandomState(10)
     frames = rng.randint(0, 256, (5, 2, 61, 83, 3)).astype(np.uint8)
     for i in range(5):
@@ -232,9 +248,17 @@ def test_infer_writes_predict_flow(tmp_path):
         assert np.abs(png - np.round(64 * want[i]) / 64).max() <= 1 / 64
         assert np.array_equal(fio.read_samples(str(out / f"{i:06d}_viz.png")),
                               flowlib.flow_to_image(want[i]))
-    with pytest.raises(NotImplementedError, match="A13"):
-        tinfer.main(["--dir", str(tmp_path), "--devices", "2",
-                     "--device", "cpu"])
+    # --devices 2 (ROADMAP A13): two CPU ranks, each its slice of every
+    # batch (the last repeated to full size), the .flo files of --devices 1
+    two = tmp_path / "two"
+    res = tinfer.main(["--dir", str(tmp_path), "--batch_size", "2",
+                       "--devices", "2", "--device", "cpu",
+                       "--output_dir", str(two)])
+    assert res["pairs"] == 5 and 0 < res["model_seconds"] <= res["seconds"]
+    assert sorted(os.listdir(two)) == [f"{i:06d}.flo" for i in range(5)]
+    for i in range(5):
+        got = fio.read_flo(str(two / f"{i:06d}.flo"))
+        assert np.abs(got - want[i]).max() <= 1e-5 * np.abs(want[i]).max()
 
 
 def test_infer_matches_jax_cli(setup, tmp_path, capsys):

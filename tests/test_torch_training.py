@@ -10,6 +10,7 @@ plain versions of the CUDA kernels.
 """
 
 import copy
+import functools
 import os
 
 import jax
@@ -17,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-
+import torch_parallel_workers as workers
 from test_torch_raft import _perturb
 from understanding_flow_robustness_tpu import training as jtraining
 from understanding_flow_robustness_tpu.models import convert as jconvert
@@ -365,11 +366,56 @@ def test_train_loop_and_resume(tmp_path):
 @pytest.mark.parametrize("field,item", [("grad_transport", "A13"),
                                         ("n_devices", "A13")])
 def test_trainer_refuses_unported_paths(tmp_path, field, item):
-    model = FlowModel("RAFT", RAFT(iters=1), torch.device("cpu"))
-    cfg = TrainConfig(checkpoint_dir=str(tmp_path),
-                      **{field: "bf16" if field == "grad_transport" else 2})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        train(cfg, model, _synthetic())
+    """The two paths this test once saw refused (ROADMAP A13) run.
+
+    ``grad_transport="bf16"`` on one device: the step's explicit mode, the
+    gradients rounded to bf16 as JAX's one-device shard_map does; the
+    first step's loss is the f32 run's and the weights stay within 3 lr of
+    it a step (the JAX package's bar, tests/test_grad_transport.py).
+
+    ``n_devices=2``: a library call launches two CPU ranks; the caller's
+    model ends with rank 0's weights and the logger sees rank 0's metrics,
+    those of the one-device run (f32, 1e-5; the weights within 2 lr a step,
+    AdamW's sign flips); an argument that does not pickle is named."""
+    def run(sub, **kw):
+        model = fetch_model("RAFT", iters=ITERS, mixed_precision=False,
+                            seed=0, device="cpu")
+        cfg = TrainConfig(name="t", num_steps=1, batch_size=2, lr=LR,
+                          val_freq=100, checkpoint_dir=str(tmp_path / sub),
+                          seed=0, **kw)
+        seen = []
+        batches = functools.partial(workers.synthetic_batches, n=2)
+        steps = train(cfg, model, batches,
+                      logger=lambda s, m: seen.append(m))
+        assert steps == 2 and len(seen) == 2
+        assert os.path.exists(tmp_path / sub / "t.pth")
+        return seen, model.module.state_dict()
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)   # as each rank, so the sums agree
+    try:
+        ref, ref_state = run("f32")
+    finally:
+        torch.set_num_threads(n)
+    if field == "grad_transport":
+        got, state = run("bf16", grad_transport="bf16")
+        np.testing.assert_allclose(got[0]["loss"], ref[0]["loss"],
+                                   rtol=1e-6)
+        bar = 3
+    else:
+        got, state = run("ranks", n_devices=2)
+        for g, r in zip(got, ref):
+            for k, x in r.items():
+                np.testing.assert_allclose(g[k], x, rtol=1e-5, atol=1e-6,
+                                           err_msg=k)
+        bar = 2
+        with pytest.raises(TypeError, match="'batches' does not pickle"):
+            train(TrainConfig(n_devices=2, checkpoint_dir=str(tmp_path)),
+                  FlowModel("RAFT", RAFT(iters=1), torch.device("cpu")),
+                  lambda: iter(()))
+    for k, x in ref_state.items():
+        if x.is_floating_point():
+            assert (state[k] - x).abs().max() <= bar * 2 * LR, k
 
 
 def test_train_cli_synthetic(tmp_path):
@@ -396,6 +442,12 @@ def test_train_cli_refuses_unported_paths(tmp_path, argv, item):
                 "--checkpoint_dir", str(tmp_path), "--device", "cpu",
                 "--data_roots", f'{{"chairs": "{tmp_path / "none"}"}}'])
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli_train.main(argv + ["--synthetic", "1", "--checkpoint_dir",
-                               str(tmp_path), "--device", "cpu"])
+    # --n_devices 2 (ROADMAP A13) runs: two CPU ranks, rank 0's history
+    out = cli_train.main(argv + [
+        "--synthetic", "2", "--num_steps", "1", "--batch_size", "2",
+        "--image_size", "64", "64", "--iters", "2", "--name", "dp",
+        "--checkpoint_dir", str(tmp_path), "--lr", "1e-4", "--device",
+        "cpu"])
+    assert out["total_steps"] == 2 and len(out["history"]) == 2
+    assert all(np.isfinite(m["loss"]) for m in out["history"])
+    assert os.path.exists(tmp_path / "dp" / "dp.pth")

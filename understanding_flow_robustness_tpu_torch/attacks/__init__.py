@@ -16,6 +16,7 @@ from .global_attacks import (
     gaussian_noise,
     ifgsm,
     make_attack,
+    make_sharded_attack,
     mifgsm,
     perturb,
     perturb_trajectory,
@@ -92,6 +93,7 @@ __all__ = [
     "init_patch_square",
     "log_utils",
     "make_attack",
+    "make_sharded_attack",
     "make_patch_attack_step",
     "make_universal_attack_step",
     "mifgsm",

@@ -17,8 +17,9 @@ per-sample L1-normalised gradients, :621-757), gaussian (var = (eps/4)^2,
 ``perturb_mode`` ("both"/"left"/"right") selects which frame is attacked;
 ``targeted`` negates the loss (:452-453).  Randomness (noise, the
 diverse-input draws) comes from an explicit ``torch.Generator`` on the
-images' device.  Not ported: the multi-chip ``make_sharded_attack`` and
-``make_spatial_attack`` (ROADMAP A13).
+images' device.  ``make_sharded_attack`` runs the attack data-parallel,
+each rank on its slice of the batch (``parallel``); the JAX package's
+spatially sharded ``make_spatial_attack`` is ROADMAP A13b.
 """
 
 from __future__ import annotations
@@ -275,17 +276,29 @@ def mifgsm(predict, image0, image1, ground_truth, cfg: PerturbConfig,
                     cfg, generator)
 
 
+def _batch_draw(draw, img: torch.Tensor, mesh) -> torch.Tensor:
+    """``draw(shape)`` for ``img``'s shape; under a mesh, drawn for the
+    global batch and sliced to this rank's part, so that a rank's noise is
+    its slice of the one-device run's."""
+    if mesh is None or mesh.world == 1:
+        return draw(img.shape)
+    b = img.shape[0]
+    full = draw((b * mesh.world,) + tuple(img.shape[1:]))
+    return full[mesh.rank * b:(mesh.rank + 1) * b]
+
+
 @torch.no_grad()
 def gaussian_noise(image0, image1, cfg: PerturbConfig,
-                   generator: torch.Generator):
+                   generator: torch.Generator, mesh=None):
     """Gaussian noise, var = (eps/4)^2, output clipped to [0, 1] like
     skimage.random_noise (perturb_model.py:274-330)."""
     m0, m1 = _mode_mask(cfg.perturb_mode)
     sigma = cfg.output_norm / 4.0
 
     def draw(img):
-        return torch.randn(img.shape, generator=generator, device=img.device,
-                           dtype=img.dtype)
+        return _batch_draw(lambda shape: torch.randn(
+            shape, generator=generator, device=img.device, dtype=img.dtype),
+            img, mesh)
 
     out0 = torch.clamp(image0 + sigma * draw(image0), 0.0, 1.0)
     out1 = torch.clamp(image1 + sigma * draw(image1), 0.0, 1.0)
@@ -294,14 +307,15 @@ def gaussian_noise(image0, image1, cfg: PerturbConfig,
 
 @torch.no_grad()
 def uniform_noise(image0, image1, cfg: PerturbConfig,
-                  generator: torch.Generator):
+                  generator: torch.Generator, mesh=None):
     """Uniform noise in [-eps, eps) (perturb_model.py:332-382)."""
     m0, m1 = _mode_mask(cfg.perturb_mode)
     eps = cfg.output_norm
 
     def draw(img):
-        u = torch.rand(img.shape, generator=generator, device=img.device,
-                       dtype=img.dtype)
+        u = _batch_draw(lambda shape: torch.rand(
+            shape, generator=generator, device=img.device, dtype=img.dtype),
+            img, mesh)
         return (2.0 * eps) * u - eps
 
     return draw(image0) * m0, draw(image1) * m1
@@ -314,12 +328,15 @@ def perturb(
     ground_truth: torch.Tensor,
     cfg: PerturbConfig,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ):
     """Run the configured attack on (B, H, W, 3) images in [0, 1] against
     the (B, H, W, 2 or 3) ground truth.  Returns (noise0, noise1, adv0,
     adv1): the adversarial images clamped to [0, 1] and the noises their
     final deltas (perturb_model.py:260-272).  gaussian and uniform need
-    ``generator``; the iterative methods use it for the diverse input."""
+    ``generator``; the iterative methods use it for the diverse input.
+    ``mesh``: the images are this rank's slice of a data-parallel batch
+    (``make_sharded_attack``)."""
     method = cfg.perturb_method
     if method in ("fgsm", "fgm"):
         noise0, noise1 = fgsm(predict, image0, image1, ground_truth, cfg)
@@ -333,7 +350,7 @@ def perturb(
         if generator is None:
             raise ValueError(f"{method} noise needs a torch.Generator")
         fn = gaussian_noise if method == "gaussian" else uniform_noise
-        noise0, noise1 = fn(image0, image1, cfg, generator)
+        noise0, noise1 = fn(image0, image1, cfg, generator, mesh)
     elif method == "none":
         noise0 = torch.zeros_like(image0)
         noise1 = torch.zeros_like(image1)
@@ -390,5 +407,24 @@ def make_attack(predict: PredictFn, cfg: PerturbConfig):
 
     def run(image0, image1, ground_truth, generator=None):
         return perturb(predict, image0, image1, ground_truth, cfg, generator)
+
+    return run
+
+
+def make_sharded_attack(predict: PredictFn, cfg: PerturbConfig, mesh):
+    """Data-parallel white-box attack (the JAX package's
+    ``make_sharded_attack``, global_attacks.py:386-413): ``run(image0,
+    image1, ground_truth, generator=None)`` attacks this rank's slice of
+    the batch (``parallel.shard_batch``) and returns its slices of (noise0,
+    noise1, adv0, adv1).  The attack is per sample (no gradient crosses the
+    batch axis), so it needs no collective; noise drawn for the batch
+    (gaussian, uniform) is drawn for the global batch from ``generator``
+    (seeded alike on every rank) and sliced, and the diverse input's draws
+    are per batch, so a rank's result is its slice of the one-device
+    run's."""
+
+    def run(image0, image1, ground_truth, generator=None):
+        return perturb(predict, image0, image1, ground_truth, cfg, generator,
+                       mesh)
 
     return run

@@ -9,8 +9,10 @@ noise-only flow, with sample dumps, per-frame timing and the final
 ``validate`` aggregation.  The attack runs step by step on torch autograd
 (``global_attacks.make_attack``) on ``RunConfig.device``, the card unless
 the caller asks for the CPU; a corruption runs on the host
-(``corruptions.corrupt_pair``) and its pair is copied to that device.  Not
-ported: the JAX package's mesh branch (ROADMAP A13).
+(``corruptions.corrupt_pair``) and its pair is copied to that device.
+With ``mesh`` every batch is attacked and predicted data-parallel, each
+rank on its slice (``make_sharded_attack``, ``parallel.shard_predict``),
+and rank 0 logs every entry and writes the results.
 """
 
 from __future__ import annotations
@@ -24,6 +26,13 @@ import numpy as np
 import torch
 
 from ..flowviz.gif import encode_gif, luminance
+from ..parallel.mesh import (
+    all_gather,
+    broadcast_object,
+    is_rank0,
+    shard_batch,
+    shard_predict,
+)
 from ..utils import on_device
 from . import log_utils
 from .corruptions import check_severity, corrupt_pair, get_corruption_names
@@ -31,6 +40,7 @@ from .global_attacks import (
     PerturbConfig,
     PredictFn,
     make_attack,
+    make_sharded_attack,
     perturb_trajectory,
 )
 from .losses import compute_epe
@@ -154,7 +164,8 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(predict: PredictFn, samples: Iterable, cfg: RunConfig) -> dict:
+def run(predict: PredictFn, samples: Iterable, cfg: RunConfig,
+        mesh=None) -> dict:
     """Attack-evaluate over (img0, img1, gt_small, gt_full) samples, NHWC
     numpy in [0, 1] with the batch dimension.  ``predict`` is
     differentiable in the images (``predict_flow_differentiable``); the
@@ -162,7 +173,15 @@ def run(predict: PredictFn, samples: Iterable, cfg: RunConfig) -> dict:
     Returns the aggregate metrics dict (plus ``time_per_frame``, wall
     seconds per frame with the device synchronised) and writes
     results{seed}.txt and log{seed}.txt under the output path.  A
-    corruption's severity is ``int(cfg.perturb.output_norm)``, 1-5."""
+    corruption's severity is ``int(cfg.perturb.output_norm)``, 1-5.
+
+    ``mesh`` (a ``parallel.Mesh``; every rank calls ``run`` on the same
+    samples, whose batches divide over it, the run's device being the
+    rank's): each batch is attacked and predicted data-parallel and
+    gathered back, so every entry is logged individually, in global order,
+    by rank 0, which writes the files; every rank returns rank 0's results
+    (perturb_runner.py:177-197 of the JAX package).  ``show_evolve_path``
+    has no sharded variant and raises."""
     method = cfg.perturb.perturb_method
     is_corruption = method in CORRUPTIONS
     if is_corruption:
@@ -171,15 +190,30 @@ def run(predict: PredictFn, samples: Iterable, cfg: RunConfig) -> dict:
         # fail BEFORE creating output dirs, with the reference's explicit
         # dispatch error (perturb_model.py:270-272)
         raise ValueError(f"Invalid perturbation method: {method}")
-    device = torch.device(cfg.device)
+    if mesh is not None and cfg.show_evolve_path:
+        # failing loudly beats silently dropping the requested GIFs
+        raise ValueError(
+            "show_evolve_path is not supported with mesh sharding; run "
+            "unsharded to collect perturbation-evolution GIFs")
+    device = mesh.device if mesh is not None else torch.device(cfg.device)
+    rank0 = is_rank0(mesh)
 
-    os.makedirs(cfg.output_path, exist_ok=True)
-    seed = log_utils.find_unused_seed_results(cfg.output_path, cfg.seed)
-    paths = log_utils.create_write_folder_structure(cfg.output_path)
+    paths = None
+    if rank0:
+        os.makedirs(cfg.output_path, exist_ok=True)
+        seed = log_utils.find_unused_seed_results(cfg.output_path, cfg.seed)
+        paths = log_utils.create_write_folder_structure(cfg.output_path)
+    seed = broadcast_object(mesh, seed if rank0 else None)
     logf = os.path.join(cfg.output_path, f"log{seed}.txt")
 
     if is_corruption:
         attack = None
+    elif mesh is not None:
+        sharded = make_sharded_attack(predict, cfg.perturb, mesh)
+
+        def attack(i0, i1, t, gen):
+            return tuple(all_gather(mesh, x) for x in sharded(
+                *shard_batch(mesh, (i0, i1, t)), gen))
     elif cfg.show_evolve_path:
         def attack(i0, i1, t, gen):
             outs, (tr0, tr1) = perturb_trajectory(predict, i0, i1, t,
@@ -193,6 +227,9 @@ def run(predict: PredictFn, samples: Iterable, cfg: RunConfig) -> dict:
     def predict_eval(a, b):
         with torch.no_grad():
             return predict(a, b)
+
+    if mesh is not None:
+        predict_eval = shard_predict(predict_eval, mesh)
 
     universal = None
     if cfg.universal_perturbation_path:
@@ -265,6 +302,10 @@ def run(predict: PredictFn, samples: Iterable, cfg: RunConfig) -> dict:
             return (x - lo) / (hi - lo + 1e-12)
 
         flow_noise = predict_eval(norm01(noise0), norm01(noise1))
+        if not rank0:
+            if cfg.homogeneous:
+                break
+            continue
 
         gt_full_t = torch.as_tensor(np.asarray(gt_full, np.float32))
         host = {k: v.detach().cpu() for k, v in (
@@ -303,6 +344,8 @@ def run(predict: PredictFn, samples: Iterable, cfg: RunConfig) -> dict:
             break
 
     _sync(device)
+    if not rank0:
+        return broadcast_object(mesh, None)
     n = max(len(outputs), 1)
     per_frame = (time.time() - t_start) / n
     results = log_utils.validate(
@@ -311,4 +354,4 @@ def run(predict: PredictFn, samples: Iterable, cfg: RunConfig) -> dict:
     )
     log_utils.log(f"time_per_frame: {per_frame:.3f}s", logf, to_console=False)
     results["time_per_frame"] = (per_frame, 0.0)
-    return results
+    return broadcast_object(mesh, results)

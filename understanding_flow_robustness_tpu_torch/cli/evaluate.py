@@ -11,8 +11,10 @@ checkpoint, a weights file of the port's trainer (``save_weights``) or a
 flax ``.msgpack`` of the JAX package (``ufr-convert``'s full variables or
 its trainer's params-only export; ``cli.convert`` writes one), loaded
 strictly; ``--small`` builds small RAFT for it.  ``--device`` is the card
-unless asked for ``cpu`` (no fallback).  Not ported: ``--n_devices``
-(ROADMAP A13).
+unless asked for ``cpu`` (no fallback).  ``--n_devices N`` shards KITTI
+validation over N ranks, one process per device (``parallel.launch``:
+N cards, or N CPU ranks with ``--device cpu``; more CUDA ranks than cards
+raise).
 
 Example:
   python -m understanding_flow_robustness_tpu_torch.cli.evaluate \\
@@ -25,8 +27,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
+
+import torch
 
 from ..models import device_arg, fetch_model
+from ..parallel.mesh import current_mesh, launch, make_mesh
 from ..training import evaluate as ev
 
 
@@ -60,8 +66,8 @@ def build_parser():
     p.add_argument("--warm_start", action="store_true",
                    help="Sintel submission warm-start flow propagation")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="mesh-sharded KITTI validation: not ported yet "
-                        "(ROADMAP A13)")
+                   help="shard KITTI validation over N ranks, one process "
+                        "per device")
     p.add_argument("--data_roots", type=str, default=None,
                    help="JSON dict of dataset roots, e.g. "
                         '\'{"kitti": "/data/KITTI"}\'')
@@ -71,12 +77,24 @@ def build_parser():
     return p
 
 
+def _main_rank(mesh, argv):
+    return main(argv)
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    device = device_arg(args.device)
+    mesh = None
     if args.n_devices:
-        raise NotImplementedError(
-            "--n_devices: mesh-sharded KITTI validation is not ported yet "
-            "(ROADMAP A13)")
+        if args.dataset != "kitti" or args.submission:
+            raise ValueError("--n_devices shards KITTI validation only "
+                             "(--dataset kitti, no --submission)")
+        if args.n_devices > 1 and current_mesh() is None:
+            return launch(_main_rank, args.n_devices, argv,
+                          device=torch.device(device).type)
+        mesh = make_mesh(args.n_devices, device=device)
+        device = mesh.device
     if not os.path.isfile(args.model):
         # the JAX CLI's torch.load of the file raises the same
         raise FileNotFoundError(f"--model {args.model!r}: no such file")
@@ -93,7 +111,7 @@ def main(argv=None):
         kwargs["iters"] = args.iters if args.iters is not None else (
             32 if args.dataset == "sintel" else 24)
     model = fetch_model(args.arch, pretrained_path=args.model,
-                        device=device_arg(args.device), **kwargs)
+                        device=device, **kwargs)
 
     roots = json.loads(args.data_roots) if args.data_roots else {}
 
@@ -118,7 +136,8 @@ def main(argv=None):
     if args.dataset == "sintel":
         return ev.validate_sintel(
             model, lambda d: MpiSintel(dstype=d, **root("sintel")))
-    return ev.validate_kitti(model, KITTI(split="training", **root("kitti")))
+    return ev.validate_kitti(model, KITTI(split="training", **root("kitti")),
+                             mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -10,8 +10,12 @@ system's serving path for files.
 * Outputs per pair, written by the same pool: ``.flo`` (Middlebury),
   ``_flow.png`` (KITTI 16-bit, all valid) and / or ``_viz.png`` (the
   Middlebury colour wheel).
-* ``--device`` is the card unless asked for ``cpu`` (no fallback); the JAX
-  CLI's data-parallel ``--devices N`` is not ported yet (ROADMAP A13).
+* ``--device`` is the card unless asked for ``cpu`` (no fallback).
+* ``--devices N`` (dividing ``--batch_size``) runs N ranks, one process
+  per device (``parallel.launch``: N cards, or N CPU ranks with ``--device
+  cpu``; more CUDA ranks than cards raise).  Each batch is split as the
+  JAX CLI shards it, a ragged last batch repeated to full size first; each
+  rank decodes, predicts and writes the pairs of its slice.
 
 Input selection (one of):
   --pairs LIST.txt     two image paths per line (whitespace-separated)
@@ -34,6 +38,7 @@ import collections
 import concurrent.futures
 import glob
 import os
+import sys
 import time
 
 import numpy as np
@@ -60,8 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "16-bit), viz (color wheel)")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--devices", type=int, default=1,
-                   help="data-parallel devices: only 1 is ported (ROADMAP "
-                        "A13)")
+                   help="data-parallel ranks, one process per device (must "
+                        "divide batch_size)")
     p.add_argument("--pad_mode", default="kitti", choices=["kitti", "sintel"],
                    help="InputPadder rule: kitti pads H at the bottom, "
                         "sintel pads both axes symmetrically")
@@ -143,18 +148,37 @@ def _read_pair(pair):
     return out
 
 
+def _rank_pairs(n_pairs: int, bs: int, world: int, rank: int) -> list:
+    """This rank's (pair index, written) list: batch after batch of ``bs``,
+    the last repeated to full size with its last pair (the JAX CLI's static
+    batch), each split into ``world`` contiguous slices.  One rank alone
+    runs a ragged last batch as it is."""
+    if world == 1:
+        return [(i, True) for i in range(n_pairs)]
+    k = bs // world
+    out = []
+    for s0 in range(0, n_pairs, bs):
+        for j in range(s0 + rank * k, s0 + (rank + 1) * k):
+            out.append((min(j, n_pairs - 1), j < n_pairs))
+    return out
+
+
+def _main_rank(mesh, argv):
+    return main(argv)
+
+
 def main(argv=None) -> dict:
     """Returns {"pairs": done, "seconds": wall time with decode and
     writing, "model_seconds": time in the model's forward and the copy of
-    its flow to the host}."""
+    its flow to the host}; with ``--devices N``, the pairs of all ranks
+    and the slowest rank's times."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     pairs = _dedup_stems(collect_pairs(args))
     if not pairs:
         raise SystemExit("no input pairs found")
-    if args.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1: data-parallel inference is not ported yet "
-            "(ROADMAP A13)")
+    if args.batch_size % args.devices:
+        raise SystemExit("--devices must divide --batch_size")
     formats = {f.strip() for f in args.save.split(",") if f.strip()}
     unknown = formats - {"flo", "png", "viz"}
     if unknown:
@@ -166,11 +190,27 @@ def main(argv=None) -> dict:
     from ..models import device_arg, fetch_model, predict_flow
     from ..native import batch_u8_to_float01_pad
     from ..ops.interp import compute_pad, remove_pad
+    from ..parallel.mesh import (
+        current_mesh,
+        gather_objects,
+        launch,
+        make_mesh,
+    )
 
+    device = device_arg(args.device)
+    mesh = None
+    if args.devices > 1:
+        if current_mesh() is None:
+            return launch(_main_rank, args.devices, argv,
+                          device=torch.device(device).type)
+        mesh = make_mesh(args.devices)
+        device = mesh.device
+    world, rank = (mesh.world, mesh.rank) if mesh else (1, 0)
+    mine = _rank_pairs(len(pairs), args.batch_size, world, rank)
     model = fetch_model(args.flownet, pretrained_path=args.pretrained,
-                        device=device_arg(args.device))
+                        device=device)
     write = _writers(formats)
-    bs = args.batch_size
+    bs = args.batch_size // world
     t0 = time.perf_counter()
     model_s = 0.0
     done = 0
@@ -178,7 +218,7 @@ def main(argv=None) -> dict:
     with concurrent.futures.ThreadPoolExecutor(args.prefetch_threads) as pool:
         # decode ahead in order, at most two batches beyond the current one
         ahead = collections.deque()
-        todo = iter(pairs)
+        todo = iter(mine)
         writes = []
 
         def run(batch):
@@ -200,18 +240,19 @@ def main(argv=None) -> dict:
             flow = predict_flow(model, *imgs).float().cpu().numpy()
             model_s += time.perf_counter() - tm
             flow = remove_pad(flow, (t, b, l, r))
-            for i in range(len(batch)):
-                stem = os.path.join(args.output_dir, pairs[done + i][2])
-                writes.append(pool.submit(write, stem, flow[i]))
+            for i, (idx, written) in enumerate(mine[done:done + len(batch)]):
+                if written:
+                    stem = os.path.join(args.output_dir, pairs[idx][2])
+                    writes.append(pool.submit(write, stem, flow[i]))
             done += len(batch)
 
         batch = []
         while True:
             while len(ahead) < 2 * bs:
-                pair = next(todo, None)
-                if pair is None:
+                item = next(todo, None)
+                if item is None:
                     break
-                ahead.append(pool.submit(_read_pair, pair))
+                ahead.append(pool.submit(_read_pair, pairs[item[0]]))
             if not ahead:
                 break
             im1, im2 = ahead.popleft().result()
@@ -229,9 +270,15 @@ def main(argv=None) -> dict:
         for f in writes:
             f.result()
     dt = time.perf_counter() - t0
-    print(f"{done} pairs -> {args.output_dir} [{','.join(sorted(formats))}] "
-          f"in {dt:.2f}s ({done / dt:.2f} pairs/s with decode and writing; "
-          f"the model {100 * model_s / dt:.1f} % of it)")
+    ranks = gather_objects(mesh, (sum(w for _, w in mine), dt, model_s))
+    done = sum(r[0] for r in ranks)
+    dt, model_s = max(r[1] for r in ranks), max(r[2] for r in ranks)
+    if rank == 0:
+        print(f"{done} pairs -> {args.output_dir} "
+              f"[{','.join(sorted(formats))}] in {dt:.2f}s "
+              f"({done / dt:.2f} pairs/s with decode and writing; the model "
+              f"{100 * model_s / dt:.1f} % of it"
+              + (f"; {world} ranks" if world > 1 else "") + ")")
     return {"pairs": done, "seconds": dt, "model_seconds": model_s}
 
 

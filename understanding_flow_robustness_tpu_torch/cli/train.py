@@ -30,8 +30,11 @@ RAFT trains in every configuration of the JAX CLI: ``--small``, ``--fnorm``,
 ID.  The flags the reference parses but never builds raise, as in the JAX
 CLI.  ``--restore_ckpt`` starts from a weights-only ``.pth`` or a flax
 ``.msgpack`` (the JAX trainer's params-only export, or ``ufr-convert``'s
-full variables).  Multi-device training raises with the ROADMAP item that
-ports it.
+full variables).  ``--n_devices N`` (``--gpus``) trains in N ranks, one
+process per device (``parallel.launch``, each rank running this CLI on the
+same arguments): N cards, or N CPU ranks with ``--device cpu``; more CUDA
+ranks than cards raise.  Without it the CLI takes the largest divisor of
+``--batch_size`` up to the card count, as the JAX CLI does (1 on the CPU).
 
     python -m understanding_flow_robustness_tpu_torch.cli.train --model RAFT \\
         --stage kitti --num_steps 100 --batch_size 4 \\
@@ -48,16 +51,18 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
 import numpy as np
+import torch
 
 from ..attacks.global_attacks import PerturbConfig
-from ..models import fetch_model
+from ..models import device_arg, fetch_model
+from ..parallel.mesh import current_mesh, is_rank0, launch
 from ..training import TrainConfig, train
 from ..training.checkpoint import load_variables, load_weights
+from ..training.trainer import n_devices_for
 
-# flags of the JAX CLI that belong to paths not ported yet
-_NOT_PORTED_FLAGS = {"n_devices": "A13"}
 # flags the reference parses but whose model construction is commented out
 # (training/train.py:66-84), never read, or crashes upstream
 # (--update_no_motion_downsampling, models/raft/update.py:110-119): the
@@ -223,7 +228,11 @@ def build_parser():
                    help="train on a fixed subset of dataset indices "
                         "(training/utils.py:275-283)")
     p.add_argument("--n_devices", "--gpus", dest="n_devices", type=int,
-                   default=None, help="not ported yet; raises")
+                   default=None,
+                   help="data-parallel ranks, one process per device (the "
+                        "reference's DataParallel GPUs); default: the "
+                        "largest divisor of --batch_size up to the card "
+                        "count")
     return p
 
 
@@ -391,25 +400,34 @@ def _refuse_dead_flags(args) -> None:
             "110-119 channel mismatch)")
 
 
+def _main_rank(mesh, argv):
+    return main(argv)
+
+
 def main(argv=None) -> dict:
     """Run the CLI; returns {"total_steps": batches taken, "history":
-    metrics of each batch of this run}."""
+    metrics of each batch of this run} (rank 0's, with ``--n_devices``)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     _refuse_dead_flags(args)
-    other = [f for f in _NOT_PORTED_FLAGS if getattr(args, f)]
-    if other:
-        raise NotImplementedError(
-            f"--{other[0]} is not ported yet (ROADMAP "
-            f"{_NOT_PORTED_FLAGS[other[0]]})")
+    device = torch.device(device_arg(args.device))
+    n_devices = n_devices_for(TrainConfig(batch_size=args.batch_size,
+                                          n_devices=args.n_devices), device)
+    mesh = current_mesh()
+    if n_devices > 1 and mesh is None:
+        return launch(_main_rank, n_devices, argv, device=device.type)
+    if mesh is not None:
+        device = mesh.device
     kwargs = _model_kwargs(args)
     if args.val_freq is None:  # train.py:143-148
         args.val_freq = (1000 if args.adversarial
                          else 100 if args.finetune else 5000)
 
-    model = fetch_model(args.model, device=args.device, seed=args.seed,
+    model = fetch_model(args.model, device=device, seed=args.seed,
                         **kwargs)
     n_params = sum(p.numel() for p in model.module.parameters())
-    print(f"Parameter Count: {n_params}")  # training/train.py:102
+    if is_rank0(mesh):
+        print(f"Parameter Count: {n_params}")  # training/train.py:102
     if args.restore_ckpt and args.restore_ckpt.endswith(".msgpack"):
         load_variables(args.restore_ckpt, model.module)  # train.py:297-302
     elif args.restore_ckpt:
@@ -437,7 +455,7 @@ def main(argv=None) -> dict:
             momentum=args.perturb_momentum,
             probability_diverse_input=args.probability_diverse_input,
             targeted=args.arbitrary_gt),  # train.py:183
-        seed=args.seed, add_noise=args.add_noise,
+        n_devices=n_devices, seed=args.seed, add_noise=args.add_noise,
         arbitrary_gt=args.arbitrary_gt, not_excluding=args.no_excluding,
         save_checkpoints=not args.DEBUG)
     h, w = args.image_size
@@ -481,7 +499,8 @@ def main(argv=None) -> dict:
                    else None)
     steps = train(cfg, model, batches, validate_fn=validate_fn,
                   logger=logger, sample_gt_fn=sample_gt_fn)
-    print(f"training done at step {steps}")
+    if is_rank0(mesh):
+        print(f"training done at step {steps}")
     return {"total_steps": steps, "history": history}
 
 

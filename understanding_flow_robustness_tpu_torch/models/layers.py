@@ -15,6 +15,10 @@ batch statistics, and it updates the running mean and the unbiased running
 variance (n = B*H*W) with momentum 0.1, as ``TorchBatchNorm(
 use_running_average=False)`` does (layers.py:419-429).  Instance norm has
 no running statistics in either package.
+
+Under data parallelism ``global_batch_norm`` swaps ``GlobalBatchNorm2d``
+in for every ``BatchNorm2d``: train-mode statistics over the global batch
+of all ranks, as the JAX package's pjit step computes them.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import math
 
 import torch
 from torch import nn
+
+from ..parallel.mesh import all_reduce_sum_grad
 
 
 def conv(in_ch: int, out_ch: int, kernel_size, stride: int = 1,
@@ -127,3 +133,55 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> None:
                 nn.init.zeros_(m.bias)
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
+
+
+class GlobalBatchNorm2d(nn.BatchNorm2d):
+    """``BatchNorm2d`` whose train-mode statistics run over the global
+    batch of ``mesh``'s ranks (the JAX package's pjit step partitions the
+    reduction of ``TorchBatchNorm``, layers.py:419-429).  Per channel, the
+    sum and then the sum of squared deviations are all-reduced, with
+    autograd through both collectives; n is the global element count, in
+    the unbiased factor of ``running_var`` too.  The parameter and buffer
+    names are ``BatchNorm2d``'s, so its state dict loads anywhere.  In eval
+    mode it is ``BatchNorm2d``.  (``nn.SyncBatchNorm`` refuses CPU
+    tensors.)"""
+
+    mesh = None  # set by global_batch_norm
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        n = xf.numel() // xf.shape[1] * self.mesh.world
+        mean = all_reduce_sum_grad(self.mesh, xf.sum(dim=(0, 2, 3))) / n
+        d = xf - mean[None, :, None, None]
+        var = all_reduce_sum_grad(self.mesh,
+                                  (d * d).sum(dim=(0, 2, 3))) / n
+        if self.track_running_stats:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                m = (1.0 / float(self.num_batches_tracked)
+                     if self.momentum is None else self.momentum)
+                self.running_mean.mul_(1 - m).add_(m * mean.detach())
+                self.running_var.mul_(1 - m).add_(
+                    m * var.detach() * (n / max(n - 1, 1)))
+        y = d * torch.rsqrt(var + self.eps)[None, :, None, None]
+        if self.affine:
+            y = y * self.weight[None, :, None, None] \
+                + self.bias[None, :, None, None]
+        return y.to(x.dtype)
+
+
+def global_batch_norm(module: nn.Module, mesh) -> nn.Module:
+    """Make every ``BatchNorm2d`` of ``module`` a ``GlobalBatchNorm2d`` on
+    ``mesh``, in place: the same objects, parameters and buffers (an
+    optimizer built before keeps them), with the global statistics.  On a
+    one-device mesh the global batch is the local one and the module is
+    left as it is."""
+    if mesh is None or mesh.world == 1:
+        return module
+    for m in module.modules():
+        if isinstance(m, nn.BatchNorm2d):
+            m.__class__ = GlobalBatchNorm2d
+            m.mesh = mesh
+    return module

@@ -8,8 +8,9 @@ evaluate.py:374-389) and the Sintel (warm-start) / KITTI submission
 writers (:200-267).  Models come in as ``FlowModel``s (``models.registry``)
 on their device; frames are padded on the host by the InputPadder rule,
 one sample at a time (KITTI frames differ in size), and the flow is
-unpadded on the host.  The JAX package's mesh-sharded KITTI validation is
-not ported yet (ROADMAP A13).
+unpadded on the host.  ``validate_kitti(..., mesh=)`` shards the KITTI
+samples over a data-parallel mesh (``parallel``), one sample per rank a
+step, padded to one common geometry.
 """
 
 from __future__ import annotations
@@ -21,8 +22,10 @@ import torch
 
 from ..data.loader import pad_batch
 from ..flowviz.io import write_flo, write_flow_png
+from ..flowviz.png import png_size
 from ..models.registry import predict_flow
 from ..ops.interp import remove_pad
+from ..parallel.mesh import gather_objects, is_rank0
 
 
 def _predict_padded(model, img1, img2, mode="sintel") -> np.ndarray:
@@ -95,24 +98,92 @@ def validate_sintel(model, dataset_fn) -> dict:
 def validate_kitti(model, dataset, mesh=None) -> dict:
     """evaluate.py:348-392: EPE (mean of the per-sample means) and F1 (the
     share in % of all valid pixels that are outliers: EPE > 3 and
-    EPE / |gt| > 0.05, :381)."""
+    EPE / |gt| > 0.05, :381).
+
+    With ``mesh`` (a ``parallel.Mesh``; every rank calls it with the same
+    dataset) the samples are padded to one common geometry and spread
+    over the ranks, one each a step; the scores are every rank's (see
+    ``_validate_kitti_sharded``)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded KITTI validation is not ported yet (ROADMAP A13)")
+        return _validate_kitti_sharded(model, dataset, mesh)
     out_list, epe_list = [], []
     for i in range(len(dataset)):
         img1, img2, flow_gt, valid_gt = dataset[i]
         flow = _predict_padded(
             model, img1[None] / 255.0, img2[None] / 255.0, mode="kitti")[0]
-        epe = np.sqrt(np.sum((flow - flow_gt) ** 2, axis=-1))
-        mag = np.sqrt(np.sum(flow_gt ** 2, axis=-1))
-        val = valid_gt >= 0.5
-        out = (epe > 3.0) & ((epe / np.maximum(mag, 1e-9)) > 0.05)
-        epe_list.append(epe[val].mean())
-        out_list.append(out[val])
+        epe, out = _kitti_scores(flow, flow_gt, valid_gt)
+        epe_list.append(epe)
+        out_list.append(out)
     epe = float(np.mean(epe_list))
     f1 = 100 * float(np.mean(np.concatenate(out_list)))
     print(f"Validation KITTI: {epe:.6f}, {f1:.6f}")
+    return {"kitti-epe": epe, "kitti-f1": f1}
+
+
+def _kitti_scores(flow, flow_gt, valid_gt) -> tuple:
+    """(mean EPE over the valid pixels, the valid pixels' outlier mask)."""
+    epe = np.sqrt(np.sum((flow - flow_gt) ** 2, axis=-1))
+    mag = np.sqrt(np.sum(flow_gt ** 2, axis=-1))
+    val = valid_gt >= 0.5
+    out = (epe > 3.0) & ((epe / np.maximum(mag, 1e-9)) > 0.05)
+    return epe[val].mean(), out[val]
+
+
+def _frame_sizes(dataset) -> list:
+    """Every sample's (H, W): from the PNG headers when the dataset lists
+    PNG files (``flowviz.png.png_size``, 24 bytes a file), else decoded.
+    The headers are trusted only if the first sample decodes to their
+    size (a dataset that resized in ``__getitem__`` would not)."""
+    pairs = getattr(dataset, "image_list", None)
+    if pairs and all(p[0].lower().endswith(".png") for p in pairs):
+        sizes = []
+        for pair in pairs:
+            with open(pair[0], "rb") as f:
+                w, h = png_size(f.read(24))
+            sizes.append((h, w))
+        if tuple(dataset[0][0].shape[:2]) == sizes[0]:
+            return sizes
+    return [tuple(dataset[i][0].shape[:2]) for i in range(len(dataset))]
+
+
+def _validate_kitti_sharded(model, dataset, mesh) -> dict:
+    """Data-parallel KITTI validation (the JAX package's
+    ``_validate_kitti_sharded``, evaluate.py:123-196).  Every sample is
+    replicate-padded to one common geometry, the largest frame rounded up
+    to the model's size multiple (kitti mode: H at the bottom, W on both
+    sides); the samples go out in mesh-sized steps, sample s0 + r to rank
+    r, and a ragged last step repeats its last sample on the ranks beyond
+    it, whose scores are dropped.  Each rank crops the pad off its flow and
+    scores it; the per-sample EPEs and outlier masks are gathered in sample
+    order, and rank 0 prints the result."""
+    n_dev, rank = mesh.world, mesh.rank
+    sizes = _frame_sizes(dataset)
+    mult = max(model.size_multiple, 1)
+    max_h = max(h for h, _ in sizes)
+    max_w = max(w for _, w in sizes)
+    pad_h = max_h + (-max_h) % mult
+    pad_w = max_w + (-max_w) % mult
+
+    scores = []
+    for s0 in range(0, len(dataset), n_dev):
+        i = min(s0 + rank, len(dataset) - 1)
+        img1, img2, flow_gt, valid_gt = dataset[i]
+        h, w = img1.shape[:2]
+        t, b, l, r = pad = (0, pad_h - h, (pad_w - w) // 2,
+                            pad_w - w - (pad_w - w) // 2)
+        a, c = (torch.from_numpy(np.pad(
+            x[None] / 255.0, ((0, 0), (t, b), (l, r), (0, 0)),
+            mode="edge")).to(model.device) for x in (img1, img2))
+        flow = remove_pad(predict_flow(model, a, c).float().cpu().numpy(),
+                          pad)[0]
+        if s0 + rank < len(dataset):
+            scores.append((i,) + _kitti_scores(flow, flow_gt, valid_gt))
+    scores = sorted((x for part in gather_objects(mesh, scores) for x in part),
+                    key=lambda x: x[0])
+    epe = float(np.mean([e for _, e, _ in scores]))
+    f1 = 100 * float(np.mean(np.concatenate([o for _, _, o in scores])))
+    if is_rank0(mesh):
+        print(f"Validation KITTI ({n_dev}-device mesh): {epe:.6f}, {f1:.6f}")
     return {"kitti-epe": epe, "kitti-f1": f1}
 
 

@@ -9,7 +9,15 @@ area-resized ground truth with the classic [0.005, 0.01, 0.02, 0.08, 0.32]
 weights or gamma^i.
 
 Channels-last, as in the JAX package: flows are (B, H, W, 2), valid is
-(B, H, W).  The JAX package's packed 1/8-resolution loss is TPU layout
+(B, H, W).
+
+With ``mesh`` (data parallelism) the inputs are this rank's slice of the
+batch and every mean divides by the count of the GLOBAL batch, as the JAX
+package's pjit step computes it: the counts of kept (valid, non-NaN)
+elements are all-reduced (they carry no gradient), the numerators stay
+local.  The loss and each metric returned are then this rank's share, and
+their sum over the ranks is the global value: the train step all-reduces
+them, and its summed gradients are the global loss's.  The JAX package's packed 1/8-resolution loss is TPU layout
 machinery and is not ported.
 """
 
@@ -17,6 +25,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.mesh import all_reduce_sum
 
 MAX_FLOW = 400.0
 _CLASSIC_WEIGHTS = (0.005, 0.01, 0.02, 0.08, 0.32)
@@ -32,17 +42,26 @@ def _area_resize(flow: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return out.permute(0, 2, 3, 1)
 
 
-def _masked_mean(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-    keep = keep.to(x.dtype)
-    return torch.sum(x * keep) / torch.clamp(torch.sum(keep), min=1.0)
+def _count(n: torch.Tensor, mesh) -> torch.Tensor:
+    """A count over this rank's slice -> over the global batch, >= 1."""
+    if mesh is not None:
+        n = all_reduce_sum(mesh, n.detach().clone())
+    return torch.clamp(n, min=1.0)
 
 
-def _nanmean(x: torch.Tensor) -> torch.Tensor:
+def _mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``torch.mean`` over the global batch (this rank's share)."""
+    if mesh is None or mesh.world == 1:
+        return torch.mean(x)
+    return torch.sum(x) / (x.numel() * mesh.world)
+
+
+def _nanmean(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Mean over the non-NaN elements (the reference's
     ``x[~isnan(x)].mean()``); 0 when every element is NaN."""
     m = ~torch.isnan(x)
-    return torch.sum(torch.where(m, x, torch.zeros_like(x))) / torch.clamp(
-        torch.sum(m.to(x.dtype)), min=1.0)
+    return torch.sum(torch.where(m, x, torch.zeros_like(x))) / _count(
+        torch.sum(m.to(x.dtype)), mesh)
 
 
 def _keep_mask(flow_gt: torch.Tensor, valid: torch.Tensor,
@@ -62,12 +81,14 @@ def _scaled_gt(flow_gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
     return _area_resize(flow_gt, h, w) * scale
 
 
-def _epe_metrics(epe: torch.Tensor, mask: torch.Tensor) -> dict:
+def _epe_metrics(epe: torch.Tensor, mask: torch.Tensor, mesh) -> dict:
+    keep = mask.to(epe.dtype)
+    n = _count(torch.sum(keep), mesh)
     return {
-        "epe": _masked_mean(epe, mask),
-        "1px": _masked_mean((epe < 1).float(), mask),
-        "3px": _masked_mean((epe < 3).float(), mask),
-        "5px": _masked_mean((epe < 5).float(), mask),
+        "epe": torch.sum(epe * keep) / n,
+        "1px": torch.sum((epe < 1).float() * keep) / n,
+        "3px": torch.sum((epe < 3).float() * keep) / n,
+        "5px": torch.sum((epe < 5).float() * keep) / n,
     }
 
 
@@ -75,7 +96,7 @@ def sequence_loss(flow_preds, flow_gt: torch.Tensor, valid: torch.Tensor,
                   gamma: float = 0.8, max_flow: float = MAX_FLOW,
                   flownetc: bool = False, pwc: bool = False,
                   not_excluding: bool = False, div_flow: float = 1.0,
-                  flownetc_weighing: bool = False):
+                  flownetc_weighing: bool = False, mesh=None):
     """training/utils.py:148-222.  Returns (loss, metrics dict of 0-d
     tensors).  The RAFT branch's mean runs over B*H*W*2; the EPE metrics
     are masked means over the final (RAFT) or first (FlowNetC/PWC)
@@ -97,12 +118,12 @@ def sequence_loss(flow_preds, flow_gt: torch.Tensor, valid: torch.Tensor,
                 weight = gamma ** i
             else:
                 weight = gamma ** (n - i - 1)
-            loss = loss + weight * _nanmean(i_loss)
+            loss = loss + weight * _nanmean(i_loss, mesh)
         else:
             i_loss = torch.abs(pred - flow_gt)
             weight = gamma ** (n - i - 1)
-            loss = loss + weight * torch.mean(keep[..., None].to(i_loss.dtype)
-                                              * i_loss)
+            loss = loss + weight * _mean(
+                keep[..., None].to(i_loss.dtype) * i_loss, mesh)
 
     if flownetc or pwc:
         epe = torch.linalg.vector_norm(
@@ -111,14 +132,14 @@ def sequence_loss(flow_preds, flow_gt: torch.Tensor, valid: torch.Tensor,
     else:
         epe = torch.linalg.vector_norm(flow_preds[-1] - flow_gt, dim=-1)
         epe_mask = keep
-    return loss, _epe_metrics(epe, epe_mask)
+    return loss, _epe_metrics(epe, epe_mask, mesh)
 
 
 def multiscale_epe(flow_preds, flow_gt: torch.Tensor, valid: torch.Tensor,
                    gamma: float = 0.8, max_flow: float = MAX_FLOW,
                    flownetc: bool = False, pwc: bool = False,
                    not_excluding: bool = False, div_flow: float = 1.0,
-                   flownetc_weighing: bool = False):
+                   flownetc_weighing: bool = False, mesh=None):
     """training/utils.py:68-145: per-scale sqrt-sum-squared EPE maps against
     area-resized GT (u/v-rescaled for the loss, not for the EPE metric).
     Returns (loss, metrics) with ``loss`` also among the metrics."""
@@ -135,12 +156,12 @@ def multiscale_epe(flow_preds, flow_gt: torch.Tensor, valid: torch.Tensor,
             epe_map = torch.sqrt(torch.sum(d ** 2, dim=-1) + eps)
             # here the reference checks ``flowNetC or pwc`` (utils.py:103-105)
             weight = _CLASSIC_WEIGHTS[i] if flownetc_weighing else gamma ** i
-            loss = loss + weight * _nanmean(epe_map)
+            loss = loss + weight * _nanmean(epe_map, mesh)
         else:
             i_loss = torch.abs(pred - flow_gt)
             weight = gamma ** (n - i - 1)
-            loss = loss + weight * torch.mean(keep[..., None].to(i_loss.dtype)
-                                              * i_loss)
+            loss = loss + weight * _mean(
+                keep[..., None].to(i_loss.dtype) * i_loss, mesh)
 
     if flownetc or pwc:
         h, w = flow_preds[0].shape[1:3]
@@ -152,4 +173,4 @@ def multiscale_epe(flow_preds, flow_gt: torch.Tensor, valid: torch.Tensor,
     else:
         epe = torch.linalg.vector_norm(flow_preds[-1] - flow_gt, dim=-1)
         epe_mask = keep
-    return loss, dict(_epe_metrics(epe, epe_mask), loss=loss)
+    return loss, dict(_epe_metrics(epe, epe_mask, mesh), loss=loss)

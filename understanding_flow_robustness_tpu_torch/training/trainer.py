@@ -9,13 +9,22 @@ pairs together, train.py:171-225), takes ``inner_iteration`` updates per
 batch (``INNER_ITERATION`` under adversarial training), checkpoints every
 ``val_freq`` batches, stops after ``num_steps + 1`` batches or at the time
 limit, and ends with a checkpoint and the ``<name>.pth`` weights.
+
+With ``n_devices`` > 1 it trains in that many ranks, one process per
+device (``parallel.launch``; trainer.py:144-178, 252-255 of the JAX
+package): every rank draws the same global batch stream (its noise, its
+adversarial pair, each rank decoding the whole batch) and trains on its
+slice of it with the step's global statistics; rank 0 alone writes the
+files and calls ``logger`` and ``validate_fn`` while the others wait.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import os
+import pickle
 import time
 from typing import Callable, Optional
 
@@ -23,7 +32,16 @@ import numpy as np
 import torch
 
 from ..attacks.global_attacks import PerturbConfig, make_attack
-from ..models.registry import predict_flow_differentiable
+from ..models.registry import FlowModel, predict_flow_differentiable
+from ..parallel.mesh import (
+    all_reduce_sum,
+    barrier,
+    current_mesh,
+    is_rank0,
+    launch,
+    replicate,
+    shard_batch,
+)
 from . import checkpoint as ckpt
 from .optim import fetch_optimizer
 from .train_step import make_train_step
@@ -103,6 +121,59 @@ def _adversarial_batch(cfg: TrainConfig, model, batch: dict,
             "valid": torch.cat([batch["valid"]] * 2)}
 
 
+def n_devices_for(cfg: TrainConfig, device: torch.device) -> int:
+    """``cfg.n_devices``, or by default the largest divisor of the batch
+    that is at most the device count (DataParallel never scatters more
+    replicas than batch items; trainer.py:144-153 of the JAX package): the
+    card count on CUDA, 1 on the CPU device."""
+    if cfg.n_devices is not None:
+        return int(cfg.n_devices)
+    n_avail = torch.cuda.device_count() if device.type == "cuda" else 1
+    return max(n for n in range(1, min(n_avail, cfg.batch_size) + 1)
+               if cfg.batch_size % n == 0)
+
+
+def _train_rank(mesh, cfg, name, is_raft, size_multiple, blob, batches,
+                validate_fn, log, sample_gt_fn):
+    """One rank of a library call's ``train``: the model from ``blob`` on
+    the rank's device; rank 0 returns the step count, its weights on the
+    host and what it logged."""
+    module = torch.load(io.BytesIO(blob), map_location=mesh.device,
+                        weights_only=False)
+    model = FlowModel(name, module, mesh.device, is_raft, size_multiple)
+    logged = []
+    steps = train(cfg, model, batches, validate_fn=validate_fn,
+                  logger=(lambda s, m: logged.append((s, m))) if log else None,
+                  sample_gt_fn=sample_gt_fn)
+    return steps, {k: v.cpu() for k, v in module.state_dict().items()}, logged
+
+
+def _launch_train(cfg, model, n, batches, validate_fn, logger, sample_gt_fn):
+    """``train`` in ``n`` spawned ranks; the caller's model ends with rank
+    0's weights and ``logger`` sees rank 0's metrics, after the run."""
+    for arg, value in (("cfg", cfg), ("batches", batches),
+                       ("validate_fn", validate_fn),
+                       ("sample_gt_fn", sample_gt_fn)):
+        try:
+            pickle.dumps(value)
+        except Exception as e:
+            raise TypeError(
+                f"train(n_devices={n}): argument {arg!r} does not pickle "
+                f"({type(e).__name__}: {e}); each rank is a spawned process "
+                "and receives it pickled: pass a module-level function or a "
+                "functools.partial of one") from e
+    blob = io.BytesIO()
+    torch.save(model.module, blob)
+    steps, state, logged = launch(
+        _train_rank, n, cfg, model.name, model.is_raft, model.size_multiple,
+        blob.getvalue(), batches, validate_fn, logger is not None,
+        sample_gt_fn, device=model.device.type)
+    model.module.load_state_dict(state)
+    for step, metrics in logged:
+        logger(step, metrics)
+    return steps
+
+
 def train(cfg: TrainConfig, model, batches: Callable,
           validate_fn: Optional[Callable] = None,
           logger: Optional[Callable] = None,
@@ -118,15 +189,30 @@ def train(cfg: TrainConfig, model, batches: Callable,
     random target, drawn from the trainer's ``RandomState(cfg.seed)``
     after the batch's noise.  With ``adversarial`` every batch takes
     ``INNER_ITERATION`` updates: the schedule advances per update, the
-    step count per batch (train.py:225-338)."""
-    if (cfg.n_devices or 1) > 1 or cfg.grad_transport != "f32":
-        raise NotImplementedError(
-            "data parallelism and bf16 gradient transport are ROADMAP A13; "
-            "the port trains on one device")
-    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
-    with open(os.path.join(cfg.checkpoint_dir, "args.json"), "w") as f:
-        json.dump({k: str(v) for k, v in dataclasses.asdict(cfg).items()}, f,
-                  indent=2)
+    step count per batch (train.py:225-338).
+
+    ``n_devices`` (see ``n_devices_for``) > 1: inside a worker of
+    ``parallel.launch`` with that many ranks (the train CLI's
+    ``--n_devices``) this rank trains; otherwise the call launches the
+    ranks itself on the model's device type, its arguments pickled (a
+    clear error names one that does not pickle), and the caller's model
+    ends with rank 0's weights, as after a one-device run; ``logger`` then
+    sees rank 0's metrics after the run.  ``grad_transport="bf16"`` runs
+    the step's explicit mode with bf16 gradients (trainer.py:155-168)."""
+    n = n_devices_for(cfg, model.device)
+    mesh = current_mesh()
+    if mesh is None and n > 1:
+        return _launch_train(cfg, model, n, batches, validate_fn, logger,
+                             sample_gt_fn)
+    if mesh is not None and mesh.world != n:
+        raise ValueError(f"n_devices={n} inside a worker of a "
+                         f"{mesh.world}-rank launch")
+    rank0 = is_rank0(mesh)
+    if rank0:
+        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+        with open(os.path.join(cfg.checkpoint_dir, "args.json"), "w") as f:
+            json.dump({k: str(v) for k, v in dataclasses.asdict(cfg).items()},
+                      f, indent=2)
 
     module = model.module
     inner = INNER_ITERATION if cfg.adversarial else cfg.inner_iteration
@@ -146,13 +232,17 @@ def train(cfg: TrainConfig, model, batches: Callable,
         if total_steps >= cfg.num_steps:  # train.py:619-622
             print("fully trained")
             return total_steps
+    # every rank starts from rank 0's weights, however the caller built them
+    replicate(mesh, module)
 
     step_fn = make_train_step(
         module, optimizer, scheduler, loss_type=cfg.loss_type,
         is_raft=model.is_raft, flownetc=cfg.flownetc, pwc=cfg.pwc,
         gamma=cfg.gamma, div_flow=cfg.div_flow,
         flownetc_weighing=cfg.flownetc_weighing, freeze_bn=cfg.freeze_bn,
-        not_excluding=cfg.not_excluding)
+        not_excluding=cfg.not_excluding, mesh=mesh,
+        explicit=cfg.grad_transport != "f32",
+        grad_transport=cfg.grad_transport)
 
     t_start = time.time()
     np_rng = np.random.RandomState(cfg.seed)
@@ -174,34 +264,47 @@ def train(cfg: TrainConfig, model, batches: Callable,
                                             device=model.device)
                          for k in _BATCH_KEYS}
             if cfg.adversarial:
+                # every rank attacks the whole batch: the clean and the
+                # adversarial halves are concatenated before sharding
+                # (trainer.py:238-255), so with 2 ranks rank 0 trains on
+                # the clean half and rank 1 on the attacked one
                 dev_batch = _adversarial_batch(cfg, model, dev_batch,
                                                sample_gt_fn, np_rng,
                                                generator)
+            dev_batch = shard_batch(mesh, dev_batch)
             for _ in range(inner):
                 metrics = step_fn(dev_batch)
-            if logger is not None:
+            if logger is not None and rank0:
                 logger(total_steps, metrics)
 
             if total_steps % cfg.val_freq == cfg.val_freq - 1:  # train.py:289
-                if cfg.save_checkpoints:
+                if rank0 and cfg.save_checkpoints:
                     ckpt.save_checkpoint(cfg.checkpoint_dir, module,
                                          optimizer, scheduler, total_steps)
-                if validate_fn is not None:
+                if rank0 and validate_fn is not None:
                     validate_fn(module, total_steps)
+                barrier(mesh)
 
             total_steps += 1
             if total_steps > cfg.num_steps:
                 should_keep_training = False
                 break
-            if time.time() - t_start > cfg.time_limit:
+            over = time.time() - t_start > cfg.time_limit
+            if mesh is not None and mesh.world > 1:
+                # rank 0's clock decides for every rank: a one-element sum
+                flag = torch.tensor([float(over and rank0)],
+                                    device=mesh.device)
+                over = all_reduce_sum(mesh, flag).item() > 0
+            if over:
                 print("time limit reached; checkpointing for resume")
                 should_keep_training = False
                 break
 
-    if cfg.save_checkpoints:
+    if rank0 and cfg.save_checkpoints:
         # the step is stored before its increment, like the val_freq ones
         ckpt.save_checkpoint(cfg.checkpoint_dir, module, optimizer,
                              scheduler, total_steps - 1)
         ckpt.save_weights(os.path.join(cfg.checkpoint_dir, f"{cfg.name}.pth"),
                           module)
+    barrier(mesh)
     return total_steps
