@@ -6339,6 +6339,312 @@ def dp_phase(gen) -> dict:
     return res
 
 
+SP_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_spatial"
+SP_SEED = 600
+SP_SHAPE = (1, 2)        # data x spatial: two row blocks of 192 rows
+SP_H, SP_W = H, W        # 384 = 2 * 64 * 3: every model's stride divides
+# (key, registry ID, fetch_model kwargs, batch): RAFT-12 on the alt path
+# and once on the volume path, the flow head x 0.05 (the calibrated point
+# of phase 9); the kernels each path must launch in its one counted run
+SP_MODELS = (("RAFT", "RAFT", {}, 2),
+             ("RAFT_volume", "RAFT", {"corr_impl": "volume"}, 2),
+             ("FlowNetC", "FlowNetC", {}, 1), ("SpyNet", "SpyNet", {}, 1),
+             ("PWCNet", "PWCNet", {}, 1), ("FlowNet2", "FlowNet2", {}, 1))
+SP_PATH_KERNELS = {"RAFT": ("alt_corr_fwd",),
+                   "RAFT_volume": ("corr_lookup_fwd",),
+                   "FlowNetC": ("spatial_corr_fwd",),
+                   "SpyNet": ("warp_fwd",),
+                   "PWCNet": ("warp_fwd", "spatial_corr_fwd"),
+                   "FlowNet2": ("warp_fwd", "spatial_corr_fwd")}
+# one I-FGSM step of make_spatial_attack (batch 1), and what it launches:
+# FlowNetC's correlation backward, RAFT's B2 (f32 RAFT, as phase 53's)
+SP_ATTACKS = (("FlowNetC", "FlowNetC", {}),
+              ("RAFT", "RAFT", {"mixed_precision": False}))
+SP_ATTACK_KERNELS = {"FlowNetC": ("spatial_corr_fwd", "spatial_corr_bwd"),
+                     "RAFT": ("alt_corr_fwd", "alt_corr_bwd")}
+SP_REPS = 3              # timed forwards of each, sharded and unsharded
+# sharded (two row blocks, gloo, one card) vs unsharded flow, max |d| /
+# max |unsharded|: the convolutions' blocks and the halo'd correlation
+# sum in other orders; bf16 PWC-Net and RAFT round at other places.  The
+# first chip run of this phase (H100 80GB HBM3, 700 W) measured RAFT
+# 1.27e-2 (volume 1.33e-2), FlowNetC 9.1e-7, SPyNet 7.4e-6, PWC-Net
+# 7.4e-3, FlowNet2 8.5e-5: the bf16 models at JAX's spatial-test bars
+# (3 %, 2 %), the f32 ones at about four times what was measured
+SP_FLOW_REL = {"RAFT": 0.03, "RAFT_volume": 0.03, "FlowNetC": 4e-6,
+               "SpyNet": 3e-5, "PWCNet": 0.02, "FlowNet2": 4e-4}
+
+
+def sp_model(key: str, name: str, kw: dict, device):
+    """The phase's seeded model ``key``: from the registry on the card (its
+    state dict saved for the ranks), or, where saved, loaded from it."""
+    from understanding_flow_robustness_tpu_torch.models import (
+        fetch_model,
+        registry,
+        scale_flow_head,
+    )
+
+    path = SP_OUT / f"{key}.pt"
+    if path.exists():
+        spec = registry._SPECS[name]
+        with torch.device("meta"):
+            module = spec.build(**kw)
+        module.load_state_dict(torch.load(path, mmap=True, weights_only=True),
+                               strict=True, assign=True)
+        return registry.FlowModel(name=name, module=module.to(device).eval(),
+                                  device=torch.device(device),
+                                  is_raft=spec.is_raft,
+                                  size_multiple=spec.size_multiple)
+    model = fetch_model(name, device=device, seed=SP_SEED, **kw)
+    if name == "RAFT":
+        model.module = scale_flow_head(model.module, 0.05)
+    torch.save({k: v.cpu() for k, v in model.module.state_dict().items()},
+               path)
+    return model
+
+
+def sp_attack_cfg():
+    from understanding_flow_robustness_tpu_torch.attacks import PerturbConfig
+
+    return PerturbConfig(perturb_method="ifgsm", flow_loss="l2",
+                         output_norm=ATTACK_EPS, n_step=1)
+
+
+def sp_rank(mesh, shape, job: dict) -> dict:
+    """One rank of the spatial phase on the ``shape`` mesh: every model's
+    sharded forward on its blocks (the first one counted and compared, then
+    timed), its peak memory, and the sharded attack steps.  Rank 0 returns
+    the gathered flows and attacks and every rank's launches and peaks."""
+    from understanding_flow_robustness_tpu_torch.attacks import (
+        make_spatial_attack,
+    )
+    from understanding_flow_robustness_tpu_torch.models import (
+        predict_flow_differentiable,
+    )
+    from understanding_flow_robustness_tpu_torch.ops import LAUNCH_COUNTS
+    from understanding_flow_robustness_tpu_torch.parallel import (
+        barrier,
+        gather_objects,
+        gather_rows,
+        make_2d_mesh,
+        shard_rows,
+        spatial_predict,
+        spatial_shard,
+    )
+
+    _dp_flags()
+    grid = make_2d_mesh(*shape)
+    dev = grid.device
+    out = {"flows": {}, "attacks": {}}
+    mine = {"launches": {}, "peak": {}, "ms": {}}
+    for key, name, kw, b in SP_MODELS:
+        model = sp_model(key, name, kw, dev)
+        run = spatial_predict(model, grid)
+        a, b2 = (shard_rows(grid, x.to(dev)) for x in job["images"][b])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCH_COUNTS.clear()
+        flow = run(a, b2)
+        torch.cuda.synchronize()
+        mine["launches"][key] = dict(LAUNCH_COUNTS)
+        mine["peak"][key] = torch.cuda.max_memory_allocated()
+        barrier(mesh)
+        t0 = time.perf_counter()
+        for _ in range(SP_REPS):
+            run(a, b2)
+        torch.cuda.synchronize()
+        mine["ms"][key] = 1e3 * (time.perf_counter() - t0) / SP_REPS
+        out["flows"][key] = gather_rows(grid, flow).cpu()
+        del model, run, flow
+        torch.cuda.empty_cache()
+    for key, name, kw in SP_ATTACKS:
+        model = sp_model(f"attack_{key}", name, kw, dev)
+        spatial_shard(model.module, grid)
+        run = make_spatial_attack(
+            lambda x, y: predict_flow_differentiable(model, x, y),
+            sp_attack_cfg(), grid)
+        ins = [shard_rows(grid, x.to(dev)) for x in job["attack"]]
+        LAUNCH_COUNTS.clear()
+        res = run(*ins)
+        torch.cuda.synchronize()
+        mine["launches"][f"attack/{key}"] = dict(LAUNCH_COUNTS)
+        out["attacks"][key] = [gather_rows(grid, x).cpu() for x in res]
+        del model, run
+        torch.cuda.empty_cache()
+    out["ranks"] = gather_objects(mesh, mine)
+    return out
+
+
+def sp_warp_offset(gen) -> dict:
+    """B4 with a row offset: each of two row blocks of the flow against the
+    whole source, launched alone, is bit-equal to those rows of the
+    unsharded launch and within the warp phase's bars of its plain
+    version with the same offset."""
+    from understanding_flow_robustness_tpu_torch.ops.interp import (
+        warp_backward_reference,
+    )
+    from understanding_flow_robustness_tpu_torch.ops.warp import (
+        _warp_fwd_cuda,
+    )
+
+    res = {}
+    h = SP_H // 2
+    for mode, c, dtype in (("spynet", 3, torch.float32),
+                           ("zeros_mask", 32, torch.bfloat16),
+                           ("border", 3, torch.float32)):
+        img32 = torch.rand((1, c, SP_H, SP_W), generator=gen, device="cuda")
+        img = img32.to(dtype)
+        flow = warp_flow(gen, 1, SP_H, SP_W, "wild")
+        whole = _warp_fwd_cuda(img, flow, mode)
+        worst = 0.0
+        for r in range(2):
+            rows = slice(r * h, (r + 1) * h)
+            blk = _warp_fwd_cuda(img, flow[:, :, rows].contiguous(), mode,
+                                 r * h)
+            check(torch.equal(blk, whole[:, :, rows]),
+                  f"B4 at row offset {r * h} ({mode}): not the rows of the "
+                  "unsharded launch")
+            ref = warp_backward_reference(img.float(), flow[:, :, rows], mode,
+                                          r * h)
+            err = (blk.float() - ref).abs()
+            ok = (err.max().item() <= WARP_F32_REL_TOL
+                  * img32.abs().max().item() if dtype == torch.float32
+                  else bool((err <= bf16_ulp(ref)).all()))
+            check(ok, f"B4 at row offset {r * h} ({mode}): disagrees with "
+                  "its plain version")
+            worst = max(worst, err.max().item())
+        res[mode] = worst
+        print(f"B4 row blocks ({mode}, {str(dtype).split('.')[-1]}, "
+              f"{c}x{SP_H}x{SP_W}): bit-equal to the unsharded launch's rows;"
+              f" vs plain with the offset max_abs_err={worst:.3e}",
+              flush=True)
+    return res
+
+
+def sp_compare(tag: str, got: dict, ref: dict) -> dict:
+    """The gathered sharded flows and attack steps against the unsharded
+    ones."""
+    out = {}
+    for key, _, _, _ in SP_MODELS:
+        g, r = got["flows"][key], ref["flows"][key]
+        check(g.shape == r.shape and bool(torch.isfinite(g).all()),
+              f"{tag} {key}: flow malformed")
+        rel = float((g - r).abs().max() / r.abs().max())
+        print(f"{tag} {key}: max |d| / max |flow| {rel:.3e} (bar "
+              f"{SP_FLOW_REL[key]:g}), max |flow| {float(r.abs().max()):.2f}",
+              flush=True)
+        check(rel <= SP_FLOW_REL[key], f"{tag} {key}: beyond its bar")
+        out[f"flow_rel/{key}"] = rel
+    cfg = sp_attack_cfg()
+    for key, _, _ in SP_ATTACKS:
+        diffs = [(g - w).abs() for g, w in zip(got["attacks"][key],
+                                                ref["attacks"][key])]
+        share = max(float((d > 1e-6).float().mean()) for d in diffs)
+        worst = max(float(d.max()) for d in diffs)
+        print(f"{tag} attack {key}: max |d| {worst:.2e}, share of elements "
+              f"apart {share:.2e} (bars {DP_ATTACK_SHARE:g}, "
+              f"{2 * cfg.learning_rate:g})", flush=True)
+        check(share <= DP_ATTACK_SHARE
+              and worst <= 2 * cfg.n_step * cfg.learning_rate + 1e-6,
+              f"{tag} attack {key}: beyond its bars")
+        out[f"attack/{key}"] = {"max_abs": worst, "share": share}
+    return out
+
+
+def spatial_phase(gen) -> dict:
+    """Spatial sharding (``parallel.spatial``): two ranks over gloo on
+    cuda:0 as a 1 x 2 data x spatial mesh, each on one 192-row block of
+    384x1280 frames.  RAFT-12 (batch 2, alt path; and the volume path),
+    FlowNetC, SPyNet, PWC-Net and FlowNet2 (batch 1) through
+    ``spatial_predict`` against their unsharded flows on the same card,
+    one I-FGSM step of ``make_spatial_attack`` on FlowNetC and on RAFT
+    against the unsharded step, B4 with a row offset against its plain
+    version and the unsharded launch's rows; each rank's peak memory and
+    ms a forward beside the unsharded run's.  With two cards the ranks
+    also run over NCCL, a card each."""
+    from understanding_flow_robustness_tpu_torch.attacks import make_attack
+    from understanding_flow_robustness_tpu_torch.models import (
+        predict_flow,
+        predict_flow_differentiable,
+    )
+    from understanding_flow_robustness_tpu_torch.parallel import launch
+
+    print(f"== spatial sharding: {SP_SHAPE[1]} row blocks of {SP_H}x{SP_W} "
+          "over gloo on one card ==", flush=True)
+    shutil.rmtree(SP_OUT, ignore_errors=True)
+    SP_OUT.mkdir(parents=True)
+    sgen = torch.Generator(device="cuda").manual_seed(SP_SEED)
+    res = {"warp_offset": sp_warp_offset(sgen)}
+    images = {b: [torch.rand((b, SP_H, SP_W, 3), generator=sgen,
+                             device="cuda") for _ in range(2)]
+              for b in sorted({m[3] for m in SP_MODELS})}
+    attack_in = [torch.rand((1, SP_H, SP_W, 3), generator=sgen,
+                            device="cuda"),
+                 torch.rand((1, SP_H, SP_W, 3), generator=sgen,
+                            device="cuda"),
+                 torch.cat([3 * torch.randn((1, SP_H, SP_W, 2), generator=sgen,
+                                            device="cuda"),
+                            torch.ones((1, SP_H, SP_W, 1), device="cuda")], -1)]
+    ref = {"flows": {}, "attacks": {}, "peak": {}, "ms": {}}
+    for key, name, kw, b in SP_MODELS:
+        model = sp_model(key, name, kw, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ref["flows"][key] = predict_flow(model, *images[b]).cpu()
+        ref["peak"][key] = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        for _ in range(SP_REPS):
+            predict_flow(model, *images[b])
+        torch.cuda.synchronize()
+        ref["ms"][key] = 1e3 * (time.perf_counter() - t0) / SP_REPS
+        del model
+        torch.cuda.empty_cache()
+    for key, name, kw in SP_ATTACKS:
+        model = sp_model(f"attack_{key}", name, kw, "cuda")
+        ref["attacks"][key] = [x.cpu() for x in make_attack(
+            lambda x, y: predict_flow_differentiable(model, x, y),
+            sp_attack_cfg())(*attack_in)]
+        del model
+        torch.cuda.empty_cache()
+    job = {"images": {b: [x.cpu() for x in v] for b, v in images.items()},
+           "attack": [x.cpu() for x in attack_in]}
+    got = launch(sp_rank, 2, SP_SHAPE, job, device="cuda", backend="gloo",
+                 devices=[0, 0])
+    res.update(sp_compare("gloo, one card:", got, ref))
+    launches = {}
+    for rank in got["ranks"]:
+        for key, counts in rank["launches"].items():
+            need = (SP_ATTACK_KERNELS.get(key.split("/")[1])
+                    if key.startswith("attack/") else SP_PATH_KERNELS[key])
+            for k in need:
+                check(counts.get(k, 0) > 0, f"spatial {key}: {k} launched "
+                      "no time on a rank's sharded run")
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+    res["launches"] = launches
+    for key, _, _, b in SP_MODELS:
+        peaks = [r["peak"][key] / 2 ** 30 for r in got["ranks"]]
+        res[f"peak_gib/{key}"] = peaks
+        res[f"ms/{key}"] = (got["ranks"][0]["ms"][key], ref["ms"][key])
+        print(f"{key} (batch {b}): peak memory per rank "
+              + " / ".join(f"{p:.2f}" for p in peaks)
+              + f" GiB against {ref['peak'][key] / 2 ** 30:.2f} GiB "
+              f"unsharded; {got['ranks'][0]['ms'][key]:.1f} ms a sharded "
+              f"forward against {ref['ms'][key]:.1f} ms", flush=True)
+    if torch.cuda.device_count() >= 2:
+        nccl = launch(sp_rank, 2, SP_SHAPE, job, device="cuda")
+        res.update({f"nccl/{k}": v for k, v in sp_compare(
+            "NCCL, two cards:", nccl, ref).items()})
+    else:
+        print("spatial sharding over NCCL across two cards: not run (this "
+              f"machine has {torch.cuda.device_count()} card)", flush=True)
+    print(f"spatial sharding ({gpu_line()}): two ranks share one card, so "
+          "ms are not a scaling number; launches in the sharded runs "
+          + ", ".join(f"{k} {n}" for k, n in sorted(launches.items())),
+          flush=True)
+    shutil.rmtree(SP_OUT, ignore_errors=True)
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device: torch.cuda.is_available() is False")
@@ -6448,6 +6754,7 @@ def main() -> None:
     profres = phase(profile_phase, gen)
     t_ckpt = time.perf_counter() - t_ckpt
     dpres = phase(dp_phase, gen)
+    shres = phase(spatial_phase, gen)
     print(f"all phases, build included: {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(f"patch attack, FlowNetC, batch {PB} at {PH}x{PW} ({card}): "
@@ -6557,7 +6864,8 @@ def main() -> None:
                      + msres["launches"]["alt_corr_fwd"]
                      + mcres["launches"]["alt_corr_fwd"]
                      + profres["launches"]
-                     + dpres["launches/alt_corr_fwd"]),
+                     + dpres["launches/alt_corr_fwd"]
+                     + shres["launches"].get("alt_corr_fwd", 0)),
         "max_abs_err": kres[fwd],
         "ms": kres[f"{fwd}/ms"],
         "plain_ms": kres[f"{fwd}/plain_ms"],
@@ -6591,7 +6899,8 @@ def main() -> None:
                            for c in ("small", "wocontext"))
                      + ccres["parity"]["launches/alt_corr_bwd"]
                      + mcres["launches"]["alt_corr_bwd"]
-                     + dpres["launches/alt_corr_bwd"]),
+                     + dpres["launches/alt_corr_bwd"]
+                     + shres["launches"].get("alt_corr_bwd", 0)),
         "max_abs_err": bres[fwd],
         "ms": bres[f"{fwd}/ms"],
         "plain_ms": bres[f"{fwd}/plain_ms"],
@@ -6650,7 +6959,8 @@ def main() -> None:
                      + emres["launches/warp_fwd"]
                      + ftres["launches/warp_fwd"]
                      + fvres["launches/warp_fwd"]
-                     + msres["launches"]["warp_fwd"]),
+                     + msres["launches"]["warp_fwd"]
+                     + shres["launches"].get("warp_fwd", 0)),
         "max_abs_err": warp["max_abs_err"],
         "ms": warp["ms"],
         "plain_ms": warp["plain_ms"],
@@ -6664,6 +6974,7 @@ def main() -> None:
         "flownet2_border_plain_ms": f2res["warp"]["plain_ms"],
         "flownet2_border_bound_ms": f2res["warp"]["bound_ms"],
         "flownet2_border_grid_sample_ms": f2res["warp"]["library_ms"],
+        "row_offset_max_abs_err": max(shres["warp_offset"].values()),
         **{f"{name}_{k}": tsres[f"warp/{name}"][k]
            for name in WARP_TRAIN for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "library_ms",
@@ -6675,7 +6986,8 @@ def main() -> None:
         "replaces": "understanding_flow_robustness_tpu/ops/pallas/corr_lookup_fused.py:59",
         "launches": (vres["launches"] + fres["launches"]
                      + s64res["launches/corr_lookup_fwd"]
-                     + cfg_serve["small_volume"]["launches/corr_lookup_fwd"]),
+                     + cfg_serve["small_volume"]["launches/corr_lookup_fwd"]
+                     + shres["launches"].get("corr_lookup_fwd", 0)),
         "max_abs_err": vol["max_abs_err"],
         "ms": vol["ms"],
         "plain_ms": vol["plain_ms"],
@@ -6711,7 +7023,8 @@ def main() -> None:
                      + ccres["train/spatial"]["launches/spatial_corr_fwd"]
                      + hcres["launches/spatial_corr_fwd"]
                      + msres["launches"]["spatial_corr_fwd"]
-                     + prepres["launches/spatial_corr_fwd"]),
+                     + prepres["launches/spatial_corr_fwd"]
+                     + shres["launches"].get("spatial_corr_fwd", 0)),
         "max_abs_err": scres["flownetc"]["fwd_err"],
         "ms": scres["flownetc"]["ms"],
         "plain_ms": scres["flownetc"]["plain_ms"],
@@ -6752,7 +7065,8 @@ def main() -> None:
                      + cfg_train["spatial"]["launches/spatial_corr_bwd"]
                      + ccres["train/spatial"]["launches/spatial_corr_bwd"]
                      + hcres["launches/spatial_corr_bwd"]
-                     + prepres["launches/spatial_corr_bwd"]),
+                     + prepres["launches/spatial_corr_bwd"]
+                     + shres["launches"].get("spatial_corr_bwd", 0)),
         "max_abs_err": scres["attack"]["bwd_err"],
         "ms": scres["attack/bwd"]["ms"],
         "plain_ms": scres["attack/bwd"]["plain_ms"],

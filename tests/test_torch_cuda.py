@@ -627,6 +627,58 @@ def test_warp_kernel_ragged_widths(cuda, dtype, mode, c, w):
         assert bool((err <= bf16_ulp(ref)).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["border", "zeros_mask", "spynet"])
+@pytest.mark.parametrize("c", [3, 32])
+def test_warp_kernel_row_offset(cuda, dtype, mode, c):
+    """A spatial mesh's row blocks: the kernel writing rows row0 .. row0 +
+    h - 1 of the warp of the whole source is bit-equal to those rows of
+    the whole launch, and within the plain version's bars of its plain
+    version with the same offset."""
+    from understanding_flow_robustness_tpu_torch.ops.warp import (
+        _warp_fwd_cuda,
+    )
+
+    img, flow = _warp_case(2, c, 16, 24, dtype, "wild", seed=7)
+    whole = _warp_fwd_cuda(img, flow, mode)
+    for r0 in (0, 4, 8, 12):
+        part = flow[:, :, r0:r0 + 4].contiguous()
+        got = _warp_fwd_cuda(img, part, mode, r0)
+        assert torch.equal(got, whole[:, :, r0:r0 + 4])
+        ref = ops.warp_backward_reference(img.float(), part, mode, r0)
+        err = (got.float() - ref).abs()
+        if dtype == torch.float32:
+            assert err.max().item() <= WARP_F32_REL_TOL * img.abs().max().item()
+        else:
+            assert bool((err <= bf16_ulp(ref)).all())
+    with pytest.raises(ValueError):
+        _warp_fwd_cuda(img, flow[:, :, :4].contiguous(), mode, 13)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lookup_kernels_row_block_queries(cuda, dtype, monkeypatch):
+    """A spatial mesh's block of query rows against the whole levels: B1
+    and B2 cut the block's (h, W) grid into tiles (``_query_grid``) and
+    give the bits they give for one row of its queries, and the rows of
+    the whole map's lookup."""
+    f1, levels, coords = _case(1, 24, 40, 256, dtype, 3.0)
+    blk = slice(8 * 40, 16 * 40)
+    q1, qc = f1[:, blk].contiguous(), coords[:, blk].contiguous()
+    assert correlation._query_grid(levels, q1.shape[1]) == (8, 40)
+    whole = correlation._alt_corr_lookup_cuda(f1, levels, coords, 4)
+    tiled = correlation._alt_corr_lookup_cuda(q1, levels, qc, 4)
+    g = torch.randn(tiled.shape, device="cuda")
+    dtiled = correlation._alt_corr_bwd_cuda(q1, levels, qc, g, 4)
+    monkeypatch.setattr(correlation, "_query_grid", lambda lv, n: (1, n))
+    row = correlation._alt_corr_lookup_cuda(q1, levels, qc, 4)
+    drow = correlation._alt_corr_bwd_cuda(q1, levels, qc, g, 4)
+    assert torch.equal(tiled, row) and torch.equal(tiled, whole[:, blk])
+    assert torch.equal(dtiled[0], drow[0])
+    for a, b in zip(dtiled[1], drow[1]):  # df2's atomics: any order
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=BWD_REL_TOL * b.abs().max().item())
+
+
 def test_warp_wrapper_counts_launches_and_rejects_bad_input(cuda):
     img, flow = _warp_case(1, 4, 8, 8, torch.float32, "smooth")
     before = ops.LAUNCH_COUNTS["warp_fwd"]

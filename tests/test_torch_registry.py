@@ -214,7 +214,8 @@ def test_port_imports_no_jax():
         "          'cli.test_replace_features', 'cli.test_patch_embeddings',\n"
         "          'utils.msgpack', 'utils.profiling', 'utils.viz',\n"
         "          'training.checkpoint', 'cli.convert',\n"
-        "          'cli.prepare_train_data', 'parallel', 'parallel.mesh'):\n"
+        "          'cli.prepare_train_data', 'parallel', 'parallel.mesh',\n"
+        "          'parallel.spatial'):\n"
         "    assert p.__name__ + '.' + k in names, k\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'flax', 'msgpack', 'orbax', 'cv2', 'PIL')\n"

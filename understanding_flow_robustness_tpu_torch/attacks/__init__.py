@@ -17,6 +17,7 @@ from .global_attacks import (
     ifgsm,
     make_attack,
     make_sharded_attack,
+    make_spatial_attack,
     mifgsm,
     perturb,
     perturb_trajectory,
@@ -94,6 +95,7 @@ __all__ = [
     "log_utils",
     "make_attack",
     "make_sharded_attack",
+    "make_spatial_attack",
     "make_patch_attack_step",
     "make_universal_attack_step",
     "mifgsm",

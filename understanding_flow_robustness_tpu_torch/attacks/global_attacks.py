@@ -18,8 +18,8 @@ per-sample L1-normalised gradients, :621-757), gaussian (var = (eps/4)^2,
 ``targeted`` negates the loss (:452-453).  Randomness (noise, the
 diverse-input draws) comes from an explicit ``torch.Generator`` on the
 images' device.  ``make_sharded_attack`` runs the attack data-parallel,
-each rank on its slice of the batch (``parallel``); the JAX package's
-spatially sharded ``make_spatial_attack`` is ROADMAP A13b.
+each rank on its slice of the batch (``parallel``); ``make_spatial_attack``
+on a 2-D ``data x spatial`` mesh, each rank on its slice's row block.
 """
 
 from __future__ import annotations
@@ -29,6 +29,14 @@ from typing import Callable, Optional
 
 import torch
 
+from ..parallel.spatial import (
+    all_gather_rows,
+    check_block_shapes,
+    own_rows,
+    row_mesh,
+    spatial_context,
+    spatial_sum,
+)
 from .losses import flow_attack_loss
 
 # Defaults from global_attacks/global_constants.py:19-61
@@ -159,6 +167,20 @@ def diverse_input(image0, image1, ground_truth, generator: torch.Generator,
     return image0, image1, ground_truth
 
 
+def _diverse_blocks(image0, image1, ground_truth,
+                    generator: torch.Generator, probability: float):
+    """``diverse_input`` of a spatial mesh's row blocks: the transform
+    resizes and places the whole image, so the blocks are all-gathered
+    (differentiably), transformed with the draws every rank makes alike,
+    and each rank keeps its rows."""
+    if row_mesh() is None:
+        return diverse_input(image0, image1, ground_truth, generator,
+                             probability)
+    whole = [all_gather_rows(t, 1) for t in (image0, image1, ground_truth)]
+    return tuple(own_rows(t, 1) for t in diverse_input(*whole, generator,
+                                                        probability))
+
+
 def _make_grad_fn(predict: PredictFn, cfg: PerturbConfig,
                   generator: Optional[torch.Generator]):
     """Per-step gradient of the attack loss with respect to the
@@ -173,8 +195,8 @@ def _make_grad_fn(predict: PredictFn, cfg: PerturbConfig,
         a = img0.detach().requires_grad_()
         b = img1.detach().requires_grad_()
         with torch.enable_grad():
-            ins = (diverse_input(a, b, ground_truth, generator, p) if diverse
-                   else (a, b, ground_truth))
+            ins = (_diverse_blocks(a, b, ground_truth, generator, p)
+                   if diverse else (a, b, ground_truth))
             return torch.autograd.grad(loss(*ins), (a, b))
 
     return grad_fn
@@ -224,7 +246,8 @@ def _mifgsm_step_fn(predict, image0, image1, ground_truth,
     normalisation is PER SAMPLE: the reference's whole-tensor torch.sum
     (perturb_model.py:673-679) is the per-sample norm at its only batch
     size, 1 (perturb_main.py:189); a batch-wide sum would couple the
-    samples of a batched attack."""
+    samples of a batched attack.  On a spatial mesh's row blocks the norm
+    sums over the spatial group: it is the whole image's."""
     m0, m1 = _mode_mask(cfg.perturb_mode)
     grad_fn = _make_grad_fn(predict, cfg, generator)
     eps = cfg.output_norm
@@ -235,10 +258,10 @@ def _mifgsm_step_fn(predict, image0, image1, ground_truth,
         out0, out1, acc0, acc1 = carry
         g0, g1 = grad_fn(out0, out1, ground_truth)
         dims = tuple(range(1, g0.ndim))
-        acc0 = mu * acc0 + (1.0 - mu) * g0 / torch.sum(
-            torch.abs(g0), dim=dims, keepdim=True)
-        acc1 = mu * acc1 + (1.0 - mu) * g1 / torch.sum(
-            torch.abs(g1), dim=dims, keepdim=True)
+        acc0 = mu * acc0 + (1.0 - mu) * g0 / spatial_sum(torch.sum(
+            torch.abs(g0), dim=dims, keepdim=True))
+        acc1 = mu * acc1 + (1.0 - mu) * g1 / spatial_sum(torch.sum(
+            torch.abs(g1), dim=dims, keepdim=True))
         out0 = torch.clamp(out0 + cfg.learning_rate * torch.sign(acc0) * m0,
                            0.0, 1.0)
         out1 = torch.clamp(out1 + cfg.learning_rate * torch.sign(acc1) * m1,
@@ -278,13 +301,15 @@ def mifgsm(predict, image0, image1, ground_truth, cfg: PerturbConfig,
 
 def _batch_draw(draw, img: torch.Tensor, mesh) -> torch.Tensor:
     """``draw(shape)`` for ``img``'s shape; under a mesh, drawn for the
-    global batch and sliced to this rank's part, so that a rank's noise is
-    its slice of the one-device run's."""
-    if mesh is None or mesh.world == 1:
+    global batch (and, on a spatial mesh, the whole image) and sliced to
+    this rank's part, so that a rank's noise is its block of the
+    one-device run's."""
+    if mesh is None or mesh.world * mesh.n_spatial == 1:
         return draw(img.shape)
-    b = img.shape[0]
-    full = draw((b * mesh.world,) + tuple(img.shape[1:]))
-    return full[mesh.rank * b:(mesh.rank + 1) * b]
+    b, h = img.shape[:2]
+    full = draw((b * mesh.world, h * mesh.n_spatial) + tuple(img.shape[2:]))
+    full = full[mesh.rank * b:(mesh.rank + 1) * b]
+    return full[:, mesh.spatial_rank * h:(mesh.spatial_rank + 1) * h]
 
 
 @torch.no_grad()
@@ -426,5 +451,32 @@ def make_sharded_attack(predict: PredictFn, cfg: PerturbConfig, mesh):
     def run(image0, image1, ground_truth, generator=None):
         return perturb(predict, image0, image1, ground_truth, cfg, generator,
                        mesh)
+
+    return run
+
+
+def make_spatial_attack(predict: PredictFn, cfg: PerturbConfig, mesh):
+    """White-box attack on a 2-D ``data x spatial`` mesh (the JAX
+    package's ``make_spatial_attack``, global_attacks.py:416-449): batch
+    over the data axis and image height over the spatial axis, for frame
+    pairs too large for one device.  ``run(image0, image1, ground_truth,
+    generator=None)`` takes this rank's blocks (``parallel.shard_rows``)
+    and returns its blocks of (noise0, noise1, adv0, adv1).
+
+    ``predict`` must run a model made shard-aware (``parallel.spatial_shard``
+    or ``spatial_predict``); a module that is not raises.  Every loss sum
+    and count runs over the mesh, so each rank steps by the one-device
+    gradient (I-FGM's raw step too), MI-FGSM's L1 norm over the whole
+    image, the diverse input transforms the gathered images, and noise is
+    drawn for the global batch and image from ``generator`` (seeded alike
+    on every rank) and sliced; clamps and sign steps are local.  The
+    sharded convolutions sum in another order, so a sign step can flip
+    where a gradient is ~0, as in the JAX package."""
+
+    def run(image0, image1, ground_truth, generator=None):
+        check_block_shapes(mesh, image0)
+        with spatial_context(mesh):
+            return perturb(predict, image0, image1, ground_truth, cfg,
+                           generator, mesh)
 
     return run

@@ -6,6 +6,11 @@ global_attacks/perturb_model.py:38-145.  Ground-truth tensors carry an
 optional third channel, the valid mask; every reduction follows the
 reference's valid-masked mean with eps = 1e-8.  Differentiable: the attacks
 take the gradient of ``flow_attack_loss`` with respect to the images.
+
+Inside a spatial context (``parallel/spatial.py``; ``make_spatial_attack``)
+the tensors are a rank's (batch slice, row block): every sum and count of
+these means runs over the whole mesh (``grid_total``), so each rank holds
+the one-device loss and its gradient scale.
 """
 
 from __future__ import annotations
@@ -13,8 +18,22 @@ from __future__ import annotations
 import torch
 
 from ..ops.interp import resize_bilinear
+from ..parallel.spatial import current_mesh, grid_total
 
 EPSILON = 1e-8
+
+
+def _sum(x: torch.Tensor) -> torch.Tensor:
+    """torch.sum(x), over the whole mesh inside a spatial context."""
+    return grid_total(torch.sum(x))
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """torch.mean(x), over the whole mesh inside a spatial context."""
+    if current_mesh() is None:
+        return torch.mean(x)
+    return _sum(x) / grid_total(torch.tensor(float(x.numel()),
+                                             device=x.device))
 
 
 def _upsample_pred(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
@@ -37,8 +56,8 @@ def compute_epe(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
                      + (gt[..., 1] - pred[..., 1]) ** 2)
     if gt.shape[-1] == 3:
         valid = gt[..., 2]
-        return torch.sum(epe * valid) / (torch.sum(valid) + EPSILON)
-    return torch.mean(epe)
+        return _sum(epe * valid) / (_sum(valid) + EPSILON)
+    return _mean(epe)
 
 
 def cosine_similarity(a: torch.Tensor, b: torch.Tensor, dim: int = -1,
@@ -56,8 +75,8 @@ def compute_cossim(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
     sim = cosine_similarity(gt[..., :2], pred)
     if gt.shape[-1] == 3:
         valid = gt[..., 2]
-        return torch.sum(sim * valid) / (torch.sum(valid) + EPSILON)
-    return torch.mean(sim)
+        return _sum(sim * valid) / (_sum(valid) + EPSILON)
+    return _mean(sim)
 
 
 def compute_l1(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
@@ -67,11 +86,11 @@ def compute_l1(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
     pred = _upsample_pred(gt, pred)
     l1 = torch.abs(pred - gt[..., :2])
     notnan = ~torch.isnan(l1)
-    l1_mean = (torch.sum(torch.where(notnan, l1, torch.zeros_like(l1)))
-               / torch.sum(notnan))
+    l1_mean = (_sum(torch.where(notnan, l1, torch.zeros_like(l1)))
+               / _sum(notnan))
     if gt.shape[-1] == 3:
         valid = gt[..., 2]
-        return torch.sum(l1_mean * valid) / (torch.sum(valid) + EPSILON)
+        return _sum(l1_mean * valid) / (_sum(valid) + EPSILON)
     return l1_mean
 
 
@@ -105,5 +124,5 @@ def flow_attack_loss(flow_pred: torch.Tensor, ground_truth: torch.Tensor,
             loss = loss * valid[..., None]
         else:
             loss = loss * valid
-        return torch.sum(loss) / (torch.sum(valid) + EPSILON)
-    return torch.mean(loss)
+        return _sum(loss) / (_sum(valid) + EPSILON)
+    return _mean(loss)

@@ -17,6 +17,11 @@
 //   2 spynet:     the normalised grid clamped to [-1, 1], then sampled
 //                 align_corners=False with zeros outside.
 //
+// Row blocks.  The output may be rows row0 .. row0 + Ho - 1 of the whole
+// warp (a spatial mesh's block, parallel/spatial.py): the flow and the
+// output hold those Ho rows, the image is the whole H-row source, and a
+// pixel's y is its global row, so the coordinates are the whole warp's.
+//
 // Numerics.  The per-mode coordinate mapping runs here, from the raw flow:
 // the same f32 operations in the same order as the plain version, written
 // with round-to-nearest intrinsics so that nvcc contracts none of them
@@ -215,20 +220,21 @@ __device__ __forceinline__ float blend(const T* plane, const Taps& t) {
 template <typename T, int kMode, int kPx, int kC>
 __global__ void __launch_bounds__(kTx * kRows, kC > 0 ? 1 : kFeatureBlocks)
 warp_fwd_kernel(const T* __restrict__ img, const float* __restrict__ flow,
-                T* __restrict__ out, int C_, int H, int W) {
+                T* __restrict__ out, int C_, int H, int W, int Ho, int row0) {
   const int C = kC > 0 ? kC : C_;
   const int yi = blockIdx.y * kRows + threadIdx.y;
   const int xb = (blockIdx.x * kTx + threadIdx.x) * kPx;
-  if (yi >= H || xb >= W) return;
+  if (yi >= Ho || xb >= W) return;
   const int b = blockIdx.z;
-  const int hw = H * W;
+  const int hw = H * W;    // a source plane
+  const int how = Ho * W;  // a flow or output plane
   const int row = yi * W + xb;
   const int n = min(kPx, W - xb);
   // whole 16-byte flow vectors and whole output vectors: W a multiple of
   // kPx = 4 keeps every row start (and every plane start) aligned
   const bool vec = kPx == 4 && n == kPx && (W % kPx) == 0;
-  const float* fu = flow + (long long)(2 * b) * hw + row;
-  const float* fv = fu + hw;
+  const float* fu = flow + (long long)(2 * b) * how + row;
+  const float* fv = fu + how;
   float u[kPx], v[kPx];
   bool loaded = false;
   if constexpr (kPx == 4) {
@@ -250,15 +256,15 @@ warp_fwd_kernel(const T* __restrict__ img, const float* __restrict__ flow,
   Taps t[kPx];
 #pragma unroll
   for (int k = 0; k < kPx; ++k) {
-    t[k] = map_pixel<kMode>(xb + k, yi, u[k], v[k], H, W);
+    t[k] = map_pixel<kMode>(xb + k, row0 + yi, u[k], v[k], H, W);
   }
 
   const T* src = img + (long long)b * C * hw;
-  T* dst = out + (long long)b * C * hw + row;
+  T* dst = out + (long long)b * C * how + row;
 #pragma unroll 8
   for (int c = 0; c < C; ++c) {
     const T* plane = src + (long long)c * hw;
-    T* o = dst + (long long)c * hw;
+    T* o = dst + (long long)c * how;
     float r[kPx];
 #pragma unroll
     for (int k = 0; k < kPx; ++k) r[k] = k < n ? blend(plane, t[k]) : 0.f;
@@ -275,14 +281,21 @@ warp_fwd_kernel(const T* __restrict__ img, const float* __restrict__ flow,
   }
 }
 
+// the launch geometry of every instantiation: the source's H and W, the
+// output's Ho rows from global row row0
+struct Shape {
+  int B, C, H, W, Ho, row0;
+};
+
 template <typename T, int kMode, int kPx, int kC>
 cudaError_t launch_shape(const void* img, const float* flow, void* out,
-                         int B, int C, int H, int W, cudaStream_t stream) {
+                         const Shape& s, cudaStream_t stream) {
   const dim3 block(kTx, kRows);
-  const dim3 grid((W + kTx * kPx - 1) / (kTx * kPx), (H + kRows - 1) / kRows,
-                  B);
+  const dim3 grid((s.W + kTx * kPx - 1) / (kTx * kPx),
+                  (s.Ho + kRows - 1) / kRows, s.B);
   warp_fwd_kernel<T, kMode, kPx, kC><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(img), flow, static_cast<T*>(out), C, H, W);
+      static_cast<const T*>(img), flow, static_cast<T*>(out), s.C, s.H, s.W,
+      s.Ho, s.row0);
   return cudaGetLastError();
 }
 
@@ -290,24 +303,22 @@ cudaError_t launch_shape(const void* img, const float* flow, void* out,
 // (features): 1 pixel a thread, so that the map is done once per pixel and
 // enough threads are in flight to cover the gathers of C channels
 template <typename T, int kMode>
-cudaError_t launch_mode(const void* img, const float* flow, void* out, int B,
-                        int C, int H, int W, cudaStream_t stream) {
-  return C == 3
-             ? launch_shape<T, kMode, 4, 3>(img, flow, out, B, C, H, W, stream)
-             : launch_shape<T, kMode, 1, 0>(img, flow, out, B, C, H, W,
-                                            stream);
+cudaError_t launch_mode(const void* img, const float* flow, void* out,
+                        const Shape& s, cudaStream_t stream) {
+  return s.C == 3 ? launch_shape<T, kMode, 4, 3>(img, flow, out, s, stream)
+                  : launch_shape<T, kMode, 1, 0>(img, flow, out, s, stream);
 }
 
 template <typename T>
-cudaError_t launch(const void* img, const float* flow, void* out, int B,
-                   int C, int H, int W, int mode, cudaStream_t stream) {
+cudaError_t launch(const void* img, const float* flow, void* out,
+                   const Shape& s, int mode, cudaStream_t stream) {
   switch (mode) {
     case kBorder:
-      return launch_mode<T, kBorder>(img, flow, out, B, C, H, W, stream);
+      return launch_mode<T, kBorder>(img, flow, out, s, stream);
     case kZerosMask:
-      return launch_mode<T, kZerosMask>(img, flow, out, B, C, H, W, stream);
+      return launch_mode<T, kZerosMask>(img, flow, out, s, stream);
     default:
-      return launch_mode<T, kSpynet>(img, flow, out, B, C, H, W, stream);
+      return launch_mode<T, kSpynet>(img, flow, out, s, stream);
   }
 }
 
@@ -315,24 +326,28 @@ cudaError_t launch(const void* img, const float* flow, void* out, int B,
 
 // C interface, bound with ctypes by ops/warp.py::_warp_fwd_cuda, which
 // validates every argument first (dtypes, shapes, contiguity, one device).
-// img, out: (B, C, H, W), f32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
-// flow: (B, 2, H, W) f32, channel 0 = u; mode: 0 border, 1 zeros_mask,
-// 2 spynet.  Needs H * W < 2^31, and B and H / 4 within the grid's
-// limits (65535).  Launches on `stream` without synchronising and returns
-// cudaGetLastError().
+// img: (B, C, H, W), the whole source, f32 (is_bf16 = 0) or bf16
+// (is_bf16 = 1); flow: (B, 2, Ho, W) f32, channel 0 = u, and out: (B, C,
+// Ho, W) in img's dtype, rows row0 .. row0 + Ho - 1 of the whole warp
+// (Ho = H, row0 = 0 for all of it); mode: 0 border, 1 zeros_mask,
+// 2 spynet.  Needs H * W < 2^31, 0 <= row0 <= H - Ho, and B and Ho / 4
+// within the grid's limits (65535).  Launches on `stream` without
+// synchronising and returns cudaGetLastError().
 extern "C" int ufr_warp_fwd(const void* img, const void* flow, void* out,
-                            int B, int C, int H, int W, int mode, int is_bf16,
-                            void* stream) {
-  if (B < 1 || C < 1 || H < 1 || W < 1 || mode < kBorder || mode > kSpynet ||
+                            int B, int C, int H, int W, int Ho, int row0,
+                            int mode, int is_bf16, void* stream) {
+  if (B < 1 || C < 1 || H < 1 || W < 1 || Ho < 1 || row0 < 0 ||
+      row0 > H - Ho || mode < kBorder || mode > kSpynet ||
       (long long)H * W > 0x7fffffffLL || B > 65535 ||
-      (H + kRows - 1) / kRows > 65535) {
+      (Ho + kRows - 1) / kRows > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const float* f = static_cast<const float*>(flow);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Shape s{B, C, H, W, Ho, row0};
   const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(img, f, out, B, C, H, W, mode, s)
-              : launch<float>(img, f, out, B, C, H, W, mode, s);
+      is_bf16 ? launch<__nv_bfloat16>(img, f, out, s, mode, st)
+              : launch<float>(img, f, out, s, mode, st);
   return (int)err;
 }
 

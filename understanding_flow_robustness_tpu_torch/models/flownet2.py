@@ -24,12 +24,9 @@ import torch
 from torch import nn
 
 from ..ops.correlation import channel_norm
-from ..ops.interp import (
-    resize_bilinear,
-    upsample_nearest,
-    warp_backward_reference,
-)
+from ..ops.interp import resize_bilinear, upsample_nearest
 from ..ops.warp import warp_backward
+from ..parallel.spatial import row_mesh, spatial_sum
 from .flownet_family import (
     _DECODER,
     FlowNetC,
@@ -197,8 +194,7 @@ class _CascadeBase(nn.Module):
         self.flownetc.plain_corr = value
 
     def _warp(self, img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-        warp = warp_backward_reference if self.plain_warp else warp_backward
-        return warp(img, flow, "border")
+        return warp_backward(img, flow, "border", plain=self.plain_warp)
 
     def _stage_input(self, x, img0, img1, flow) -> tuple:
         """A FlowNet S stage's 12 channels: both frames, the second warped
@@ -214,8 +210,14 @@ class _CascadeBase(nn.Module):
 
 def _rgb_mean_normalize(im1: torch.Tensor, im2: torch.Tensor) -> tuple:
     """The partial stacks' normalisation (flownet2_models.py:459-475): each
-    image pair less its per-channel mean over both frames."""
-    mean = torch.stack([im1, im2], 1).mean(dim=(1, 3, 4), keepdim=True)[:, 0]
+    image pair less its per-channel mean over both frames (over the whole
+    image on a spatial mesh's blocks)."""
+    pair = torch.stack([im1, im2], 1)
+    if row_mesh() is None:
+        mean = pair.mean(dim=(1, 3, 4), keepdim=True)[:, 0]
+    else:
+        n = 2 * pair.shape[3] * pair.shape[4] * row_mesh().n_spatial
+        mean = spatial_sum(pair.sum(dim=(1, 3, 4))[:, :, None, None]) / n
     return im1 - mean, im2 - mean
 
 

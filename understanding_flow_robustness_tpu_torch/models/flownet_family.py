@@ -33,10 +33,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.correlation import (
-    spatial_correlation,
-    spatial_correlation_reference,
-)
+from ..ops.correlation import spatial_correlation
 from ..ops.interp import resize_bilinear
 from .layers import conv, conv_block, crop_like, deconv, deconv_block
 
@@ -59,8 +56,8 @@ def correlate_flownetc(f1: torch.Tensor, f2: torch.Tensor,
     """models/submodules.py:124-138: patch 21, patch dilation 2, divided by
     C; the raw (pre-activation) 441-channel cost volume
     (flownet_family.py:52-56).  ``plain``: the plain version."""
-    corr = spatial_correlation_reference if plain else spatial_correlation
-    return corr(f1, f2, patch_size=21, dilation_patch=2) / f1.shape[1]
+    return spatial_correlation(f1, f2, patch_size=21, dilation_patch=2,
+                               plain=plain) / f1.shape[1]
 
 
 def _maybe(overrides: Optional[dict], key: str,

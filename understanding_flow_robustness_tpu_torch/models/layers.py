@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import all_reduce_sum_grad
+from ..parallel.spatial import row_mesh
 
 
 def conv(in_ch: int, out_ch: int, kernel_size, stride: int = 1,
@@ -78,7 +79,13 @@ def deconv_block(in_ch: int, out_ch: int, bias: bool = True) -> nn.Sequential:
 
 def crop_like(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Crop x's trailing rows and columns to target's size, NCHW
-    (models/FlowNetS.py:52-57; layers.py:503-507)."""
+    (models/FlowNetS.py:52-57; layers.py:503-507).  The crop is the
+    image's bottom rows: a spatial mesh's blocks, whose sizes match where
+    H divides by 64, take none and raise otherwise."""
+    if row_mesh() is not None and x.shape[2] != target.shape[2]:
+        raise ValueError(f"crop_like of {x.shape[2]}-row blocks to "
+                         f"{target.shape[2]}: the crop is the image's last "
+                         "rows")
     return x[:, :, :target.shape[2], :target.shape[3]]
 
 

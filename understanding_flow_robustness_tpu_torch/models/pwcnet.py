@@ -40,11 +40,8 @@ import contextlib
 import torch
 from torch import nn
 
-from ..ops.correlation import (
-    spatial_correlation,
-    spatial_correlation_reference,
-)
-from ..ops.interp import resize_bilinear, warp_backward_reference
+from ..ops.correlation import spatial_correlation
+from ..ops.interp import resize_bilinear
 from ..ops.warp import warp_backward
 from .layers import conv, conv_block, deconv
 
@@ -83,8 +80,8 @@ def correlate_pwc(f1: torch.Tensor, f2: torch.Tensor,
     """models/PWCNet.py:42-50: patch 9, divided by C, no activation; the
     kernel ``csrc/spatial_corr_fwd.cu`` on the card, or with ``plain`` its
     plain version."""
-    corr = spatial_correlation_reference if plain else spatial_correlation
-    return corr(f1, f2, patch_size=9) / f1.shape[1]
+    return spatial_correlation(f1, f2, patch_size=9, plain=plain) \
+        / f1.shape[1]
 
 
 class PWCNet(nn.Module):
@@ -183,7 +180,6 @@ class PWCNet(nn.Module):
         for i in range(6):
             tap(f"c1{i + 1}", c1[i])
             tap(f"c2{i + 1}", c2[i])
-        warp = warp_backward_reference if self.plain_warp else warp_backward
         flows = {}
         corr = correlate_pwc(c1[5], c2[5], self.plain_corr)
         tap("corr6", corr)
@@ -195,7 +191,8 @@ class PWCNet(nn.Module):
         tap("upfeat6", up_feat)
         for lvl in (5, 4, 3, 2):
             i = lvl - 1
-            warped = warp(c2[i], up_flow * _WARP_SCALE[lvl], mode="zeros_mask")
+            warped = warp_backward(c2[i], up_flow * _WARP_SCALE[lvl],
+                                   mode="zeros_mask", plain=self.plain_warp)
             corr = correlate_pwc(c1[i], warped, self.plain_corr)
             if lvl == 5:
                 corr5 = corr

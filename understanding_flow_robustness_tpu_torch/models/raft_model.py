@@ -38,7 +38,8 @@ from ..ops.correlation import (
     spatial_correlation_reference,
     volume_pyramid,
 )
-from ..ops.interp import coords_grid
+from ..ops.interp import coords_grid, resize_bilinear
+from ..parallel.spatial import halo_rows, row_mesh
 from .layers import conv, leaky_relu, norm
 
 
@@ -308,7 +309,12 @@ def upsample_flow_convex(flow: torch.Tensor, mask: torch.Tensor) -> torch.Tensor
     8W)."""
     B, _, H, W = flow.shape
     mask = torch.softmax(_widen(mask).view(B, 1, 9, 8, 8, H, W), dim=2)
-    up = F.unfold(8.0 * _widen(flow), [3, 3], padding=1).view(B, 2, 9, 1, 1, H, W)
+    if row_mesh() is None:
+        up = F.unfold(8.0 * _widen(flow), [3, 3], padding=1)
+    else:  # a spatial mesh's block: the 3x3 windows' rows from a halo
+        up = F.unfold(halo_rows(8.0 * _widen(flow), 1, 1), [3, 3],
+                      padding=(0, 1))
+    up = up.view(B, 2, 9, 1, 1, H, W)
     up = torch.sum(mask * up, dim=2)  # (B, 2, 8, 8, H, W)
     return up.permute(0, 1, 4, 2, 5, 3).reshape(B, 2, 8 * H, 8 * W)
 
@@ -318,8 +324,8 @@ def upflow8(flow: torch.Tensor) -> torch.Tensor:
     bilinear (align_corners=True) 8x upsample, in f32 (f64 for f64
     inputs).  (B, 2, H, W) -> (B, 2, 8H, 8W)."""
     H, W = flow.shape[2:]
-    return 8.0 * F.interpolate(_widen(flow), size=(8 * H, 8 * W),
-                               mode="bilinear", align_corners=True)
+    return 8.0 * resize_bilinear(_widen(flow), 8 * H, 8 * W,
+                                 align_corners=True)
 
 
 def spatial_corr_lookup(pyramid, H1: int, W1: int) -> torch.Tensor:
@@ -468,6 +474,11 @@ class RAFT(nn.Module):
         mode); the pyramid goes into ``feats`` when taps are on."""
         B, _, H8, W8 = fmap1.shape
         r = self.corr_radius
+        if self.compute_spatial and row_mesh() is not None:
+            # spatial_corr_lookup's C-order reshape mixes the rows of the
+            # whole correlation map: no row block holds its own
+            raise ValueError("RAFT(compute_spatial=True) does not shard by "
+                             "rows: its lookup reshapes the whole map")
         if self.compute_spatial:
             # raft_model.py:855-866: the raw correlation is pyramided; only
             # the tap divides by C.  f32 fmaps, so f32 whatever the autocast

@@ -20,8 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.interp import avg_pool2, resize_bilinear, warp_backward_reference
+from ..ops.interp import avg_pool2, resize_bilinear
 from ..ops.warp import warp_backward
+from ..parallel.spatial import row_mesh
 
 # ImageNet statistics (models/spynet.py:39-45)
 _MEAN = (0.485, 0.456, 0.406)
@@ -75,7 +76,6 @@ class SpyNet(nn.Module):
 
         B, _, h0, w0 = x1[0].shape
         flow = im1.new_zeros((B, 2, h0 // 2, w0 // 2), dtype=torch.float32)
-        warp = warp_backward_reference if self.plain_warp else warp_backward
         flows = []
         for level in range(self.nlevels):
             h, w = x1[level].shape[2:]
@@ -84,10 +84,15 @@ class SpyNet(nn.Module):
             up = 2.0 * resize_bilinear(flow, 2 * flow.shape[2],
                                        2 * flow.shape[3], align_corners=False)
             # replicate-pad one row / column when the finer level is odd
-            # (models/spynet.py:240-247)
+            # (models/spynet.py:240-247): the image's last row, which a
+            # spatial mesh's blocks (H a multiple of 64) never need
+            if h != up.shape[2] and row_mesh() is not None:
+                raise ValueError(f"SpyNet level {level}: {h}-row blocks "
+                                 "from odd coarser ones")
             up = F.pad(up, (0, w - up.shape[3], 0, h - up.shape[2]),
                        mode="replicate")
-            warped = warp(x2[level], up, mode="spynet")
+            warped = warp_backward(x2[level], up, mode="spynet",
+                                   plain=self.plain_warp)
             flow = self.moduleBasic[level](
                 torch.cat([x1[level], warped, up], dim=1)) + up
             flows.append(flow)

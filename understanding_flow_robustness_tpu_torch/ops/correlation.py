@@ -26,6 +26,13 @@ in it with ``corr_lookup``: the CUDA kernel ``csrc/corr_lookup_fwd.cu`` for a
 CUDA tensor, its plain version ``corr_lookup_reference`` for a CPU tensor.
 Its gradient (``_CorrLookup``) recomputes the plain version under autograd,
 as the JAX package's custom_vjp recomputes its XLA formulation.
+
+Under a row-splitting spatial mesh (``parallel/spatial.py``) the models'
+entry points work on a rank's row blocks: ``spatial_correlation`` pads f1
+and exchanges f2's halo by the whole displacement, runs unchanged and
+crops the block's rows; ``prepare_alt_corr`` and ``volume_pyramid``
+all-gather the second frame's features, so the lookups run the block's
+queries against the whole levels.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from typing import Optional, Sequence
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..parallel.spatial import all_gather_rows, halo_rows, row_mesh
 from ._build import LAUNCH_COUNTS, kernel_fn
 
 # Argument limits of csrc/alt_corr_fwd.cu, csrc/alt_corr_bwd.cu,
@@ -115,14 +123,17 @@ def _widen(t: torch.Tensor) -> torch.Tensor:
 
 
 def all_pairs_correlation(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, C) x 2 -> (B, H*W, H, W):
+    """(B, H1, W1, C) x (B, H2, W2, C) -> (B, H1*W1, H2, W2):
     corr[b, (i, j), k, l] = <f1[b, i, j], f2[b, k, l]> / sqrt(C)
-    (models/raft/corr.py:98-106), computed in f32."""
-    B, H, W, C = f1.shape
-    a = f1.reshape(B, H * W, C).float()
-    b = f2.reshape(B, H * W, C).float()
+    (models/raft/corr.py:98-106), computed in f32.  The two maps share
+    their size in RAFT; a spatial mesh's block of queries (f1) meets the
+    whole second map."""
+    B, H1, W1, C = f1.shape
+    H2, W2 = f2.shape[1:3]
+    a = f1.reshape(B, H1 * W1, C).float()
+    b = f2.reshape(B, H2 * W2, C).float()
     corr = torch.bmm(a, b.transpose(1, 2)) / math.sqrt(C)
-    return corr.reshape(B, H * W, H, W).to(f1.dtype)
+    return corr.reshape(B, H1 * W1, H2, W2).to(f1.dtype)
 
 
 def spatial_correlation_reference(f1: torch.Tensor, f2: torch.Tensor,
@@ -295,8 +306,8 @@ class _SpatialCorrelation(torch.autograd.Function):
 def spatial_correlation(f1: torch.Tensor, f2: torch.Tensor,
                         patch_size: int = 1, kernel_size: int = 1,
                         stride: int = 1, padding: int = 0,
-                        dilation: int = 1,
-                        dilation_patch: int = 1) -> torch.Tensor:
+                        dilation: int = 1, dilation_patch: int = 1,
+                        plain: bool = False) -> torch.Tensor:
     """Spatial correlation sampling, NCHW (the JAX package's
     ``spatial_correlation``, correlation.py:56-103; the
     spatial-correlation-sampler op): f1, f2 (B, C, H, W) -> (B, P*P, H, W)
@@ -310,14 +321,35 @@ def spatial_correlation(f1: torch.Tensor, f2: torch.Tensor,
     ``csrc/spatial_corr_bwd.cu`` on the card).  Any other kernel size,
     stride or padding takes ``spatial_correlation_general``, plain PyTorch
     on every device, as the JAX package computes it in XLA
-    (correlation.py:203-255); no reference model uses it."""
+    (correlation.py:203-255); no reference model uses it.  ``plain``: the
+    plain version (and its autograd) on every device.
+
+    Under a row-splitting spatial mesh f1 and f2 are a rank's row blocks:
+    f2 gets a halo of the whole vertical displacement (P-1)/2 * d rows a
+    side from the blocks that hold them (zeros past the image, the
+    kernel's bounds), f1 the same count of zero rows, and the block's rows
+    of the result are kept; the kernels run unchanged on the taller
+    inputs, and the crop's cotangent is zero on the halo rows."""
     if (kernel_size, stride, padding) != (1, 1, 0):
+        if row_mesh() is not None:
+            raise ValueError("spatial_correlation: only kernel 1, stride 1, "
+                             "padding 0 shards by rows")
         return spatial_correlation_general(f1, f2, patch_size, kernel_size,
                                            stride, padding, dilation,
                                            dilation_patch)
-    if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
-        return _SpatialCorrelation.apply(f1, f2, patch_size, dilation_patch)
-    return _spatial_corr(f1, f2, patch_size, dilation_patch)
+    reach = (patch_size - 1) // 2 * dilation_patch
+    h = f1.shape[2]
+    if row_mesh() is not None and reach:
+        f1 = torch.nn.functional.pad(f1, (0, 0, reach, reach))
+        f2 = halo_rows(f2, reach, reach)
+    if plain:
+        out = spatial_correlation_reference(f1, f2, patch_size,
+                                            dilation_patch)
+    elif torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
+        out = _SpatialCorrelation.apply(f1, f2, patch_size, dilation_patch)
+    else:
+        out = _spatial_corr(f1, f2, patch_size, dilation_patch)
+    return out[:, :, reach:reach + h] if out.shape[2] != h else out
 
 
 def spatial_correlation_general(f1: torch.Tensor, f2: torch.Tensor,
@@ -463,9 +495,11 @@ def volume_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int,
     volume is freed there unless autograd keeps it) and pooled in that dtype
     with ``corr_pyramid``'s association.  Returns the levels (B, H*W, Hl,
     Wl), each a new contiguous tensor, as ``corr_lookup``'s kernel reads
-    them."""
+    them.  Under a row-splitting spatial mesh fmap1 is this rank's block of
+    queries and fmap2 is all-gathered: (B, h*W, Hl, Wl)."""
     with torch.autocast(fmap1.device.type, enabled=False):
-        corr = all_pairs_correlation(fmap1.float(), fmap2.float())
+        corr = all_pairs_correlation(fmap1.float(),
+                                     all_gather_rows(fmap2.float(), 1))
     if dtype is not None:
         corr = corr.to(dtype)
     return corr_pyramid(corr, num_levels)
@@ -660,8 +694,12 @@ def prepare_alt_corr(fmap1: torch.Tensor, fmap2: torch.Tensor, num_levels: int,
     cast to ``compute_dtype`` (ops/pallas/alt_corr.py:521-528); all
     contiguous, as the kernel reads them.  Scaling and pooling are plain
     autograd ops, so the gradients ``alt_corr_lookup`` returns for f1 and
-    the levels reach the fmaps through their autograd transposes."""
+    the levels reach the fmaps through their autograd transposes.  Under
+    a row-splitting spatial mesh f1 is this rank's block of queries and
+    fmap2 is all-gathered first: the levels are the whole map's, bit for
+    bit, for any level count."""
     B, H, W, C = fmap1.shape
+    fmap2 = all_gather_rows(fmap2, 1)
     f1 = (_widen(fmap1) * (1.0 / math.sqrt(C))).reshape(B, H * W, C)
     levels = pool_fmap_levels(_widen(fmap2), num_levels)
     if compute_dtype is not None:
@@ -918,12 +956,13 @@ def _check_cotangent(f1, levels, g, radius):
 
 def _query_grid(levels, n: int):
     """The (H1, W1) grid of the n queries per image that csrc/alt_corr_fwd.cu,
-    alt_corr_bwd.cu and alt_corr_dcoords.cu cut into 8x8 tiles: level 0's,
-    where f1 and fmap2 share it (every model path); else one row of n.  Any
-    grid gives the same result; a 2-D one keeps a tile's windows
-    together."""
-    h, w = levels[0].shape[1], levels[0].shape[2]
-    return (h, w) if h * w == n else (1, n)
+    alt_corr_bwd.cu and alt_corr_dcoords.cu cut into 8x8 tiles: level 0's
+    width and the rows n fills, where n is whole rows of it (level 0's
+    grid on the one-device path, a spatial mesh's block of rows on the
+    sharded one); else one row of n.  Any grid gives the same result; a
+    2-D one keeps a tile's windows together."""
+    w = levels[0].shape[2]
+    return (n // w, w) if w and n % w == 0 else (1, n)
 
 
 def _alt_corr_bwd_cuda(f1, levels, coords, g, radius, path_counts=None):

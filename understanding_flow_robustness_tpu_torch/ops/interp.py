@@ -10,12 +10,22 @@ kernel ``csrc/warp_fwd.cu`` (``ops/warp.py`` launches it for CUDA tensors);
 every function here also runs on the CPU.  The TPU's tiled warp planning,
 its violation count and the bounded correction are not ported: a GPU
 gathers per pixel and is exact for every flow.
+
+Under a row-splitting spatial mesh (``parallel/spatial.py``) the functions
+the models call work on a rank's row block: ``coords_grid`` starts at the
+block's global row, ``resize_bilinear`` maps the block's output rows to
+global source rows with a one-row halo, ``avg_pool2`` and
+``upsample_nearest`` stay local (blocks are aligned); the warp takes the
+whole source and the row offset of the rows it writes
+(``warp_backward_reference(..., row0=)``, ``ops/warp.py``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.spatial import halo_rows, row_mesh
 
 WARP_MODES = ("border", "zeros_mask", "spynet")
 # the zeros_mask mode's mask threshold on the analytic in-bounds weight
@@ -28,9 +38,12 @@ def coords_grid(height: int, width: int, device=None,
     """(H, W, 2) pixel-coordinate grid, channel order (x, y).
 
     RAFT's coords_grid (models/raft/utils/utils.py:79-82) in the JAX
-    package's channels-last layout."""
+    package's channels-last layout.  Under a row-splitting spatial mesh
+    the grid of this rank's ``height`` rows: y starts at the block's
+    global row."""
+    y0 = 0 if row_mesh() is None else row_mesh().spatial_rank * height
     y, x = torch.meshgrid(
-        torch.arange(height, device=device, dtype=dtype),
+        torch.arange(y0, y0 + height, device=device, dtype=dtype),
         torch.arange(width, device=device, dtype=dtype),
         indexing="ij",
     )
@@ -132,16 +145,23 @@ def _axis_weight(coord: torch.Tensor, size: int) -> torch.Tensor:
     return w0 + w1
 
 
-def warp_sample_coords(flow: torch.Tensor, mode: str):
-    """flow (B, 2, H, W), channel 0 = u (x displacement) -> the sampler's
-    (x, y) pixel coordinates (B, H, W) f32 and, for "zeros_mask", the
-    (B, H, W) bool mask (else None); interp.py:501-545.  The kernel
-    computes the same with the same f32 operations in the same order."""
+def warp_sample_coords(flow: torch.Tensor, mode: str, row0: int = 0,
+                       src_height=None):
+    """flow (B, 2, h, W), channel 0 = u (x displacement) -> the sampler's
+    (x, y) pixel coordinates (B, h, W) f32 and, for "zeros_mask", the
+    (B, h, W) bool mask (else None); interp.py:501-545.  The flow's rows
+    are rows ``row0`` .. ``row0 + h - 1`` of a source of ``src_height``
+    rows (by default h): the grid starts at row0 and the normalisation
+    divides by the source's height, so a block's coordinates are the
+    rows of the whole flow's, bit for bit.  The kernel computes the same
+    with the same f32 operations in the same order."""
     if mode not in WARP_MODES:
         raise ValueError(f"unknown warp mode: {mode}")
-    B, _, H, W = flow.shape
+    B, _, h, W = flow.shape
+    H = h if src_height is None else src_height
     xs = torch.arange(W, dtype=torch.float32, device=flow.device)
-    ys = torch.arange(H, dtype=torch.float32, device=flow.device)[:, None]
+    ys = torch.arange(row0, row0 + h, dtype=torch.float32,
+                      device=flow.device)[:, None]
     x = xs + flow[:, 0].float()
     y = ys + flow[:, 1].float()
     if mode == "border":
@@ -157,12 +177,15 @@ def warp_sample_coords(flow: torch.Tensor, mode: str):
 
 
 def warp_backward_reference(img: torch.Tensor, flow: torch.Tensor,
-                            mode: str = "border") -> torch.Tensor:
+                            mode: str = "border",
+                            row0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel ``csrc/warp_fwd.cu``:
-    out(y, x) = img(y + v, x + u), NCHW (interp.py:481-547).
+    out(y, x) = img(row0 + y + v, x + u), NCHW (interp.py:481-547).
 
-    img: (B, C, H, W) f32 or bf16; flow: (B, 2, H, W) with channel 0 = u.
-    Returns (B, C, H, W) in img's dtype, sampled in f32.
+    img: (B, C, H, W) f32 or bf16, the whole source; flow: (B, 2, h, W)
+    with channel 0 = u, rows row0 .. row0 + h - 1 of the output (all of
+    it by default: h = H, row0 = 0; a spatial mesh's block otherwise).
+    Returns (B, C, h, W) in img's dtype, sampled in f32.
       * "border":     Resample2d semantics (FlowNet2's stage chaining).
       * "zeros_mask": PWC-Net's ``warp``: zeros-padded align_corners=False
                       sampling on a grid normalised by (size-1), times the
@@ -172,7 +195,7 @@ def warp_backward_reference(img: torch.Tensor, flow: torch.Tensor,
       * "spynet":     SPyNet's ``Backward``: the normalised grid clamped
                       to [-1, 1], then align_corners=False zeros sampling.
     """
-    x, y, mask = warp_sample_coords(flow, mode)
+    x, y, mask = warp_sample_coords(flow, mode, row0, img.shape[2])
     out = bilinear_sample(img, x, y,
                           "border" if mode == "border" else "zeros")
     if mask is not None:
@@ -183,11 +206,59 @@ def warp_backward_reference(img: torch.Tensor, flow: torch.Tensor,
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
                     align_corners: bool = False) -> torch.Tensor:
     """torch's F.interpolate(mode="bilinear"), no anti-aliasing, NCHW
-    (interp.py:550-579, which builds the same weights as matrices)."""
+    (interp.py:550-579, which builds the same weights as matrices).
+
+    Under a row-splitting spatial mesh ``x`` is a rank's block of h rows
+    and ``out_h`` the rows of its output block: the image's H = n h rows
+    resize to n out_h, and each output row blends the two source rows its
+    global coordinate names (F.interpolate's f32 scale and source index),
+    from the block and a one-row halo with the image's edge rows beyond
+    (the index clamp); the columns are F.interpolate's own."""
     if tuple(x.shape[2:]) == (out_h, out_w):
         return x
-    return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
-                         align_corners=align_corners, antialias=False)
+    mesh = row_mesh()
+    if mesh is None:
+        return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                             align_corners=align_corners, antialias=False)
+    h = x.shape[2]
+    y0, y1, lam = _resize_rows(h * mesh.n_spatial, out_h * mesh.n_spatial,
+                               mesh.spatial_rank * out_h, out_h,
+                               align_corners)
+    # block-local indices into the halo'd rows (the first is global row
+    # row0 - 1); the source rows of a block's output lie within one row of
+    # it for the scales of the zoo (x2, x4, x8 and their inverses)
+    base = mesh.spatial_rank * h - 1
+    lo, hi = y0 - base, y1 - base
+    if int(lo.min()) < 0 or int(hi.max()) > h + 1:
+        raise ValueError(f"resize of {h}-row blocks to {out_h} rows reaches "
+                         "past a one-row halo")
+    rows = halo_rows(x, 1, 1, fill="edge")
+    lam = lam.to(device=x.device)[:, None]
+    blend = (rows.index_select(2, lo.to(x.device)).float() * (1 - lam)
+             + rows.index_select(2, hi.to(x.device)).float() * lam)
+    return F.interpolate(blend.to(x.dtype), size=(out_h, out_w),
+                         mode="bilinear", align_corners=align_corners,
+                         antialias=False)
+
+
+def _resize_rows(H: int, out_H: int, first: int, n: int,
+                 align_corners: bool) -> tuple:
+    """Rows ``first`` .. ``first + n - 1`` of a bilinear resize of H rows to
+    out_H: their two source rows (long) and the second's weight (f32),
+    with F.interpolate's f32 arithmetic (area_pixel_compute_source_index:
+    scale = in / out, or (in - 1) / (out - 1) with align_corners; a source
+    below 0 clamped to 0; the second row clamped to the last)."""
+    o = torch.arange(first, first + n, dtype=torch.float32)
+    if align_corners:
+        scale = torch.tensor((H - 1) / (out_H - 1) if out_H > 1 else 0.0,
+                             dtype=torch.float32)
+        src = scale * o
+    else:
+        scale = torch.tensor(H, dtype=torch.float32) / out_H
+        src = torch.clamp(scale * (o + 0.5) - 0.5, min=0.0)
+    y0 = src.long()
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    return y0, y1, src - y0.float()
 
 
 def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
@@ -200,8 +271,12 @@ def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     """F.avg_pool2d(kernel_size=2, stride=2) on NCHW: odd sizes drop their
     last row or column; sum of the 2x2 block times 0.25, as interp.py:
-    606-618 computes it."""
+    606-618 computes it.  A spatial mesh's blocks pool alone: their rows
+    pair up within the block, which must be even."""
     B, C, H, W = x.shape
+    if H % 2 and row_mesh() is not None:
+        raise ValueError(f"avg_pool2 of {H}-row blocks: the pairs would "
+                         "cross blocks")
     h2, w2 = H // 2, W // 2
     x = x[:, :, : 2 * h2, : 2 * w2].reshape(B, C, h2, 2, w2, 2)
     return x.sum(dim=(3, 5)) * 0.25

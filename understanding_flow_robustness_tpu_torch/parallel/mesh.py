@@ -15,6 +15,13 @@ a CUDA device of its own, gloo for CPU ranks, and gloo for CUDA ranks that
 share a device only when the caller asks for ``backend="gloo"`` (NCCL
 refuses two ranks on one GPU).  Outside a worker, ``make_mesh(1)`` is the
 one-device mesh: no group, and every collective is the identity.
+
+``make_2d_mesh(n_data, n_spatial)`` lays the ranks of a launch out as the
+JAX package's ``("data", "spatial")`` mesh (parallel/spatial.py:43-54):
+the ``Mesh`` it returns keeps ``rank``, ``world`` and ``group`` on the data
+axis, so every data-parallel helper here shards over it, and adds the
+spatial axis (``spatial_rank``, ``n_spatial``, ``spatial_group``) and the
+group of the whole grid (``grid_group``) for ``parallel/spatial.py``.
 """
 
 from __future__ import annotations
@@ -38,16 +45,28 @@ BUCKET_ELEMENTS = 1 << 24
 @dataclasses.dataclass
 class Mesh:
     """One rank's view of the data-parallel group.  ``group`` is None on
-    the one-device mesh, where collectives do nothing."""
+    the one-device mesh, where collectives do nothing.  On a 2-D mesh
+    (``make_2d_mesh``) ``rank``, ``world`` and ``group`` are the data
+    axis's; ``spatial_rank`` of ``n_spatial`` is the rank's row block,
+    ``spatial_group`` the ranks that share its batch slice (None when
+    ``n_spatial`` is 1) and ``grid_group`` every rank of the mesh (None on
+    one device)."""
 
     rank: int = 0
     world: int = 1
     device: torch.device = torch.device("cpu")
     group: Any = None
     backend: Optional[str] = None
+    spatial_rank: int = 0
+    n_spatial: int = 1
+    spatial_group: Any = None
+    grid_group: Any = None
 
 
 _CURRENT: Optional[Mesh] = None
+# the 2-D meshes this worker has made, by (n_data, n_spatial): their groups
+# are made once, by every rank in the same order
+_GRIDS: dict = {}
 
 
 def current_mesh() -> Optional[Mesh]:
@@ -71,6 +90,49 @@ def make_mesh(n_devices: Optional[int] = None,
             f"make_mesh({n_devices}): a mesh of more than one device is one "
             "process per device; start them with parallel.launch")
     return Mesh(device=torch.device(device or "cuda"))
+
+
+def make_2d_mesh(n_data: int, n_spatial: int,
+                 device: Optional[str] = None) -> Mesh:
+    """The ``(data, spatial)`` mesh of a worker of :func:`launch` with
+    ``n_data * n_spatial`` ranks (the JAX package's ``make_2d_mesh``,
+    parallel/spatial.py:43-54): rank r holds batch slice r // n_spatial
+    and row block r % n_spatial.  The data groups (the ranks of one row
+    block) and the spatial groups (the ranks of one batch slice) are made
+    with ``dist.new_group``, in the same order on every rank, once a
+    worker.  Outside a worker: the 1 x 1 mesh on ``device`` (the card
+    unless asked for ``cpu``).  Raises when the launch has too few ranks,
+    as JAX's raises with too few devices, or more than the mesh holds."""
+    n = n_data * n_spatial
+    if n_data < 1 or n_spatial < 1:
+        raise ValueError(f"make_2d_mesh({n_data}, {n_spatial}): each axis "
+                         "needs at least one rank")
+    have = 1 if _CURRENT is None else _CURRENT.world
+    if have < n:
+        raise ValueError(f"need {n} devices, have {have}")
+    if have > n:
+        raise ValueError(f"make_2d_mesh({n_data}, {n_spatial}) inside a "
+                         f"worker of a {have}-rank launch: a mesh takes "
+                         "every rank")
+    if _CURRENT is None:
+        return Mesh(device=torch.device(device or "cuda"))
+    key = (n_data, n_spatial)
+    if key not in _GRIDS:
+        r = _CURRENT.rank
+        d, s = divmod(r, n_spatial)
+        data_groups = [dist.new_group([i * n_spatial + j
+                                       for i in range(n_data)])
+                       for j in range(n_spatial)]
+        spatial_groups = [dist.new_group([i * n_spatial + j
+                                          for j in range(n_spatial)])
+                          for i in range(n_data)]
+        _GRIDS[key] = Mesh(
+            rank=d, world=n_data, device=_CURRENT.device,
+            group=data_groups[s] if n_data > 1 else None,
+            backend=_CURRENT.backend, spatial_rank=s, n_spatial=n_spatial,
+            spatial_group=spatial_groups[d] if n_spatial > 1 else None,
+            grid_group=_CURRENT.group)
+    return _GRIDS[key]
 
 
 def _check_devices(n: int, device: str, backend: Optional[str],
@@ -137,6 +199,7 @@ def _worker(rank: int, fn: Callable, n: int, device: str,
         raise
     finally:
         _CURRENT = None
+        _GRIDS.clear()
     dist.destroy_process_group()
 
 
