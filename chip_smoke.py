@@ -6348,10 +6348,15 @@ SP_H, SP_W = H, W        # 384 = 2 * 64 * 3: every model's stride divides
 # of phase 9); the kernels each path must launch in its one counted run
 SP_MODELS = (("RAFT", "RAFT", {}, 2),
              ("RAFT_volume", "RAFT", {"corr_impl": "volume"}, 2),
+             ("RAFT_spatial", "RAFT", {"compute_spatial": True}, 2),
+             ("RAFT_spatial_f32", "RAFT", {"compute_spatial": True,
+                                           "mixed_precision": False}, 2),
              ("FlowNetC", "FlowNetC", {}, 1), ("SpyNet", "SpyNet", {}, 1),
              ("PWCNet", "PWCNet", {}, 1), ("FlowNet2", "FlowNet2", {}, 1))
 SP_PATH_KERNELS = {"RAFT": ("alt_corr_fwd",),
                    "RAFT_volume": ("corr_lookup_fwd",),
+                   "RAFT_spatial": ("spatial_corr_fwd",),
+                   "RAFT_spatial_f32": ("spatial_corr_fwd",),
                    "FlowNetC": ("spatial_corr_fwd",),
                    "SpyNet": ("warp_fwd",),
                    "PWCNet": ("warp_fwd", "spatial_corr_fwd"),
@@ -6369,9 +6374,27 @@ SP_REPS = 3              # timed forwards of each, sharded and unsharded
 # first chip run of this phase (H100 80GB HBM3, 700 W) measured RAFT
 # 1.27e-2 (volume 1.33e-2), FlowNetC 9.1e-7, SPyNet 7.4e-6, PWC-Net
 # 7.4e-3, FlowNet2 8.5e-5: the bf16 models at JAX's spatial-test bars
-# (3 %, 2 %), the f32 ones at about four times what was measured
-SP_FLOW_REL = {"RAFT": 0.03, "RAFT_volume": 0.03, "FlowNetC": 4e-6,
-               "SpyNet": 3e-5, "PWCNet": 0.02, "FlowNet2": 4e-4}
+# (3 %, 2 %), the f32 ones at about four times what was measured.  The
+# spatial-correlation RAFT in bf16 (bf16 convolutions fed the raw,
+# undivided channel sums) is held to its own unsharded bf16 flow's
+# distance from its f32 flow in the same run (None here): on an H100
+# 80GB HBM3 at 700 W it measured 6.06e-2 sharded against 7.66e-2 for bf16
+# itself, past the 6 % first set for it.  In f32 the sharding's own error
+# shows: 2.92e-5 there, its bar four times that
+SP_FLOW_REL = {"RAFT": 0.03, "RAFT_volume": 0.03, "RAFT_spatial": None,
+               "RAFT_spatial_f32": 1.2e-4,
+               "FlowNetC": 4e-6, "SpyNet": 3e-5, "PWCNet": 0.02,
+               "FlowNet2": 4e-4}
+SP_MEM_TOP = 5             # the largest blocks printed at each peak
+SP_MEM_ENTRIES = 500_000   # allocator events a recorded forward may hold
+# the row-offset correlation kernels on two row blocks of each map (the
+# whole map's shape): RAFT's spatial mode and FlowNetC at 1/8 of 384x1280
+# (24-row blocks, reach 20), PWC-Net's level 6 (3-row blocks, reach 4),
+# and an odd patch on the generic kernels
+SP_CORR_OFFSET = {
+    "raft_flownetc": ((2, 256, SP_H // 8, SP_W // 8), 21, 2, torch.float32),
+    "pwc_l6": ((1, 196, SP_H // 64, SP_W // 64), 9, 1, torch.bfloat16),
+    "generic": ((1, 35, SP_H // 16, SP_W // 16), 3, 1, torch.float32)}
 
 
 def sp_model(key: str, name: str, kw: dict, device):
@@ -6409,6 +6432,68 @@ def sp_attack_cfg():
                          output_norm=ATTACK_EPS, n_step=1)
 
 
+def sp_weight_bytes(model) -> int:
+    """The bytes of the model's parameters and buffers: what every rank
+    holds whole."""
+    m = model.module
+    return sum(t.numel() * t.element_size()
+               for t in (*m.parameters(), *m.buffers()))
+
+
+def sp_mem_start() -> int:
+    """Record the allocator's events from here (python stacks); returns the
+    bytes allocated before."""
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context="all", stacks="python",
+        max_entries=SP_MEM_ENTRIES)
+    return torch.cuda.memory_allocated()
+
+
+def _port_frame(frames) -> str:
+    """The innermost frame of the port (or, failing that, of this script)
+    in an allocation's stack: its file:line and function."""
+    port = "understanding_flow_robustness_tpu_torch/"
+    for f in frames:
+        if port in f["filename"]:
+            return (f"{f['filename'].split(port, 1)[1]}:{f['line']} "
+                    f"{f['name']}")
+    for f in frames:
+        if f["filename"].endswith("chip_smoke.py"):
+            return f"chip_smoke.py:{f['line']} {f['name']}"
+    return "(no frame of the port)"
+
+
+def sp_mem_peak(before: int, weights: int) -> dict:
+    """Stop recording and replay the events to the peak of allocated
+    bytes: the SP_MEM_TOP largest blocks live there, each with the port's
+    file:line that allocated it, beside the bytes allocated before the
+    forward (``before``: the weights, the inputs) and the weights'."""
+    snap = torch.cuda.memory._snapshot()
+    torch.cuda.memory._record_memory_history(enabled=None)
+    live, total, peak, top = {}, 0, 0, []
+    for e in snap["device_traces"][torch.cuda.current_device()]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = (e["size"], e.get("frames", []))
+            total += e["size"]
+            if total > peak:
+                peak = total
+                top = sorted(live.values(), key=lambda v: -v[0])
+        elif e["action"] == "free_completed" and e["addr"] in live:
+            total -= live.pop(e["addr"])[0]
+    return {"before": before, "weights": weights, "peak": before + peak,
+            "top": [(size, _port_frame(frames))
+                    for size, frames in top[:SP_MEM_TOP]]}
+
+
+def sp_mem_line(tag: str, m: dict) -> str:
+    mib = 2 ** 20
+    return (f"{tag}: peak {m['peak'] / mib:.1f} MiB = {m['before'] / mib:.1f}"
+            f" MiB before the forward (weights {m['weights'] / mib:.1f} MiB) "
+            f"+ {(m['peak'] - m['before']) / mib:.1f} MiB of it; largest "
+            "live: " + "; ".join(f"{size / mib:.1f} MiB {where}"
+                                 for size, where in m["top"]))
+
+
 def sp_rank(mesh, shape, job: dict) -> dict:
     """One rank of the spatial phase on the ``shape`` mesh: every model's
     sharded forward on its blocks (the first one counted and compared, then
@@ -6435,18 +6520,20 @@ def sp_rank(mesh, shape, job: dict) -> dict:
     grid = make_2d_mesh(*shape)
     dev = grid.device
     out = {"flows": {}, "attacks": {}}
-    mine = {"launches": {}, "peak": {}, "ms": {}}
+    mine = {"launches": {}, "peak": {}, "ms": {}, "mem": {}}
     for key, name, kw, b in SP_MODELS:
         model = sp_model(key, name, kw, dev)
         run = spatial_predict(model, grid)
         a, b2 = (shard_rows(grid, x.to(dev)) for x in job["images"][b])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = sp_mem_start()
         LAUNCH_COUNTS.clear()
         flow = run(a, b2)
         torch.cuda.synchronize()
         mine["launches"][key] = dict(LAUNCH_COUNTS)
         mine["peak"][key] = torch.cuda.max_memory_allocated()
+        mine["mem"][key] = sp_mem_peak(before, sp_weight_bytes(model))
         barrier(mesh)
         t0 = time.perf_counter()
         for _ in range(SP_REPS):
@@ -6520,6 +6607,94 @@ def sp_warp_offset(gen) -> dict:
     return res
 
 
+def sp_corr_offset(gen) -> dict:
+    """csrc/spatial_corr_fwd.cu and csrc/spatial_corr_bwd.cu with a row
+    offset: each of two row blocks of f1 against f2 with a halo of the
+    whole reach at the offset r*d is bit-equal to those rows of the
+    unsharded launch (the backward: df1, and df2 on its rows inside the
+    image against the unsharded df2 of a cotangent zero off the block),
+    and within the correlation phase's bars of the plain version with the
+    same offset.  Times a block's forward and backward at RAFT's and
+    FlowNetC's shape against the design before the offset, which padded
+    f1 to f2's rows and cropped."""
+    from torch.nn.functional import pad
+
+    from understanding_flow_robustness_tpu_torch import ops
+    from understanding_flow_robustness_tpu_torch.ops import correlation as corr
+
+    res = {}
+    for name, (shape, patch, dil, dtype) in SP_CORR_OFFSET.items():
+        B, C, H, W = shape
+        f1 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        f2 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        cot = torch.randn((B, patch ** 2, H, W), generator=gen,
+                          device="cuda").to(dtype)
+        reach, h = (patch - 1) // 2 * dil, H // 2
+        whole = corr._spatial_corr_fwd_cuda(f1, f2, patch, dil)
+        f2p = pad(f2, (0, 0, reach, reach))
+        worst = 0.0
+        for i in range(2):
+            rows = slice(i * h, (i + 1) * h)
+            a = f1[:, :, rows].contiguous()
+            b = f2p[:, :, i * h:(i + 1) * h + 2 * reach].contiguous()
+            c = cot[:, :, rows].contiguous()
+            got = corr._spatial_corr_fwd_cuda(a, b, patch, dil, reach)
+            masked = torch.zeros_like(cot)
+            masked[:, :, rows] = c
+            ref1, ref2 = corr._spatial_corr_bwd_cuda(f1, f2, masked, patch,
+                                                     dil)
+            d1, d2 = corr._spatial_corr_bwd_cuda(a, b, c, patch, dil,
+                                                 row0=reach)
+            inside = slice(max(reach - i * h, 0), min(h + 2 * reach,
+                                                      H + reach - i * h))
+            ref2 = pad(ref2, (0, 0, reach, reach))[
+                :, :, i * h:(i + 1) * h + 2 * reach]
+            check(torch.equal(got, whole[:, :, rows])
+                  and torch.equal(d1, ref1[:, :, rows])
+                  and torch.equal(d2[:, :, inside], ref2[:, :, inside]),
+                  f"spatial correlation at row offset {reach}, block {i} "
+                  f"({name}): not the unsharded launch's rows")
+            pa, pb = a.float().requires_grad_(), b.float().requires_grad_()
+            plain = ops.spatial_correlation_reference(pa, pb, patch, dil,
+                                                      reach)
+            dp = torch.autograd.grad(plain, (pa, pb), c.float())
+            errs = [_corr_err(k, p, dtype) for k, p in
+                    ((got, plain.detach()), (d1, dp[0]), (d2, dp[1]))]
+            check(all(ok for _, ok in errs),
+                  f"spatial correlation at row offset {reach}, block {i} "
+                  f"({name}): disagrees with its plain version")
+            worst = max([worst] + [e for e, _ in errs])
+        res[name] = {"max_abs_err": worst}
+        line = (f"spatial_corr_fwd / _bwd row blocks ({name}, "
+                f"{tuple(shape)} P={patch} d={dil} "
+                f"{str(dtype).split('.')[-1]}, {h}-row blocks, reach "
+                f"{reach}): bit-equal to the unsharded launch's rows; vs "
+                f"plain with the offset max_abs_err={worst:.3e}")
+        if name == "raft_flownetc":
+            # the block's forward and backward with the offset, and as
+            # before it: f1 padded by the reach, all rows computed
+            a, b, c = f1[:, :, :h].contiguous(), f2p[:, :, :h + 2 * reach]\
+                .contiguous(), cot[:, :, :h].contiguous()
+            ap, cp = pad(a, (0, 0, reach, reach)), pad(c, (0, 0, reach,
+                                                           reach))
+            res[name].update(
+                fwd_ms=cuda_ms(lambda: corr._spatial_corr_fwd_cuda(
+                    a, b, patch, dil, reach), reps=20),
+                fwd_padded_ms=cuda_ms(lambda: corr._spatial_corr_fwd_cuda(
+                    ap, b, patch, dil), reps=20),
+                bwd_ms=cuda_ms(lambda: corr._spatial_corr_bwd_cuda(
+                    a, b, c, patch, dil, row0=reach), reps=20),
+                bwd_padded_ms=cuda_ms(lambda: corr._spatial_corr_bwd_cuda(
+                    ap, b, cp, patch, dil), reps=20))
+            m = res[name]
+            line += (f"; a block's forward {m['fwd_ms']:.4f} ms with the "
+                     f"offset, {m['fwd_padded_ms']:.4f} ms padded as before;"
+                     f" backward {m['bwd_ms']:.4f} / "
+                     f"{m['bwd_padded_ms']:.4f} ms")
+        print(line, flush=True)
+    return res
+
+
 def sp_compare(tag: str, got: dict, ref: dict) -> dict:
     """The gathered sharded flows and attack steps against the unsharded
     ones."""
@@ -6530,9 +6705,9 @@ def sp_compare(tag: str, got: dict, ref: dict) -> dict:
               f"{tag} {key}: flow malformed")
         rel = float((g - r).abs().max() / r.abs().max())
         print(f"{tag} {key}: max |d| / max |flow| {rel:.3e} (bar "
-              f"{SP_FLOW_REL[key]:g}), max |flow| {float(r.abs().max()):.2f}",
+              f"{ref['bar'][key]:.3g}), max |flow| {float(r.abs().max()):.2f}",
               flush=True)
-        check(rel <= SP_FLOW_REL[key], f"{tag} {key}: beyond its bar")
+        check(rel <= ref["bar"][key], f"{tag} {key}: beyond its bar")
         out[f"flow_rel/{key}"] = rel
     cfg = sp_attack_cfg()
     for key, _, _ in SP_ATTACKS:
@@ -6553,14 +6728,16 @@ def sp_compare(tag: str, got: dict, ref: dict) -> dict:
 def spatial_phase(gen) -> dict:
     """Spatial sharding (``parallel.spatial``): two ranks over gloo on
     cuda:0 as a 1 x 2 data x spatial mesh, each on one 192-row block of
-    384x1280 frames.  RAFT-12 (batch 2, alt path; and the volume path),
-    FlowNetC, SPyNet, PWC-Net and FlowNet2 (batch 1) through
-    ``spatial_predict`` against their unsharded flows on the same card,
-    one I-FGSM step of ``make_spatial_attack`` on FlowNetC and on RAFT
-    against the unsharded step, B4 with a row offset against its plain
-    version and the unsharded launch's rows; each rank's peak memory and
-    ms a forward beside the unsharded run's.  With two cards the ranks
-    also run over NCCL, a card each."""
+    384x1280 frames.  RAFT-12 (batch 2, alt path; the volume path; the
+    spatial-correlation mode in bf16 and in f32), FlowNetC, SPyNet,
+    PWC-Net and FlowNet2 (batch 1) through ``spatial_predict`` against
+    their unsharded flows on the same card, one I-FGSM step of
+    ``make_spatial_attack`` on FlowNetC and on RAFT against the unsharded
+    step, B4 and both correlation kernels with a row offset against their
+    plain versions and the unsharded launch's rows; each rank's peak
+    memory, which must be below the unsharded run's, with the allocations
+    live at it, and ms a forward beside the unsharded run's.  With two
+    cards the ranks also run over NCCL, a card each."""
     from understanding_flow_robustness_tpu_torch.attacks import make_attack
     from understanding_flow_robustness_tpu_torch.models import (
         predict_flow,
@@ -6573,7 +6750,8 @@ def spatial_phase(gen) -> dict:
     shutil.rmtree(SP_OUT, ignore_errors=True)
     SP_OUT.mkdir(parents=True)
     sgen = torch.Generator(device="cuda").manual_seed(SP_SEED)
-    res = {"warp_offset": sp_warp_offset(sgen)}
+    res = {"warp_offset": sp_warp_offset(sgen),
+           "corr_offset": sp_corr_offset(sgen)}
     images = {b: [torch.rand((b, SP_H, SP_W, 3), generator=sgen,
                              device="cuda") for _ in range(2)]
               for b in sorted({m[3] for m in SP_MODELS})}
@@ -6584,13 +6762,25 @@ def spatial_phase(gen) -> dict:
                  torch.cat([3 * torch.randn((1, SP_H, SP_W, 2), generator=sgen,
                                             device="cuda"),
                             torch.ones((1, SP_H, SP_W, 1), device="cuda")], -1)]
-    ref = {"flows": {}, "attacks": {}, "peak": {}, "ms": {}}
+    ref = {"flows": {}, "attacks": {}, "peak": {}, "ms": {}, "mem": {},
+           "bar": dict(SP_FLOW_REL)}
     for key, name, kw, b in SP_MODELS:
         model = sp_model(key, name, kw, "cuda")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = sp_mem_start()
         ref["flows"][key] = predict_flow(model, *images[b]).cpu()
         ref["peak"][key] = torch.cuda.max_memory_allocated()
+        ref["mem"][key] = sp_mem_peak(before, sp_weight_bytes(model))
+        if SP_FLOW_REL[key] is None:
+            # the bar: the model's own bf16 flow against its f32 flow
+            model.module.mixed_precision = False
+            f32 = predict_flow(model, *images[b]).cpu()
+            model.module.mixed_precision = True
+            ref["bar"][key] = res[f"bf16_drift/{key}"] = float(
+                (ref["flows"][key] - f32).abs().max() / f32.abs().max())
+            print(f"{key} unsharded, bf16 vs its f32 flow: max |d| / max "
+                  f"|flow| {ref['bar'][key]:.3e} (its bar)", flush=True)
         t0 = time.perf_counter()
         for _ in range(SP_REPS):
             predict_flow(model, *images[b])
@@ -6623,13 +6813,20 @@ def spatial_phase(gen) -> dict:
     res["launches"] = launches
     for key, _, _, b in SP_MODELS:
         peaks = [r["peak"][key] / 2 ** 30 for r in got["ranks"]]
-        res[f"peak_gib/{key}"] = peaks
+        res[f"peak_gib/{key}"] = peaks + [ref["peak"][key] / 2 ** 30]
         res[f"ms/{key}"] = (got["ranks"][0]["ms"][key], ref["ms"][key])
         print(f"{key} (batch {b}): peak memory per rank "
-              + " / ".join(f"{p:.2f}" for p in peaks)
-              + f" GiB against {ref['peak'][key] / 2 ** 30:.2f} GiB "
+              + " / ".join(f"{p:.3f}" for p in peaks)
+              + f" GiB against {ref['peak'][key] / 2 ** 30:.3f} GiB "
               f"unsharded; {got['ranks'][0]['ms'][key]:.1f} ms a sharded "
               f"forward against {ref['ms'][key]:.1f} ms", flush=True)
+        for i, rank in enumerate(got["ranks"]):
+            print("  " + sp_mem_line(f"rank {i}", rank["mem"][key]),
+                  flush=True)
+        print("  " + sp_mem_line("unsharded", ref["mem"][key]), flush=True)
+        check(max(peaks) < ref["peak"][key] / 2 ** 30,
+              f"spatial {key}: a rank's peak memory is not below the "
+              "unsharded run's")
     if torch.cuda.device_count() >= 2:
         nccl = launch(sp_rank, 2, SP_SHAPE, job, device="cuda")
         res.update({f"nccl/{k}": v for k, v in sp_compare(
@@ -7039,6 +7236,13 @@ def main() -> None:
         "patch_shape_plain_ms": scres["patch"]["plain_ms"],
         "patch_shape_bound_ms": scres["patch"]["bound_ms"],
         "patch_256_max_abs_err": scres["patch_256"]["fwd_err"],
+        # a spatial mesh's 24-row block with the row offset, and padded as
+        # before it (both kernels: the phase's worst error against plain)
+        "row_offset_max_abs_err": max(
+            v["max_abs_err"] for v in shres["corr_offset"].values()),
+        "row_block_ms": shres["corr_offset"]["raft_flownetc"]["fwd_ms"],
+        "row_block_padded_ms":
+            shres["corr_offset"]["raft_flownetc"]["fwd_padded_ms"],
         **{f"{name}_{k}": tsres[f"corr/{name}"][k]
            for name in CORR_TRAIN for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms")},
@@ -7081,6 +7285,9 @@ def main() -> None:
         "patch_shape_plain_ms": scres["patch/bwd"]["plain_ms"],
         "patch_shape_bound_ms": scres["patch/bwd"]["bound_ms"],
         "patch_256_max_abs_err": scres["patch_256"]["bwd_err"],
+        "row_block_ms": shres["corr_offset"]["raft_flownetc"]["bwd_ms"],
+        "row_block_padded_ms":
+            shres["corr_offset"]["raft_flownetc"]["bwd_padded_ms"],
         **{f"{name}_{k}": tsres[f"corr/{name}/bwd"][k]
            for name in CORR_TRAIN for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms")},

@@ -906,6 +906,107 @@ def test_spatial_corr_kernels_match_plain(cuda, shape, patch, dil, dtype):
             assert e.max().item() <= tol
 
 
+def _corr_close(got, ref, dtype):
+    """Within the spatial-correlation bars of the plain version: f32 within
+    CORR_REL_TOL x max|plain|, bf16 within one bf16 ulp (or that bar where
+    a sum cancels below it)."""
+    err = (got.float() - ref.float()).abs()
+    bar = CORR_REL_TOL * ref.float().abs().max().item()
+    if dtype == torch.bfloat16:
+        return bool((err <= torch.clamp(_bf16_ulp(ref.float()), min=bar)).all())
+    return err.max().item() <= bar
+
+
+@pytest.mark.parametrize("shape,patch,dil,dtype", [
+    ((2, 256, 48, 160), 21, 2, torch.float32),   # RAFT / FlowNetC blocks
+    ((1, 256, 16, 40), 21, 2, torch.bfloat16),
+    ((1, 196, 6, 20), 9, 1, torch.bfloat16),     # PWC-Net level 6 blocks
+    ((1, 50, 10, 44), 9, 1, torch.float32),
+    ((2, 35, 20, 45), 3, 1, torch.float32),      # the generic kernels
+    ((1, 33, 16, 70), 3, 4, torch.bfloat16),
+])
+def test_spatial_corr_kernels_row_offset(cuda, shape, patch, dil, dtype):
+    """A spatial mesh's row blocks: the forward of each block of f1
+    against f2 with a halo of the whole reach, at the row offset r*d, is
+    bit-equal to those rows of the unsharded launch; so are the backward's
+    df1 and its df2 (halo rows included, on the rows inside the image)
+    against the unsharded df2 of a cotangent that is zero off the block;
+    and both are within the plain version's bars of the plain version and
+    its autograd with the same offset."""
+    from torch.nn.functional import pad
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    B, C, H, W = shape
+    f1 = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    f2 = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    cot = torch.randn((B, patch ** 2, H, W), generator=g,
+                      device="cuda").to(dtype)
+    reach, h = (patch - 1) // 2 * dil, H // 2
+    whole = correlation._spatial_corr_fwd_cuda(f1, f2, patch, dil)
+    f2p = pad(f2, (0, 0, reach, reach))
+    for i in range(2):
+        rows = slice(i * h, (i + 1) * h)
+        a, b = f1[:, :, rows].contiguous(), f2p[:, :, i * h:(i + 1) * h
+                                                + 2 * reach].contiguous()
+        c = cot[:, :, rows].contiguous()
+        got = correlation._spatial_corr_fwd_cuda(a, b, patch, dil, reach)
+        assert got.shape == (B, patch ** 2, h, W)
+        assert torch.equal(got, whole[:, :, rows])
+        assert _corr_close(got, ops.spatial_correlation_reference(
+            a.float(), b.float(), patch, dil, reach), dtype)
+        masked = torch.zeros_like(cot)
+        masked[:, :, rows] = c
+        ref1, ref2 = correlation._spatial_corr_bwd_cuda(f1, f2, masked,
+                                                        patch, dil)
+        d1, d2 = correlation._spatial_corr_bwd_cuda(a, b, c, patch, dil,
+                                                    row0=reach)
+        assert d1.shape == a.shape and d2.shape == b.shape
+        assert torch.equal(d1, ref1[:, :, rows])
+        inside = slice(max(reach - i * h, 0), min(h + 2 * reach,
+                                                  H + reach - i * h))
+        ref2 = pad(ref2, (0, 0, reach, reach))[:, :, i * h:(i + 1) * h
+                                               + 2 * reach]
+        assert torch.equal(d2[:, :, inside], ref2[:, :, inside])
+        pa, pb = a.float().requires_grad_(), b.float().requires_grad_()
+        plain = torch.autograd.grad(ops.spatial_correlation_reference(
+            pa, pb, patch, dil, reach), (pa, pb), c.float())
+        assert _corr_close(d1, plain[0], dtype)
+        assert _corr_close(d2, plain[1], dtype)
+
+
+@pytest.mark.parametrize("cout", [2, 8])
+def test_halo_conv_few_outputs_channels_last(cuda, cout):
+    """A spatial mesh's halo convolution with fewer than 8 outputs (the
+    flow heads) runs channels-last on the card, off the FFT-class
+    algorithms cuDNN gives its NCHW block shapes (583.6 MiB of workspace
+    for FlowNetC's head on an H100 80GB HBM3): its rows NCHW-contiguous and
+    within f32 sums of
+    the NCHW convolution's, and its workspace below the NCHW one's."""
+    from understanding_flow_robustness_tpu_torch.parallel.spatial import (
+        _halo_conv,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((1, 386, 26, 160), generator=g, device="cuda")
+    w = torch.randn((cout, 386, 3, 3), generator=g, device="cuda") / 60
+
+    def conv(t):
+        return torch.nn.functional.conv2d(t, w, None, 1, (0, 1))
+
+    ref = conv(x)[:, :, 0:24]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    got = _halo_conv(conv, x, cout, slice(0, 24))
+    torch.cuda.synchronize()
+    used = torch.cuda.max_memory_allocated() - before
+    assert got.is_contiguous() and got.shape == ref.shape
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=CORR_REL_TOL * ref.abs().max().item())
+    if cout < 8:
+        assert used < 64 * 2 ** 20
+
+
 @pytest.mark.parametrize("shape,patch,dil,dtype", [
     ((1, 256, 32, 80), 21, 2, torch.float32),    # FlowNetC attack
     ((8, 32, 96, 320), 9, 1, torch.bfloat16),    # PWC-Net level 2
@@ -954,6 +1055,9 @@ def test_spatial_corr_wrappers_count_launches_and_reject_bad_input(cuda):
                 lambda: corr._spatial_corr_fwd_cuda(x.double(), y.double(), 9, 1),
                 lambda: corr._spatial_corr_fwd_cuda(x, y.bfloat16(), 9, 1),
                 lambda: corr._spatial_corr_fwd_cuda(x, y[:, :4], 9, 1),
+                lambda: corr._spatial_corr_fwd_cuda(x, y[:, :, :, :8].contiguous(),
+                                                    9, 1),
+                lambda: corr._spatial_corr_fwd_cuda(x, y, 9, 1, 70000),
                 lambda: corr._spatial_corr_fwd_cuda(x, y.cpu(), 9, 1),
                 lambda: corr._spatial_corr_fwd_cuda(x, y.transpose(2, 3), 9, 1),
                 lambda: corr._spatial_corr_bwd_cuda(

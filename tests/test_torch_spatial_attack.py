@@ -6,9 +6,11 @@ adversarial images within 1e-4 mean of the JAX package's one-device
 ``perturb`` on the same weights and of the port's own.  I-FGM steps by
 the raw gradient, so the loss's sums and counts must be the mesh's.  The
 port's momentum attack with the diverse input (per-sample L1 norms over
-the whole image; the transform on the gathered images) and its gaussian
-noise (drawn for the global batch and image, sliced) are held against
-the port's one-device attack.
+the whole image; the transform on the gathered images), its gaussian
+noise (drawn for the global batch and image, sliced) and one I-FGSM step
+on the spatial-correlation RAFT in f32 (its gradient through the
+gathered correlation's rows) are held against the port's one-device
+attack.
 """
 
 import dataclasses
@@ -41,7 +43,16 @@ ATTACKS = {
                        "output_norm": EPS, "n_step": 2,
                        "probability_diverse_input": 1.0},
     "gaussian": {"perturb_method": "gaussian", "output_norm": EPS},
+    "ifgsm_raft_spatial": {"perturb_method": "ifgsm", "flow_loss": "l2",
+                           "output_norm": EPS, "n_step": 1},
 }
+# the model each attack runs on: JAX's test's FlowNetS, and RAFT's
+# spatial-correlation mode at tests/test_torch_spatial_models.py's
+# configuration
+MODELS = {k: ("FlowNetS", {}) for k in ATTACKS}
+MODELS["ifgsm_raft_spatial"] = ("RAFT", {"iters": 3,
+                                         "mixed_precision": False,
+                                         "compute_spatial": True})
 # JAX's bar: mean |adv - ref| (the sharded convolutions sum in other
 # orders; a sign step can flip where a gradient is ~0)
 ADV_MEAN = 1e-4
@@ -79,8 +90,8 @@ def _inputs():
 def run():
     """{attack: (sharded, one-device)} results (noise0, noise1, adv0,
     adv1) of the port."""
-    job = {k: {"model": "FlowNetS", "seed": SEED, "cfg": cfg,
-               "inputs": _inputs()} for k, cfg in ATTACKS.items()}
+    job = {k: {"model": MODELS[k][0], "kw": MODELS[k][1], "seed": SEED,
+               "cfg": cfg, "inputs": _inputs()} for k, cfg in ATTACKS.items()}
     sharded = parallel.launch(workers.suite, 4, (2, 2), {"attacks": job},
                               device="cpu", timeout=LAUNCH_TIMEOUT)
     return {k: (sharded["attacks"][k], workers.spatial_attack(None, None, a))

@@ -11,7 +11,10 @@ eight CPU devices.
 RAFT runs twice: at its registry configuration (bf16 mixed precision)
 against the port, and in f32 (``mixed_precision=False``) against the port
 and the JAX package, where bf16's rounding in two packages' other places
-would hide the sharding's own error.
+would hide the sharding's own error.  The spatial-correlation RAFT
+(``compute_spatial=True``, f32) runs against both too: its lookup's
+C-order reshape mixes the whole map's rows, which each rank rebuilds for
+its own from the gathered correlation.
 """
 
 import dataclasses
@@ -21,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 import torch_spatial_workers as workers
+from test_torch_raft_variants import FLOW_ATOL_PX
 
 from understanding_flow_robustness_tpu.models.registry import (
     fetch_model as jfetch_model,
@@ -42,7 +46,9 @@ from understanding_flow_robustness_tpu_torch.models import (
 CASES = {"FlowNetS": ("FlowNetS", {}), "FlowNetC": ("FlowNetC", {}),
          "SpyNet": ("SpyNet", {}), "PWCNet": ("PWCNet", {}),
          "RAFT": ("RAFT", {"iters": 3}),
-         "RAFT_f32": ("RAFT", {"iters": 3, "mixed_precision": False})}
+         "RAFT_f32": ("RAFT", {"iters": 3, "mixed_precision": False}),
+         "RAFT_spatial": ("RAFT", {"iters": 3, "mixed_precision": False,
+                                  "compute_spatial": True})}
 MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
 # JAX's bars, tests/test_spatial_shard.py: max |d| in px, or max |d| /
 # max |ref|.  They hold the port's sharded flow against the JAX package
@@ -51,16 +57,20 @@ MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
 # RAFT amplify that through leaky-relu gate flips and the iterations
 # (measured 0.77 % and 1.4 %, 2 x 2 mesh).  Against the JAX package
 # (2 x 2 mesh) measured: FlowNetS 1.5e-5 px, FlowNetC 1.1e-5, SpyNet
-# 1.2e-4, PWC-Net 1.0 % (two bf16 policies), RAFT in f32 1.6e-6
+# 1.2e-4, PWC-Net 1.0 % (two bf16 policies), RAFT in f32 1.6e-6.  The
+# spatial-correlation RAFT at tests/test_torch_raft_spatial.py's f32 bar,
+# 1e-3 px
 JAX_BARS = {"FlowNetS": (1e-4, None), "FlowNetC": (1e-4, None),
             "SpyNet": (1e-3, None), "PWCNet": (None, 0.02),
-            "RAFT": (None, 0.03), "RAFT_f32": (None, 0.03)}
+            "RAFT": (None, 0.03), "RAFT_f32": (None, 0.03),
+            "RAFT_spatial": (FLOW_ATOL_PX, None)}
 # f32 models, sharded vs one device: max |d| / max |ref| (measured
 # 8.7e-7 .. 3.4e-6: sums in other orders)
 F32_REL = 1e-5
 SELF_BARS = {k: (None, F32_REL) for k in CASES}
 SELF_BARS.update(PWCNet=JAX_BARS["PWCNet"], RAFT=JAX_BARS["RAFT"])
-JAX_CASES = ("FlowNetS", "FlowNetC", "SpyNet", "PWCNet", "RAFT_f32")
+JAX_CASES = ("FlowNetS", "FlowNetC", "SpyNet", "PWCNet", "RAFT_f32",
+             "RAFT_spatial")
 LAUNCH_TIMEOUT = 600  # s: a hung rank fails the test instead of the run
 
 

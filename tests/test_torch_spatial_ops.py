@@ -4,12 +4,12 @@ and gradient, on four gloo CPU ranks as a 1 x 4 ``data x spatial`` mesh:
 every conv geometry the zoo uses, the deconv, instance and group norm,
 the bilinear resize in both modes, RAFT's convex-upsample unfold, the
 spatial correlation at (21, 2) and (9, 1), the warp in its three modes,
-and RAFT's alt and volume lookups.  The blocks are smaller than the
-reach: 8-row blocks of 32 rows (FlowNetC's correlation reaches 20 rows)
-and 2-row blocks of 8 (a 7x7 conv reaches 3), so halos span several
-ranks.  The same launch holds the refusals; the rest runs in this
-process: JAX's height rule and message, the warp's row offset and the
-lookup kernels' query grid.
+and RAFT's alt, volume and spatial-correlation lookups.  The blocks are
+smaller than the reach: 8-row blocks of 32 rows (FlowNetC's correlation
+reaches 20 rows) and 2-row blocks of 8 (a 7x7 conv reaches 3), so halos
+span several ranks.  The same launch holds the refusals; the rest runs
+in this process: JAX's height rule and message, the warp's and the
+correlation's row offsets and the lookup kernels' query grid.
 """
 
 import numpy as np
@@ -86,24 +86,19 @@ def _cases(H: int) -> dict:
         out[name] = ([(f(B, H, W, 16), "nhwc", True),
                       (f(B, H, W, 16), "nhwc", True),
                       (coords, "nhwc", False)], f(B, 3 * 49, H, W))
+    # RAFT's spatial-correlation lookup of a (B, 441, H, W) map, 3 levels
+    out["spatial_lookup"] = ([nchw(B, 441, H, W)], f(B, 3 * 441, H, W))
     return out
 
 
 CASES = {f"h{H}/{name}": (name, *case) for H in HEIGHTS
          for name, case in _cases(H).items()}
-# RAFT's configurations that raise on a spatial mesh, and what names them
-RAISING_RAFT = {"compute_spatial": (("RAFT", {"compute_spatial": True,
-                                              "iters": 1}),
-                                    "compute_spatial")}
 
 
 @pytest.fixture(scope="module")
 def sharded():
-    job = {"image": np.random.RandomState(1).rand(
-               1, 64 * N_SPATIAL, 64, 3).astype(np.float32),
-           "raft_configs": {k: v for k, (v, _) in RAISING_RAFT.items()}}
     return parallel.launch(workers.op_suite, N_SPATIAL, (1, N_SPATIAL),
-                           CASES, job, device="cpu", timeout=LAUNCH_TIMEOUT)
+                           CASES, device="cpu", timeout=LAUNCH_TIMEOUT)
 
 
 def _rel(got, ref):
@@ -126,10 +121,12 @@ def test_operation_matches_unsharded(sharded, key):
 def test_warp_and_correlation_blocks_bit_equal(sharded):
     """The warp's sample coordinates of a block are the whole warp's, bit
     for bit, so are its rows; the halo'd correlation computes each output
-    from the same products in the same order."""
+    from the same products in the same order; the spatial-correlation
+    lookup pools and reshapes the gathered map's values as the unsharded
+    one does."""
     for H in HEIGHTS:
         for name in (*(f"warp/{m}" for m in workers.WARP_MODES), "corr21",
-                     "corr9"):
+                     "corr9", "spatial_lookup"):
             key = f"h{H}/{name}"
             ref_out, _ = workers.op_case(None, *CASES[key])
             np.testing.assert_array_equal(sharded["ops"][key][0], ref_out)
@@ -137,17 +134,16 @@ def test_warp_and_correlation_blocks_bit_equal(sharded):
 
 def test_refusals(sharded):
     """On the mesh: a mesh larger than the launch, an unknown windowed
-    module in ``spatial_shard``, a module never made shard-aware run under
-    the context, and RAFT's configurations that do not shard all raise a
-    ValueError saying why."""
+    module in ``spatial_shard`` and a module never made shard-aware run
+    under the context all raise a ValueError saying why.  (Every RAFT
+    configuration shards: tests/test_torch_spatial_models.py and
+    test_torch_spatial_zoo.py.)"""
     got = sharded["refusals"]
     assert got["make_2d_mesh"] == f"need {N_SPATIAL ** 2} devices, have " \
                                   f"{N_SPATIAL}"
     assert "MaxPool2d is not known to be shard-aware" in got["spatial_shard"]
     assert "Conv2d is not known to be shard-aware" in \
         got["unsharded_module"]
-    for name, (_, words) in RAISING_RAFT.items():
-        assert got[name] is not None and words in got[name], got[name]
 
 
 def test_check_spatial_shapes_as_jax():
@@ -226,6 +222,57 @@ def test_warp_row_offset_bit_equal():
                                  "zeros_mask", 4, 16)
     rx, ry, _ = warp_sample_coords(torch.from_numpy(flow), "zeros_mask")
     assert torch.equal(x, rx[:, 4:8]) and torch.equal(y, ry[:, 4:8])
+
+
+@pytest.mark.parametrize("patch,dil", [(21, 2), (9, 1)])
+def test_correlation_row_offset_matches_unsharded(patch, dil):
+    """The plain correlation of each row block of f1 against its f2 with a
+    halo of the whole reach at the row offset r*d is the block's rows of
+    the unsharded plain correlation; df1 is the block's rows of the
+    unsharded df1, and df2 (halo rows included) the unsharded df2 of a
+    cotangent that is zero off the block, on the rows inside the image.
+    Held at OP_REL: PyTorch's CPU channel sum takes an order that depends
+    on the map's size (csrc/spatial_corr_{fwd,bwd}.cu do not, and
+    tests/test_torch_cuda.py holds them bit-equal on the card)."""
+    rng = np.random.RandomState(3)
+    H, h = 48, 12
+    f1 = torch.from_numpy(rng.randn(B, 8, H, W).astype(np.float32))
+    f2 = torch.from_numpy(rng.randn(B, 8, H, W).astype(np.float32))
+    g = torch.from_numpy(rng.randn(B, patch * patch, H, W).astype(
+        np.float32))
+    reach = (patch - 1) // 2 * dil
+    f2p = torch.nn.functional.pad(f2, (0, 0, reach, reach))
+
+    def corr(a, b, row0, cot):
+        a, b = a.clone().requires_grad_(), b.clone().requires_grad_()
+        out = ops.spatial_correlation_reference(a, b, patch, dil, row0)
+        return (out.detach(), *torch.autograd.grad(out, (a, b), cot))
+
+    whole = corr(f1, f2, 0, g)
+    for i in range(H // h):
+        rows = slice(i * h, (i + 1) * h)
+        out, df1, df2 = corr(f1[:, :, rows], f2p[:, :, i * h:i * h + h
+                                                 + 2 * reach], reach,
+                             g[:, :, rows])
+        assert out.shape == (B, patch * patch, h, W)
+        assert _rel(out.numpy(), whole[0][:, :, rows].numpy()) <= OP_REL
+        assert _rel(df1.numpy(), whole[1][:, :, rows].numpy()) <= OP_REL
+        masked = torch.zeros_like(g)
+        masked[:, :, rows] = g[:, :, rows]
+        ref = torch.nn.functional.pad(corr(f1, f2, 0, masked)[2],
+                                      (0, 0, reach, reach))
+        inside = slice(max(reach - i * h, 0), min(h + 2 * reach,
+                                                  H + reach - i * h))
+        assert df2.shape == (B, 8, h + 2 * reach, W)
+        assert _rel(df2[:, :, inside].numpy(),
+                    ref[:, :, i * h:i * h + h + 2 * reach][:, :,
+                                                          inside].numpy()) \
+            <= OP_REL
+    # unsharded (row offset 0, f2 of f1's height) it is the plain version
+    # it was: f2 given f1's zero rows as a halo changes nothing
+    zero_halo = corr(f1, f2p, reach, g)
+    for a, b in zip(zero_halo[:2], whole[:2]):
+        assert torch.equal(a, b)
 
 
 def test_lookup_query_grid_of_a_row_block(monkeypatch):

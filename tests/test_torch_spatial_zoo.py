@@ -30,7 +30,7 @@ IDS = ("FlowNetCFlexLarger_k3_reps3",
 # RAFT IDs at the iterations of JAX's spatial test
 CASES = {k: (k, {"iters": 3} if k.startswith("RAFT") else {}) for k in IDS}
 # RAFT's configurations beyond the registry's, in f32 (run exactly on a
-# spatial mesh; compute_spatial raises: tests/test_torch_spatial_ops.py)
+# spatial mesh; compute_spatial: tests/test_torch_spatial_models.py)
 CONFIGS = {f"RAFT/{k}": ("RAFT", {"iters": 3, "mixed_precision": False,
                                   **kw})
            for k, kw in (("small", {"small": True}),

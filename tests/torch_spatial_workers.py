@@ -24,6 +24,8 @@ from understanding_flow_robustness_tpu_torch.models import (
     predict_flow_differentiable,
 )
 from understanding_flow_robustness_tpu_torch.models.raft_model import (
+    spatial_corr_lookup,
+    spatial_corr_lookup_rows,
     upsample_flow_convex,
 )
 from understanding_flow_robustness_tpu_torch.parallel import (
@@ -88,6 +90,15 @@ def _op(name: str, x: list, mesh=None) -> torch.Tensor:
                                        plain=name.endswith("plain"))
     if name.startswith("warp"):
         return ops.warp_backward(x[0], x[1], name.split("/")[1])
+    if name == "spatial_lookup":
+        # RAFT's spatial-correlation lookup, 3 levels, NCHW out: on a row
+        # block its rows of the whole map's (spatial_corr_lookup_rows)
+        sc = x[0]
+        if mesh is None:
+            out = spatial_corr_lookup(ops.corr_pyramid(sc, 3), *sc.shape[2:])
+        else:
+            out = spatial_corr_lookup_rows(sc, 3)
+        return out.permute(0, 3, 1, 2)
     if name.startswith("lookup"):
         # NHWC fmaps and level-0 coords of the block's queries
         f1, f2, coords = x
@@ -127,13 +138,13 @@ def op_case(mesh, name: str, inputs: list, cot: np.ndarray):
     return out.detach().numpy(), [g.numpy() for g in grads]
 
 
-def op_suite(mesh, shape: tuple, cases: dict, refusal_job: dict) -> dict:
+def op_suite(mesh, shape: tuple, cases: dict) -> dict:
     """Every operation case {key: (operation, inputs, cot)} on the
     ``shape`` = (n_data, n_spatial) mesh of this launch, then the
     refusals."""
     grid = make_2d_mesh(*shape, device="cpu")
     return {"ops": {key: op_case(grid, *case) for key, case in cases.items()},
-            "refusals": refusals(mesh, refusal_job)}
+            "refusals": refusals(mesh)}
 
 
 # ----------------------------------------------------------------- models
@@ -170,10 +181,10 @@ def model_flows(mesh, shape: tuple, job: dict) -> dict:
     return out
 
 
-def refusals(mesh, job: dict) -> dict:
+def refusals(mesh) -> dict:
     """The messages of what must raise on a 1 x n mesh: too many ranks
-    asked for, an unknown windowed module, RAFT's configurations that do
-    not shard."""
+    asked for, an unknown windowed module, a module never made
+    shard-aware."""
     n = mesh.world
     grid = make_2d_mesh(1, n, device="cpu")
     out = {}
@@ -197,12 +208,6 @@ def refusals(mesh, job: dict) -> dict:
         with spatial_context(grid):
             raw(x)
     out["unsharded_module"] = caught(unsharded)
-    img = torch.from_numpy(job["image"])
-    for name, (model_name, kw) in job["raft_configs"].items():
-        model = fetch_model(model_name, device="cpu", seed=0, **kw)
-        run = spatial_predict(model, grid)
-        out[name] = caught(lambda: run(shard_rows(grid, img),
-                                       shard_rows(grid, img)))
     return out
 
 
@@ -213,7 +218,8 @@ def spatial_attack(mesh, shape, job: dict) -> list:
     (img0, img1, gt), the results gathered; with ``shape`` None, the
     unsharded ``make_attack`` on the whole inputs."""
     grid = None if shape is None else make_2d_mesh(*shape, device="cpu")
-    model = fetch_model(job["model"], device="cpu", seed=job["seed"])
+    model = fetch_model(job["model"], device="cpu", seed=job["seed"],
+                        **job.get("kw", {}))
     cfg = PerturbConfig(**job["cfg"])
     full = [torch.from_numpy(x) for x in job["inputs"]]
     gen = torch.Generator().manual_seed(0)
@@ -230,11 +236,9 @@ def spatial_attack(mesh, shape, job: dict) -> list:
 
 def suite(mesh, shape, job: dict) -> dict:
     """Everything one launch runs: the models' flows (``job["models"]``),
-    the attacks (``job["attacks"]``) and, when asked, the refusals."""
+    the attacks (``job["attacks"]``)."""
     out = {"flows": model_flows(mesh, shape, job) if "models" in job else {}}
     out["attacks"] = {k: spatial_attack(mesh, shape, a)
                       for k, a in job.get("attacks", {}).items()}
-    if "refusals" in job:
-        out["refusals"] = refusals(mesh, job["refusals"])
     return out
 

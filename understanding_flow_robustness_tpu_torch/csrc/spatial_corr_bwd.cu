@@ -7,14 +7,17 @@
 // the reference's spatial-correlation-sampler op has its own backward.  The
 // global attacks on FlowNetC and PWC-Net run it.
 //
-// NCHW f1, f2 (B, C, H, W), g (B, P*P, H, W) and df1, df2 (B, C, H, W),
-// all f32 or all bf16 (PWC-Net's autocast hands a bf16 cotangent and wants
-// bf16 gradients, so no cast pass runs around the kernel); sums in f32.
-// With du = (pu-r)*d, dv = (pv-r)*d, p = pu*P + pv:
-//   df1[b,c,y,x] = sum_p g[b,p,y,x]         * f2[b,c,y+du,x+dv]
-//   df2[b,c,y,x] = sum_p g[b,p,y-du,x-dv]   * f1[b,c,y-du,x-dv]
-// with zeros outside the map.  Both are gathers, so no atomics: every
-// output element is written once, by one thread.
+// NCHW f1 (B, C, H, W), f2 (B, C, H2, W), g (B, P*P, H, W), df1 (B, C, H,
+// W) and df2 (B, C, H2, W), all f32 or all bf16 (PWC-Net's autocast hands
+// a bf16 cotangent and wants bf16 gradients, so no cast pass runs around
+// the kernel); sums in f32.  With the forward's row offset row0, du =
+// (pu-r)*d, dv = (pv-r)*d, p = pu*P + pv:
+//   df1[b,c,y,x] = sum_p g[b,p,y,x]              * f2[b,c,y+row0+du,x+dv]
+//   df2[b,c,y,x] = sum_p g[b,p,y-row0-du,x-dv]   * f1[b,c,y-row0-du,x-dv]
+// with zeros outside the maps.  Both are gathers, so no atomics: every
+// output element is written once, by one thread.  On a spatial mesh's row
+// block df2 covers f2's halo rows too; ops/correlation.py's halo exchange
+// adds those into their owners' rows.
 //
 // Design, FlowNetC's (21, 2) and PWC-Net's (9, 1):
 // `spatial_corr_bwd_tile_kernel`, register-tiled.  A block owns a tile of
@@ -69,12 +72,17 @@ constexpr int kChannels = kWarps * kCK;  // channels a block
 constexpr int kThreads = kTX * kWarps;
 constexpr long long kSmemMax = 232448;  // the H100's per-block limit
 
+// floor(a / b) for b > 0
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((b - 1 - a) / b);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 spatial_corr_bwd_generic_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
                         const T* __restrict__ g, T* __restrict__ df1,
-                        T* __restrict__ df2, int C, int H, int W, int P,
-                        int d, int chunks) {
+                        T* __restrict__ df2, int C, int H, int W, int H2,
+                        int row0, int P, int d, int chunks) {
   extern __shared__ float smem[];
   const int r = (P - 1) / 2;
   const int reach = r * d;
@@ -92,10 +100,15 @@ spatial_corr_bwd_generic_kernel(const T* __restrict__ f1, const T* __restrict__ 
   const int b = bc / chunks;
   const int c0 = (bc - b * chunks) * kChannels;
   T* dst = which ? df2 : df1;
-  if (dst == nullptr) return;  // that gradient is not wanted
+  // the gradient's rows, the feature map's, and the feature row of output
+  // row y at displacement 0
+  const int Ho = which ? H2 : H, Hf = which ? H : H2;
+  if (dst == nullptr || y >= Ho) return;  // not wanted, or past its rows
   const int n = min(kChannels, C - c0);
-  const long long plane = (long long)H * W;
-  const T* feat = (which ? f1 : f2) + ((long long)b * C + c0) * plane;
+  const long long plane = (long long)H * W;  // f1's and g's
+  const long long plane_f = (long long)Hf * W, plane_o = (long long)Ho * W;
+  const int yb = which ? y - row0 : y + row0;
+  const T* feat = (which ? f1 : f2) + ((long long)b * C + c0) * plane_f;
   const T* gb = g + (long long)b * P2 * plane;
 
   float acc[kCK];
@@ -103,8 +116,8 @@ spatial_corr_bwd_generic_kernel(const T* __restrict__ f1, const T* __restrict__ 
   for (int k = 0; k < kCK; ++k) acc[k] = 0.f;
   for (int pu = 0; pu < P; ++pu) {
     const int du = (pu - r) * d;
-    const int yy = which ? y - du : y + du;  // the feature row
-    if (yy < 0 || yy >= H) continue;
+    const int yy = which ? yb - du : yb + du;  // the feature row
+    if (yy < 0 || yy >= Hf) continue;
     const int gy = which ? yy : y;           // the cotangent row
     for (int row = warp; row < P; row += kWarps) {
       const T* src = gb + (long long)(pu * P + row) * plane
@@ -115,7 +128,7 @@ spatial_corr_bwd_generic_kernel(const T* __restrict__ f1, const T* __restrict__ 
       }
     }
     for (int row = warp; row < n; row += kWarps) {
-      const T* src = feat + row * plane + (long long)yy * W;
+      const T* src = feat + row * plane_f + (long long)yy * W;
       for (int j = lane; j < sw; j += 32) {
         const int xx = x0 - reach + j;
         f_s[row * sw + j] = (xx >= 0 && xx < W) ? widen(src[xx]) : 0.f;
@@ -136,18 +149,18 @@ spatial_corr_bwd_generic_kernel(const T* __restrict__ f1, const T* __restrict__ 
 
   const int x = x0 + lane;
   if (x >= W) return;
-  T* o = dst + ((long long)b * C + c0) * plane + (long long)y * W + x;
+  T* o = dst + ((long long)b * C + c0) * plane_o + (long long)y * W + x;
 #pragma unroll
   for (int k = 0; k < kCK; ++k) {
     const int c = warp + kWarps * k;
-    if (c < n) o[c * plane] = narrow<T>(acc[k]);
+    if (c < n) o[c * plane_o] = narrow<T>(acc[k]);
   }
 }
 
 template <typename T>
 int launch_generic(const void* f1, const void* f2, const void* g, void* df1,
-           void* df2, int B, int C, int H, int W, int P, int d,
-           cudaStream_t s) {
+           void* df2, int B, int C, int H, int W, int H2, int row0, int P,
+           int d, cudaStream_t s) {
   const int r = (P - 1) / 2;
   const long long sw = kTX + 2LL * r * d;
   const long long bytes = 4LL * (P + kChannels) * sw;
@@ -161,11 +174,11 @@ int launch_generic(const void* f1, const void* f2, const void* g, void* df1,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((W + kTX - 1) / kTX, H, 2 * B * chunks);
+  const dim3 grid((W + kTX - 1) / kTX, H > H2 ? H : H2, 2 * B * chunks);
   kern<<<grid, kThreads, bytes, s>>>(
       static_cast<const T*>(f1), static_cast<const T*>(f2),
       static_cast<const T*>(g), static_cast<T*>(df1),
-      static_cast<T*>(df2), C, H, W, P, d, chunks);
+      static_cast<T*>(df2), C, H, W, H2, row0, P, d, chunks);
   return (int)cudaGetLastError();
 }
 
@@ -208,7 +221,8 @@ struct BwdTile {
 // y0 + d, ... (blockIdx.y), kCB channels and one gradient (blockIdx.z:
 // batch, channel group, which).  Thread: channels slot + kS*k (k < kCK),
 // columns i0 .. i0+kCX-1 of the tile.  The block walks the feature rows
-// its outputs reach, ys = y0 + (s - r) d for s = 0 .. P + kY - 2, each
+// its outputs reach, ys = y0 +- row0 + (s - r) d (+ for df1, whose
+// features are f2's rows; - for df2) for s = 0 .. P + kY - 2, each
 // once: output row t takes row s at displacement row pu = s - t (df1) or
 // P - 1 - (s - t) (df2).  Per step s, the kCB feature rows and, for each
 // output row it serves, the P cotangent rows of its pu arrive by TMA (one
@@ -227,7 +241,7 @@ spatial_corr_bwd_tile_kernel(const __grid_constant__ CUtensorMap f1_map,
                              const T* __restrict__ f2,
                              const T* __restrict__ g, T* __restrict__ df1,
                              T* __restrict__ df2, int C, int H, int W,
-                             int groups, int tma) {
+                             int H2, int row0, int groups, int tma) {
   constexpr int P = K::P, D = K::D, CX = K::kCX, CK = K::kCK, r = K::kR;
   constexpr int Y = K::kY;
   extern __shared__ __align__(128) unsigned char bsm[];
@@ -243,30 +257,37 @@ spatial_corr_bwd_tile_kernel(const __grid_constant__ CUtensorMap f1_map,
   T* dst = which ? df2 : df1;
   if (dst == nullptr) return;  // that gradient is not wanted
   const int n = min(K::kCB, C - c0);
-  const long long plane = (long long)H * W;
-  const T* feat = (which ? f1 : f2) + (long long)b * C * plane;
+  // the gradient's rows and the feature map's (df1: H and f2's H2; df2:
+  // H2 and f1's H)
+  const int Ho = which ? H2 : H, Hf = which ? H : H2;
+  const long long plane = (long long)H * W;  // f1's and g's
+  const long long plane_f = (long long)Hf * W, plane_o = (long long)Ho * W;
+  const T* feat = (which ? f1 : f2) + (long long)b * C * plane_f;
   const T* gb = g + (long long)b * P * P * plane;
 
   const int grp = tid / K::kS;
   const int slot = tid - grp * K::kS;
   const int i0 = grp * CX;
   const bool active = x0 + i0 < W;
-  // the feature rows inside the map: s in [lo, hi]
-  const int lo = max(0, r - y0 / D);
-  const int hi = y0 < H ? min(P + Y - 2, r + (H - 1 - y0) / D) : -1;
+  // the feature row of step r (output row y0 at displacement 0), and the
+  // feature rows inside the map: s in [lo, hi]
+  const int yb = which ? y0 - row0 : y0 + row0;
+  const int lo = max(0, r - floor_div(yb, D));
+  const int hi =
+      y0 < Ho ? min(P + Y - 2, r + floor_div(Hf - 1 - yb, D)) : -1;
   const int steps = hi - lo + 1;
   // a staged row's first column
   const int xs = x0 - r * D - K::kLead;
   // output row t takes step s (q = s - t in [0, P)) if it lies in the map
   auto serves = [&](int t, int s) {
-    return s - t >= 0 && s - t < P && y0 + t * D < H;
+    return s - t >= 0 && s - t < P && y0 + t * D < Ho;
   };
 
   // step i (s = lo + i) into buffer i & 1
   auto stage = [&](int i) {
     T* sb = buf + (i & 1) * K::kBuf;
     const int s = lo + i;
-    const int ys = y0 + (s - r) * D;  // the feature row
+    const int ys = yb + (s - r) * D;  // the feature row
     if (tma) {
       if (tid == 0) {
         fence_async_smem();
@@ -286,7 +307,7 @@ spatial_corr_bwd_tile_kernel(const __grid_constant__ CUtensorMap f1_map,
       }
       return;
     }
-    box_load(sb + K::kFOff, K::kRow, feat, W, H, C, xs, ys, c0, K::kCols, 1,
+    box_load(sb + K::kFOff, K::kRow, feat, W, Hf, C, xs, ys, c0, K::kCols, 1,
              1, 1, n);
 #pragma unroll
     for (int t = 0; t < Y; ++t) {
@@ -388,14 +409,15 @@ spatial_corr_bwd_tile_kernel(const __grid_constant__ CUtensorMap f1_map,
     }
   }
   __syncthreads();
-  T* o = dst + ((long long)b * C + c0) * plane + (long long)y0 * W + x0;
+  T* o = dst + ((long long)b * C + c0) * plane_o + (long long)y0 * W + x0;
   for (int e = tid; e < Y * K::kCB * K::kTX; e += K::kThreads) {
     const int row = e / K::kTX;  // t * kCB + c
     const int col = e - row * K::kTX;
     const int t = row / K::kCB;
     const int c = row - t * K::kCB;
-    if (c < n && x0 + col < W && y0 + t * D < H) {
-      o[c * plane + t * D * W + col] = narrow<T>(tile[row * K::kOutRow + col]);
+    if (c < n && x0 + col < W && y0 + t * D < Ho) {
+      o[c * plane_o + t * D * W + col] =
+          narrow<T>(tile[row * K::kOutRow + col]);
     }
   }
 }
@@ -405,12 +427,15 @@ spatial_corr_bwd_tile_kernel(const __grid_constant__ CUtensorMap f1_map,
 // FlowNetC's attack and patch shapes on the H100)
 template <typename T, int P, int D>
 int launch_tile(const void* f1, const void* f2, const void* g, void* df1,
-                void* df2, int B, int C, int H, int W, cudaStream_t s) {
+                void* df2, int B, int C, int H, int W, int H2, int row0,
+                cudaStream_t s) {
   constexpr bool bf16 = sizeof(T) == 2;
   auto go = [&](auto tile) {
     using K = decltype(tile);
     const int groups = (C + K::kCB - 1) / K::kCB;
-    const int ygroups = (H + K::kY * D - 1) / (K::kY * D) * D;
+    // both gradients' rows: df1's H, df2's H2
+    const int rows = H > H2 ? H : H2;
+    const int ygroups = (rows + K::kY * D - 1) / (K::kY * D) * D;
     if (2LL * B * groups > 65535 || ygroups > 65535) {
       return (int)cudaErrorInvalidValue;
     }
@@ -423,13 +448,14 @@ int launch_tile(const void* f1, const void* f2, const void* g, void* df1,
     CUtensorMap f1_map{}, f2_map{}, g_map{};
     const int tma =
         make_map(&f1_map, f1, bf16, W, H, C, B, K::kRow, 1, K::kCB, 1)
-        && make_map(&f2_map, f2, bf16, W, H, C, B, K::kRow, 1, K::kCB, 1)
+        && make_map(&f2_map, f2, bf16, W, H2, C, B, K::kRow, 1, K::kCB, 1)
         && make_map(&g_map, g, bf16, W, H, P * P, B, K::kRow, 1, P, 1);
     const dim3 grid((W + K::kTX - 1) / K::kTX, ygroups, 2 * B * groups);
     kern<<<grid, K::kThreads, K::kSmem, s>>>(
         f1_map, f2_map, g_map, static_cast<const T*>(f1),
         static_cast<const T*>(f2), static_cast<const T*>(g),
-        static_cast<T*>(df1), static_cast<T*>(df2), C, H, W, groups, tma);
+        static_cast<T*>(df1), static_cast<T*>(df2), C, H, W, H2, row0, groups,
+        tma);
     return (int)cudaGetLastError();
   };
   if (C <= 32) return go(BwdTile<T, P, D, 8>{});
@@ -440,37 +466,44 @@ int launch_tile(const void* f1, const void* f2, const void* g, void* df1,
 // generic one
 template <typename T>
 int launch(const void* f1, const void* f2, const void* g, void* df1,
-           void* df2, int B, int C, int H, int W, int P, int d,
-           cudaStream_t s) {
-  if (H > 65535) return (int)cudaErrorInvalidValue;
+           void* df2, int B, int C, int H, int W, int H2, int row0, int P,
+           int d, cudaStream_t s) {
+  if (H > 65535 || H2 > 65535) return (int)cudaErrorInvalidValue;
   if (P == 21 && d == 2) {
-    return launch_tile<T, 21, 2>(f1, f2, g, df1, df2, B, C, H, W, s);
+    return launch_tile<T, 21, 2>(f1, f2, g, df1, df2, B, C, H, W, H2, row0,
+                                 s);
   }
   if (P == 9 && d == 1) {
-    return launch_tile<T, 9, 1>(f1, f2, g, df1, df2, B, C, H, W, s);
+    return launch_tile<T, 9, 1>(f1, f2, g, df1, df2, B, C, H, W, H2, row0,
+                                s);
   }
-  return launch_generic<T>(f1, f2, g, df1, df2, B, C, H, W, P, d, s);
+  return launch_generic<T>(f1, f2, g, df1, df2, B, C, H, W, H2, row0, P, d,
+                           s);
 }
 
 }  // namespace
 
 // C interface, bound with ctypes by ops/correlation.py::_spatial_corr_bwd_cuda,
-// which validates every argument first.  f1, f2: (B, C, H, W); g: (B, P*P,
-// H, W); df1, df2: (B, C, H, W), either may be null (not computed); all f32
-// or all bf16.  Launches on `stream` without synchronising and returns
+// which validates every argument first.  f1: (B, C, H, W); f2: (B, C, H2,
+// W); g: (B, P*P, H, W); df1 (B, C, H, W) and df2 (B, C, H2, W), either may
+// be null (not computed); all f32 or all bf16; row0: the forward's row
+// offset.  Launches on `stream` without synchronising and returns
 // cudaGetLastError().
 extern "C" int ufr_spatial_corr_bwd(const void* f1, const void* f2,
                                     const void* g, void* df1, void* df2,
-                                    int B, int C, int H, int W, int P, int d,
-                                    int is_bf16, void* stream) {
-  if (B < 1 || C < 1 || H < 1 || W < 1 || P < 1 || P % 2 == 0 || d < 1) {
+                                    int B, int C, int H, int W, int H2,
+                                    int row0, int P, int d, int is_bf16,
+                                    void* stream) {
+  if (B < 1 || C < 1 || H < 1 || W < 1 || H2 < 1 || P < 1 || P % 2 == 0 ||
+      d < 1 || row0 < -65535 || row0 > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return launch<__nv_bfloat16>(f1, f2, g, df1, df2, B, C, H, W, P, d, s);
+    return launch<__nv_bfloat16>(f1, f2, g, df1, df2, B, C, H, W, H2, row0,
+                                 P, d, s);
   }
-  return launch<float>(f1, f2, g, df1, df2, B, C, H, W, P, d, s);
+  return launch<float>(f1, f2, g, df1, df2, B, C, H, W, H2, row0, P, d, s);
 }
 
 extern "C" const char* ufr_cuda_error_string(int err) {

@@ -8,12 +8,17 @@
 // spatial-correlation-sampler CUDA op.  FlowNetC's correlation (patch 21,
 // patch dilation 2) and PWC-Net's (patch 9) run on it.
 //
-// NCHW f1, f2 (B, C, H, W), f32 or bf16; out (B, P*P, H, W) in the inputs'
-// type, P odd, r = (P-1)/2, patch dilation d, du-major:
+// NCHW f1 (B, C, H, W), f2 (B, C, H2, W), f32 or bf16; out (B, P*P, H, W)
+// in the inputs' type, P odd, r = (P-1)/2, patch dilation d, a row offset
+// row0 into f2, du-major:
 //   out[b, pu*P + pv, y, x] = sum_c f1[b, c, y, x]
-//                                   * f2[b, c, y + (pu-r)*d, x + (pv-r)*d]
-// with zeros where the displaced pixel leaves the map; products and sums
-// in f32 (bf16 inputs widened), not divided by C.
+//                          * f2[b, c, y + row0 + (pu-r)*d, x + (pv-r)*d]
+// with zeros where the displaced pixel leaves f2; products and sums in f32
+// (bf16 inputs widened), not divided by C.  Unsharded, H2 = H and row0 =
+// 0.  On a spatial mesh's row block (ops/correlation.py) f1 is the block's
+// h rows, f2 the block with a halo of rd rows a side (H2 = h + 2rd) and
+// row0 = rd: each output is the unsharded launch's, the same channel sum
+// in the same order, and no row is computed to be thrown away.
 //
 // Bound: at FlowNetC's serving shape (8, 256, 48, 160), P=21, d=2, the
 // products inside the map, 2 FLOP each, are ~10 GFLOP at 67 TFLOP/s f32
@@ -91,24 +96,25 @@ __device__ __forceinline__ void wait_all_but_newest() {
 // (channel c, displacement row pu, column j) by multiply-high quotients
 // (m = ceil(2^32 / divisor), exact while e * divisor < 2^32, which the
 // shared-memory limit keeps; for P = 1, where 2^32 does not fit in 32 bits,
-// m_p is 0 and c = row); false where it lies outside the map.
+// m_p is 0 and c = row); false where it lies outside f2.
 struct Rows {
-  int P, r, d, sw, x0, y, H, W;
+  int P, r, d, sw, x0, y, W, H2, row0;
   unsigned m_sw, m_p;
-  long long plane;
+  long long plane, plane2;  // f1's and f2's
 
   __device__ __forceinline__ bool source(int e, int c0, long long* idx) const {
     const int row = __umulhi((unsigned)e, m_sw);
     const int j = e - row * sw;
     const int c = m_p ? __umulhi((unsigned)row, m_p) : row;
-    const int yy = y + (row - c * P - r) * d;
+    const int yy = y + row0 + (row - c * P - r) * d;
     const int xx = x0 - r * d + j;
-    *idx = (c0 + c) * plane + (long long)yy * W + xx;
-    return yy >= 0 && yy < H && xx >= 0 && xx < W;
+    *idx = (c0 + c) * plane2 + (long long)yy * W + xx;
+    return yy >= 0 && yy < H2 && xx >= 0 && xx < W;
   }
 };
 
-__device__ __forceinline__ Rows make_rows(int P, int d, int H, int W) {
+__device__ __forceinline__ Rows make_rows(int P, int d, int H, int W, int H2,
+                                          int row0) {
   Rows g;
   g.P = P;
   g.r = (P - 1) / 2;
@@ -116,11 +122,13 @@ __device__ __forceinline__ Rows make_rows(int P, int d, int H, int W) {
   g.sw = kTX + 2 * g.r * d;
   g.x0 = blockIdx.x * kTX;
   g.y = blockIdx.y;
-  g.H = H;
   g.W = W;
+  g.H2 = H2;
+  g.row0 = row0;
   g.m_sw = (unsigned)(0xFFFFFFFFull / (unsigned)g.sw + 1);
   g.m_p = P == 1 ? 0u : (unsigned)(0xFFFFFFFFull / (unsigned)P + 1);
   g.plane = (long long)H * W;
+  g.plane2 = (long long)H2 * W;
   return g;
 }
 
@@ -199,8 +207,9 @@ __global__ void __launch_bounds__(kWarps * 32)
 spatial_corr_fwd_generic_kernel(const T* __restrict__ f1,
                                 const T* __restrict__ f2,
                                 T* __restrict__ out, int C, int H, int W,
-                                int P, int d, int passes, int chunk) {
-  const Rows g = make_rows(P, d, H, W);
+                                int H2, int row0, int P, int d, int passes,
+                                int chunk) {
+  const Rows g = make_rows(P, d, H, W, H2, row0);
   const int P2 = P * P;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -220,7 +229,7 @@ spatial_corr_fwd_generic_kernel(const T* __restrict__ f1,
 #pragma unroll
   for (int k = 0; k < kGenericAcc; ++k) acc[k] = 0.f;
   const T* f1b = f1 + (long long)b * C * g.plane;
-  const T* f2b = f2 + (long long)b * C * g.plane;
+  const T* f2b = f2 + (long long)b * C * g.plane2;
   over_chunks(f1b, f2b, C, chunk, g, [&](const float* buf, int n) {
     for (int c = 0; c < n; ++c) {
       const float a = buf[c * kTX + lane];
@@ -310,7 +319,7 @@ spatial_corr_fwd_tile_kernel(const __grid_constant__ CUtensorMap f1_map,
                              const __grid_constant__ CUtensorMap f2_map,
                              const T* __restrict__ f1,
                              const T* __restrict__ f2, T* __restrict__ out,
-                             int C, int H, int W, int tma) {
+                             int C, int H, int W, int H2, int row0, int tma) {
   constexpr int P = K::P, D = K::D, CX = K::kCX, r = K::kR;
   extern __shared__ __align__(128) unsigned char fsm[];
   T* buf = reinterpret_cast<T*>(fsm);
@@ -321,7 +330,9 @@ spatial_corr_fwd_tile_kernel(const __grid_constant__ CUtensorMap f1_map,
   const int b = blockIdx.z;
   const long long plane = (long long)H * W;
   const T* f1b = f1 + (long long)b * C * plane;
-  const T* f2b = f2 + (long long)b * C * plane;
+  const T* f2b = f2 + (long long)b * C * (long long)H2 * W;
+  // f2's row of displacement row 0
+  const int y2 = y + row0 - r * D;
 
   // tid = h * kGroupT + grp * P + pu: a warp's lanes share h, mostly grp,
   // and differ in pu
@@ -329,13 +340,13 @@ spatial_corr_fwd_tile_kernel(const __grid_constant__ CUtensorMap f1_map,
   const int grp = (tid - h * K::kGroupT) / P;
   const int pu = tid - h * K::kGroupT - grp * P;
   const int i0 = grp * CX;
-  const int yy = y + (pu - r) * D;
-  const bool active = grp < K::G && yy >= 0 && yy < H && x0 + i0 < W;
+  const int yy = y2 + pu * D;
+  const bool active = grp < K::G && yy >= 0 && yy < H2 && x0 + i0 < W;
   const int nchunks = (C + K::kNC - 1) / K::kNC;
   // a staged f2 row's first column
   const int xs = x0 - r * D - K::kLead;
 
-  // chunk i into buffer i & 1: [c][P][kRow] of f2 (rows y - rd .. y + rd,
+  // chunk i into buffer i & 1: [c][P][kRow] of f2 (rows y2 .. y2 + 2rd,
   // d apart), then [c][kTX] of f1
   auto stage = [&](int i) {
     T* s = buf + (i & 1) * K::kBuf;
@@ -345,14 +356,13 @@ spatial_corr_fwd_tile_kernel(const __grid_constant__ CUtensorMap f1_map,
         fence_async_smem();
         mbar_expect(&bar[i & 1], (unsigned)(K::kNC * sizeof(T)
                     * (P * K::kRow + K::kTX)));
-        tma_load(s, &f2_map, &bar[i & 1], xs, y - r * D, c0, b);
+        tma_load(s, &f2_map, &bar[i & 1], xs, y2, c0, b);
         tma_load(s + K::kF1, &f1_map, &bar[i & 1], x0, y, c0, b);
       }
       return;
     }
     const int n = min(K::kNC, C - c0);
-    box_load(s, K::kRow, f2b, W, H, C, xs, y - r * D, c0, K::kCols, 1, P, D,
-             n);
+    box_load(s, K::kRow, f2b, W, H2, C, xs, y2, c0, K::kCols, 1, P, D, n);
     box_load(s + K::kF1, K::kTX, f1b, W, H, C, x0, y, c0, K::kTX, 1, 1, 1,
              n);
   };
@@ -455,25 +465,26 @@ using PwcFwd = FwdTile<T, 9, 1, 10, 16>;
 
 template <typename T, class K>
 int launch_tile(const void* f1, const void* f2, void* out, int B, int C,
-                int H, int W, cudaStream_t s) {
+                int H, int W, int H2, int row0, cudaStream_t s) {
   auto kern = spatial_corr_fwd_tile_kernel<T, K>;
   if (const int e = prepare(kern, K::kSmem)) return e;
   constexpr bool bf16 = sizeof(T) == 2;
   CUtensorMap f1_map{}, f2_map{};
   const int tma =
-      make_map(&f2_map, f2, bf16, W, H, C, B, K::kRow, (K::P - 1) * K::D + 1,
-               K::kNC, K::D)
+      make_map(&f2_map, f2, bf16, W, H2, C, B, K::kRow,
+               (K::P - 1) * K::D + 1, K::kNC, K::D)
       && make_map(&f1_map, f1, bf16, W, H, C, B, K::kTX, 1, K::kNC, 1);
   const dim3 grid((W + K::kTX - 1) / K::kTX, H, B);
   kern<<<grid, K::kThreads, K::kSmem, s>>>(
       f1_map, f2_map, static_cast<const T*>(f1), static_cast<const T*>(f2),
-      static_cast<T*>(out), C, H, W, tma);
+      static_cast<T*>(out), C, H, W, H2, row0, tma);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_generic(const void* f1, const void* f2, void* out, int B, int C,
-                   int H, int W, int P, int d, cudaStream_t s) {
+                   int H, int W, int H2, int row0, int P, int d,
+                   cudaStream_t s) {
   long long bytes;
   const int chunk = (int)chunk_of(P, d, &bytes);
   constexpr int per_pass = kWarps * kGenericAcc;
@@ -484,7 +495,7 @@ int launch_generic(const void* f1, const void* f2, void* out, int B, int C,
   const dim3 grid((W + kTX - 1) / kTX, H, B * passes);
   kern<<<grid, kWarps * 32, bytes, s>>>(
       static_cast<const T*>(f1), static_cast<const T*>(f2),
-      static_cast<T*>(out), C, H, W, P, d, passes, chunk);
+      static_cast<T*>(out), C, H, W, H2, row0, P, d, passes, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -493,35 +504,40 @@ int launch_generic(const void* f1, const void* f2, void* out, int B, int C,
 // block take to cover P*P
 template <typename T>
 int dispatch(const void* f1, const void* f2, void* out, int B, int C, int H,
-             int W, int P, int d, cudaStream_t s) {
+             int W, int H2, int row0, int P, int d, cudaStream_t s) {
   if (P == 21 && d == 2) {
-    return launch_tile<T, FlowNetCFwd<T>>(f1, f2, out, B, C, H, W, s);
+    return launch_tile<T, FlowNetCFwd<T>>(f1, f2, out, B, C, H, W, H2, row0,
+                                          s);
   }
   if (P == 9 && d == 1) {
-    return launch_tile<T, PwcFwd<T>>(f1, f2, out, B, C, H, W, s);
+    return launch_tile<T, PwcFwd<T>>(f1, f2, out, B, C, H, W, H2, row0, s);
   }
-  return launch_generic<T>(f1, f2, out, B, C, H, W, P, d, s);
+  return launch_generic<T>(f1, f2, out, B, C, H, W, H2, row0, P, d, s);
 }
 
 }  // namespace
 
 // C interface, bound with ctypes by ops/correlation.py::_spatial_corr_fwd_cuda,
 // which validates every argument first (dtype, shapes, contiguity, one
-// device, P odd, d >= 1, shared memory).  f1, f2: (B, C, H, W); out: (B,
-// P*P, H, W), all f32 or all bf16.  Launches on `stream` without
+// device, P odd, d >= 1, shared memory).  f1: (B, C, H, W); f2: (B, C,
+// H2, W); out: (B, P*P, H, W), all f32 or all bf16; row0: f2's row of
+// output row 0 at displacement 0.  Launches on `stream` without
 // synchronising and returns cudaGetLastError().
 extern "C" int ufr_spatial_corr_fwd(const void* f1, const void* f2, void* out,
-                                    int B, int C, int H, int W, int P, int d,
-                                    int is_bf16, void* stream) {
-  if (B < 1 || C < 1 || H < 1 || W < 1 || P < 1 || P % 2 == 0 || d < 1 ||
-      H > 65535 || B > 65535) {
+                                    int B, int C, int H, int W, int H2,
+                                    int row0, int P, int d, int is_bf16,
+                                    void* stream) {
+  if (B < 1 || C < 1 || H < 1 || W < 1 || H2 < 1 || P < 1 || P % 2 == 0 ||
+      d < 1 || H > 65535 || H2 > 65535 || row0 < -65535 || row0 > 65535 ||
+      B > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return dispatch<__nv_bfloat16>(f1, f2, out, B, C, H, W, P, d, s);
+    return dispatch<__nv_bfloat16>(f1, f2, out, B, C, H, W, H2, row0, P, d,
+                                   s);
   }
-  return dispatch<float>(f1, f2, out, B, C, H, W, P, d, s);
+  return dispatch<float>(f1, f2, out, B, C, H, W, H2, row0, P, d, s);
 }
 
 extern "C" const char* ufr_cuda_error_string(int err) {

@@ -35,11 +35,10 @@ from ..ops.correlation import (
     corr_pyramid,
     prepare_alt_corr,
     spatial_correlation,
-    spatial_correlation_reference,
     volume_pyramid,
 )
 from ..ops.interp import coords_grid, resize_bilinear
-from ..parallel.spatial import halo_rows, row_mesh
+from ..parallel.spatial import all_gather_rows, halo_rows, row_mesh
 from .layers import conv, leaky_relu, norm
 
 
@@ -339,19 +338,50 @@ def spatial_corr_lookup(pyramid, H1: int, W1: int) -> torch.Tensor:
     of 2^(L-1) (H and W of 64 with RAFT's 4 levels); otherwise it raises
     (the JAX package's reshape gives the wrong channel count there)."""
     B = pyramid[0].shape[0]
-    out = []
-    for i, lvl in enumerate(pyramid):
-        x = lvl
-        if i:
-            x = x.repeat_interleave(2 ** i, dim=2).repeat_interleave(2 ** i,
-                                                                     dim=3)
-        if tuple(x.shape[2:]) != (H1, W1):
-            raise ValueError(
-                f"compute_spatial: level {i} of the {H1}x{W1} correlation "
-                f"upsamples to {tuple(x.shape[2:])}; H/8 and W/8 must be "
-                f"multiples of {2 ** (len(pyramid) - 1)}")
-        out.append(x.reshape(B, H1, W1, -1))
-    return torch.cat(out, dim=-1)
+    return torch.cat([_upsampled(lvl, i, len(pyramid), H1, W1).reshape(
+        B, H1, W1, -1) for i, lvl in enumerate(pyramid)], dim=-1)
+
+
+def _upsampled(lvl: torch.Tensor, i: int, levels: int, H1: int,
+               W1: int) -> torch.Tensor:
+    """Pyramid level i nearest-upsampled by 2^i to H1 x W1, or the refusal
+    where it does not come back to that size."""
+    x = lvl
+    if i:
+        x = x.repeat_interleave(2 ** i, dim=2).repeat_interleave(2 ** i, dim=3)
+    if tuple(x.shape[2:]) != (H1, W1):
+        raise ValueError(
+            f"compute_spatial: level {i} of the {H1}x{W1} correlation "
+            f"upsamples to {tuple(x.shape[2:])}; H/8 and W/8 must be "
+            f"multiples of {2 ** (levels - 1)}")
+    return x
+
+
+def spatial_corr_lookup_rows(sc: torch.Tensor, levels: int) -> torch.Tensor:
+    """This rank's rows of ``spatial_corr_lookup`` of the whole map's
+    pyramid under a row-splitting spatial mesh, from the rank's row block
+    ``sc`` (B, P, h, W1) of the raw correlation: (B, h, W1, levels * P).
+
+    The C-order reshape gives block i of n the contiguous flat range [i h
+    W1 P, (i+1) h W1 P) of each item's (P, H1, W1) stack at every level,
+    which lies in the whole-image planes of channels floor(i P / n) ..
+    ceil((i+1) P / n).  The raw map is all-gathered once
+    (differentiable: the gradient returns to its rows' owners), narrowed
+    to those channels, pooled and upsampled channel by channel, and the
+    range taken: the unsharded lookup's rows, bit for bit, with a pyramid
+    of about 1/n of the channels a rank."""
+    mesh = row_mesh()
+    n, i = mesh.n_spatial, mesh.spatial_rank
+    whole = all_gather_rows(sc, 2)
+    B, P, H1, W1 = whole.shape
+    plane, size = H1 * W1, H1 // n * W1 * P
+    start = i * size
+    c0, c1 = start // plane, -(-(start + size) // plane)
+    pyramid = corr_pyramid(whole[:, c0:c1], levels)
+    return torch.cat([
+        _upsampled(lvl, k, levels, H1, W1).reshape(B, -1).narrow(
+            1, start - c0 * plane, size).reshape(B, H1 // n, W1, P)
+        for k, lvl in enumerate(pyramid)], dim=-1)
 
 
 def scale_flow_head(model: "RAFT", scale: float) -> "RAFT":
@@ -474,23 +504,25 @@ class RAFT(nn.Module):
         mode); the pyramid goes into ``feats`` when taps are on."""
         B, _, H8, W8 = fmap1.shape
         r = self.corr_radius
-        if self.compute_spatial and row_mesh() is not None:
-            # spatial_corr_lookup's C-order reshape mixes the rows of the
-            # whole correlation map: no row block holds its own
-            raise ValueError("RAFT(compute_spatial=True) does not shard by "
-                             "rows: its lookup reshapes the whole map")
         if self.compute_spatial:
             # raft_model.py:855-866: the raw correlation is pyramided; only
             # the tap divides by C.  f32 fmaps, so f32 whatever the autocast
-            corr_fn = (spatial_correlation_reference if self.plain_lookup
-                       else spatial_correlation)
             with torch.autocast(fmap1.device.type, enabled=False):
-                sc = corr_fn(fmap1, fmap2, 21, dilation_patch=2)
-            pyramid = corr_pyramid(sc, self.corr_levels)
+                sc = spatial_correlation(fmap1, fmap2, 21, dilation_patch=2,
+                                         plain=self.plain_lookup)
+            pyramid = None
+            if feats is not None or row_mesh() is None:
+                # on a row block: the block's rows of the whole pyramid
+                pyramid = corr_pyramid(sc, self.corr_levels)
             if feats is not None:
                 feats["spatial_corr"] = sc / fmap1.shape[1]
                 feats.update({f"corr_pyramid_{i}": lvl
                               for i, lvl in enumerate(pyramid)})
+            if row_mesh() is not None:
+                # the lookup reshapes the whole map: once, independent of
+                # the coords
+                rows = spatial_corr_lookup_rows(sc, self.corr_levels)
+                return lambda coords: rows
             return lambda coords: spatial_corr_lookup(pyramid, H8, W8)
         # channels-last once per forward; the lookups read C-contiguous rows
         f1n, f2n = fmap1.permute(0, 2, 3, 1), fmap2.permute(0, 2, 3, 1)

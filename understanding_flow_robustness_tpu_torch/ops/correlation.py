@@ -28,9 +28,10 @@ Its gradient (``_CorrLookup``) recomputes the plain version under autograd,
 as the JAX package's custom_vjp recomputes its XLA formulation.
 
 Under a row-splitting spatial mesh (``parallel/spatial.py``) the models'
-entry points work on a rank's row blocks: ``spatial_correlation`` pads f1
-and exchanges f2's halo by the whole displacement, runs unchanged and
-crops the block's rows; ``prepare_alt_corr`` and ``volume_pyramid``
+entry points work on a rank's row blocks: ``spatial_correlation``
+exchanges f2's halo by the whole displacement and correlates the block's
+rows of f1 against it at a row offset (both kernels take one), computing
+no row it does not keep; ``prepare_alt_corr`` and ``volume_pyramid``
 all-gather the second frame's features, so the lookups run the block's
 queries against the whole levels.
 """
@@ -138,16 +139,34 @@ def all_pairs_correlation(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
 
 def spatial_correlation_reference(f1: torch.Tensor, f2: torch.Tensor,
                                   patch_size: int = 1,
-                                  dilation_patch: int = 1) -> torch.Tensor:
+                                  dilation_patch: int = 1,
+                                  row0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel ``csrc/spatial_corr_fwd.cu``, one
     multiply and one channel sum per displacement; its autograd is the
-    plain version of ``csrc/spatial_corr_bwd.cu``.  NCHW f1, f2 (B, C, H,
-    W) -> (B, P*P, H, W), P = patch_size odd, r = (P-1)//2, d =
-    dilation_patch, du-major: channel pu*P + pv is <f1[:, :, y, x],
-    f2[:, :, y + (pu-r)*d, x + (pv-r)*d]>, zero outside; not divided by C.
-    Products and sums in f32 (f64 stays), cast back to f1's dtype
-    (``_corr_k1_band``, correlation.py:128-182)."""
+    plain version of ``csrc/spatial_corr_bwd.cu``.  NCHW f1 (B, C, H, W),
+    f2 (B, C, H2, W) -> (B, P*P, H, W), P = patch_size odd, r = (P-1)//2,
+    d = dilation_patch, du-major: channel pu*P + pv is <f1[:, :, y, x],
+    f2[:, :, y + row0 + (pu-r)*d, x + (pv-r)*d]>, zero outside f2; not
+    divided by C.  Unsharded f2 is f1's size and ``row0`` 0; a spatial
+    mesh's row block correlates against its f2 with a halo of r*d rows a
+    side at ``row0`` = r*d.  Products and sums in f32 (f64 stays), cast
+    back to f1's dtype (``_corr_k1_band``, correlation.py:128-182).
+
+    With an offset, f1 is placed at ``row0`` among zero rows as tall as
+    f2 (and f2 given zero rows where f1 reaches past it), the whole is
+    correlated and f1's rows are kept: PyTorch's CPU channel sum takes an
+    order that depends on the map's size, and this one gives a row
+    block's outputs the unsharded ones' order (the kernels compute only
+    f1's rows)."""
     B, C, H, W = f1.shape
+    H2 = f2.shape[2]
+    if row0 or H2 != H:
+        lo, hi = min(row0, 0), max(H2, row0 + H)
+        pad = torch.nn.functional.pad
+        out = spatial_correlation_reference(
+            pad(f1, (0, 0, row0 - lo, hi - row0 - H)),
+            pad(f2, (0, 0, -lo, hi - H2)), patch_size, dilation_patch)
+        return out[:, :, row0 - lo:row0 - lo + H]
     reach = (patch_size - 1) // 2 * dilation_patch
     a = _widen(f1)
     b = torch.nn.functional.pad(_widen(f2), (reach,) * 4)
@@ -160,14 +179,18 @@ def spatial_correlation_reference(f1: torch.Tensor, f2: torch.Tensor,
     return out.to(f1.dtype)
 
 
-def _check_spatial_args(name, f1, f2, patch_size, dilation_patch):
+def _check_spatial_args(name, f1, f2, patch_size, dilation_patch, row0=0):
     """Raise on what csrc/spatial_corr_{fwd,bwd}.cu do not take."""
     if f1.dtype not in (torch.float32, torch.bfloat16) or f2.dtype != f1.dtype:
         raise TypeError(f"{name} takes f32 or bf16 features of one dtype, got "
                         f"{f1.dtype} and {f2.dtype}")
-    if f1.dim() != 4 or f1.shape != f2.shape:
-        raise ValueError(f"{name} takes f1, f2 of one (B, C, H, W) shape, got "
-                         f"{tuple(f1.shape)} and {tuple(f2.shape)}")
+    if f1.dim() != 4 or f2.dim() != 4 or f1.shape[:2] != f2.shape[:2] \
+            or f1.shape[3] != f2.shape[3]:
+        raise ValueError(f"{name} takes f1 (B, C, H, W) and f2 (B, C, H2, W),"
+                         f" got {tuple(f1.shape)} and {tuple(f2.shape)}")
+    if abs(row0) > 65535 or f2.shape[2] > 65535:
+        raise ValueError(f"{name}: row offset {row0} or f2's {f2.shape[2]} "
+                         "rows exceed the kernel's grid")
     if patch_size < 1 or patch_size % 2 == 0 or dilation_patch < 1:
         raise ValueError(f"{name} takes an odd patch_size and "
                          f"dilation_patch >= 1, got {patch_size}, "
@@ -188,16 +211,18 @@ def _check_spatial_args(name, f1, f2, patch_size, dilation_patch):
 
 
 def _spatial_corr_fwd_cuda(f1: torch.Tensor, f2: torch.Tensor,
-                           patch_size: int, dilation_patch: int
-                           ) -> torch.Tensor:
-    """Launch csrc/spatial_corr_fwd.cu: (B, P*P, H, W) in f1's dtype."""
+                           patch_size: int, dilation_patch: int,
+                           row0: int = 0) -> torch.Tensor:
+    """Launch csrc/spatial_corr_fwd.cu: (B, P*P, H, W) in f1's dtype, f1's
+    rows against f2's (B, C, H2, W) at the row offset ``row0``
+    (``spatial_correlation_reference``)."""
     import ctypes
 
     _check_spatial_args("spatial_corr_fwd", f1, f2, patch_size,
-                        dilation_patch)
+                        dilation_patch, row0)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     fn, lib = kernel_fn("spatial_corr_fwd", "ufr_spatial_corr_fwd",
-                        [vp, vp, vp] + [i32] * 7 + [vp])
+                        [vp, vp, vp] + [i32] * 9 + [vp])
     B, C, H, W = f1.shape
     out = torch.empty((B, patch_size ** 2, H, W), device=f1.device,
                       dtype=f1.dtype)
@@ -206,8 +231,8 @@ def _spatial_corr_fwd_cuda(f1: torch.Tensor, f2: torch.Tensor,
     with torch.cuda.device(f1.device):
         stream = torch.cuda.current_stream(f1.device).cuda_stream
         err = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), B, C, H, W,
-                 patch_size, dilation_patch, int(f1.dtype == torch.bfloat16),
-                 stream)
+                 f2.shape[2], row0, patch_size, dilation_patch,
+                 int(f1.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError("spatial_corr_fwd launch failed: "
                            + lib.ufr_cuda_error_string(err).decode())
@@ -217,15 +242,17 @@ def _spatial_corr_fwd_cuda(f1: torch.Tensor, f2: torch.Tensor,
 
 def _spatial_corr_bwd_cuda(f1: torch.Tensor, f2: torch.Tensor,
                            g: torch.Tensor, patch_size: int,
-                           dilation_patch: int, want=(True, True)):
-    """Launch csrc/spatial_corr_bwd.cu: (df1, df2), each (B, C, H, W) in
-    the inputs' dtype (summed in f32), or None where ``want`` says it is not
-    needed; g: (B, P*P, H, W) contiguous, in the inputs' dtype.  One launch
-    computes both."""
+                           dilation_patch: int, want=(True, True),
+                           row0: int = 0):
+    """Launch csrc/spatial_corr_bwd.cu: (df1, df2), each its input's shape
+    ((B, C, H, W) and (B, C, H2, W)) in the inputs' dtype (summed in f32),
+    or None where ``want`` says it is not needed; g: (B, P*P, H, W)
+    contiguous, in the inputs' dtype; ``row0``: the forward's row offset.
+    One launch computes both."""
     import ctypes
 
     _check_spatial_args("spatial_corr_bwd", f1, f2, patch_size,
-                        dilation_patch)
+                        dilation_patch, row0)
     B, C, H, W = f1.shape
     if g.dtype != f1.dtype or tuple(g.shape) != (
             B, patch_size ** 2, H, W) or g.device != f1.device \
@@ -235,15 +262,16 @@ def _spatial_corr_bwd_cuda(f1: torch.Tensor, f2: torch.Tensor,
                          f"got {g.dtype} {tuple(g.shape)} on {g.device}")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     fn, lib = kernel_fn("spatial_corr_bwd", "ufr_spatial_corr_bwd",
-                        [vp] * 5 + [i32] * 7 + [vp])
-    grads = [torch.empty_like(f1) if w else None for w in want]
+                        [vp] * 5 + [i32] * 9 + [vp])
+    grads = [torch.empty_like(t) if w else None for t, w in zip((f1, f2),
+                                                                 want)]
     if f1.numel() == 0 or not any(want):
         return tuple(grads)
     with torch.cuda.device(f1.device):
         stream = torch.cuda.current_stream(f1.device).cuda_stream
         err = fn(f1.data_ptr(), f2.data_ptr(), g.data_ptr(),
                  *[None if t is None else t.data_ptr() for t in grads],
-                 B, C, H, W, patch_size, dilation_patch,
+                 B, C, H, W, f2.shape[2], row0, patch_size, dilation_patch,
                  int(f1.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError("spatial_corr_bwd launch failed: "
@@ -252,19 +280,19 @@ def _spatial_corr_bwd_cuda(f1: torch.Tensor, f2: torch.Tensor,
     return tuple(grads)
 
 
-def _spatial_corr(f1, f2, patch_size, dilation_patch):
+def _spatial_corr(f1, f2, patch_size, dilation_patch, row0=0):
     """The forward: the plain version for CPU tensors, the kernel for CUDA
     tensors (on both inputs in their common dtype), f1's dtype out."""
     if f1.device.type == "cpu":
         return spatial_correlation_reference(f1, f2, patch_size,
-                                             dilation_patch)
+                                             dilation_patch, row0)
     if f1.device.type != "cuda":
         raise ValueError(f"spatial_correlation: unsupported device "
                          f"{f1.device}")
     dtype = torch.promote_types(f1.dtype, f2.dtype)
     out = _spatial_corr_fwd_cuda(f1.to(dtype).contiguous(),
                                  f2.to(dtype).contiguous(), patch_size,
-                                 dilation_patch)
+                                 dilation_patch, row0)
     return out.to(f1.dtype)
 
 
@@ -276,10 +304,10 @@ class _SpatialCorrelation(torch.autograd.Function):
     Gradients come back in each input's dtype, summed in f32."""
 
     @staticmethod
-    def forward(ctx, f1, f2, patch_size, dilation_patch):
-        ctx.args = (patch_size, dilation_patch)
+    def forward(ctx, f1, f2, patch_size, dilation_patch, row0):
+        ctx.args = (patch_size, dilation_patch, row0)
         ctx.save_for_backward(f1, f2)
-        return _spatial_corr(f1, f2, patch_size, dilation_patch)
+        return _spatial_corr(f1, f2, patch_size, dilation_patch, row0)
 
     @staticmethod
     @once_differentiable
@@ -296,11 +324,13 @@ class _SpatialCorrelation(torch.autograd.Function):
             df1, df2 = (next(grads) if w else None for w in want)
         else:
             dtype = torch.promote_types(f1.dtype, f2.dtype)
+            patch_size, dilation_patch, row0 = ctx.args
             df1, df2 = _spatial_corr_bwd_cuda(
                 f1.to(dtype).contiguous(), f2.to(dtype).contiguous(),
-                g.to(dtype).contiguous(), *ctx.args, want=want)
+                g.to(dtype).contiguous(), patch_size, dilation_patch,
+                want=want, row0=row0)
         return (None if df1 is None else df1.to(f1.dtype),
-                None if df2 is None else df2.to(f2.dtype), None, None)
+                None if df2 is None else df2.to(f2.dtype), None, None, None)
 
 
 def spatial_correlation(f1: torch.Tensor, f2: torch.Tensor,
@@ -327,9 +357,10 @@ def spatial_correlation(f1: torch.Tensor, f2: torch.Tensor,
     Under a row-splitting spatial mesh f1 and f2 are a rank's row blocks:
     f2 gets a halo of the whole vertical displacement (P-1)/2 * d rows a
     side from the blocks that hold them (zeros past the image, the
-    kernel's bounds), f1 the same count of zero rows, and the block's rows
-    of the result are kept; the kernels run unchanged on the taller
-    inputs, and the crop's cotangent is zero on the halo rows."""
+    kernel's bounds), and the block's h rows of f1 are correlated against
+    it at the row offset (P-1)/2 * d: the block's rows of the unsharded
+    result, each the same channel sum in the same order.  The gradient
+    into the halo rows goes back to their owners (``halo_rows``)."""
     if (kernel_size, stride, padding) != (1, 1, 0):
         if row_mesh() is not None:
             raise ValueError("spatial_correlation: only kernel 1, stride 1, "
@@ -337,19 +368,17 @@ def spatial_correlation(f1: torch.Tensor, f2: torch.Tensor,
         return spatial_correlation_general(f1, f2, patch_size, kernel_size,
                                            stride, padding, dilation,
                                            dilation_patch)
-    reach = (patch_size - 1) // 2 * dilation_patch
-    h = f1.shape[2]
-    if row_mesh() is not None and reach:
-        f1 = torch.nn.functional.pad(f1, (0, 0, reach, reach))
-        f2 = halo_rows(f2, reach, reach)
+    row0 = 0
+    if row_mesh() is not None:
+        row0 = (patch_size - 1) // 2 * dilation_patch
+        f2 = halo_rows(f2, row0, row0)
     if plain:
-        out = spatial_correlation_reference(f1, f2, patch_size,
-                                            dilation_patch)
-    elif torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
-        out = _SpatialCorrelation.apply(f1, f2, patch_size, dilation_patch)
-    else:
-        out = _spatial_corr(f1, f2, patch_size, dilation_patch)
-    return out[:, :, reach:reach + h] if out.shape[2] != h else out
+        return spatial_correlation_reference(f1, f2, patch_size,
+                                             dilation_patch, row0)
+    if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
+        return _SpatialCorrelation.apply(f1, f2, patch_size, dilation_patch,
+                                         row0)
+    return _spatial_corr(f1, f2, patch_size, dilation_patch, row0)
 
 
 def spatial_correlation_general(f1: torch.Tensor, f2: torch.Tensor,

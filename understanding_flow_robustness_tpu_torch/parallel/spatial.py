@@ -20,9 +20,11 @@ window crosses rows exchanges its own halo:
   ``ops/kernel_gate.py`` gates its kernels) and are untouched when it is
   unset: the bilinear resize, ``coords_grid``, the warp (its source rows
   all-gathered, B4 writing the block's rows), the spatial correlation
-  (halo'd by its whole displacement and cropped), RAFT's lookup (the
-  second frame's features all-gathered, B1/B2/B5 on the block's queries)
-  and the convex upsample's unfold;
+  (f2 halo'd by its whole displacement, both kernels at a row offset),
+  RAFT's lookups (the second frame's features all-gathered, B1/B2/B5 on
+  the block's queries; in the spatial-correlation mode the raw map
+  gathered and each rank's rows of its C-order reshape built) and the
+  convex upsample's unfold;
 * reductions: the attack losses and the per-sample L1 norm of MI-FGSM
   sum over the mesh.
 
@@ -308,6 +310,25 @@ def grid_total(x: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------- the layers
 
 
+# a halo convolution with fewer output channels than this (the flow heads:
+# 2) takes its input channels-last on the card: on the block's NCHW shapes
+# cuDNN's heuristics give such convolutions FFT-class algorithms whose
+# workspace (583.6 MiB for FlowNetC's 3x3 386 -> 2 head on a 26 x 160
+# block, 902.5 for PWC-Net's; the whole 48 x 160 map's takes none) is more
+# than the rank's activations, where channels-last takes 6-20 MiB
+# (scripts/torch_spatial_conv_workspace.py, H100 80GB HBM3, 700 W)
+_FEW_OUT = 8
+
+
+def _halo_conv(conv, xh: torch.Tensor, out_channels: int, rows: slice):
+    """``conv(xh)``'s output ``rows``, NCHW; channels-last inside where the
+    convolution is on the card and has few outputs."""
+    if not (xh.is_cuda and out_channels < _FEW_OUT):
+        return conv(xh)[:, :, rows]
+    y = conv(xh.contiguous(memory_format=torch.channels_last))
+    return y[:, :, rows].contiguous()
+
+
 def _spatial_geometry(module, name: str) -> tuple:
     """(kernel, stride, padding, dilation) along H of a conv, or the
     refusal."""
@@ -336,9 +357,10 @@ class SpatialConv2d(nn.Conv2d):
                              f"dilation {d} does not map {h}-row blocks of "
                              f"{H} rows onto blocks")
         xh = halo_rows(x, p, d * (k - 1) - p - s + 1)
-        y = F.conv2d(xh, self.weight, self.bias, self.stride,
-                     (0, self.padding[1]), self.dilation, self.groups)
-        return y[:, :, :h // s]
+        return _halo_conv(lambda t: F.conv2d(
+            t, self.weight, self.bias, self.stride, (0, self.padding[1]),
+            self.dilation, self.groups), xh, self.out_channels,
+            slice(0, h // s))
 
 
 class SpatialConvTranspose2d(nn.ConvTranspose2d):
@@ -362,12 +384,11 @@ class SpatialConvTranspose2d(nn.ConvTranspose2d):
                              "blocks")
         top = max((d * (k - 1) - p) // s, 0)
         xh = halo_rows(x, top, (p - 1) // s + 1)
-        y = F.conv_transpose2d(xh, self.weight, self.bias, self.stride,
-                               (0, self.padding[1]),
-                               (0, self.output_padding[1]), self.groups,
-                               self.dilation)
         start = p + top * s
-        return y[:, :, start:start + s * h]
+        return _halo_conv(lambda t: F.conv_transpose2d(
+            t, self.weight, self.bias, self.stride, (0, self.padding[1]),
+            (0, self.output_padding[1]), self.groups, self.dilation), xh,
+            self.out_channels, slice(start, start + s * h))
 
 
 def _normalised(x: torch.Tensor, groups: int, eps: float) -> torch.Tensor:
